@@ -1,0 +1,503 @@
+"""Smoke run of the PyTorch + CUDA port on one NVIDIA GPU (Hopper, sm_90a).
+
+Usage, from the root of a checkout (needs one CUDA card, nvcc and nothing
+else of the network):
+
+    python3 chip_smoke.py
+
+What it does, in order; any failure raises and the exit code is non-zero:
+
+1. prints the card (``nvidia-smi`` name and power limit), the torch/CUDA
+   versions and the TF32 flags, which it sets off and asserts off;
+2. builds every CUDA kernel of ``src/repro_torch/kernels/csrc`` (one nvcc
+   per source, all in parallel) and prints the build time;
+3. holds each kernel against its plain PyTorch version on the card at the
+   main path's shapes, and times kernel, plain version, the library
+   yardstick (a PyTorch call the port never makes) and the card's bound;
+4. drives the main path through the user entry points at the paper's w8a
+   scale (``deepca`` fp32 on ``backend="cuda"``, checked against the same
+   run on ``backend="stacked"``), then DePCA, counting kernel launches;
+5. runs the f64 bench grid on the card (f64 never enters a kernel) and
+   holds it to ``BENCH_deepca.json``;
+6. runs a large configuration (m=64, n=4096, d=4096, k=32) with data made
+   on the card from a seed;
+7. prints the ``{"kernels": [...]}`` line and, last, the ``{"ok": ...}``
+   line.
+
+It imports nothing of JAX and nothing of the JAX package ``repro``.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+#: Data-sheet rates (dense, no sparsity, at the full power limit) of the
+#: cards this script knows: HBM bytes/s and fp32 FLOP/s outside the tensor
+#: cores.  Matched against the nvidia-smi name; an unknown card fails.
+CARD_PEAKS = (
+    ("H100 PCIe", 2.0e12, 51e12),
+    ("H100 NVL", 3.9e12, 60e12),
+    ("H100", 3.35e12, 67e12),          # H100 SXM5 80GB HBM3
+    ("H200", 4.8e12, 67e12),
+)
+
+#: Tolerances each kernel is held to against its plain version on the card.
+FASTMIX_TOL = 2e-5          # rtol = atol, the reference's kernel-vs-oracle bound
+GRAM_TOL = {"float32": 1e-5, "bfloat16": 2e-2}   # rtol; atol scaled by max|G|
+SUBSPACE_TOL = 1e-4         # per-agent subspace distance, cuda vs stacked
+
+TF32_OFF = "TF32 must stay off: the port's fp32 is IEEE fp32"
+
+
+def fail(msg: str) -> None:
+    raise SystemExit(f"chip_smoke: FAIL: {msg}")
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    return out.strip().splitlines()[0]
+
+
+def card_peaks(name: str):
+    for key, bw, flops in CARD_PEAKS:
+        if key in name:
+            return bw, flops
+    fail(f"no data-sheet rates for card {name!r}")
+
+
+def time_ms(fn, reps: int = 10, trials: int = 5):
+    """Device time of one call, in ms, and the host's time to issue it, in
+    µs: ``(device_ms, host_us)``, medians over ``trials``.
+
+    Each trial first parks the card in a spin (``torch.cuda._sleep``) so
+    that the host has enqueued all ``reps`` calls before the first one
+    runs; the two events then bracket device work only, and a wrapper's
+    Python cost does not pass for kernel time.  The spin is lengthened
+    until it outlasts the host's enqueueing, at most five times: past that
+    the host is waiting on a full launch queue, which keeps the card busy
+    all the same.
+    """
+    fn()
+    torch.cuda.synchronize()
+    cycles = 20_000_000
+    dev, host = [], []
+    while len(dev) < trials:
+        spin_a = torch.cuda.Event(enable_timing=True)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        spin_a.record()
+        torch.cuda._sleep(cycles)
+        a.record()
+        tic = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host_ms = (time.perf_counter() - tic) * 1e3
+        b.record()
+        b.synchronize()
+        behind = host_ms >= 0.9 * spin_a.elapsed_time(a)
+        if behind and cycles < 640_000_000:
+            cycles *= 2                  # the host fell behind: spin longer
+            continue
+        dev.append(a.elapsed_time(b) / reps)
+        host.append(host_ms * 1e3 / reps)
+    return statistics.median(dev), statistics.median(host)
+
+
+def bound(nbytes: float, flops: float, peaks):
+    """``(bound_ms, bound_by)``: the larger of bytes over HBM bandwidth
+    and fp32 FLOPs over the fp32 peak."""
+    bw, fl = peaks
+    t_bytes, t_ops = nbytes / bw * 1e3, flops / fl * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# --------------------------------------------------------------- kernels
+def check_fastmix(fm, peaks, m: int, d: int, k: int, K: int, track: bool,
+                  wire: bool, seed: int) -> dict:
+    from repro_torch.core import erdos_renyi, fastmix_eta
+    topo = erdos_renyi(m, p=0.5, seed=0)
+    L = torch.as_tensor(topo.mixing, dtype=torch.float32, device="cuda")
+    eta = fastmix_eta(topo.lambda2)
+    n = d * k
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    S, G, Gp = (torch.randn(m, d, k, generator=g, device="cuda")
+                for _ in range(3))
+    x = fm.tracking_update(S, G, Gp) if track else S
+    if track:
+        def kern():
+            return fm.fastmix_track_fused(S, G, Gp, L, eta, K,
+                                          wire_bf16=wire)
+
+        def plain():
+            return fm.fastmix_plain(fm.tracking_update(S, G, Gp)
+                                    .reshape(m, n), L, eta, K,
+                                    wire_bf16=wire)
+    else:
+        def kern():
+            return fm.fastmix_fused(S, L, eta, K, wire_bf16=wire)
+
+        def plain():
+            return fm.fastmix_plain(S.reshape(m, n), L, eta, K,
+                                    wire_bf16=wire)
+    got = kern().reshape(m, n)
+    want = plain()
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    ok = bool(torch.allclose(got, want, rtol=FASTMIX_TOL, atol=FASTMIX_TOL))
+    # library yardstick: the collapsed polynomial applied by one matmul
+    P = fm.fastmix_poly(torch.eye(m, device="cuda"), L, eta, K)
+    xf = x.reshape(m, n).contiguous()
+    row = {
+        "name": "fastmix_track" if track else "fastmix",
+        "shape": f"m={m} n={n} (d={d} k={k}) K={K} "
+                 f"wire={'bf16' if wire else 'fp32'}",
+        "max_abs_err": err, "tol": FASTMIX_TOL, "ok": ok,
+    }
+    row["ms"], row["host_us"] = time_ms(kern)
+    row["plain_ms"] = time_ms(plain)[0]
+    row["library_ms"] = time_ms(lambda: torch.matmul(P, xf))[0]
+    nbytes = 4 * (m * n * ((3 if track else 1) + 1) + m * m)
+    flops = (2 * m + 3) * m * n * K + (2 * m * n if track else 0)
+    row["bound_ms"], row["bound_by"] = bound(nbytes, flops, peaks)
+    return row
+
+
+def check_gram(gm, peaks, shape, dtype, seed: int) -> dict:
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(*shape, generator=g, device="cuda").to(dtype)
+    got = gm.gram(x)
+    want = gm.gram_plain(x)
+    torch.cuda.synchronize()
+    tol = GRAM_TOL[str(dtype).split(".")[-1]]
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    ok = bool(torch.allclose(got, want, rtol=tol, atol=tol * scale))
+    x32 = x.float()
+    row = {
+        "name": "gram",
+        "shape": f"{tuple(shape)} {str(dtype).split('.')[-1]}",
+        "max_abs_err": err, "tol": tol, "ok": ok,
+    }
+    row["ms"], row["host_us"] = time_ms(lambda: gm.gram(x))
+    row["plain_ms"] = time_ms(lambda: gm.gram_plain(x))[0]
+    row["library_ms"] = time_ms(lambda: torch.bmm(x32.mT, x32)
+                                if x32.dim() == 3 else x32.mT @ x32)[0]
+    *batch, n, d = shape
+    b = 1
+    for v in batch:
+        b *= v
+    nbytes = b * n * d * x.element_size() + b * d * d * 4
+    row["bound_ms"], row["bound_by"] = bound(nbytes, 2.0 * b * n * d * d,
+                                             peaks)
+    return row
+
+
+def print_row(row: dict) -> None:
+    print(f"kernel {row['name']} [{row['shape']}]: "
+          f"max_abs_err={row['max_abs_err']:.3e} (tol {row['tol']:g}) "
+          f"{'ok' if row['ok'] else 'FAIL'}  kernel_ms={row['ms']:.6f} "
+          f"plain_ms={row['plain_ms']:.6f} "
+          f"library_ms={row['library_ms']:.6f} "
+          f"bound_ms={row['bound_ms']:.6f} ({row['bound_by']}) "
+          f"host_us_per_call={row['host_us']:.1f}", flush=True)
+
+
+# ------------------------------------------------------------- main path
+def subspace_gap(W_a, W_b) -> float:
+    """Largest per-agent ``||(I - Qa Qa^T) Qb||_F`` between two (m, d, k)
+    stacks, both re-orthonormalized in f64.  ``sqrt(k - ||Qa^T Qb||^2)``
+    would cancel and floor at ~3e-4 for fp32-orthonormal inputs."""
+    from repro_torch.core.step import qr_orth
+    Qa, Qb = (qr_orth(W.double()) for W in (W_a, W_b))
+    return float(torch.linalg.matrix_norm(Qb - Qa @ (Qa.mT @ Qb)).max())
+
+
+def run_timed(fn, *args, **kw):
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - tic
+
+
+def counted(kernels, fn, *args, **kw):
+    """Run ``fn`` with the launch counters set to 0 just before it; returns
+    ``(result, seconds, counts)`` with the counts read just after."""
+    kernels.reset_launch_counts()
+    out, sec = run_timed(fn, *args, **kw)
+    return out, sec, kernels.launch_counts()
+
+
+def w0_for(d: int, k: int, dtype):
+    rng = np.random.default_rng(1)
+    return torch.as_tensor(np.linalg.qr(rng.standard_normal((d, k)))[0],
+                           dtype=dtype, device="cuda")
+
+
+def large_operators(m: int, n: int, d: int, k: int, seed: int):
+    """w8a-shaped data at a large scale, made on the card from a seed: a
+    spiked top-k covariance shared by all agents plus sparse power-law
+    features whose column profile drifts per agent (``libsvm_like``'s
+    construction, with torch's generator in place of numpy's)."""
+    from repro_torch.core import StackedOperators
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    Uglob = torch.linalg.qr(torch.randn(d, d, generator=g,
+                                        device="cuda"))[0]
+    evals = torch.full((d,), 0.1, device="cuda")
+    evals[:k] = 1.0 + 2.0 * 0.97 ** torch.arange(k, 0, -1, device="cuda")
+    col_p = 0.5 / (1.0 + torch.arange(d, device="cuda")) ** 0.6
+    data = torch.empty(m, n, d, device="cuda")
+    for j in range(m):
+        z = torch.randn(n, d, generator=g, device="cuda") * evals.sqrt()
+        pj = torch.roll(col_p, int(round(j * d / (2 * m))))
+        sparse = (torch.rand(n, d, generator=g, device="cuda")
+                  < pj * 0.15 * 4).float()
+        data[j] = (z @ Uglob.T + 1.5 * sparse) / n ** 0.5
+    return StackedOperators(data=data)
+
+
+def breakdown(P, ops, topo, W0, U, K: int, T: int) -> None:
+    """Where a DeEPCA iteration's time goes on the main path: the driver
+    alone, the trace alone, the trace's spectral norms two ways, and a
+    profiler window over a few driver iterations (device busy share and
+    the top kernels by device time)."""
+    from torch.profiler import ProfilerActivity, profile
+    eng = P.ConsensusEngine.for_algorithm("deepca", topo, K=K,
+                                          backend="cuda")
+    drv = P.IterationDriver(step=P.PowerStep.for_algorithm("deepca", K),
+                            engine=eng)
+    run, sec_run = run_timed(drv.run, ops, W0, T=T)
+    _, sec_trace = run_timed(P.collect_trace, ops, U, run.S_hist,
+                             run.W_hist, rounds=run.rounds)
+    print(f"breakdown deepca w8a T={T}: driver us_per_iter="
+          f"{sec_run / T * 1e6:.1f}; trace (T={T} x m={ops.m}) "
+          f"ms={sec_trace * 1e3:.3f}", flush=True)
+    Q = P.qr_orth(run.W_hist)
+    X = Q - U @ (U.mT @ Q)
+    from repro_torch.core.metrics import _spectral_norm
+    via_gram, _ = run_timed(_spectral_norm, X)            # warm-up
+    via_gram, gram_s = run_timed(_spectral_norm, X)
+    via_svd, svd_s = run_timed(torch.linalg.matrix_norm, X, ord=2)
+    err = float((via_gram - via_svd).abs().max())
+    print(f"breakdown trace spectral norm of {tuple(X.shape)}: "
+          f"matrix_norm(ord=2) ms={svd_s * 1e3:.3f} vs k x k Gram eigvalsh "
+          f"ms={gram_s * 1e3:.3f} (max abs diff {err:.3e})", flush=True)
+
+    iters = 10
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tic = time.perf_counter()
+        drv.run(ops, W0, T=iters)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - tic
+    rows = []                 # device-side events only (kernels, copies)
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = ev.self_cuda_time_total
+        rows.append((dev_us, ev.count, ev.key))
+    busy = sum(r[0] for r in rows) / 1e6
+    launches = sum(r[1] for r in rows)
+    print(f"profile driver w8a {iters} iterations (under the profiler): "
+          f"wall_ms={wall * 1e3:.3f} device_busy_ms={busy * 1e3:.3f} "
+          f"idle_share={1 - busy / wall:.3f} device_ops_per_iter="
+          f"{launches / iters:.1f}", flush=True)
+    if not rows:
+        print("profile   no device events captured")
+    for dev_us, count, key in sorted(rows, reverse=True)[:8]:
+        print(f"profile   {dev_us / iters:10.1f} us/iter  "
+              f"{count / iters:6.1f} calls/iter  {key[:90]}")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the card "
+              "only", file=sys.stderr)
+        return 1
+    if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
+        print(f"chip_smoke: {SRC}/repro_torch not found; run from the "
+              "root of a checkout", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(SRC))
+
+    from repro_torch import core as P
+    from repro_torch import kernels
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import fastmix as fm
+    from repro_torch.kernels import gram as gm
+
+    # ---- 1. card, versions, TF32 off
+    card = card_line()
+    print(card, flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    assert not torch.backends.cuda.matmul.allow_tf32, TF32_OFF
+    assert not torch.backends.cudnn.allow_tf32, TF32_OFF
+    print(f"python {sys.version.split()[0]} torch {torch.__version__} "
+          f"cuda {torch.version.cuda} device "
+          f"{torch.cuda.get_device_name(0)} "
+          f"capability {torch.cuda.get_device_capability(0)}")
+    print(f"tf32: matmul={torch.backends.cuda.matmul.allow_tf32} "
+          f"cudnn={torch.backends.cudnn.allow_tf32}", flush=True)
+    peaks = card_peaks(card)
+    print(f"data-sheet peaks for the bound: {peaks[0] / 1e12:g} TB/s HBM, "
+          f"{peaks[1] / 1e12:g} TFLOP/s fp32 (non-tensor)", flush=True)
+
+    # ---- 2. build every kernel from the checkout's sources
+    sec = _build.build_all()
+    print(f"build: {sec:.2f} s for {', '.join(_build.SOURCES)}", flush=True)
+
+    # ---- 3. each kernel against its plain version at the main path's shapes
+    main_rows = {
+        "fastmix_track": check_fastmix(fm, peaks, 50, 300, 5, 8, True,
+                                       False, 1),
+        "fastmix": check_fastmix(fm, peaks, 50, 300, 5, 8, False, False, 2),
+        "gram": check_gram(gm, peaks, (50, 300, 5), torch.float32, 3),
+    }
+    extra_rows = [
+        check_fastmix(fm, peaks, 64, 4096, 32, 8, True, False, 4),
+        check_fastmix(fm, peaks, 64, 4096, 32, 8, False, False, 5),
+        check_fastmix(fm, peaks, 50, 300, 5, 8, True, True, 6),
+        check_fastmix(fm, peaks, 64, 4096, 32, 8, False, True, 7),
+        check_gram(gm, peaks, (64, 4096, 32), torch.float32, 8),
+        check_gram(gm, peaks, (5000, 300, 5), torch.float32, 9),
+        check_gram(gm, peaks, (257, 100), torch.float32, 10),
+        check_gram(gm, peaks, (50, 300, 5), torch.bfloat16, 11),
+    ]
+    for row in (*main_rows.values(), *extra_rows):
+        print_row(row)
+    bad = [r["name"] + " " + r["shape"]
+           for r in (*main_rows.values(), *extra_rows) if not r["ok"]]
+    if bad:
+        fail(f"kernel disagrees with its plain version: {bad}")
+
+    # ---- 4. main path at the paper's w8a scale, fp32 on the card
+    m, n, d, k, K, T = 50, 995, 300, 5, 8, 100
+    ops = P.libsvm_like(m, n, d, seed=0)           # device=None: the card
+    topo = P.erdos_renyi(m, p=0.5, seed=0)
+    W0 = w0_for(d, k, torch.float32)
+    U, _ = P.top_k_eigvecs(ops.mean_matrix(), k)
+    P.deepca(ops, topo, W0, k=k, T=3, K=K, U=U, backend="cuda")   # warm-up
+    res, sec, counts = counted(kernels, P.deepca, ops, topo, W0, k=k, T=T,
+                               K=K, U=U, backend="cuda")
+    launches = {"fastmix_track": counts["fastmix_track"],
+                "gram": counts["gram"]}
+    print(f"main deepca w8a m={m} n={n} d={d} k={k} K={K} T={T} fp32 "
+          f"cuda: us_per_iter={sec / T * 1e6:.1f} (deepca call incl. "
+          f"trace) final_mean_tan_theta="
+          f"{float(res.trace.mean_tan_theta[-1]):.6e} launches={counts}",
+          flush=True)
+    if counts["fastmix_track"] < T or counts["gram"] < 2 * T:
+        fail(f"main path did not go through the kernels: {counts}")
+    ref, sec_ref = run_timed(P.deepca, ops, topo, W0, k=k, T=T, K=K, U=U,
+                             backend="stacked")
+    gap = subspace_gap(ref.W, res.W)
+    print(f"main deepca stacked on the card: us_per_iter="
+          f"{sec_ref / T * 1e6:.1f} final_mean_tan_theta="
+          f"{float(ref.trace.mean_tan_theta[-1]):.6e}; per-agent subspace "
+          f"distance cuda vs stacked {gap:.3e} (tol {SUBSPACE_TOL:g})",
+          flush=True)
+    if not (gap <= SUBSPACE_TOL and torch.isfinite(res.W).all()):
+        fail(f"deepca cuda vs stacked subspace distance {gap}")
+
+    dres, dsec, dcounts = counted(kernels, P.depca, ops, topo, W0, k=k, T=T,
+                                  K=K, U=U, backend="cuda")
+    launches["fastmix"] = dcounts["fastmix"]
+    print(f"main depca w8a K={K} T={T} fp32 cuda: us_per_iter="
+          f"{dsec / T * 1e6:.1f} final_mean_tan_theta="
+          f"{float(dres.trace.mean_tan_theta[-1]):.6e} launches={dcounts}",
+          flush=True)
+    if dcounts["fastmix"] != T or dcounts["fastmix_track"] != 0:
+        fail(f"depca must launch the untracked kernel T times: {dcounts}")
+    if not torch.isfinite(dres.W).all():
+        fail("depca produced non-finite estimates")
+    breakdown(P, ops, topo, W0, U, K, T)
+
+    # ---- 5. f64 bench grid on the card (no kernel takes f64)
+    bench = json.loads((ROOT / "BENCH_deepca.json").read_text())
+    want = next(r["final_tan"] for r in bench["rows"]
+                if r["name"] == "w8a_like/DeEPCA/K8")
+    ops64 = P.libsvm_like(50, 160, 300, seed=0, dtype=torch.float64)
+    W064 = w0_for(300, k, torch.float64)
+    r64, sec64, c64 = counted(kernels, P.deepca, ops64, topo, W064, k=k,
+                              T=100, K=8, backend="cuda")
+    got = float(r64.trace.mean_tan_theta[-1])
+    print(f"f64 w8a_like m=50 n=160 d=300 DeEPCA K8 T=100 on the card: "
+          f"final_mean_tan_theta={got:.6e} (BENCH_deepca.json {want:.6e}) "
+          f"us_per_iter={sec64 / 100 * 1e6:.1f} launches={c64}", flush=True)
+    if not want / 2 <= got <= want * 2:
+        fail(f"f64 final tan {got} not within 2x of {want}")
+    if any(c64.values()):
+        fail(f"f64 entered a kernel: {c64}")
+
+    # ---- 6. a large configuration, data made on the card
+    m, n, d, k, K, T = 64, 4096, 4096, 32, 8, 20
+    torch.cuda.reset_peak_memory_stats()
+    big = large_operators(m, n, d, k, seed=0)
+    topo = P.erdos_renyi(m, p=0.5, seed=0)
+    W0 = w0_for(d, k, torch.float32)
+    U, _ = P.top_k_eigvecs(big.mean_matrix(), k)
+    P.deepca(big, topo, W0, k=k, T=2, K=K, U=U, backend="cuda")   # warm-up
+    res, sec, counts = counted(kernels, P.deepca, big, topo, W0, k=k, T=T,
+                               K=K, U=U, backend="cuda")
+    tans = res.trace.mean_tan_theta
+    print(f"large deepca m={m} n={n} d={d} k={k} K={K} T={T} fp32 cuda "
+          f"(data {big.data.numel() * 4 / 1e9:.2f} GB): us_per_iter="
+          f"{sec / T * 1e6:.1f} (deepca call incl. trace) mean_tan_theta "
+          f"first={float(tans[0]):.6e} final={float(tans[-1]):.6e} "
+          f"launches={counts} max_memory_allocated="
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB",
+          flush=True)
+    if counts["fastmix_track"] < T or counts["gram"] < 2 * T:
+        fail(f"large run did not go through the kernels: {counts}")
+    if not (torch.isfinite(res.W).all() and torch.isfinite(tans).all()
+            and float(tans[-1]) < float(tans[0])):
+        fail("large run: non-finite or non-decreasing tan theta")
+    ref, _ = run_timed(P.deepca, big, topo, W0, k=k, T=T, K=K, U=U,
+                       backend="stacked")
+    gap = subspace_gap(ref.W, res.W)
+    print(f"large deepca cuda vs stacked: per-agent subspace distance "
+          f"{gap:.3e} (tol {SUBSPACE_TOL:g})", flush=True)
+    if gap > SUBSPACE_TOL:
+        fail(f"large deepca cuda vs stacked subspace distance {gap}")
+    del big, res, ref
+
+    # ---- 7. the kernels line, then the contract line
+    sources = {"fastmix_track": "src/repro_torch/kernels/csrc/fastmix.cu",
+               "fastmix": "src/repro_torch/kernels/csrc/fastmix.cu",
+               "gram": "src/repro_torch/kernels/csrc/gram.cu"}
+    replaces = {"fastmix_track": "src/repro/kernels/fastmix.py:484",
+                "fastmix": "src/repro/kernels/fastmix.py:331",
+                "gram": "src/repro/kernels/gram.py:70"}
+    line = {"kernels": [
+        {"name": name, "route": "cuda", "source": sources[name],
+         "replaces": replaces[name], "launches": launches[name],
+         "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+         "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+         "shape": row["shape"], "ok": row["ok"]}
+        for name, row in main_rows.items()]}
+    print(json.dumps(line))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
