@@ -12,15 +12,20 @@ What it does, in order; any failure raises and the exit code is non-zero:
 2. builds every CUDA kernel of ``src/repro_torch/kernels/csrc`` (one nvcc
    per source, all in parallel) and prints the build time;
 3. holds each kernel against its plain PyTorch version on the card at the
-   main path's shapes, and times kernel, plain version, the library
-   yardstick (a PyTorch call the port never makes) and the card's bound;
-4. drives the main path through the user entry points at the paper's w8a
-   scale (``deepca`` fp32 on ``backend="cuda"``, checked against the same
-   run on ``backend="stacked"``), then DePCA, counting kernel launches;
+   main paths' shapes, and times kernel, plain version, the library
+   yardstick (a PyTorch call the port never makes) and the card's bound:
+   FastMix tracked/untracked and the Gram (slice 1), then apply-track and
+   the two fp8-EF FastMix kernels;
+4. drives the data-form main path through the user entry points at the
+   paper's w8a scale (``deepca`` fp32 on ``backend="cuda"``, checked
+   against the same run on ``backend="stacked"``), then DePCA, counting
+   kernel launches; 4b. the dense-operator path (``A_j = X_j^T X_j`` of
+   the same data) through apply-track; 4c. the error-feedback wires: fp8
+   DeEPCA and DePCA through the fp8-EF kernels, int8 through none;
 5. runs the f64 bench grid on the card (f64 never enters a kernel) and
    holds it to ``BENCH_deepca.json``;
 6. runs a large configuration (m=64, n=4096, d=4096, k=32) with data made
-   on the card from a seed;
+   on the card from a seed; 6b. the same size with dense operators;
 7. prints the ``{"kernels": [...]}`` line and, last, the ``{"ok": ...}``
    line.
 
@@ -54,6 +59,12 @@ CARD_PEAKS = (
 #: Tolerances each kernel is held to against its plain version on the card.
 FASTMIX_TOL = 2e-5          # rtol = atol, the reference's kernel-vs-oracle bound
 GRAM_TOL = {"float32": 1e-5, "bfloat16": 2e-2}   # rtol; atol scaled by max|G|
+APPLY_TRACK_TOL = 2e-5      # rtol; atol 2e-5 * (max|S| + 1), both outputs
+#: fp8-EF: FASTMIX_TOL for all but this share of the elements, and
+#: EF_FLIP_TOL for those (a sum-order difference may flip a sent value to
+#: the other e4m3 neighbour; the element then moves by about one
+#: quantization step of its innovation).
+EF_FLIP_SHARE, EF_FLIP_TOL = 1e-3, 2e-3
 SUBSPACE_TOL = 1e-4         # per-agent subspace distance, cuda vs stacked
 
 TF32_OFF = "TF32 must stay off: the port's fp32 is IEEE fp32"
@@ -169,6 +180,7 @@ def check_fastmix(fm, peaks, m: int, d: int, k: int, K: int, track: bool,
     row["ms"], row["host_us"] = time_ms(kern)
     row["plain_ms"] = time_ms(plain)[0]
     row["library_ms"] = time_ms(lambda: torch.matmul(P, xf))[0]
+    row["library"] = "torch.matmul(P_K(L), x) (the collapsed polynomial)"
     nbytes = 4 * (m * n * ((3 if track else 1) + 1) + m * m)
     flops = (2 * m + 3) * m * n * K + (2 * m * n if track else 0)
     row["bound_ms"], row["bound_by"] = bound(nbytes, flops, peaks)
@@ -195,6 +207,7 @@ def check_gram(gm, peaks, shape, dtype, seed: int) -> dict:
     row["plain_ms"] = time_ms(lambda: gm.gram_plain(x))[0]
     row["library_ms"] = time_ms(lambda: torch.bmm(x32.mT, x32)
                                 if x32.dim() == 3 else x32.mT @ x32)[0]
+    row["library"] = "torch.bmm(X.mT, X)"
     *batch, n, d = shape
     b = 1
     for v in batch:
@@ -205,12 +218,102 @@ def check_gram(gm, peaks, shape, dtype, seed: int) -> dict:
     return row
 
 
+def check_apply_track(fm, peaks, m: int, d: int, k: int, K: int,
+                      seed: int) -> dict:
+    from repro_torch.core import erdos_renyi, fastmix_eta
+    topo = erdos_renyi(m, p=0.5, seed=0)
+    L = torch.as_tensor(topo.mixing, dtype=torch.float32, device="cuda")
+    eta = fastmix_eta(topo.lambda2)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    A = torch.randn(m, d, d, generator=g, device="cuda") / d ** 0.5
+    W, S, Gp = (torch.randn(m, d, k, generator=g, device="cuda")
+                for _ in range(3))
+
+    def kern():
+        return fm.apply_track_fused(A, W, S, Gp, L, eta, K)
+
+    def plain():
+        return fm.apply_track_plain(A, W, S, Gp, L, eta, K)
+
+    (S_k, G_k), (S_p, G_p) = kern(), plain()
+    torch.cuda.synchronize()
+    atol = APPLY_TRACK_TOL * (float(S_p.abs().max()) + 1.0)
+    err = max(float((S_k - S_p).abs().max()), float((G_k - G_p).abs().max()))
+    ok = all(bool(torch.allclose(a, b, rtol=APPLY_TRACK_TOL, atol=atol))
+             for a, b in ((S_k, S_p), (G_k, G_p)))
+    row = {"name": "apply_track",
+           "shape": f"m={m} d={d} k={k} K={K} tile(bd, be)="
+                    f"{fm.tile_rows(m, k, False, d)}",
+           "max_abs_err": err, "tol": APPLY_TRACK_TOL, "ok": ok}
+    del S_k, G_k, S_p, G_p
+    row["ms"], row["host_us"] = time_ms(kern)
+    row["plain_ms"] = time_ms(plain)[0]
+    # library yardstick: the dominant product alone, G = A W as one bmm
+    row["library_ms"] = time_ms(lambda: torch.bmm(A, W))[0]
+    row["library"] = "torch.bmm(A, W) (the local step only)"
+    nbytes = 4 * (m * d * d + 5 * m * d * k + m * m)
+    flops = 2 * m * d * d * k + (2 * m + 3) * m * d * k * K + 2 * m * d * k
+    row["bound_ms"], row["bound_by"] = bound(nbytes, flops, peaks)
+    return row
+
+
+def check_fastmix_ef(fm, peaks, m: int, d: int, k: int, K: int,
+                     track: bool, seed: int) -> dict:
+    from repro_torch.core import erdos_renyi, fastmix_eta
+    topo = erdos_renyi(m, p=0.5, seed=0)
+    L = torch.as_tensor(topo.mixing, dtype=torch.float32, device="cuda")
+    eta = fastmix_eta(topo.lambda2)
+    n = d * k
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    S, G, Gp = (torch.randn(m, n, generator=g, device="cuda")
+                for _ in range(3))
+    err0 = S + 0.05 * torch.randn(m, n, generator=g, device="cuda")
+    if track:
+        def kern():
+            return fm.fastmix_track_ef_fused(S, G, Gp, err0, L, eta, K)
+
+        def plain():
+            return fm.fastmix_ef_plain(fm.tracking_update(S, G, Gp), err0,
+                                       L, eta, K)
+    else:
+        def kern():
+            return fm.fastmix_ef_fused(S, err0, L, eta, K)
+
+        def plain():
+            return fm.fastmix_ef_plain(S, err0, L, eta, K)
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    off = sum(int((~torch.isclose(a, b, rtol=FASTMIX_TOL, atol=FASTMIX_TOL))
+                  .sum()) for a, b in zip(got, want))
+    ok = off <= EF_FLIP_SHARE * 2 * m * n and all(
+        bool(torch.allclose(a, b, rtol=EF_FLIP_TOL, atol=EF_FLIP_TOL))
+        for a, b in zip(got, want))
+    row = {"name": "fastmix_track_ef" if track else "fastmix_ef",
+           "shape": f"m={m} n={n} (d={d} k={k}) K={K} wire=fp8-EF "
+                    f"(elements past {FASTMIX_TOL:g}: {off})",
+           "max_abs_err": err, "tol": FASTMIX_TOL, "ok": ok}
+    row["ms"], row["host_us"] = time_ms(kern)
+    row["plain_ms"] = time_ms(plain)[0]
+    row["library_ms"] = None       # no PyTorch call computes quantized rounds
+    row["library"] = "none"
+    nbytes = 4 * (m * n * (6 if track else 4) + m * m)
+    # per element per round: the send (sub, cube root counted as one
+    # operation, two muls and an add), the receive (m FMAs, add, sub, two
+    # muls, sub): 2m + 10
+    flops = (2 * m + 10) * m * n * K + (2 * m * n if track else 0)
+    row["bound_ms"], row["bound_by"] = bound(nbytes, flops, peaks)
+    return row
+
+
 def print_row(row: dict) -> None:
+    lib = row["library_ms"]
+    lib = "none" if lib is None else f"{lib:.6f}"
     print(f"kernel {row['name']} [{row['shape']}]: "
           f"max_abs_err={row['max_abs_err']:.3e} (tol {row['tol']:g}) "
           f"{'ok' if row['ok'] else 'FAIL'}  kernel_ms={row['ms']:.6f} "
           f"plain_ms={row['plain_ms']:.6f} "
-          f"library_ms={row['library_ms']:.6f} "
+          f"library_ms={lib} "
           f"bound_ms={row['bound_ms']:.6f} ({row['bound_by']}) "
           f"host_us_per_call={row['host_us']:.1f}", flush=True)
 
@@ -368,8 +471,15 @@ def main() -> int:
                                        False, 1),
         "fastmix": check_fastmix(fm, peaks, 50, 300, 5, 8, False, False, 2),
         "gram": check_gram(gm, peaks, (50, 300, 5), torch.float32, 3),
+        "apply_track": check_apply_track(fm, peaks, 50, 300, 5, 8, 12),
+        "fastmix_track_ef": check_fastmix_ef(fm, peaks, 50, 300, 5, 8, True,
+                                             13),
+        "fastmix_ef": check_fastmix_ef(fm, peaks, 50, 300, 5, 8, False, 14),
     }
     extra_rows = [
+        check_apply_track(fm, peaks, 64, 4096, 32, 8, 15),
+        check_fastmix_ef(fm, peaks, 64, 4096, 32, 8, True, 16),
+        check_fastmix_ef(fm, peaks, 64, 4096, 32, 8, False, 17),
         check_fastmix(fm, peaks, 64, 4096, 32, 8, True, False, 4),
         check_fastmix(fm, peaks, 64, 4096, 32, 8, False, False, 5),
         check_fastmix(fm, peaks, 50, 300, 5, 8, True, True, 6),
@@ -428,6 +538,84 @@ def main() -> int:
         fail("depca produced non-finite estimates")
     breakdown(P, ops, topo, W0, U, K, T)
 
+    # ---- 4b. the dense-operator path: A_j = X_j^T X_j of the same data
+    dense = P.StackedOperators(dense=(ops.data.mT @ ops.data).contiguous())
+    P.deepca(dense, topo, W0, k=k, T=3, K=K, U=U, backend="cuda")  # warm-up
+    res, sec, counts = counted(kernels, P.deepca, dense, topo, W0, k=k, T=T,
+                               K=K, U=U, backend="cuda")
+    launches["apply_track"] = counts["apply_track"]
+    ref, sec_ref = run_timed(P.deepca, dense, topo, W0, k=k, T=T, K=K, U=U,
+                             backend="stacked")
+    gap = subspace_gap(ref.W, res.W)
+    print(f"dense deepca w8a m={m} d={d} k={k} K={K} T={T} fp32 cuda: "
+          f"us_per_iter={sec / T * 1e6:.1f} final_mean_tan_theta="
+          f"{float(res.trace.mean_tan_theta[-1]):.6e} launches={counts}; "
+          f"stacked us_per_iter={sec_ref / T * 1e6:.1f} final_mean_tan_theta="
+          f"{float(ref.trace.mean_tan_theta[-1]):.6e}; per-agent subspace "
+          f"distance cuda vs stacked {gap:.3e} (tol {SUBSPACE_TOL:g})",
+          flush=True)
+    if counts["apply_track"] != T or counts["fastmix_track"] != 0:
+        fail(f"dense deepca must launch apply_track T times: {counts}")
+    if not (gap <= SUBSPACE_TOL and torch.isfinite(res.W).all()):
+        fail(f"dense deepca cuda vs stacked subspace distance {gap}")
+    del dense, res, ref
+
+    # ---- 4c. the error-feedback wires at w8a scale
+    fp8 = dict(k=k, T=T, K=K, U=U, wire_dtype="fp8", accelerated=True)
+    P.deepca(ops, topo, W0, backend="cuda", **{**fp8, "T": 3})   # warm-up
+    res, sec, counts = counted(kernels, P.deepca, ops, topo, W0,
+                               backend="cuda", **fp8)
+    launches["fastmix_track_ef"] = counts["fastmix_track_ef"]
+    print(f"ef deepca fp8 accelerated w8a K={K} T={T} fp32 cuda: "
+          f"us_per_iter={sec / T * 1e6:.1f} final_mean_tan_theta="
+          f"{float(res.trace.mean_tan_theta[-1]):.6e} launches={counts}",
+          flush=True)
+    if counts["fastmix_track_ef"] != T or counts["fastmix_track"] != 0:
+        fail(f"fp8 deepca must launch fastmix_track_ef T times: {counts}")
+    ref, sec_ref = run_timed(P.deepca, ops, topo, W0, backend="stacked",
+                             **fp8)
+    ops64 = P.StackedOperators(data=ops.data.double())
+    ref64, _ = run_timed(P.deepca, ops64, topo, W0.double(),
+                         backend="stacked", **{**fp8, "U": U.double()})
+    spread = subspace_gap(ref64.W, ref.W)
+    tol = max(2 * spread, SUBSPACE_TOL)
+    gap = subspace_gap(ref64.W, res.W)
+    print(f"ef deepca fp8 stacked on the card: us_per_iter="
+          f"{sec_ref / T * 1e6:.1f} final_mean_tan_theta fp32 stacked "
+          f"{float(ref.trace.mean_tan_theta[-1]):.6e} f64 stacked "
+          f"{float(ref64.trace.mean_tan_theta[-1]):.6e}; per-agent subspace "
+          f"distance from the f64 run: stacked fp32 {spread:.3e}, cuda fp32 "
+          f"{gap:.3e} (tol max(2 x stacked, {SUBSPACE_TOL:g}) = {tol:.3e}); "
+          f"cuda vs stacked fp32 {subspace_gap(ref.W, res.W):.3e}",
+          flush=True)
+    if not (gap <= tol and torch.isfinite(res.W).all()):
+        fail(f"fp8 deepca cuda lands {gap} from the f64 run (tol {tol})")
+    dres, dsec, dcounts = counted(kernels, P.depca, ops, topo, W0, k=k, T=T,
+                                  K=K, U=U, backend="cuda", wire_dtype="fp8")
+    launches["fastmix_ef"] = dcounts["fastmix_ef"]
+    print(f"ef depca fp8 w8a K={K} T={T} fp32 cuda: us_per_iter="
+          f"{dsec / T * 1e6:.1f} final_mean_tan_theta="
+          f"{float(dres.trace.mean_tan_theta[-1]):.6e} launches={dcounts}",
+          flush=True)
+    if dcounts["fastmix_ef"] != T or not torch.isfinite(dres.W).all():
+        fail(f"fp8 depca must launch fastmix_ef T times: {dcounts}")
+    # int8 has no kernel (its per-agent scale is a reduction over every
+    # column tile): the per-round reference runs as torch ops on the card
+    ires, isec, icounts = counted(kernels, P.deepca, ops, topo, W0, k=k,
+                                  T=T, K=K, U=U, backend="cuda",
+                                  wire_dtype="int8", accelerated=True)
+    itans = ires.trace.mean_tan_theta
+    print(f"ef deepca int8 accelerated w8a K={K} T={T} fp32 cuda: "
+          f"us_per_iter={isec / T * 1e6:.1f} mean_tan_theta first="
+          f"{float(itans[0]):.6e} final={float(itans[-1]):.6e} "
+          f"launches={icounts}", flush=True)
+    if icounts["fastmix_ef"] or icounts["fastmix_track_ef"]:
+        fail(f"int8 launched an EF kernel: {icounts}")
+    if not (torch.isfinite(itans).all() and
+            float(itans[-1]) < 1e-3 * float(itans[0])):
+        fail("int8 deepca: non-finite or not converging")
+    del res, ref, ref64, ops64, dres, ires
+
     # ---- 5. f64 bench grid on the card (no kernel takes f64)
     bench = json.loads((ROOT / "BENCH_deepca.json").read_text())
     want = next(r["final_tan"] for r in bench["rows"]
@@ -477,20 +665,63 @@ def main() -> int:
         fail(f"large deepca cuda vs stacked subspace distance {gap}")
     del big, res, ref
 
+    # ---- 6b. the same size with dense operators A_j = X_j^T X_j
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    data = large_operators(m, n, d, k, seed=1).data
+    dense = P.StackedOperators(dense=(data.mT @ data).contiguous())
+    del data
+    U, _ = P.top_k_eigvecs(dense.mean_matrix(), k)
+    P.deepca(dense, topo, W0, k=k, T=2, K=K, U=U, backend="cuda")  # warm-up
+    res, sec, counts = counted(kernels, P.deepca, dense, topo, W0, k=k, T=T,
+                               K=K, U=U, backend="cuda")
+    tans = res.trace.mean_tan_theta
+    print(f"large dense deepca m={m} d={d} k={k} K={K} T={T} fp32 cuda "
+          f"(A {dense.dense.numel() * 4 / 1e9:.2f} GB): us_per_iter="
+          f"{sec / T * 1e6:.1f} (deepca call incl. trace) mean_tan_theta "
+          f"first={float(tans[0]):.6e} final={float(tans[-1]):.6e} "
+          f"launches={counts} max_memory_allocated="
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB",
+          flush=True)
+    if counts["apply_track"] != T or counts["fastmix_track"] != 0:
+        fail(f"large dense run did not go through apply_track: {counts}")
+    if not (torch.isfinite(res.W).all() and torch.isfinite(tans).all()
+            and float(tans[-1]) < float(tans[0])):
+        fail("large dense run: non-finite or non-decreasing tan theta")
+    ref, sec_ref = run_timed(P.deepca, dense, topo, W0, k=k, T=T, K=K, U=U,
+                             backend="stacked")
+    gap = subspace_gap(ref.W, res.W)
+    print(f"large dense deepca stacked us_per_iter={sec_ref / T * 1e6:.1f}; "
+          f"cuda vs stacked per-agent subspace distance {gap:.3e} "
+          f"(tol {SUBSPACE_TOL:g})", flush=True)
+    if gap > SUBSPACE_TOL:
+        fail(f"large dense deepca cuda vs stacked subspace distance {gap}")
+    del dense, res, ref
+
     # ---- 7. the kernels line, then the contract line
-    sources = {"fastmix_track": "src/repro_torch/kernels/csrc/fastmix.cu",
-               "fastmix": "src/repro_torch/kernels/csrc/fastmix.cu",
-               "gram": "src/repro_torch/kernels/csrc/gram.cu"}
+    csrc = "src/repro_torch/kernels/csrc/"
+    sources = {"fastmix_track": csrc + "fastmix.cu",
+               "fastmix": csrc + "fastmix.cu",
+               "gram": csrc + "gram.cu",
+               "apply_track": csrc + "apply_track.cu",
+               "fastmix_track_ef": csrc + "fastmix_ef.cu",
+               "fastmix_ef": csrc + "fastmix_ef.cu"}
     replaces = {"fastmix_track": "src/repro/kernels/fastmix.py:484",
                 "fastmix": "src/repro/kernels/fastmix.py:331",
-                "gram": "src/repro/kernels/gram.py:70"}
+                "gram": "src/repro/kernels/gram.py:70",
+                "apply_track": "src/repro/kernels/fastmix.py:797",
+                "fastmix_track_ef": "src/repro/kernels/fastmix.py:565",
+                "fastmix_ef": "src/repro/kernels/fastmix.py:401"}
+    if any(launches[name] <= 0 for name in main_rows):
+        fail(f"a kernel was not launched on its path: {launches}")
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": sources[name],
          "replaces": replaces[name], "launches": launches[name],
          "max_abs_err": row["max_abs_err"], "ms": row["ms"],
          "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
          "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-         "shape": row["shape"], "ok": row["ok"]}
+         "library": row.get("library"), "shape": row["shape"],
+         "ok": row["ok"]}
         for name, row in main_rows.items()]}
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

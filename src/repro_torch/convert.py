@@ -49,9 +49,11 @@ def topology(topo=None, *, name: Optional[str] = None, mixing=None,
 
 
 def state(st, device=None) -> tuple:
-    """A resumable ``result.state`` tuple ``(S, W, G_prev[, W_prev],
+    """A resumable ``result.state`` tuple ``(S, W, G_prev[, W_prev][, ef],
     offset)``: carry slots become tensors on ``device``, the offset an
-    int32 CPU tensor."""
+    int32 CPU tensor.  ``W_prev`` is the accelerated run's momentum slot
+    and ``ef`` the error-feedback wire replica (int8/fp8 wires); slots are
+    positional, so 3-, 4- and 5-slot carries all pass through unchanged."""
     carry, off = split_state(tuple(np.asarray(x) for x in st))
     dev = resolve_device(device)
     out = tuple(as_tensor(x, dev) for x in carry)

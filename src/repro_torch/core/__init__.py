@@ -3,7 +3,7 @@ from .topology import (DisconnectedTopologyError, Topology, complete,
                        erdos_renyi, from_adjacency, hypercube,
                        make_topology, ring, torus2d, validate_mixing)
 from .mixing import (agent_mean, consensus_error, fastmix, fastmix_eta,
-                     fastmix_wire, naive_mix)
+                     fastmix_wire, fastmix_wire_ef, naive_mix)
 from .consensus import (BACKENDS, VARIANTS, ConsensusEngine,
                         resolve_backend)
 from .operators import (StackedOperators, libsvm_like, synthetic_spiked,
@@ -21,7 +21,7 @@ __all__ = [
     "Topology", "ring", "torus2d", "hypercube", "complete", "erdos_renyi",
     "from_adjacency", "make_topology", "validate_mixing",
     "DisconnectedTopologyError",
-    "fastmix", "fastmix_wire", "naive_mix", "fastmix_eta",
+    "fastmix", "fastmix_wire", "fastmix_wire_ef", "naive_mix", "fastmix_eta",
     "consensus_error", "agent_mean",
     "ConsensusEngine", "resolve_backend", "BACKENDS", "VARIANTS",
     "StackedOperators", "synthetic_spiked", "libsvm_like", "top_k_eigvecs",

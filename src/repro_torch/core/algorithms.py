@@ -3,8 +3,8 @@
 The paper-facing wrapper layer: it turns the paper's signatures into a
 :class:`~.step.PowerStep` + :class:`~.consensus.ConsensusEngine` pair,
 runs :class:`~.driver.IterationDriver`, and collects the trace.  Both
-decentralized algorithms share the resumable ``(S, W, G_prev[, W_prev],
-offset)`` state contract: a resumed run continues round accounting and
+decentralized algorithms share the resumable ``(S, W, G_prev[, W_prev]
+[, ef], offset)`` state contract: a resumed run continues round accounting and
 DePCA's increasing-rounds count where the previous run stopped.
 
 Tensors handed in run where they live; numpy arrays go to ``device``
@@ -60,7 +60,8 @@ class DecentralizedPCAResult:
     W: torch.Tensor                # (m, d, k) final local estimates
     trace: PowerTrace
     name: str
-    # (S, W_stack, G_prev[, W_prev], offset); offset = [comm_rounds, iters]
+    # (S, W_stack, G_prev[, W_prev][, ef], offset);
+    # offset = [comm_rounds, iters]
     state: Optional[tuple] = None
 
 
@@ -127,7 +128,7 @@ def _run_decentralized(algorithm: str, ops: StackedOperators,
     accelerated, momentum = resolve_acceleration(accelerated, momentum)
     step = PowerStep.for_algorithm(
         algorithm, K, increasing_consensus=increasing_consensus,
-        accelerated=accelerated, momentum=momentum)
+        accelerated=accelerated, momentum=momentum, ef_wire=eng.ef_wire)
     rounds0 = iters0 = 0
     carry = None
     if state is not None:
@@ -161,8 +162,9 @@ def deepca(ops: StackedOperators, topology: Optional[Topology], W0, *,
     Args mirror the reference: ``K`` FastMix rounds per iteration (Thm. 1:
     independent of the target), ``backend`` ``auto``/``stacked``/``cuda``,
     ``accelerated``/``momentum`` for momentum power iterations
-    (``REPRO_ACCEL`` when ``None``), ``wire_dtype`` ``None``/``"bf16"``
-    (``REPRO_WIRE_DTYPE`` when ``None``), ``state`` to resume.
+    (``REPRO_ACCEL`` when ``None``), ``wire_dtype`` ``None``/``"bf16"``/
+    ``"int8"``/``"fp8"`` (``REPRO_WIRE_DTYPE`` when ``None``; the last two
+    carry an error-feedback slot in ``state``), ``state`` to resume.
     ``schedule=`` and dynamic engines raise ``NotImplementedError``.
     """
     return _run_decentralized("deepca", ops, topology, W0, k=k, T=T, K=K,

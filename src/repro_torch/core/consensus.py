@@ -16,8 +16,12 @@
 device (``device=None`` means the card) and to ``stacked`` otherwise.
 
 Variants: ``fastmix`` (Chebyshev momentum) and ``naive`` (``eta = 0``).
-Wire modes: ``None`` and ``"bf16"``; ``"int8"`` / ``"fp8"`` raise
-``NotImplementedError`` until the error-feedback kernels are ported.
+Wire modes: ``None``, ``"bf16"``, and the error-feedback wires ``"int8"``
+and ``"fp8"`` (:data:`EF_WIRE_DTYPES`), whose ``mix`` / ``mix_track`` take
+and return the per-agent wire replica ``ef``.  On the ``cuda`` backend fp8
+runs the fp8-EF kernels; int8 has no kernel (its per-agent scale is a
+reduction over every column tile, as in the reference) and runs the
+per-round reference as torch ops on the card.
 """
 from __future__ import annotations
 
@@ -28,16 +32,23 @@ import torch
 
 from .._device import resolve_device
 from ..kernels import fastmix as _fm
-from .mixing import fastmix, fastmix_eta, fastmix_wire, naive_mix
+from .mixing import (fastmix, fastmix_eta, fastmix_wire, fastmix_wire_ef,
+                     naive_mix)
 from .topology import Topology
 
 BACKENDS = ("auto", "stacked", "cuda")
 VARIANTS = ("fastmix", "naive")
 WIRE_DTYPES = (None, "bf16", "int8", "fp8")
+#: Wire modes that carry an error-feedback replica (the ``PowerStep``
+#: ``ef`` slot): ``mix`` / ``mix_track`` take ``ef=`` and return
+#: ``(S, ef)``.
 EF_WIRE_DTYPES = ("int8", "fp8")
 
-#: Relative per-send rounding floor of each ported wire mode.
-WIRE_QUANT_FLOOR = {None: 2.0 ** -23, "bf16": 2.0 ** -8}
+#: Relative per-send rounding floor of each wire mode: fp32 eps, bf16's 8
+#: mantissa bits, int8's half-step at a per-agent scale, e4m3's unit
+#: roundoff.
+WIRE_QUANT_FLOOR = {None: 2.0 ** -23, "bf16": 2.0 ** -8, "int8": 2.0 ** -8,
+                    "fp8": 2.0 ** -4}
 
 
 def resolve_backend(backend: str, device=None) -> str:
@@ -52,6 +63,23 @@ def resolve_backend(backend: str, device=None) -> str:
 
 def _variant_eta(variant: str, lambda2: float) -> float:
     return 0.0 if variant == "naive" else fastmix_eta(lambda2)
+
+
+def _check_ef(wire_dtype: Optional[str], ef) -> bool:
+    """True when the call runs the error-feedback path; a missing or a
+    spurious residual raises instead of silently changing convergence."""
+    if wire_dtype in EF_WIRE_DTYPES:
+        if ef is None:
+            raise ValueError(
+                f"wire_dtype {wire_dtype!r} carries an error-feedback "
+                "residual; pass ef= (zeros_like the iterate on the first "
+                "call / after a restart)")
+        return True
+    if ef is not None:
+        raise ValueError(
+            f"ef= is only meaningful for the EF wire modes "
+            f"{EF_WIRE_DTYPES}; this engine's wire_dtype is {wire_dtype!r}")
+    return False
 
 
 def _fused_track_mix(S, G, G_prev, L, eta, rounds: int, *, wire: bool):
@@ -80,6 +108,41 @@ def _fused_mix(S, L, eta, rounds: int, *, wire: bool):
     return out.to(S.dtype)
 
 
+def _fused_mix_ef(S, ef, L, eta, rounds: int, *, wire: str):
+    """EF-wire counterpart of :func:`_fused_mix` -> ``(S_out, ef_out)``.
+
+    fp8 launches the fp8-EF kernel.  int8 has no kernel: its per-agent
+    scale is a reduction over every column tile, which the column-tiled
+    kernel cannot see, so it runs the per-round reference (torch ops on
+    the tensors' device), as the reference's pallas backend does.  f64
+    takes the per-round reference in f64.
+    """
+    if S.dtype == torch.float64:
+        return fastmix_wire_ef(S, ef, L, eta, rounds, wire_dtype=wire)
+    f32 = torch.float32
+    if wire == "fp8":
+        out, ef_out = _fm.fastmix_ef_fused(S.to(f32), ef.to(f32), L, eta,
+                                           rounds)
+    else:
+        out, ef_out = fastmix_wire_ef(S.to(f32), ef.to(f32), L, eta, rounds,
+                                      wire_dtype=wire)
+    return out.to(S.dtype), ef_out.to(S.dtype)
+
+
+def _fused_track_mix_ef(S, G, G_prev, ef, L, eta, rounds: int, *,
+                        wire: str):
+    """EF-wire counterpart of :func:`_fused_track_mix`: fp32 fp8 runs the
+    tracking combine inside the fp8-EF kernel; everything else tracks
+    first and takes :func:`_fused_mix_ef`."""
+    if wire == "fp8" and S.dtype != torch.float64:
+        f32 = torch.float32
+        out, ef_out = _fm.fastmix_track_ef_fused(
+            S.to(f32), G.to(f32), G_prev.to(f32), ef.to(f32), L, eta, rounds)
+        return out.to(S.dtype), ef_out.to(S.dtype)
+    return _fused_mix_ef(_fm.tracking_update(S, G, G_prev), ef, L, eta,
+                         rounds, wire=wire)
+
+
 @dataclasses.dataclass(frozen=True)
 class ConsensusEngine:
     """Gossip consensus over a fixed topology with a pluggable backend.
@@ -89,8 +152,13 @@ class ConsensusEngine:
       K: default gossip rounds per :meth:`mix` call.
       backend: ``auto`` / ``stacked`` / ``cuda``; resolved at construction.
       variant: ``fastmix`` (Chebyshev momentum) or ``naive`` (eta = 0).
-      wire_dtype: ``None`` (full precision) or ``"bf16"`` (each round's
-        sent iterate rounded to bf16; accumulation stays fp32/f64).
+      wire_dtype: ``None`` (full precision), ``"bf16"`` (each round's
+        sent iterate rounded to bf16), or the error-feedback wires
+        ``"int8"`` / ``"fp8"`` (each round sends the quantized innovation
+        against a per-agent wire replica).  Accumulation stays fp32/f64.
+        On the EF wires :meth:`mix` / :meth:`mix_track` take the replica
+        as ``ef=`` and return ``(S, ef)``; ``PowerStep(ef_wire=True)``
+        carries it in the ``ef`` slot of the iteration state.
       device: where the operators live; only ``backend="auto"`` reads it.
     """
 
@@ -115,12 +183,6 @@ class ConsensusEngine:
             raise ValueError(
                 f"wire_dtype must be one of {WIRE_DTYPES}, got "
                 f"{self.wire_dtype!r}")
-        if self.wire_dtype in EF_WIRE_DTYPES:
-            raise NotImplementedError(
-                f"wire_dtype {self.wire_dtype!r} is not ported yet "
-                "(ROADMAP queue 2: the fp8 error-feedback kernels "
-                "_fastmix_track_ef_fused / _fastmix_ef_fused, with the "
-                "int8 EF reference)")
 
     # ------------------------------------------------------------- scalars
     @property
@@ -143,10 +205,16 @@ class ConsensusEngine:
             return self.topology.naive_rate(r)
         return self.topology.fastmix_rate(r)
 
+    @property
+    def ef_wire(self) -> bool:
+        """True when this engine's wire mode carries an EF replica."""
+        return self.wire_dtype in EF_WIRE_DTYPES
+
     def bytes_per_round(self, d: int, k: int) -> int:
         """Wire bytes ONE agent sends per gossip round for a (d, k)
-        iterate."""
-        return int(d) * int(k) * _fm.WIRE_ITEMSIZE[self.wire_dtype]
+        iterate: 4/2/1/1 per entry, plus int8's fp32 per-agent scale."""
+        n = int(d) * int(k) * _fm.WIRE_ITEMSIZE[self.wire_dtype]
+        return n + 4 if self.wire_dtype == "int8" else n
 
     def quantization_floor(self) -> float:
         return WIRE_QUANT_FLOOR[self.wire_dtype]
@@ -162,36 +230,46 @@ class ConsensusEngine:
 
     # ------------------------------------------------- stacked-form mixing
     def mix(self, S: torch.Tensor, rounds: Optional[int] = None, *,
-            ef: Optional[torch.Tensor] = None) -> torch.Tensor:
+            ef: Optional[torch.Tensor] = None):
         """Mix stacked ``(m, ...)`` agent variables; preserves the mean.
-        ``rounds`` overrides K for this call (DePCA's increasing rounds)."""
-        if ef is not None:
-            raise ValueError("ef= is only meaningful for the EF wire modes "
-                             f"{EF_WIRE_DTYPES}, which are not ported")
+        ``rounds`` overrides K for this call (DePCA's increasing rounds).
+        EF wire modes require ``ef`` and return ``(S_out, ef_out)``."""
         r = self.K if rounds is None else int(rounds)
+        ef_mode = _check_ef(self.wire_dtype, ef)
         if r <= 0:
-            return S
+            return (S, ef) if ef_mode else S
         self._check_m(S)
         wire = self.wire_dtype is not None
         if self.backend == "stacked":
             L = self._L(S.dtype, S.device)
+            if ef_mode:
+                return fastmix_wire_ef(S, ef, L, self.eta, r,
+                                       wire_dtype=self.wire_dtype)
             if wire:
                 return fastmix_wire(S, L, self.eta, r)
             if self.variant == "naive":
                 return naive_mix(S, L, r)
             return fastmix(S, L, self.eta, r)
         L = self._L(self._compute_dtype(S), S.device)
+        if ef_mode:
+            return _fused_mix_ef(S, ef, L, self.eta, r,
+                                 wire=self.wire_dtype)
         return _fused_mix(S, L, self.eta, r, wire=wire)
 
     def mix_track(self, S: torch.Tensor, G: torch.Tensor,
                   G_prev: torch.Tensor, rounds: Optional[int] = None, *,
-                  ef: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  ef: Optional[torch.Tensor] = None):
         """Fused Eqns. (3.1)+(3.2): ``mix(tracking_update(S, G, G_prev))``;
-        the ``cuda`` backend runs the combine inside the kernel launch."""
+        the ``cuda`` backend runs the combine inside the kernel launch.
+        EF wire modes require ``ef`` and return ``(S_out, ef_out)``."""
         r = self.K if rounds is None else int(rounds)
-        if self.backend == "cuda" and r > 0 and ef is None:
+        ef_mode = _check_ef(self.wire_dtype, ef)
+        if self.backend == "cuda" and r > 0:
             self._check_m(S)
             L = self._L(self._compute_dtype(S), S.device)
+            if ef_mode:
+                return _fused_track_mix_ef(S, G, G_prev, ef, L, self.eta, r,
+                                           wire=self.wire_dtype)
             return _fused_track_mix(S, G, G_prev, L, self.eta, r,
                                     wire=self.wire_dtype is not None)
         return self.mix(_fm.tracking_update(S, G, G_prev), rounds=rounds,
@@ -203,19 +281,33 @@ class ConsensusEngine:
         """Local apply + Eqn. (3.1) combine + Eqn. (3.2) gossip ->
         ``(S_new, G)``.
 
-        Gram-form data operators compose ``ops.apply`` with
-        :meth:`mix_track` on every backend.  Dense operators on the
-        ``cuda`` backend need the fused apply-track kernel, which is not
-        ported yet: they raise rather than silently composing a library
-        matmul with the gossip kernel.
+        Dense operators on the ``cuda`` backend launch the fused
+        apply-track kernel (in fp32, as the reference's kernel computes):
+        ``G = A_j W_j`` is formed on the kernel's tile and fed straight
+        into the combine and the rounds.  Everything else (Gram-form data
+        operators, f64, the ``stacked`` backend) composes ``ops.apply``
+        with :meth:`mix_track`.  EF wire modes
+        raise: they compose ``ops.apply`` with ``mix_track(..., ef=)``,
+        which ``PowerStep`` does when ``ef_wire=True``.
         """
+        if self.ef_wire:
+            raise ValueError(
+                "apply_mix_track does not thread the EF residual; EF wire "
+                f"modes {EF_WIRE_DTYPES} compose ops.apply with "
+                "mix_track(..., ef=) instead (PowerStep does this "
+                "automatically when ef_wire=True)")
         r = self.K if rounds is None else int(rounds)
-        if (self.backend == "cuda" and r > 0 and ops.dense is not None
+        dense = ops.dense
+        if (self.backend == "cuda" and r > 0 and dense is not None
                 and S.dtype != torch.float64):
-            raise NotImplementedError(
-                "apply_track kernel not yet ported (ROADMAP queue 2: "
-                "_apply_track_fused); use backend='stacked' for dense "
-                "operators")
+            self._check_m(S)
+            f32 = torch.float32
+            S_new, G = _fm.apply_track_fused(
+                dense.to(f32).contiguous(), W.to(f32).contiguous(),
+                S.to(f32).contiguous(), G_prev.to(f32).contiguous(),
+                self._L(f32, S.device), self.eta, r,
+                wire_bf16=self.wire_dtype is not None)
+            return S_new.to(S.dtype), G.to(S.dtype)
         G = ops.apply(W)
         return self.mix_track(S, G, G_prev, rounds=rounds), G
 

@@ -15,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..kernels.fastmix import quantize_wire
+from ..kernels.fastmix import ef_quantize, quantize_wire
 
 
 def fastmix_eta(lambda2: float) -> float:
@@ -49,6 +49,25 @@ def fastmix_wire(S: torch.Tensor, L: torch.Tensor, eta, K: int,
         sent = quantize_wire(cur, wire_dtype)
         prev, cur = cur, (1.0 + eta) * _mix_once(L, sent) - eta * prev
     return cur
+
+
+def fastmix_wire_ef(S: torch.Tensor, err: torch.Tensor, L: torch.Tensor,
+                    eta, K: int, wire_dtype: str = "int8"):
+    """FastMix over an error-feedback quantized wire (``"int8"`` or
+    ``"fp8"``): the per-round reference of the engines' EF modes.
+
+    Each round advances the per-agent wire replica ``h`` by the quantized
+    innovation (:func:`repro_torch.kernels.fastmix.ef_quantize`), then
+    mixes the mean-preserving form ``cur + L h - h``.  The recursion
+    stays in the compute dtype.  Returns ``(S_out, err_out)``.
+    """
+    prev = cur = S
+    h = err
+    for _ in range(int(K)):
+        h = ef_quantize(cur, h, wire_dtype)
+        mixed = cur + _mix_once(L, h) - h
+        prev, cur = cur, (1.0 + eta) * mixed - eta * prev
+    return cur, h
 
 
 def naive_mix(S: torch.Tensor, L: torch.Tensor, K: int) -> torch.Tensor:

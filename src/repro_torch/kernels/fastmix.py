@@ -10,11 +10,19 @@ independently and all K rounds fuse into one pass over the iterate.
   a CUDA fp32 tensor each launches the kernel; on a CPU tensor each runs
   its plain twin (:func:`fastmix_plain`), a per-round loop with the
   kernel's arithmetic.  Any other device raises.
+* :func:`fastmix_ef_fused` / :func:`fastmix_track_ef_fused` — the same
+  over the fp8 error-feedback wire (``csrc/fastmix_ef.cu``, the port of
+  ``_fastmix_ef_fused`` / ``_fastmix_track_ef_fused``); plain twin
+  :func:`fastmix_ef_plain`.
+* :func:`apply_track_fused` — the dense local power step ``A_j W_j``
+  fused with tracking and the K rounds (``csrc/apply_track.cu``, the port
+  of ``_apply_track_fused``); plain twin :func:`apply_track_plain`.
 * :func:`fastmix_poly` / :func:`fastmix_track_poly` — the algebraic
   collapse ``S_out = P_K(L) S``.  This is the f64 path: f64 never enters
   a kernel.
-* :func:`tracking_update` (Eqn. 3.1) and :func:`quantize_wire` (bf16
-  wire) are the single compute sites the other modules route through.
+* :func:`tracking_update` (Eqn. 3.1), :func:`quantize_wire` (bf16, fp8
+  and int8 wires) and :func:`ef_quantize` (the error-feedback send) are
+  the single compute sites the other modules route through.
 """
 from __future__ import annotations
 
@@ -25,29 +33,103 @@ import torch
 from . import _build
 
 #: Wire payload bytes per element for each wire mode (``None`` = fp32).
+#: int8 also ships one fp32 scale per agent per round, which the engine's
+#: ``bytes_per_round`` adds.
 WIRE_ITEMSIZE = {None: 4, "bf16": 2, "int8": 1, "fp8": 1}
 
 #: Kernel launches by this module's wrappers (reset by the caller).
-LAUNCHES = {"fastmix": 0, "fastmix_track": 0}
+LAUNCHES = {"fastmix": 0, "fastmix_track": 0, "fastmix_ef": 0,
+            "fastmix_track_ef": 0, "apply_track": 0}
 
 #: Shared memory one block may use on sm_90 (232,448 bytes).
 SMEM_LIMIT = 232448
 #: Column-tile widths tried, widest first; the widest that fits is used.
 TILE_WIDTHS = (32, 16, 8)
+#: Output-row tiles of the apply-track kernel, and its contraction chunks.
+ROW_TILES = (16, 8, 4, 2, 1)
+CONTRACTION_CHUNKS = (32, 16, 8)
+#: Streaming multiprocessors of an H100 SXM: the apply-track tile chooser
+#: prefers a grid at least this wide.
+SM_COUNT = 132
+
+#: e4m3fn's largest finite value; the fp8 wire saturates there.
+FP8_MAX = 448.0
+
+
+def _cbrt(x: torch.Tensor) -> torch.Tensor:
+    """Real cube root, evaluated in f64 and rounded to ``x``'s dtype.
+
+    torch has no ``cbrt``; ``sign(x) |x|^(1/3)`` in f64 is within a few
+    f64 ulps of the true root, so after rounding to fp32 it agrees with
+    the kernel's ``(float)cbrt((double)x)`` unless the root lies within a
+    few f64 ulps of an fp32 rounding midpoint.
+    """
+    x64 = x.to(torch.float64)
+    return (torch.sign(x64) * x64.abs().pow(1.0 / 3.0)).to(x.dtype)
+
+
+def _e4m3_roundtrip(x: torch.Tensor) -> torch.Tensor:
+    """Round to float8 e4m3fn (nearest even) and back to ``x``'s dtype.
+
+    torch converts f64 to fp8 through fp32, which rounds twice; the
+    reference converts f64 directly.  An f64 input is therefore first
+    rounded to fp32 *to odd* (round to nearest, then on an inexact result
+    with an even last bit step one ulp towards ``x``): with fp32's 20
+    spare bits that makes the second rounding land where a direct one
+    would.
+    """
+    if x.dtype != torch.float64:
+        return x.to(torch.float8_e4m3fn).to(x.dtype)
+    y = x.to(torch.float32)
+    bits = y.view(torch.int32)
+    inexact = y.to(torch.float64) != x
+    step = torch.where(y.to(torch.float64).abs() < x.abs(), 1, -1)
+    bits = torch.where(inexact & ((bits & 1) == 0), bits + step, bits)
+    return (bits.to(torch.int32).view(torch.float32)
+            .to(torch.float8_e4m3fn).to(torch.float64))
 
 
 def _quantize_wire(x: torch.Tensor, wire_dtype="bf16") -> torch.Tensor:
     """Round-trip through the wire dtype: THE wire-precision compute site.
 
-    The value an agent sends each round is rounded to bf16 while every
-    receiver keeps accumulating in the full compute dtype.  The int8/fp8
-    wires come with the error-feedback kernels and are not in this slice.
+    The value an agent sends each round is rounded to the wire dtype while
+    every receiver keeps accumulating in the full compute dtype:
+
+    * ``"bf16"`` — bf16 round trip (2 B/elem);
+    * ``"fp8"`` — float8 e4m3fn round trip, clipped to +-448 first so an
+      out-of-range value saturates instead of becoming NaN (1 B/elem);
+    * ``"int8"`` — symmetric per-agent scale ``max(absmax / 127, tiny)``
+      over the trailing axes, round half to even, clip to +-127 (1 B/elem
+      plus one fp32 scale per agent).
     """
-    if wire_dtype not in ("bf16", torch.bfloat16):
-        raise NotImplementedError(
-            f"wire {wire_dtype!r} is not ported yet (ROADMAP queue 2: the "
-            "fp8 error-feedback kernels)")
-    return x.to(torch.bfloat16).to(x.dtype)
+    if wire_dtype == "int8" or wire_dtype is torch.int8:
+        dims = tuple(range(1, x.dim())) if x.dim() > 1 else (0,)
+        absmax = x.abs().amax(dim=dims, keepdim=True)
+        scale = torch.clamp(absmax / 127.0, min=torch.finfo(x.dtype).tiny)
+        q = torch.clamp(torch.round(x / scale), -127.0, 127.0)
+        return q.to(torch.int8).to(x.dtype) * scale
+    if wire_dtype == "fp8":
+        return _e4m3_roundtrip(torch.clamp(x, -FP8_MAX, FP8_MAX))
+    if wire_dtype in ("bf16", torch.bfloat16):
+        return x.to(torch.bfloat16).to(x.dtype)
+    raise ValueError(f"unknown wire dtype {wire_dtype!r}")
+
+
+def _ef_quantize(x: torch.Tensor, h: torch.Tensor,
+                 wire_dtype) -> torch.Tensor:
+    """Difference-quantized error-feedback send: THE EF compute site.
+
+    Each agent keeps (and every receiver reconstructs) a wire replica
+    ``h`` of its iterate; one send carries the quantized innovation and
+    both sides advance ``h + q(x - h)``.  The fp8 innovation rides the
+    wire cube-root companded, ``fq = q(cbrt(x - h))`` cubed back as
+    ``(fq * fq) * fq``, which widens e4m3fn's window down to 2^-27.
+    Returns the new replica: what receivers mix and what is carried.
+    """
+    if wire_dtype == "fp8":
+        fq = quantize_wire(_cbrt(x - h), wire_dtype)
+        return h + fq * fq * fq
+    return h + quantize_wire(x - h, wire_dtype)
 
 
 def _tracking_update(S: torch.Tensor, G: torch.Tensor,
@@ -63,15 +145,17 @@ def _tracking_update(S: torch.Tensor, G: torch.Tensor,
 # ``repro``; the port defines its own copies under private names and
 # binds the public names to them.
 quantize_wire = _quantize_wire
+ef_quantize = _ef_quantize
 tracking_update = _tracking_update
 
 
-def tile_width(m: int, wire_bf16: bool) -> int:
+def tile_width(m: int, wire_bf16: bool = False, *, ef: bool = False) -> int:
     """Widest column tile whose shared-memory working set fits one block:
-    ``(mp * m + (3 if wire else 2) * m * BN) * 4`` bytes, with ``mp`` the
-    agent count rounded up to the kernel's 4-row groups."""
+    ``(mp * m + bufs * m * BN) * 4`` bytes, with ``mp`` the agent count
+    rounded up to the kernels' 4-row groups and ``bufs`` 2 (prev, cur), or
+    3 with the bf16 wire's sent copy or the EF wire's replica ``h``."""
     mp = -(-m // 4) * 4
-    bufs = 3 if wire_bf16 else 2
+    bufs = 3 if wire_bf16 or ef else 2
     for bn in TILE_WIDTHS:
         if 4 * (mp * m + bufs * m * bn) <= SMEM_LIMIT:
             return bn
@@ -191,6 +275,222 @@ def fastmix_track_fused(S: torch.Tensor, G: torch.Tensor,
                          f"{S.device}")
     _check_cuda(L, S, G, G_prev)
     return _launch(S, G, G_prev, L, eta, K, wire_bf16, track=True)
+
+
+def _check_fp8(name: str, wire) -> None:
+    if wire != "fp8":
+        raise ValueError(
+            f"{name} supports wire='fp8' only (got {wire!r}); int8's "
+            "per-agent scale needs a full-row reduction -- use the "
+            "per-round reference repro_torch.core.mixing.fastmix_wire_ef")
+
+
+def fastmix_ef_plain(x: torch.Tensor, err: torch.Tensor, L: torch.Tensor,
+                     eta, K: int):
+    """The fp8-EF kernels' plain twin on flattened ``(m, n)`` fp32 tensors
+    -> ``(S_out, err_out)``: each round advances the replica by the
+    companded innovation, then mixes ``cur + L h - h``."""
+    L = L.to(torch.float32)
+    prev = cur = x.to(torch.float32)
+    h = err.to(torch.float32)
+    for _ in range(int(K)):
+        h = ef_quantize(cur, h, "fp8")
+        mixed = cur + L @ h - h
+        prev, cur = cur, (1.0 + eta) * mixed - eta * prev
+    return cur, h
+
+
+def _ef_entry():
+    fn = _build.load("fastmix_ef").fastmix_ef_rounds
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 7 + [
+        ctypes.c_int, ctypes.c_longlong, ctypes.c_float, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    return fn
+
+
+def _launch_ef(S, G, G_prev, err, L, eta, K: int, track: bool):
+    m = S.shape[0]
+    n = S.numel() // max(m, 1)
+    out, err_out = torch.empty_like(S), torch.empty_like(S)
+    if out.numel() == 0:
+        return out, err_out
+    bn = tile_width(m, ef=True)
+    stream = torch.cuda.current_stream(S.device).cuda_stream
+    code = _ef_entry()(L.data_ptr(), S.data_ptr(),
+                       G.data_ptr() if track else None,
+                       G_prev.data_ptr() if track else None,
+                       err.data_ptr(), out.data_ptr(), err_out.data_ptr(),
+                       m, n, float(eta), int(K), bn, int(track), stream)
+    _build.check("fastmix_ef", code)
+    LAUNCHES["fastmix_track_ef" if track else "fastmix_ef"] += 1
+    return out, err_out
+
+
+def fastmix_ef_fused(S: torch.Tensor, err: torch.Tensor, L: torch.Tensor,
+                     eta, K: int, *, wire: str = "fp8"):
+    """All K fp8 error-feedback FastMix rounds in one launch.
+
+    ``err`` is the per-agent wire replica (zeros on the first call).
+    Returns ``(S_out, err_out)``, both fp32 with ``S``'s shape.  Only the
+    fp8 wire has a kernel: int8's per-agent scale is a reduction over
+    every column tile.
+    """
+    _check_fp8("fastmix_ef_fused", wire)
+    if S.shape != err.shape:
+        raise ValueError(f"S/err shapes must match; got {tuple(S.shape)}, "
+                         f"{tuple(err.shape)}")
+    if S.device.type == "cpu":
+        m = S.shape[0]
+        if tuple(L.shape) != (m, m):
+            raise ValueError(f"L must be ({m}, {m}); got {tuple(L.shape)}")
+        out, h = fastmix_ef_plain(_flat(S), _flat(err), L, eta, K)
+        return out.reshape(S.shape), h.reshape(S.shape)
+    if S.device.type != "cuda":
+        raise ValueError(f"fastmix runs on cuda or cpu tensors, got "
+                         f"{S.device}")
+    _check_cuda(L, S, err)
+    return _launch_ef(S, None, None, err, L, eta, K, track=False)
+
+
+def fastmix_track_ef_fused(S: torch.Tensor, G: torch.Tensor,
+                           G_prev: torch.Tensor, err: torch.Tensor,
+                           L: torch.Tensor, eta, K: int, *,
+                           wire: str = "fp8"):
+    """Fused subspace tracking + K fp8 error-feedback FastMix rounds.
+
+    Semantically ``fastmix_ef_fused(tracking_update(S, G, G_prev), err,
+    L, eta, K)``, with the tracked iterate formed on the kernel's tile.
+    Returns ``(S_out, err_out)``.
+    """
+    _check_fp8("fastmix_track_ef_fused", wire)
+    if not (S.shape == G.shape == G_prev.shape == err.shape):
+        raise ValueError("S/G/G_prev/err shapes must match; got "
+                         f"{tuple(S.shape)}, {tuple(G.shape)}, "
+                         f"{tuple(G_prev.shape)}, {tuple(err.shape)}")
+    if S.device.type == "cpu":
+        m = S.shape[0]
+        if tuple(L.shape) != (m, m):
+            raise ValueError(f"L must be ({m}, {m}); got {tuple(L.shape)}")
+        x = tracking_update(S.to(torch.float32), G.to(torch.float32),
+                            G_prev.to(torch.float32))
+        out, h = fastmix_ef_plain(_flat(x), _flat(err), L, eta, K)
+        return out.reshape(S.shape), h.reshape(S.shape)
+    if S.device.type != "cuda":
+        raise ValueError(f"fastmix runs on cuda or cpu tensors, got "
+                         f"{S.device}")
+    _check_cuda(L, S, G, G_prev, err)
+    return _launch_ef(S, G, G_prev, err, L, eta, K, track=True)
+
+
+# ------------------------------------------------------------------------
+# apply -> track -> mix: the dense DeEPCA gossip half-iteration in one launch
+# ------------------------------------------------------------------------
+def apply_track_smem(m: int, k: int, bd: int, be: int,
+                     wire_bf16: bool) -> int:
+    """Shared-memory bytes of one apply-track block: ``L`` (rows padded
+    to 4), the ``(m, bd*k)`` prev/cur tiles (plus the bf16 wire's sent
+    copy), the ``A`` stage ``(m, be*bd+1)`` and the ``W`` stage
+    ``(m, be*k+1)`` (the +1s stagger agents across shared-memory
+    banks)."""
+    mp = -(-m // 4) * 4
+    bufs = 3 if wire_bf16 else 2
+    return 4 * (mp * m + bufs * m * bd * k + m * (be * bd + 1)
+                + m * (be * k + 1))
+
+
+def tile_rows(m: int, k: int, wire_bf16: bool, d: int):
+    """``(bd, be)`` of the apply-track kernel: output rows per block and
+    contraction chunk.
+
+    Each ``bd`` of :data:`ROW_TILES` takes the widest chunk that fits
+    :data:`SMEM_LIMIT`; the largest ``bd`` whose grid ``ceil(d / bd)``
+    still spans :data:`SM_COUNT` blocks wins, else the smallest (the
+    widest grid).  An ``m`` that does not fit even at ``bd = 1`` raises.
+    """
+    fits = []
+    for bd in ROW_TILES:
+        be = next((be for be in CONTRACTION_CHUNKS
+                   if apply_track_smem(m, k, bd, be, wire_bf16)
+                   <= SMEM_LIMIT), None)
+        if be is not None:
+            fits.append((bd, be))
+    if not fits:
+        raise ValueError(
+            f"apply_track kernel: m={m} agents with k={k} do not fit one "
+            f"block's shared memory ({SMEM_LIMIT} bytes) even at one "
+            "output row")
+    wide = [t for t in fits if -(-int(d) // t[0]) >= SM_COUNT]
+    return wide[0] if wide else fits[-1]
+
+
+def apply_track_plain(A: torch.Tensor, W: torch.Tensor, S: torch.Tensor,
+                      G_prev: torch.Tensor, L: torch.Tensor, eta, K: int, *,
+                      wire_bf16: bool = False):
+    """The apply-track kernel's plain twin -> ``(S_new, G)`` in fp32:
+    ``G = A @ W``, then the tracked :func:`fastmix_plain`."""
+    f32 = torch.float32
+    G = A.to(f32) @ W.to(f32)
+    x = tracking_update(S.to(f32), G, G_prev.to(f32))
+    S_new = fastmix_plain(_flat(x), L, eta, K, wire_bf16=wire_bf16)
+    return S_new.reshape(S.shape), G
+
+
+def _apply_track_entry():
+    fn = _build.load("apply_track").apply_track
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 7 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p]
+    return fn
+
+
+def apply_track_fused(A: torch.Tensor, W: torch.Tensor, S: torch.Tensor,
+                      G_prev: torch.Tensor, L: torch.Tensor, eta, K: int, *,
+                      wire_bf16: bool = False):
+    """Fused local apply + subspace tracking + K FastMix rounds, one launch.
+
+    Semantically::
+
+        G = A @ W                                   # (m, d, d) @ (m, d, k)
+        S_new = fastmix_track_fused(S, G, G_prev, L, eta, K)
+        return S_new, G
+
+    but ``G`` is formed block by block in shared memory and fed straight
+    into the combine and the rounds; it is written once, as the next
+    iteration's ``G_prev``.  Returns ``(S_new, G)``, both ``(m, d, k)``
+    fp32.  ``K <= 0`` returns the bare tracked combine.
+    """
+    m, d, k = W.shape
+    if tuple(A.shape) != (m, d, d):
+        raise ValueError(f"A must be ({m}, {d}, {d}) for W {tuple(W.shape)}; "
+                         f"got {tuple(A.shape)}")
+    if not (tuple(S.shape) == tuple(G_prev.shape) == (m, d, k)):
+        raise ValueError(f"S/G_prev must be ({m}, {d}, {k}); got "
+                         f"{tuple(S.shape)}, {tuple(G_prev.shape)}")
+    if tuple(L.shape) != (m, m):
+        raise ValueError(f"L must be ({m}, {m}); got {tuple(L.shape)}")
+    if A.device.type == "cpu":
+        return apply_track_plain(A, W, S, G_prev, L, eta, K,
+                                 wire_bf16=wire_bf16)
+    if A.device.type != "cuda":
+        raise ValueError(f"apply_track runs on cuda or cpu tensors, got "
+                         f"{A.device}")
+    _check_cuda(L, S, G_prev, W)
+    _check_cuda(L, A)
+    S_new, G = torch.empty_like(S), torch.empty_like(S)
+    if S.numel() == 0:
+        return S_new, G
+    bd, be = tile_rows(m, k, wire_bf16, d)
+    stream = torch.cuda.current_stream(A.device).cuda_stream
+    code = _apply_track_entry()(
+        L.data_ptr(), A.data_ptr(), W.data_ptr(), S.data_ptr(),
+        G_prev.data_ptr(), S_new.data_ptr(), G.data_ptr(), m, d, k,
+        float(eta), int(K), bd, be, int(wire_bf16), stream)
+    _build.check("apply_track", code)
+    LAUNCHES["apply_track"] += 1
+    return S_new, G
 
 
 def fastmix_poly(S: torch.Tensor, L: torch.Tensor, eta,

@@ -107,7 +107,7 @@ def test_engine_f64_takes_the_collapse():
 def test_engine_scalars_and_unported_features():
     topo_r = R.erdos_renyi(10, p=0.5, seed=0)
     topo_p = P.erdos_renyi(10, p=0.5, seed=0)
-    for wire in (None, "bf16"):
+    for wire in (None, "bf16", "int8", "fp8"):
         r = R.ConsensusEngine(topo_r, K=8, backend="stacked", wire_dtype=wire)
         p = P.ConsensusEngine(topo_p, K=8, backend="stacked", wire_dtype=wire)
         assert p.eta == r.eta
@@ -115,9 +115,9 @@ def test_engine_scalars_and_unported_features():
         assert p.contraction_rate(3) == r.contraction_rate(3)
         assert p.bytes_per_round(300, 5) == r.bytes_per_round(300, 5)
         assert p.quantization_floor() == r.quantization_floor()
-    for wire in ("int8", "fp8"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            P.ConsensusEngine(topo_p, K=8, wire_dtype=wire)
+        assert p.ef_wire == r.ef_wire
+    with pytest.raises(ValueError, match="wire_dtype"):
+        P.ConsensusEngine(topo_p, K=8, wire_dtype="fp16")
     assert resolve_backend("auto", "cpu") == "stacked"
     assert resolve_backend("auto") == "cuda"
     assert resolve_backend("auto", "cuda:0") == "cuda"
@@ -125,13 +125,16 @@ def test_engine_scalars_and_unported_features():
         resolve_backend("pallas")
     dense = P.StackedOperators(dense=torch.eye(4).expand(10, 4, 4)
                                .contiguous())
-    W = torch.zeros(10, 4, 2)
-    with pytest.raises(NotImplementedError, match="apply_track kernel"):
-        P.ConsensusEngine(topo_p, K=2, backend="cuda").apply_mix_track(
-            W, W, W, dense)
+    W = torch.ones(10, 4, 2)
+    # the apply-track kernel is ported: the cuda backend's fused dense step
+    # (its plain version on CPU tensors) equals the stacked composition
+    fused = P.ConsensusEngine(topo_p, K=2, backend="cuda").apply_mix_track(
+        W, W, W, dense)
     S_new, G = P.ConsensusEngine(topo_p, K=2, backend="stacked"
                                  ).apply_mix_track(W, W, W, dense)
     assert S_new.shape == G.shape == W.shape
+    for a, b in zip(fused, (S_new, G)):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("backend", ["stacked", "cuda"])

@@ -99,11 +99,12 @@ def test_fastmix_poly_f64(K):
 def test_quantize_wire_and_tracking_compute_sites():
     rng = np.random.default_rng(0)
     x = rng.standard_normal((4, 33)).astype(np.float32)
-    want = ref_fm.quantize_wire(jnp.asarray(x), "bf16")
-    got = fm.quantize_wire(torch.from_numpy(x), "bf16")
-    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fm.quantize_wire(torch.from_numpy(x), "fp8")
+    for wire in ("bf16", "fp8", "int8"):
+        want = ref_fm.quantize_wire(jnp.asarray(x), wire)
+        got = fm.quantize_wire(torch.from_numpy(x), wire)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    with pytest.raises(ValueError, match="wire dtype"):
+        fm.quantize_wire(torch.from_numpy(x), "fp16")
     s, g, gp = (rng.standard_normal((3, 5)).astype(np.float32)
                 for _ in range(3))
     np.testing.assert_array_equal(

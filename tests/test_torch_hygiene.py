@@ -86,11 +86,19 @@ def test_chip_smoke_refuses_without_a_card(tmp_path):
 
 
 def test_build_rules_without_nvcc(monkeypatch):
-    """The library path is keyed on the sources' hash, and a missing
-    toolkit raises rather than falling back."""
-    a = _build._lib_path("fastmix")
-    assert a == _build._lib_path("fastmix") != _build._lib_path("gram")
-    assert _build.BUILD_ROOT in a.parents
+    """Every source under csrc/ is built, each library path is keyed on
+    its source's hash, and a missing toolkit raises rather than falling
+    back."""
+    assert sorted(_build.SOURCES) == sorted(
+        p.stem for p in _build.CSRC.glob("*.cu"))
+    assert {"fastmix", "gram", "fastmix_ef", "apply_track"} <= set(
+        _build.SOURCES)
+    paths = [_build._lib_path(name) for name in _build.SOURCES]
+    assert len(set(paths)) == len(paths)
+    for name, path in zip(_build.SOURCES, paths):
+        assert path == _build._lib_path(name)
+        assert _build.BUILD_ROOT in path.parents
+        assert path.name == f"lib{name}.so"
     monkeypatch.setattr(_build.shutil, "which", lambda _: None)
     monkeypatch.setattr(_build, "Path", lambda *_: Path("/nonexistent"))
     with pytest.raises(RuntimeError, match="nvcc"):

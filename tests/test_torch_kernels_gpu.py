@@ -8,9 +8,12 @@ only PyTorch and the CUDA toolkit:
         tests/test_torch_kernels_gpu.py
 
 Tolerances: FastMix rtol = atol = 2e-5 (the reference's kernel-vs-oracle
-bound); Gram rtol 1e-5 (fp32) / 2e-2 (bf16) with atol scaled by max|G|;
-the whole slice, cuda vs stacked backend, per-agent subspace distance
-1e-4.
+bound); apply-track rtol 2e-5 with atol 2e-5 * (max|S| + 1) on both
+outputs; fp8-EF FastMix rtol = atol = 2e-5 for all but 1e-3 of the
+elements and 2e-3 for those (a sum-order difference may flip a sent value
+to the other fp8 neighbour, see test_torch_wire_ef.py); Gram rtol 1e-5
+(fp32) / 2e-2 (bf16) with atol scaled by max|G|; the whole slice, cuda
+vs stacked backend, per-agent subspace distance 1e-4.
 """
 import numpy as np
 import pytest
@@ -58,6 +61,63 @@ def test_fastmix_kernel_on_card(sm90, m, n, K, wire, track):
                                rtol=2e-5, atol=2e-5)
 
 
+def _ef_close(got, want):
+    got, want = got.cpu().numpy(), want.cpu().numpy()
+    off = ~np.isclose(got, want, rtol=2e-5, atol=2e-5)
+    assert off.mean() <= 1e-3, (off.sum(), off.size)
+    np.testing.assert_allclose(got, want, rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("track", [False, True])
+@pytest.mark.parametrize("m,n,K", [(50, 1500, 8), (7, 33, 3), (16, 100, 0),
+                                   (64, 4096, 8)])
+def test_fastmix_ef_kernel_on_card(sm90, m, n, K, track):
+    rng = np.random.default_rng(m + n + K + 1)
+    L = torch.from_numpy(P.erdos_renyi(m, p=0.5, seed=0).mixing
+                         .astype(np.float32)).cuda()
+    S, G, Gp, E = (torch.from_numpy(rng.standard_normal((m, n))
+                                    .astype(np.float32)).cuda()
+                   for _ in range(4))
+    before = dict(fm.LAUNCHES)
+    if track:
+        got = fm.fastmix_track_ef_fused(S, G, Gp, E, L, 0.3, K)
+        want = fm.fastmix_ef_plain(fm.tracking_update(S, G, Gp), E, L, 0.3,
+                                   K)
+    else:
+        got = fm.fastmix_ef_fused(S, E, L, 0.3, K)
+        want = fm.fastmix_ef_plain(S, E, L, 0.3, K)
+    torch.cuda.synchronize()
+    name = "fastmix_track_ef" if track else "fastmix_ef"
+    assert fm.LAUNCHES[name] == before[name] + 1
+    for g, w in zip(got, want):
+        _ef_close(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wire", [False, True])
+@pytest.mark.parametrize("m,d,k,K", [(50, 300, 5, 8), (8, 40, 3, 4),
+                                     (5, 17, 2, 0), (64, 512, 32, 8)])
+def test_apply_track_kernel_on_card(sm90, m, d, k, K, wire):
+    rng = np.random.default_rng(m + d + k + K)
+    A = rng.standard_normal((m, d, d)).astype(np.float32)
+    A = torch.from_numpy((A + A.transpose(0, 2, 1)) / 2).cuda()
+    W, S, Gp = (torch.from_numpy(rng.standard_normal((m, d, k))
+                                 .astype(np.float32)).cuda()
+                for _ in range(3))
+    L = torch.from_numpy(P.erdos_renyi(m, p=0.5, seed=0).mixing
+                         .astype(np.float32)).cuda()
+    before = fm.LAUNCHES["apply_track"]
+    S_k, G_k = fm.apply_track_fused(A, W, S, Gp, L, 0.3, K, wire_bf16=wire)
+    S_p, G_p = fm.apply_track_plain(A, W, S, Gp, L, 0.3, K, wire_bf16=wire)
+    torch.cuda.synchronize()
+    assert fm.LAUNCHES["apply_track"] == before + 1
+    scale = float(S_p.abs().max()) + 1.0
+    for got, want in ((G_k, G_p), (S_k, S_p)):
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=2e-5, atol=2e-5 * scale)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", [(50, 300, 5), (64, 4096, 32), (257, 100),
                                    (3, 40, 6)])
@@ -87,6 +147,16 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(sm90):
         fm.fastmix_fused(S, L.cpu(), 0.1, 2)
     with pytest.raises(TypeError, match="fp32 or bf16"):
         gm.gram(S.double())
+    with pytest.raises(TypeError, match="fp32"):
+        fm.fastmix_ef_fused(S.double(), S.double(), L, 0.1, 2)
+    with pytest.raises(ValueError, match="fp8"):
+        fm.fastmix_ef_fused(S, S, L, 0.1, 2, wire="int8")
+    A = torch.zeros(4, 6, 6, device="cuda")
+    W = torch.zeros(4, 6, 2, device="cuda")
+    with pytest.raises(TypeError, match="fp32"):
+        fm.apply_track_fused(A.double(), W, W, W, L, 0.1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        fm.apply_track_fused(A.mT, W, W, W, L, 0.1, 2)
 
 
 @pytest.mark.gpu
@@ -105,3 +175,39 @@ def test_slice_cuda_matches_stacked_on_card(sm90):
     Qa, Qb = (P.qr_orth(W.double()) for W in (want.W, got.W))
     gap = torch.linalg.matrix_norm(Qb - Qa @ (Qa.mT @ Qb)).max()
     assert float(gap) < 1e-4
+
+
+@pytest.mark.gpu
+def test_dense_and_ef_paths_launch_their_kernels(sm90):
+    """Dense deepca launches apply_track once per iteration and fastmix_track
+    never; fp8 deepca/depca launch the EF kernels once per iteration; int8
+    launches no EF kernel.  Dense cuda matches stacked within 1e-4."""
+    m, d, k, T = 8, 40, 3, 6
+    rng = np.random.default_rng(0)
+    X = torch.from_numpy(rng.standard_normal((m, 30, d))
+                         .astype(np.float32)).cuda()
+    dense = P.StackedOperators(dense=(X.mT @ X).contiguous())
+    data = P.StackedOperators(data=X)
+    topo = P.erdos_renyi(m, p=0.5, seed=0)
+    W0 = torch.linalg.qr(torch.from_numpy(rng.standard_normal((d, k))
+                                          .astype(np.float32)).cuda()).Q
+    kernels.reset_launch_counts()
+    got = P.deepca(dense, topo, W0, k=k, T=T, K=4, backend="cuda")
+    counts = kernels.launch_counts()
+    assert counts["apply_track"] == T and counts["fastmix_track"] == 0
+    want = P.deepca(dense, topo, W0, k=k, T=T, K=4, backend="stacked")
+    Qa, Qb = (P.qr_orth(W.double()) for W in (want.W, got.W))
+    assert float(torch.linalg.matrix_norm(Qb - Qa @ (Qa.mT @ Qb)).max()) \
+        < 1e-4
+    for algo, key in (("deepca", "fastmix_track_ef"), ("depca", "fastmix_ef")):
+        kernels.reset_launch_counts()
+        res = getattr(P, algo)(data, topo, W0, k=k, T=T, K=4,
+                               backend="cuda", wire_dtype="fp8")
+        assert kernels.launch_counts()[key] == T
+        assert len(res.state) == 4 + 1 and torch.isfinite(res.W).all()
+    kernels.reset_launch_counts()
+    res = P.deepca(data, topo, W0, k=k, T=T, K=4, backend="cuda",
+                   wire_dtype="int8")
+    counts = kernels.launch_counts()
+    assert counts["fastmix_ef"] == counts["fastmix_track_ef"] == 0
+    assert torch.isfinite(res.W).all()

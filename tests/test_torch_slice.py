@@ -154,4 +154,8 @@ def test_unported_features_raise():
                  schedule=object())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         P.deepca(ops, topo, W0.astype(np.float32), k=2, T=1, K=2,
-                 wire_dtype="int8")
+                 engine=object())
+    # the error-feedback wires are ported: int8 runs and carries its slot
+    res = P.deepca(ops, topo, W0.astype(np.float32), k=2, T=1, K=2,
+                   wire_dtype="int8", device="cpu")
+    assert len(res.state) == 4 + 1
