@@ -26,7 +26,16 @@ What it does, in order; any failure raises and the exit code is non-zero:
    holds it to ``BENCH_deepca.json``;
 6. runs a large configuration (m=64, n=4096, d=4096, k=32) with data made
    on the card from a seed; 6b. the same size with dense operators;
-7. prints the ``{"kernels": [...]}`` line and, last, the ``{"ok": ...}``
+7. slice 3: holds the power-matmul and flash-attention kernels against
+   their plain versions at the paths' shapes (timing them beside the
+   library call and the bound); runs centralized PCA through the
+   power-matmul kernel on the w8a and the large mean matrices (exactly T
+   launches each); serves full-width SmolLM-135M with seeded weights
+   (batch 8, prompt 512, 32 greedy tokens) through
+   ``repro_torch.launch.serve.serve_lm`` with the flash kernel on the
+   prefill (exactly 30 launches per prefill, 0 per decode step), and
+   again with the plain attention to compare;
+8. prints the ``{"kernels": [...]}`` line and, last, the ``{"ok": ...}``
    line.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
@@ -47,13 +56,14 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 #: Data-sheet rates (dense, no sparsity, at the full power limit) of the
-#: cards this script knows: HBM bytes/s and fp32 FLOP/s outside the tensor
-#: cores.  Matched against the nvidia-smi name; an unknown card fails.
+#: cards this script knows: HBM bytes/s, fp32 FLOP/s outside the tensor
+#: cores, and bf16 FLOP/s of the tensor cores.  Matched against the
+#: nvidia-smi name; an unknown card fails.
 CARD_PEAKS = (
-    ("H100 PCIe", 2.0e12, 51e12),
-    ("H100 NVL", 3.9e12, 60e12),
-    ("H100", 3.35e12, 67e12),          # H100 SXM5 80GB HBM3
-    ("H200", 4.8e12, 67e12),
+    ("H100 PCIe", 2.0e12, 51e12, 756e12),
+    ("H100 NVL", 3.9e12, 60e12, 835e12),
+    ("H100", 3.35e12, 67e12, 989e12),  # H100 SXM5 80GB HBM3
+    ("H200", 4.8e12, 67e12, 989e12),
 )
 
 #: Tolerances each kernel is held to against its plain version on the card.
@@ -66,6 +76,12 @@ APPLY_TRACK_TOL = 2e-5      # rtol; atol 2e-5 * (max|S| + 1), both outputs
 #: quantization step of its innovation).
 EF_FLIP_SHARE, EF_FLIP_TOL = 1e-3, 2e-3
 SUBSPACE_TOL = 1e-4         # per-agent subspace distance, cuda vs stacked
+POWER_MATMUL_TOL = 1e-5     # rtol; atol 1e-5 * max|G|
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # rtol = atol
+#: LM last-token logits, kernel vs plain attention, bf16: within
+#: LM_BF16_TOL * max|logits| (tests/test_torch_lm.py states the same bound
+#: for the port against the reference)
+LM_BF16_TOL = 5e-2
 
 TF32_OFF = "TF32 must stay off: the port's fp32 is IEEE fp32"
 
@@ -83,9 +99,10 @@ def card_line() -> str:
 
 
 def card_peaks(name: str):
-    for key, bw, flops in CARD_PEAKS:
+    """``(HBM bytes/s, fp32 FLOP/s, bf16 tensor-core FLOP/s)``."""
+    for key, bw, flops, bf16 in CARD_PEAKS:
         if key in name:
-            return bw, flops
+            return bw, flops, bf16
     fail(f"no data-sheet rates for card {name!r}")
 
 
@@ -127,10 +144,11 @@ def time_ms(fn, reps: int = 10, trials: int = 5):
     return statistics.median(dev), statistics.median(host)
 
 
-def bound(nbytes: float, flops: float, peaks):
+def bound(nbytes: float, flops: float, peaks, rate: str = "fp32"):
     """``(bound_ms, bound_by)``: the larger of bytes over HBM bandwidth
-    and fp32 FLOPs over the fp32 peak."""
-    bw, fl = peaks
+    and FLOPs over the peak of ``rate`` (``fp32`` CUDA cores or ``bf16``
+    tensor cores)."""
+    bw, fl = peaks[0], peaks[1 if rate == "fp32" else 2]
     t_bytes, t_ops = nbytes / bw * 1e3, flops / fl * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -306,6 +324,60 @@ def check_fastmix_ef(fm, peaks, m: int, d: int, k: int, K: int,
     return row
 
 
+def check_power_matmul(pm, peaks, a, w, label: str) -> dict:
+    got = pm.power_matmul(a, w)
+    want = pm.power_matmul_plain(a, w)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    ok = bool(torch.allclose(got, want, rtol=POWER_MATMUL_TOL,
+                             atol=POWER_MATMUL_TOL *
+                             float(want.abs().max())))
+    d, k = w.shape
+    row = {"name": "power_matmul", "shape": f"({d}, {d}) @ ({d}, {k}) fp32 "
+           f"{label}", "max_abs_err": err, "tol": POWER_MATMUL_TOL, "ok": ok}
+    row["ms"], row["host_us"] = time_ms(lambda: pm.power_matmul(a, w))
+    row["plain_ms"] = time_ms(lambda: pm.power_matmul_plain(a, w))[0]
+    # the plain version is this very call: one fp32 GEMM, TF32 off
+    row["library_ms"] = time_ms(lambda: torch.matmul(a, w))[0]
+    row["library"] = "torch.matmul(A, W) (TF32 off)"
+    row["bound_ms"], row["bound_by"] = bound(4 * (d * d + 2 * d * k),
+                                             2.0 * d * d * k, peaks)
+    return row
+
+
+def check_flash(fa, peaks, b: int, h: int, hkv: int, s: int, hd: int,
+                dtype, seed: int) -> dict:
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn(b, h, s, hd, generator=g, device="cuda").to(dtype)
+    k, v = (torch.randn(b, hkv, s, hd, generator=g, device="cuda").to(dtype)
+            for _ in range(2))
+    got = fa.flash_attention(q, k, v)
+    want = fa.flash_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    name = str(dtype).split(".")[-1]
+    tol = FLASH_TOL[name]
+    err = float((got.float() - want.float()).abs().max())
+    ok = bool(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol))
+    del got, want
+    row = {"name": "flash_attention",
+           "shape": f"B={b} H={h} Hkv={hkv} S={s} hd={hd} causal {name}",
+           "max_abs_err": err, "tol": tol, "ok": ok}
+    row["ms"], row["host_us"] = time_ms(lambda: fa.flash_attention(q, k, v))
+    row["plain_ms"] = time_ms(lambda: fa.flash_attention_plain(q, k, v),
+                              reps=3, trials=3)[0]
+    kr, vr = (x.repeat_interleave(h // hkv, dim=1) for x in (k, v))
+    row["library_ms"] = time_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, kr, vr, is_causal=True))[0]
+    row["library"] = ("F.scaled_dot_product_attention(q, k, v repeated, "
+                      "is_causal=True)")
+    nbytes = q.element_size() * (2 * b * h * s * hd + 2 * b * hkv * s * hd)
+    flops = 2.0 * b * h * s * s * hd       # the unmasked half, QK^T and PV
+    row["bound_ms"], row["bound_by"] = bound(
+        nbytes, flops, peaks, "bf16" if dtype == torch.bfloat16 else "fp32")
+    return row
+
+
 def print_row(row: dict) -> None:
     lib = row["library_ms"]
     lib = "none" if lib is None else f"{lib:.6f}"
@@ -377,7 +449,6 @@ def breakdown(P, ops, topo, W0, U, K: int, T: int) -> None:
     alone, the trace alone, the trace's spectral norms two ways, and a
     profiler window over a few driver iterations (device busy share and
     the top kernels by device time)."""
-    from torch.profiler import ProfilerActivity, profile
     eng = P.ConsensusEngine.for_algorithm("deepca", topo, K=K,
                                           backend="cuda")
     drv = P.IterationDriver(step=P.PowerStep.for_algorithm("deepca", K),
@@ -400,10 +471,21 @@ def breakdown(P, ops, topo, W0, U, K: int, T: int) -> None:
           f"ms={gram_s * 1e3:.3f} (max abs diff {err:.3e})", flush=True)
 
     iters = 10
+    profile_window(f"driver w8a {iters} iterations", "iteration",
+                   lambda: drv.run(ops, W0, T=iters), units=iters)
+
+
+def profile_window(label: str, unit: str, fn, units: int,
+                   calls: int = 1) -> None:
+    """Device busy share, device ops and top kernels per ``unit`` over
+    ``calls`` calls of ``fn`` (``units`` units in all) under the profiler
+    (the host is slower there: the idle share is an upper bound)."""
+    from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         tic = time.perf_counter()
-        drv.run(ops, W0, T=iters)
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - tic
     rows = []                 # device-side events only (kernels, copies)
@@ -416,15 +498,15 @@ def breakdown(P, ops, topo, W0, U, K: int, T: int) -> None:
         rows.append((dev_us, ev.count, ev.key))
     busy = sum(r[0] for r in rows) / 1e6
     launches = sum(r[1] for r in rows)
-    print(f"profile driver w8a {iters} iterations (under the profiler): "
-          f"wall_ms={wall * 1e3:.3f} device_busy_ms={busy * 1e3:.3f} "
-          f"idle_share={1 - busy / wall:.3f} device_ops_per_iter="
-          f"{launches / iters:.1f}", flush=True)
+    print(f"profile {label} (under the profiler): wall_ms="
+          f"{wall * 1e3:.3f} device_busy_ms={busy * 1e3:.3f} idle_share="
+          f"{1 - busy / wall:.3f} device_ops_per_{unit}="
+          f"{launches / units:.1f}", flush=True)
     if not rows:
         print("profile   no device events captured")
     for dev_us, count, key in sorted(rows, reverse=True)[:8]:
-        print(f"profile   {dev_us / iters:10.1f} us/iter  "
-              f"{count / iters:6.1f} calls/iter  {key[:90]}")
+        print(f"profile   {dev_us / units:10.1f} us/{unit}  "
+              f"{count / units:6.1f} calls/{unit}  {key[:90]}")
 
 
 def main() -> int:
@@ -459,7 +541,9 @@ def main() -> int:
           f"cudnn={torch.backends.cudnn.allow_tf32}", flush=True)
     peaks = card_peaks(card)
     print(f"data-sheet peaks for the bound: {peaks[0] / 1e12:g} TB/s HBM, "
-          f"{peaks[1] / 1e12:g} TFLOP/s fp32 (non-tensor)", flush=True)
+          f"{peaks[1] / 1e12:g} TFLOP/s fp32 (non-tensor), "
+          f"{peaks[2] / 1e12:g} TFLOP/s bf16 (dense tensor cores)",
+          flush=True)
 
     # ---- 2. build every kernel from the checkout's sources
     sec = _build.build_all()
@@ -615,6 +699,7 @@ def main() -> int:
             float(itans[-1]) < 1e-3 * float(itans[0])):
         fail("int8 deepca: non-finite or not converging")
     del res, ref, ref64, ops64, dres, ires
+    w8a = (ops.mean_matrix().contiguous(), W0, U)
 
     # ---- 5. f64 bench grid on the card (no kernel takes f64)
     bench = json.loads((ROOT / "BENCH_deepca.json").read_text())
@@ -663,6 +748,7 @@ def main() -> int:
           f"{gap:.3e} (tol {SUBSPACE_TOL:g})", flush=True)
     if gap > SUBSPACE_TOL:
         fail(f"large deepca cuda vs stacked subspace distance {gap}")
+    large = (big.mean_matrix().contiguous(), W0, U)
     del big, res, ref
 
     # ---- 6b. the same size with dense operators A_j = X_j^T X_j
@@ -698,20 +784,145 @@ def main() -> int:
         fail(f"large dense deepca cuda vs stacked subspace distance {gap}")
     del dense, res, ref
 
-    # ---- 7. the kernels line, then the contract line
+    # ---- 7. slice 3: power matmul and flash attention
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import power_matmul as pm
+    torch.cuda.empty_cache()
+    main_rows["power_matmul"] = check_power_matmul(pm, peaks, w8a[0],
+                                                   w8a[1], "(w8a mean)")
+    main_rows["flash_attention"] = check_flash(fa, peaks, 8, 9, 3, 512, 64,
+                                               torch.bfloat16, 21)
+    new_rows = [
+        check_power_matmul(pm, peaks, large[0], large[1], "(large mean)"),
+        check_flash(fa, peaks, 8, 9, 3, 512, 64, torch.float32, 22),
+        check_flash(fa, peaks, 1, 9, 3, 4096, 64, torch.bfloat16, 23),
+    ]
+    for row in (main_rows["power_matmul"], main_rows["flash_attention"],
+                *new_rows):
+        print_row(row)
+    bad = [r["name"] + " " + r["shape"]
+           for r in (main_rows["power_matmul"], main_rows["flash_attention"],
+                     *new_rows) if not r["ok"]]
+    if bad:
+        fail(f"kernel disagrees with its plain version: {bad}")
+
+    # ---- 7b. centralized PCA through the power-matmul kernel
+    for label, (A, W0, U), T in (("w8a", w8a, 100), ("large", large, 20)):
+        P.centralized_power_method(A, W0, iters=2, U=U)          # warm-up
+        res, sec, counts = counted(kernels, P.centralized_power_method, A,
+                                   W0, iters=T, U=U)
+        tans = res["tan_theta"]
+        cpu = P.centralized_power_method(A.cpu(), W0.cpu(), iters=T,
+                                         U=U.cpu())
+        gap = subspace_gap(res["W"][None], cpu["W"][None].cuda())
+        print(f"centralized {label} d={A.shape[0]} k={W0.shape[1]} T={T} "
+              f"fp32 on the card: us_per_iter={sec / T * 1e6:.1f} "
+              f"tan_theta first={float(tans[0]):.6e} "
+              f"final={float(tans[-1]):.6e} launches={counts}; subspace "
+              f"distance from the CPU run (plain version) {gap:.3e}",
+              flush=True)
+        if label == "w8a":
+            launches["power_matmul"] = counts["power_matmul"]
+        if counts["power_matmul"] != T:
+            fail(f"centralized {label} must launch power_matmul T={T} "
+                 f"times: {counts}")
+        if not (torch.isfinite(res["W"]).all() and torch.isfinite(tans).all()
+                and float(tans[-1]) < float(tans[0])):
+            fail(f"centralized {label}: non-finite or non-decreasing tan")
+        if gap > SUBSPACE_TOL:
+            fail(f"centralized {label}: kernel run {gap} from the CPU run")
+    del w8a, large, res, cpu
+
+    # ---- 7c. LM serving at full width: SmolLM-135M, seeded weights
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import model as PM
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config("smollm_135m")
+    (lm, init_s) = run_timed(PM.init_params, cfg, 0)
+    n_params = sum(p.numel() for p in lm.parameters())
+    batch, prompt_len, gen = 8, 512, 32
+    tokens = serve.prompt_tokens(cfg, batch, prompt_len, 0)
+    serve.serve_lm(cfg, lm, tokens, 2)                           # warm-up
+    kernels.reset_launch_counts()
+    _, cache = PM.prefill(cfg, lm, tokens, max_seq=prompt_len + gen)
+    per_prefill = kernels.launch_counts()["flash_attention"]
+    kernels.reset_launch_counts()
+    PM.decode_step(cfg, lm, cache, tokens[:, :1])
+    per_decode = kernels.launch_counts()["flash_attention"]
+    del cache
+    kernels.reset_launch_counts()
+    res = serve.serve_lm(cfg, lm, tokens, gen)
+    counts = kernels.launch_counts()
+    launches["flash_attention"] = counts["flash_attention"]
+    peak = torch.cuda.max_memory_allocated()
+    print(f"lm serve {cfg.name} ({n_params / 1e6:.1f}M params, fp32 "
+          f"weights {n_params * 4 / 1e9:.2f} GB, init {init_s:.2f} s) "
+          f"batch={batch} prompt={prompt_len} gen={gen} bf16 on the card: "
+          f"prefill_ms={res['prefill_ms']:.3f} decode_ms_per_token="
+          f"{res['decode_ms_per_token']:.3f} tok_s={res['tok_s']:.1f} "
+          f"max_memory_allocated={peak / 2 ** 30:.3f} GiB; flash launches "
+          f"per prefill {per_prefill}, per decode step {per_decode}, in "
+          f"the served call {counts['flash_attention']}", flush=True)
+    print(f"lm first tokens {res['tokens'][:2, :8].tolist()}", flush=True)
+    if per_prefill != cfg.n_layers or per_decode != 0 or \
+            counts["flash_attention"] != cfg.n_layers:
+        fail(f"flash launches: {per_prefill} per prefill (want "
+             f"{cfg.n_layers}), {per_decode} per decode step (want 0), "
+             f"{counts['flash_attention']} in the served call")
+    state = {}
+
+    def lm_prefill():
+        state["cache"] = PM.prefill(cfg, lm, tokens,
+                                    max_seq=prompt_len + gen)[1]
+
+    def lm_decode():        # the same cache slot every call (pos stays)
+        PM.decode_step(cfg, lm, state["cache"], tokens[:, :1])
+
+    profile_window("lm prefill batch 8 prompt 512, 2 calls", "prefill",
+                   lm_prefill, units=2, calls=2)
+    profile_window("lm decode batch 8, 5 steps", "step", lm_decode,
+                   units=5, calls=5)
+    del state
+    plain = serve.serve_lm(cfg, lm, tokens, gen, attention="plain")
+    got, want = res["first_logits"].float(), plain["first_logits"].float()
+    diff = float((got - want).abs().max())
+    tol = LM_BF16_TOL * float(want.abs().max())
+    agree = float((res["tokens"] == plain["tokens"]).float().mean())
+    top2 = want.topk(2, dim=-1).values
+    decisive = (top2[:, 0] - top2[:, 1]) > 2 * diff
+    first_same = bool((res["tokens"][:, 0] == plain["tokens"][:, 0])
+                      [decisive].all())
+    print(f"lm kernel vs plain attention: prefill_ms plain "
+          f"{plain['prefill_ms']:.3f}; last-token logits max abs diff "
+          f"{diff:.4e} (tol {tol:.4e} = {LM_BF16_TOL:g} x max|logits|); "
+          f"greedy tokens agree on {agree:.4f} of {batch} x {gen}; first "
+          f"token equal on all {int(decisive.sum())} rows whose top-2 gap "
+          f"exceeds 2 x diff: {first_same}", flush=True)
+    if not (torch.isfinite(got).all() and res["tokens"].shape ==
+            (batch, gen) and diff <= tol and first_same):
+        fail("lm serve: kernel and plain attention disagree")
+    del lm, res, plain
+
+    # ---- 8. the kernels line, then the contract line
     csrc = "src/repro_torch/kernels/csrc/"
     sources = {"fastmix_track": csrc + "fastmix.cu",
                "fastmix": csrc + "fastmix.cu",
                "gram": csrc + "gram.cu",
                "apply_track": csrc + "apply_track.cu",
                "fastmix_track_ef": csrc + "fastmix_ef.cu",
-               "fastmix_ef": csrc + "fastmix_ef.cu"}
+               "fastmix_ef": csrc + "fastmix_ef.cu",
+               "power_matmul": csrc + "power_matmul.cu",
+               "flash_attention": csrc + "flash_attention.cu"}
     replaces = {"fastmix_track": "src/repro/kernels/fastmix.py:484",
                 "fastmix": "src/repro/kernels/fastmix.py:331",
                 "gram": "src/repro/kernels/gram.py:70",
                 "apply_track": "src/repro/kernels/fastmix.py:797",
                 "fastmix_track_ef": "src/repro/kernels/fastmix.py:565",
-                "fastmix_ef": "src/repro/kernels/fastmix.py:401"}
+                "fastmix_ef": "src/repro/kernels/fastmix.py:401",
+                "power_matmul": "src/repro/kernels/power_matmul.py:71",
+                "flash_attention": "src/repro/kernels/flash_attention.py:96"}
     if any(launches[name] <= 0 for name in main_rows):
         fail(f"a kernel was not launched on its path: {launches}")
     line = {"kernels": [

@@ -60,3 +60,40 @@ def state(st, device=None) -> tuple:
     if off is not None:
         out = out + (torch.as_tensor(np.array(off, dtype=np.int32)),)
     return out
+
+
+def lm_params_from_reference(params, cfg, device=None):
+    """The reference's LM parameter pytree (``repro.models.init_params``,
+    leaves as numpy arrays) as the port's :class:`~.models.model.LM`.
+
+    ``params["groups"][i]`` stacks the ``cfg.n_groups`` repeats of pattern
+    slot ``i`` on a leading axis; group ``g`` of slot ``i`` becomes layer
+    ``g * len(cfg.pattern) + i``.  Weights keep the reference's
+    ``(d_in, d_out)`` layout (no transpose) and their dtype, values
+    bit-identical.
+    """
+    from .models.model import LM
+    dev = resolve_device(device)
+
+    def leaf(x) -> torch.Tensor:
+        return as_tensor(np.asarray(x), dev)
+
+    state = {"embed": leaf(params["embed"]),
+             "final_norm": leaf(params["final_norm"])}
+    if "lm_head" in params:
+        state["lm_head"] = leaf(params["lm_head"])
+    width = len(cfg.pattern)
+
+    def walk(prefix: str, node, g: int) -> None:
+        if isinstance(node, dict):
+            for key, child in node.items():
+                walk(f"{prefix}.{key}", child, g)
+        else:
+            state[prefix] = leaf(np.asarray(node)[g])
+
+    for i, slot in enumerate(params["groups"]):
+        for g in range(cfg.n_groups):
+            walk(f"layers.{g * width + i}", slot, g)
+    model = LM(cfg, device=dev, dtype=state["embed"].dtype)
+    model.load_state_dict(state, strict=True)
+    return model

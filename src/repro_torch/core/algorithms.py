@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from .._device import as_tensor, resolve_device
+from ..kernels.power_matmul import power_matmul
 from . import metrics
 from .consensus import ConsensusEngine
 from .driver import IterationDriver
@@ -65,16 +66,27 @@ class DecentralizedPCAResult:
     state: Optional[tuple] = None
 
 
+def _power_step(A: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
+    """``A @ W``: f64 stays on the torch path (it never enters a kernel);
+    everything else goes to the power-matmul wrapper, which launches its
+    kernel on the card and runs its plain version on the CPU."""
+    if A.dtype == torch.float64 or W.dtype == torch.float64:
+        return A @ W
+    return power_matmul(A, W.contiguous())
+
+
 def centralized_power_method(A, W0, iters: int, U=None, *,
                              device=None) -> Dict:
-    """Reference centralized PCA (power method with QR)."""
+    """Reference centralized PCA (power method with QR).  In fp32 on the
+    card each iteration's ``A @ W`` is one launch of the power-matmul
+    kernel."""
     dev = A.device if isinstance(A, torch.Tensor) else resolve_device(device)
     A = as_tensor(A, dev)
     W0 = as_tensor(W0, dev)
     U = as_tensor(U, dev) if U is not None else None
     W, errs = W0, []
     for _ in range(int(iters)):
-        W = sign_adjust(qr_orth(A @ W), W0)
+        W = sign_adjust(qr_orth(_power_step(A, W)), W0)
         errs.append(metrics.tan_theta_k(U, W) if U is not None
                     else torch.tensor(float("nan"), device=dev))
     tan = torch.stack(errs) if errs else torch.empty(0, device=dev)

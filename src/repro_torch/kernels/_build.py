@@ -26,7 +26,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
-SOURCES = ("fastmix", "gram", "fastmix_ef", "apply_track")
+SOURCES = ("fastmix", "gram", "fastmix_ef", "apply_track", "power_matmul",
+           "flash_attention")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

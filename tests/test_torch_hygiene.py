@@ -31,7 +31,10 @@ def _env():
 def test_import_leaves_jax_and_reference_out():
     code = (
         "import sys, repro_torch, repro_torch.core, repro_torch.convert, "
-        "repro_torch.kernels.cholqr, repro_torch.runtime\n"
+        "repro_torch.kernels.cholqr, repro_torch.runtime, "
+        "repro_torch.models, repro_torch.configs, "
+        "repro_torch.configs.smollm_135m, repro_torch.launch.serve, "
+        "repro_torch.launch.steps\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "from repro_torch.kernels import _build\n"
@@ -71,6 +74,26 @@ def test_default_device_is_the_card():
             P.libsvm_like(2, 3, 8)
 
 
+def test_lm_entry_points_default_to_the_card():
+    """The LM's init, cache and serve CLI take the card unless asked for the
+    CPU; on a host without CUDA torch's own error surfaces."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch import serve
+    from repro_torch.models import model as PM
+    cfg = get_reduced("smollm_135m")
+    assert serve.run_lm.__kwdefaults__["device"] is None
+    assert serve.prompt_tokens.__defaults__ == (None,)    # device
+    assert PM.init_params(cfg, 0, device="cpu").embed.device.type == "cpu"
+    if not torch.cuda.is_available():
+        with pytest.raises((RuntimeError, AssertionError)):
+            PM.init_params(cfg, 0)
+        with pytest.raises((RuntimeError, AssertionError)):
+            PM.init_cache(cfg, 1, 4)
+        with pytest.raises((RuntimeError, AssertionError)):
+            serve.main(["--reduced", "--batch", "1", "--prompt-len", "2",
+                        "--gen", "1"])
+
+
 def test_chip_smoke_refuses_without_a_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a card is present: chip_smoke.py would run in full")
@@ -91,8 +114,8 @@ def test_build_rules_without_nvcc(monkeypatch):
     back."""
     assert sorted(_build.SOURCES) == sorted(
         p.stem for p in _build.CSRC.glob("*.cu"))
-    assert {"fastmix", "gram", "fastmix_ef", "apply_track"} <= set(
-        _build.SOURCES)
+    assert {"fastmix", "gram", "fastmix_ef", "apply_track", "power_matmul",
+            "flash_attention"} <= set(_build.SOURCES)
     paths = [_build._lib_path(name) for name in _build.SOURCES]
     assert len(set(paths)) == len(paths)
     for name, path in zip(_build.SOURCES, paths):
@@ -103,3 +126,41 @@ def test_build_rules_without_nvcc(monkeypatch):
     monkeypatch.setattr(_build, "Path", lambda *_: Path("/nonexistent"))
     with pytest.raises(RuntimeError, match="nvcc"):
         _build._nvcc()
+
+
+def _entries():
+    from repro_torch.kernels import fastmix, flash_attention, gram
+    from repro_torch.kernels import power_matmul
+    return {"gram": gram._entry, "fastmix": fastmix._entry,
+            "fastmix_ef": fastmix._ef_entry,
+            "apply_track": fastmix._apply_track_entry,
+            "power_matmul": power_matmul._entry,
+            "flash_attention": flash_attention._entry}
+
+
+@pytest.mark.parametrize("source", sorted(_build.SOURCES))
+def test_ctypes_signature_matches_the_c_entry_point(source, monkeypatch):
+    """Each wrapper declares as many ctypes arguments as its C entry point
+    takes (a missing or extra one would shift every argument after it)."""
+    import re
+    import types
+
+    class Lib:
+        def __getattr__(self, name):
+            fn = types.SimpleNamespace(name=name)
+            seen.append(fn)
+            return fn
+
+    seen = []
+    monkeypatch.setattr(_build, "load", lambda name: (
+        loaded.append(name), Lib())[1])
+    loaded = []
+    _entries()[source]()
+    assert loaded == [source] and len(seen) == 1
+    fn = seen[0]
+    text = (_build.CSRC / f"{source}.cu").read_text()
+    c_api = text[text.index('extern "C"'):]
+    sig = re.search(rf"\bint {fn.name}\(([^)]*)\)", c_api)
+    assert sig is not None, fn.name
+    n_params = len([p for p in sig.group(1).split(",") if p.strip()])
+    assert len(fn.argtypes) == n_params, (fn.name, fn.argtypes)

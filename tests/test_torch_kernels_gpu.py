@@ -13,7 +13,12 @@ outputs; fp8-EF FastMix rtol = atol = 2e-5 for all but 1e-3 of the
 elements and 2e-3 for those (a sum-order difference may flip a sent value
 to the other fp8 neighbour, see test_torch_wire_ef.py); Gram rtol 1e-5
 (fp32) / 2e-2 (bf16) with atol scaled by max|G|; the whole slice, cuda
-vs stacked backend, per-agent subspace distance 1e-4.
+vs stacked backend, per-agent subspace distance 1e-4; power matmul rtol
+1e-5 with atol 1e-5 * max|G| (one fp32 FMA chain per output against the
+library's order); flash attention rtol = atol = 2e-5 (fp32) and 2e-2
+(bf16: one bf16 rounding of the output may fall either side); the LM's
+last-token logits, kernel vs plain attention, within 5e-2 * max|logits|
+in bf16 (LM_BF16_TOL of test_torch_lm.py) and 1e-4 in fp32.
 """
 import numpy as np
 import pytest
@@ -22,7 +27,9 @@ import torch
 from repro_torch import core as P
 from repro_torch import kernels
 from repro_torch.kernels import fastmix as fm
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import gram as gm
+from repro_torch.kernels import power_matmul as pm
 
 
 @pytest.fixture
@@ -211,3 +218,155 @@ def test_dense_and_ef_paths_launch_their_kernels(sm90):
     counts = kernels.launch_counts()
     assert counts["fastmix_ef"] == counts["fastmix_track_ef"] == 0
     assert torch.isfinite(res.W).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,k", [(300, 5), (4096, 32), (257, 33), (16, 1),
+                                 (130, 70)])
+def test_power_matmul_kernel_on_card(sm90, d, k):
+    rng = np.random.default_rng(d + k)
+    a = torch.from_numpy(rng.standard_normal((d, d)).astype(np.float32)
+                         ).cuda()
+    w = torch.from_numpy(rng.standard_normal((d, k)).astype(np.float32)
+                         ).cuda()
+    before = pm.LAUNCHES["power_matmul"]
+    got = pm.power_matmul(a, w)
+    want = pm.power_matmul_plain(a, w)
+    torch.cuda.synchronize()
+    assert pm.LAUNCHES["power_matmul"] == before + 1
+    scale = float(want.abs().max())
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5 * scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,hkv,sq,skv,hd", [
+    (8, 9, 3, 512, 512, 64), (2, 4, 2, 40, 40, 64), (2, 4, 1, 100, 100, 128), (1, 2, 2, 70, 130, 64),
+    (1, 3, 1, 130, 70, 128), (1, 1, 1, 1, 1, 64)])
+def test_flash_attention_kernel_on_card(sm90, b, h, hkv, sq, skv, hd, dtype,
+                                        causal):
+    rng = np.random.default_rng(b + h + hkv + sq + skv + hd)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                                ).to(dtype).cuda()
+               for shape in ((b, h, sq, hd), (b, hkv, skv, hd),
+                             (b, hkv, skv, hd)))
+    before = fa.LAUNCHES["flash_attention"]
+    got = fa.flash_attention(q, k, v, causal=causal)
+    want = fa.flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.gpu
+def test_flash_attention_long_prompt_on_card(sm90):
+    """B=1, S=4096: the length at which the reference model switches to
+    its chunked attention; bf16, causal, the LM's heads."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q = torch.randn(1, 9, 4096, 64, generator=g, device="cuda").bfloat16()
+    k, v = (torch.randn(1, 3, 4096, 64, generator=g, device="cuda")
+            .bfloat16() for _ in range(2))
+    got = fa.flash_attention(q, k, v)
+    want = fa.flash_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=2e-2,
+                               atol=2e-2)
+
+
+@pytest.mark.gpu
+def test_flash_attention_kv_head_order_on_card(sm90):
+    """Query head h reads kv head h // (H // Hkv): swapping in the tiled
+    order of ``Tensor.repeat`` must change the result."""
+    rng = np.random.default_rng(0)
+    q = torch.from_numpy(rng.standard_normal((1, 4, 64, 64))
+                         .astype(np.float32)).cuda()
+    k, v = (torch.from_numpy(rng.standard_normal((1, 2, 64, 64))
+                             .astype(np.float32)).cuda() for _ in range(2))
+    got = fa.flash_attention(q, k, v)
+    interleaved = fa.flash_attention(q, k.repeat_interleave(2, 1).contiguous(),
+                                     v.repeat_interleave(2, 1).contiguous())
+    tiled = fa.flash_attention(q, k.repeat(1, 2, 1, 1).contiguous(),
+                               v.repeat(1, 2, 1, 1).contiguous())
+    torch.cuda.synchronize()
+    assert torch.allclose(got, interleaved, rtol=2e-5, atol=2e-5)
+    assert not torch.allclose(got, tiled, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.gpu
+def test_new_wrappers_refuse_what_the_kernels_do_not_take(sm90):
+    a = torch.zeros(8, 8, device="cuda")
+    w = torch.zeros(8, 2, device="cuda")
+    with pytest.raises(TypeError, match="fp32"):
+        pm.power_matmul(a.double(), w.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        pm.power_matmul(a.T, w)
+    with pytest.raises(ValueError, match="square"):
+        pm.power_matmul(w, w)
+    q = torch.zeros(1, 2, 8, 32, device="cuda")
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention(q, q, q)
+    q = torch.zeros(1, 2, 8, 64, device="cuda")
+    with pytest.raises(TypeError, match="fp32 or"):
+        fa.flash_attention(q, q.bfloat16(), q)
+    with pytest.raises(TypeError, match="fp32 or"):
+        fa.flash_attention(q.double(), q.double(), q.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention(q.transpose(1, 2), q.transpose(1, 2),
+                           q.transpose(1, 2))
+    with pytest.raises(ValueError, match="multiple"):
+        fa.flash_attention(torch.zeros(1, 3, 8, 64, device="cuda"), q, q)
+
+
+@pytest.mark.gpu
+def test_centralized_power_method_launches_power_matmul(sm90):
+    rng = np.random.default_rng(0)
+    X = rng.standard_normal((200, 60))
+    A = torch.from_numpy((X.T @ X / 200).astype(np.float32)).cuda()
+    W0 = torch.from_numpy(np.linalg.qr(rng.standard_normal((60, 4)))[0]
+                          .astype(np.float32)).cuda()
+    kernels.reset_launch_counts()
+    got = P.centralized_power_method(A, W0, iters=20)
+    assert kernels.launch_counts()["power_matmul"] == 20
+    want = P.centralized_power_method(A.cpu(), W0.cpu(), iters=20)
+    np.testing.assert_allclose(got["W"].cpu().numpy(), want["W"].numpy(),
+                               rtol=0, atol=1e-4)
+    kernels.reset_launch_counts()
+    P.centralized_power_method(A.double(), W0.double(), iters=3)
+    assert kernels.launch_counts()["power_matmul"] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_lm_kernel_and_plain_attention_agree_on_card(sm90, dtype):
+    """A small LM with the published head_dim 64: the prefill launches the
+    flash kernel once per layer, a decode step never, and the last-token
+    logits of kernel and plain attention agree (bf16 within 5e-2 *
+    max|logits|, fp32 within 1e-4)."""
+    import dataclasses
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import model as PM
+    cfg = dataclasses.replace(get_reduced("smollm_135m"), head_dim=64,
+                              n_layers=3, dtype=dtype)
+    lm = PM.init_params(cfg, 0)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (4, 100))).cuda()
+    kernels.reset_launch_counts()
+    got, cache = PM.prefill(cfg, lm, toks, max_seq=104)
+    assert kernels.launch_counts()["flash_attention"] == cfg.n_layers
+    want, _ = PM.prefill(cfg, lm, toks, max_seq=104, attention="plain")
+    assert kernels.launch_counts()["flash_attention"] == cfg.n_layers
+    kernels.reset_launch_counts()
+    PM.decode_step(cfg, lm, cache, got.argmax(-1)[:, None])
+    assert kernels.launch_counts()["flash_attention"] == 0
+    torch.cuda.synchronize()
+    tol = 5e-2 * float(want.float().abs().max()) if dtype == "bfloat16" \
+        else 1e-4
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=0, atol=tol)
