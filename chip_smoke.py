@@ -28,12 +28,14 @@ What it does, in order; any failure raises and the exit code is non-zero:
    on the card from a seed; 6b. the same size with dense operators;
 7. slice 3: holds the power-matmul and flash-attention kernels against
    their plain versions at the paths' shapes (timing them beside the
-   library call and the bound); runs centralized PCA through the
-   power-matmul kernel on the w8a and the large mean matrices (exactly T
-   launches each); serves full-width SmolLM-135M with seeded weights
-   (batch 8, prompt 512, 32 greedy tokens) through
+   library call and the bound; flash takes strided q, k, v in the LM's
+   layout, in bf16 at hd 64 and 128 and in fp32); runs centralized PCA
+   through the power-matmul kernel on the w8a and the large mean
+   matrices (exactly T launches each); serves full-width SmolLM-135M
+   with seeded weights (batch 8, prompt 512, 32 greedy tokens) through
    ``repro_torch.launch.serve.serve_lm`` with the flash kernel on the
-   prefill (exactly 30 launches per prefill, 0 per decode step), and
+   prefill (exactly 30 launches per prefill, 0 per decode step; the
+   prefill's profile window gives flash's device time and share), and
    again with the plain attention to compare;
 8. prints the ``{"kernels": [...]}`` line and, last, the ``{"ok": ...}``
    line.
@@ -347,10 +349,13 @@ def check_power_matmul(pm, peaks, a, w, label: str) -> dict:
 
 def check_flash(fa, peaks, b: int, h: int, hkv: int, s: int, hd: int,
                 dtype, seed: int) -> dict:
+    """q, k, v in the LM's layout: (B, S, heads, hd) tensors transposed to
+    (B, heads, S, hd) views, as ``sdpa`` hands them to the wrapper."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    q = torch.randn(b, h, s, hd, generator=g, device="cuda").to(dtype)
-    k, v = (torch.randn(b, hkv, s, hd, generator=g, device="cuda").to(dtype)
+    q = torch.randn(b, s, h, hd, generator=g, device="cuda").to(dtype)
+    k, v = (torch.randn(b, s, hkv, hd, generator=g, device="cuda").to(dtype)
             for _ in range(2))
+    q, k, v = (x.transpose(1, 2) for x in (q, k, v))
     got = fa.flash_attention(q, k, v)
     want = fa.flash_attention_plain(q, k, v)
     torch.cuda.synchronize()
@@ -360,7 +365,8 @@ def check_flash(fa, peaks, b: int, h: int, hkv: int, s: int, hd: int,
     ok = bool(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol))
     del got, want
     row = {"name": "flash_attention",
-           "shape": f"B={b} H={h} Hkv={hkv} S={s} hd={hd} causal {name}",
+           "shape": f"B={b} H={h} Hkv={hkv} S={s} hd={hd} causal {name} "
+                    f"(strided, the LM's layout)",
            "max_abs_err": err, "tol": tol, "ok": ok}
     row["ms"], row["host_us"] = time_ms(lambda: fa.flash_attention(q, k, v))
     row["plain_ms"] = time_ms(lambda: fa.flash_attention_plain(q, k, v),
@@ -476,10 +482,12 @@ def breakdown(P, ops, topo, W0, U, K: int, T: int) -> None:
 
 
 def profile_window(label: str, unit: str, fn, units: int,
-                   calls: int = 1) -> None:
+                   calls: int = 1, focus: str = "") -> None:
     """Device busy share, device ops and top kernels per ``unit`` over
     ``calls`` calls of ``fn`` (``units`` units in all) under the profiler
-    (the host is slower there: the idle share is an upper bound)."""
+    (the host is slower there: the idle share is an upper bound).  With
+    ``focus``, also the device time per ``unit`` of the kernels whose name
+    holds it, and their share of the busy time."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -502,6 +510,12 @@ def profile_window(label: str, unit: str, fn, units: int,
           f"{wall * 1e3:.3f} device_busy_ms={busy * 1e3:.3f} idle_share="
           f"{1 - busy / wall:.3f} device_ops_per_{unit}="
           f"{launches / units:.1f}", flush=True)
+    if focus:
+        mine = sum(r[0] for r in rows if focus in r[2]) / 1e6
+        print(f"profile   {focus}: device_ms_per_{unit}="
+              f"{mine * 1e3 / units:.3f} of device_busy_ms_per_{unit}="
+              f"{busy * 1e3 / units:.3f} (share {mine / max(busy, 1e-12):.3f})",
+              flush=True)
     if not rows:
         print("profile   no device events captured")
     for dev_us, count, key in sorted(rows, reverse=True)[:8]:
@@ -796,6 +810,7 @@ def main() -> int:
         check_power_matmul(pm, peaks, large[0], large[1], "(large mean)"),
         check_flash(fa, peaks, 8, 9, 3, 512, 64, torch.float32, 22),
         check_flash(fa, peaks, 1, 9, 3, 4096, 64, torch.bfloat16, 23),
+        check_flash(fa, peaks, 1, 9, 3, 4096, 128, torch.bfloat16, 24),
     ]
     for row in (main_rows["power_matmul"], main_rows["flash_attention"],
                 *new_rows):
@@ -881,7 +896,7 @@ def main() -> int:
         PM.decode_step(cfg, lm, state["cache"], tokens[:, :1])
 
     profile_window("lm prefill batch 8 prompt 512, 2 calls", "prefill",
-                   lm_prefill, units=2, calls=2)
+                   lm_prefill, units=2, calls=2, focus="flash_fwd")
     profile_window("lm decode batch 8, 5 steps", "step", lm_decode,
                    units=5, calls=5)
     del state

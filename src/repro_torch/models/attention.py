@@ -66,18 +66,19 @@ class Attention(nn.Module):
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
          causal: bool, q_offset: int = 0,
          attention: str = "kernel") -> torch.Tensor:
-    """q (B, H, Sq, hd), k and v (B, Hkv, Skv, hd) -> (B, H, Sq, hd).
+    """q (B, H, Sq, hd), k and v (B, Hkv, Skv, hd) -> (B, H, Sq, hd), a
+    view of a ``(B, Sq, H, hd)``-contiguous result.
 
     The causal prefill goes to the flash wrapper (kernel on the card);
-    everything else, and ``attention="plain"``, to its plain version.
+    everything else, and ``attention="plain"``, to its plain version.  Both
+    take the operands as the strided views they are: no copy.
     """
     if attention not in ATTENTION_PATHS:
         raise ValueError(f"attention must be one of {ATTENTION_PATHS}, got "
                          f"{attention!r}")
     if attention == "kernel" and causal and q_offset == 0 \
             and q.shape[2] == k.shape[2]:
-        return flash_attention(q.contiguous(), k.contiguous(),
-                               v.contiguous(), causal=True)
+        return flash_attention(q, k, v, causal=True)
     return flash_attention_plain(q, k, v, causal=causal, q_offset=q_offset)
 
 

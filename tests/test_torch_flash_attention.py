@@ -11,6 +11,12 @@ used only where Sq == Skv, where the two agree.
 Tolerances: fp32 rtol = atol = 2e-5 (both sides run the softmax in fp32;
 the sums are taken in other orders); bf16 rtol = atol = 2e-2 (the output
 is rounded to bf16 once, and one rounding may fall either side).
+
+The bf16 CUDA kernel rounds at other places than the plain version (P is
+rounded to bf16 before the P V product, and the softmax takes exp2 with
+the scale folded into one FFMA); ``_emulate_bf16_kernel`` repeats that
+arithmetic in torch so that the CPU run holds it to the plain version at
+the kernel's tolerance, 2e-2.
 """
 import numpy as np
 import jax.numpy as jnp
@@ -175,3 +181,115 @@ def test_wrapper_rejects_bad_shapes_and_devices():
     with pytest.raises(ValueError, match="cuda or cpu"):
         m = torch.zeros(1, 4, 8, 16, device="meta")
         fa.flash_attention(m, m, m)
+
+
+def _emulate_bf16_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         causal: bool) -> torch.Tensor:
+    """The bf16 kernel's arithmetic, tile by tile: fp32 dots of the bf16
+    q and k (exact products, fp32 sums), the running max on the unscaled
+    scores, ``p = 2^(s c - m c)`` with ``c = fp32(fp32(1/sqrt(hd)) *
+    fp32(log2 e))`` and one rounding for the FFMA, the row sum of the fp32
+    p, P rounded to bf16 before an fp32-accumulated P V, then
+    ``acc / (l == 0 ? 1 : l)`` rounded to bf16.  64-column kv tiles,
+    ascending; tiles past the diagonal change nothing (their p is 0 and
+    their alpha 1), so they are not skipped here."""
+    rep = q.shape[1] // k.shape[1]
+    hd, sq, skv = q.shape[-1], q.shape[2], k.shape[2]
+    c = np.float32(np.float32(1.0 / hd ** 0.5) *
+                   np.float32(1.4426950408889634))
+    qf = q.float()
+    kf, vf = (x.float().repeat_interleave(rep, dim=1) for x in (k, v))
+    rows = torch.arange(sq)[:, None]
+    m = torch.full((*q.shape[:3], 1), -1e30)
+    l = torch.zeros(*q.shape[:3], 1)
+    acc = torch.zeros(q.shape)
+    for kv0 in range(0, skv, 64):
+        s = qf @ kf[:, :, kv0:kv0 + 64].mT
+        if causal:
+            cols = torch.arange(kv0, min(kv0 + 64, skv))[None, :]
+            s = s.masked_fill(rows < cols, -1e30)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        alpha = torch.exp2((m - m_new) * c)
+        p = torch.exp2((s.double() * float(c) -
+                        (m_new * c).double()).float())
+        l = alpha * l + p.sum(dim=-1, keepdim=True)
+        acc = alpha * acc + p.bfloat16().float() @ vf[:, :, kv0:kv0 + 64]
+        m = m_new
+    return (acc / torch.where(l == 0, torch.ones_like(l), l)).bfloat16()
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("sq,skv,causal", [
+    (64, 64, True), (512, 512, True), (1024, 1024, True), (512, 512, False),
+    (100, 300, True), (300, 100, True), (100, 300, False),
+    (300, 100, False)])
+def test_bf16_kernel_rounding_within_tolerance_of_plain(sq, skv, causal, hd):
+    """GQA 9/3: the emulated bf16 kernel against the plain version (fp32
+    P) at rtol = atol = 2e-2, the kernel's on-card tolerance."""
+    rng = np.random.default_rng(sq + 7 * skv + hd + causal)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).bfloat16()
+        for shape in ((1, 9, sq, hd), (1, 3, skv, hd), (1, 3, skv, hd)))
+    got = _emulate_bf16_kernel(q, k, v, causal)
+    want = fa.flash_attention_plain(q, k, v, causal=causal)
+    np.testing.assert_allclose(got.float().numpy(), want.float().numpy(),
+                               rtol=TOL["bfloat16"], atol=TOL["bfloat16"])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wrapper_takes_lm_layout_views_and_returns_heads_last(dtype):
+    """The wrapper takes (B, S, H, hd) tensors transposed to (B, H, S, hd)
+    views; its result equals the contiguous call's and is a (B, H, Sq, hd)
+    view of a (B, Sq, H, hd)-contiguous buffer (so merging the heads
+    afterwards is free)."""
+    rng = np.random.default_rng(13)
+    b, h, hkv, s, hd = 2, 6, 2, 70, 16
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(getattr(torch, dtype)).transpose(1, 2)
+        for shape in ((b, s, h, hd), (b, s, hkv, hd), (b, s, hkv, hd)))
+    assert not q.is_contiguous()
+    got = fa.flash_attention(q, k, v)
+    want = fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
+    assert torch.equal(got, want)
+    for out in (got, want, fa.flash_attention_plain(q, k, v)):
+        assert out.shape == (b, h, s, hd) and out.dtype == q.dtype
+        assert out.transpose(1, 2).is_contiguous()
+    np.testing.assert_allclose(got.float().numpy(), fa.flash_attention_plain(
+        q.contiguous(), k.contiguous(), v.contiguous()).float().numpy(),
+        rtol=TOL[dtype], atol=TOL[dtype])
+
+
+def test_sdpa_passes_its_operands_without_copies(monkeypatch):
+    """``sdpa`` hands q, k, v to the flash wrapper as they are, and the
+    model's attention hands it the transposed views of its projections:
+    no ``.contiguous()`` copy on the way in, and a free head merge on the
+    way out."""
+    import dataclasses
+    from repro_torch import configs as PC
+    from repro_torch.models import attention as PA
+    from repro_torch.models import model as PM
+    seen = []
+
+    def record(q, k, v, *, causal):
+        seen.append((q, k, v))
+        return fa.flash_attention(q, k, v, causal=causal)
+
+    monkeypatch.setattr(PA, "flash_attention", record)
+    rng = np.random.default_rng(17)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 12, 4, 16)).astype(
+        np.float32)).transpose(1, 2) for _ in range(3))
+    PA.sdpa(q, k[:, :2], v[:, :2], causal=True)
+    assert seen[0][0] is q
+    assert all(a.data_ptr() == b.data_ptr() and a.stride() == b.stride()
+               for a, b in zip(seen[0], (q, k[:, :2], v[:, :2])))
+
+    seen.clear()
+    cfg = dataclasses.replace(PC.get_reduced("smollm_135m"), n_layers=2)
+    lm = PM.init_params(cfg, 0, device="cpu")
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 20)))
+    got, _ = PM.prefill(cfg, lm, toks, max_seq=24)
+    assert len(seen) == cfg.n_layers
+    for x in (t for ops in seen for t in ops):
+        assert not x.is_contiguous() and x.transpose(1, 2).is_contiguous()
+    want, _ = PM.prefill(cfg, lm, toks, max_seq=24, attention="plain")
+    assert torch.equal(got, want)

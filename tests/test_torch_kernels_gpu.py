@@ -240,24 +240,32 @@ def test_power_matmul_kernel_on_card(sm90, d, k):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["contiguous", "lm"])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,h,hkv,sq,skv,hd", [
     (8, 9, 3, 512, 512, 64), (2, 4, 2, 40, 40, 64), (2, 4, 1, 100, 100, 128), (1, 2, 2, 70, 130, 64),
     (1, 3, 1, 130, 70, 128), (1, 1, 1, 1, 1, 64)])
 def test_flash_attention_kernel_on_card(sm90, b, h, hkv, sq, skv, hd, dtype,
-                                        causal):
+                                        causal, layout):
+    """``layout="lm"`` passes the LM's own operands: (B, S, H, hd) tensors
+    transposed to (B, H, S, hd) views, read through their strides."""
     rng = np.random.default_rng(b + h + hkv + sq + skv + hd)
     q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
                                 ).to(dtype).cuda()
-               for shape in ((b, h, sq, hd), (b, hkv, skv, hd),
-                             (b, hkv, skv, hd)))
+               for shape in ((b, sq, h, hd), (b, skv, hkv, hd),
+                             (b, skv, hkv, hd)))
+    q, k, v = (x.transpose(1, 2) for x in (q, k, v))
+    if layout == "contiguous":
+        q, k, v = (x.contiguous() for x in (q, k, v))
     before = fa.LAUNCHES["flash_attention"]
     got = fa.flash_attention(q, k, v, causal=causal)
-    want = fa.flash_attention_plain(q, k, v, causal=causal)
+    want = fa.flash_attention_plain(q.contiguous(), k.contiguous(),
+                                    v.contiguous(), causal=causal)
     torch.cuda.synchronize()
     assert fa.LAUNCHES["flash_attention"] == before + 1
     assert got.dtype == dtype and got.shape == q.shape
+    assert got.transpose(1, 2).is_contiguous()
     tol = 2e-5 if dtype == torch.float32 else 2e-2
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(), rtol=tol,
@@ -265,12 +273,13 @@ def test_flash_attention_kernel_on_card(sm90, b, h, hkv, sq, skv, hd, dtype,
 
 
 @pytest.mark.gpu
-def test_flash_attention_long_prompt_on_card(sm90):
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_attention_long_prompt_on_card(sm90, hd):
     """B=1, S=4096: the length at which the reference model switches to
     its chunked attention; bf16, causal, the LM's heads."""
     g = torch.Generator(device="cuda").manual_seed(0)
-    q = torch.randn(1, 9, 4096, 64, generator=g, device="cuda").bfloat16()
-    k, v = (torch.randn(1, 3, 4096, 64, generator=g, device="cuda")
+    q = torch.randn(1, 9, 4096, hd, generator=g, device="cuda").bfloat16()
+    k, v = (torch.randn(1, 3, 4096, hd, generator=g, device="cuda")
             .bfloat16() for _ in range(2))
     got = fa.flash_attention(q, k, v)
     want = fa.flash_attention_plain(q, k, v)
@@ -317,9 +326,18 @@ def test_new_wrappers_refuse_what_the_kernels_do_not_take(sm90):
         fa.flash_attention(q, q.bfloat16(), q)
     with pytest.raises(TypeError, match="fp32 or"):
         fa.flash_attention(q.double(), q.double(), q.double())
-    with pytest.raises(ValueError, match="contiguous"):
-        fa.flash_attention(q.transpose(1, 2), q.transpose(1, 2),
-                           q.transpose(1, 2))
+    # strided views are taken (the LM's transposed projections), but hd
+    # must sit at stride 1 and every pointer and stride be 16-byte aligned
+    sq64 = torch.zeros(1, 2, 64, 64, device="cuda").transpose(2, 3)
+    with pytest.raises(ValueError, match="stride 1"):
+        fa.flash_attention(sq64, sq64, sq64)
+    shifted = torch.zeros(1 * 2 * 8 * 64 + 1, device="cuda")[1:].view(
+        1, 2, 8, 64)
+    with pytest.raises(ValueError, match="aligned"):
+        fa.flash_attention(shifted, q, q)
+    padded = torch.zeros(1, 2, 8, 66, device="cuda")[..., :64]
+    with pytest.raises(ValueError, match="aligned"):
+        fa.flash_attention(q, padded, padded)
     with pytest.raises(ValueError, match="multiple"):
         fa.flash_attention(torch.zeros(1, 3, 8, 64, device="cuda"), q, q)
 
