@@ -14,11 +14,14 @@ What it does, in order; any failure raises and the exit code is non-zero:
 3. holds each kernel against its plain PyTorch version on the card at the
    main paths' shapes, and times kernel, plain version, the library
    yardstick (a PyTorch call the port never makes) and the card's bound:
-   FastMix tracked/untracked and the Gram (slice 1), then apply-track and
-   the two fp8-EF FastMix kernels;
+   FastMix tracked/untracked (without a wire the ``P_K(L)`` collapse,
+   also held to the per-round oracle, with the ``P_K(L)`` build as a
+   kernel of its own; with the bf16 wire the K rounds) and the Gram
+   (slice 1), then apply-track and the two fp8-EF FastMix kernels;
 4. drives the data-form main path through the user entry points at the
    paper's w8a scale (``deepca`` fp32 on ``backend="cuda"``, checked
-   against the same run on ``backend="stacked"``), then DePCA, counting
+   against the same run on ``backend="stacked"``), then DePCA (also with
+   increasing rounds, one ``P_K(L)`` build per round count), counting
    kernel launches; 4b. the dense-operator path (``A_j = X_j^T X_j`` of
    the same data) through apply-track; 4c. the error-feedback wires: fp8
    DeEPCA and DePCA through the fp8-EF kernels, int8 through none;
@@ -158,6 +161,12 @@ def bound(nbytes: float, flops: float, peaks, rate: str = "fp32"):
 # --------------------------------------------------------------- kernels
 def check_fastmix(fm, peaks, m: int, d: int, k: int, K: int, track: bool,
                   wire: bool, seed: int) -> dict:
+    """FastMix at the main path's shape.  Without a wire the kernel applies
+    ``P_K(L)`` (timed with ``P=`` passed, as the engine calls it; checked
+    once without, so that the build kernel runs too) and its plain version
+    is the collapse ``fastmix_poly``; with the bf16 wire it runs the K
+    rounds and its plain version is the per-round ``fastmix_plain``.  Both
+    are also held to the per-round oracle ``fastmix_plain``."""
     from repro_torch.core import erdos_renyi, fastmix_eta
     topo = erdos_renyi(m, p=0.5, seed=0)
     L = torch.as_tensor(topo.mixing, dtype=torch.float32, device="cuda")
@@ -167,29 +176,36 @@ def check_fastmix(fm, peaks, m: int, d: int, k: int, K: int, track: bool,
     S, G, Gp = (torch.randn(m, d, k, generator=g, device="cuda")
                 for _ in range(3))
     x = fm.tracking_update(S, G, Gp) if track else S
+    P = None if wire else fm.poly_matrix(L, eta, K)
     if track:
-        def kern():
+        def kern(P=P):
             return fm.fastmix_track_fused(S, G, Gp, L, eta, K,
-                                          wire_bf16=wire)
+                                          wire_bf16=wire, P=P)
 
-        def plain():
-            return fm.fastmix_plain(fm.tracking_update(S, G, Gp)
-                                    .reshape(m, n), L, eta, K,
-                                    wire_bf16=wire)
+        def tracked():
+            return fm.tracking_update(S, G, Gp).reshape(m, n)
     else:
-        def kern():
-            return fm.fastmix_fused(S, L, eta, K, wire_bf16=wire)
+        def kern(P=P):
+            return fm.fastmix_fused(S, L, eta, K, wire_bf16=wire, P=P)
 
-        def plain():
-            return fm.fastmix_plain(S.reshape(m, n), L, eta, K,
-                                    wire_bf16=wire)
-    got = kern().reshape(m, n)
+        def tracked():
+            return S.reshape(m, n)
+
+    def plain():
+        if wire:
+            return fm.fastmix_plain(tracked(), L, eta, K, wire_bf16=True)
+        return fm.fastmix_poly(tracked(), L, eta, K)
+
+    got = kern(None).reshape(m, n)
     want = plain()
+    oracle = fm.fastmix_plain(x.reshape(m, n), L, eta, K, wire_bf16=wire)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
-    ok = bool(torch.allclose(got, want, rtol=FASTMIX_TOL, atol=FASTMIX_TOL))
+    err_oracle = float((got - oracle).abs().max())
+    ok = all(bool(torch.allclose(got, ref, rtol=FASTMIX_TOL,
+                                 atol=FASTMIX_TOL)) for ref in (want, oracle))
     # library yardstick: the collapsed polynomial applied by one matmul
-    P = fm.fastmix_poly(torch.eye(m, device="cuda"), L, eta, K)
+    P_lib = fm.poly_matrix_plain(L, eta, K)
     xf = x.reshape(m, n).contiguous()
     row = {
         "name": "fastmix_track" if track else "fastmix",
@@ -199,11 +215,45 @@ def check_fastmix(fm, peaks, m: int, d: int, k: int, K: int, track: bool,
     }
     row["ms"], row["host_us"] = time_ms(kern)
     row["plain_ms"] = time_ms(plain)[0]
-    row["library_ms"] = time_ms(lambda: torch.matmul(P, xf))[0]
+    row["library_ms"] = time_ms(lambda: torch.matmul(P_lib, xf))[0]
     row["library"] = "torch.matmul(P_K(L), x) (the collapsed polynomial)"
     nbytes = 4 * (m * n * ((3 if track else 1) + 1) + m * m)
-    flops = (2 * m + 3) * m * n * K + (2 * m * n if track else 0)
-    row["bound_ms"], row["bound_by"] = bound(nbytes, flops, peaks)
+    rounds = (2 * m + 3) * m * n * K + (2 * m * n if track else 0)
+    per_round_ms, per_round_by = bound(nbytes, rounds, peaks)
+    # the bf16 wire cannot collapse, so its bound stays per round; without
+    # a wire the function is one (m, m) product over the iterate
+    row["bound_ms"], row["bound_by"] = (
+        (per_round_ms, per_round_by) if wire
+        else bound(nbytes, 2.0 * m * m * n, peaks))
+    row["per_round_bound_ms"] = per_round_ms
+    row["note"] = (f"max_abs_err vs the per-round oracle {err_oracle:.3e}; "
+                   f"per-round bound {per_round_ms:.6f} ms ({per_round_by})")
+    if not wire:
+        row["ms_excludes"] = "the P_K(L) build (P= passed; see fastmix_poly)"
+        row["note"] += f"; ms {row['ms_excludes']}"
+    return row
+
+
+def check_fastmix_poly(fm, peaks, m: int, K: int) -> dict:
+    """The ``P_K(L)`` build kernel against its plain version (the
+    recursion in torch ops)."""
+    from repro_torch.core import erdos_renyi, fastmix_eta
+    topo = erdos_renyi(m, p=0.5, seed=0)
+    L = torch.as_tensor(topo.mixing, dtype=torch.float32, device="cuda")
+    eta = fastmix_eta(topo.lambda2)
+    got = fm.poly_matrix(L, eta, K)
+    want = fm.poly_matrix_plain(L, eta, K)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    ok = bool(torch.allclose(got, want, rtol=FASTMIX_TOL, atol=FASTMIX_TOL))
+    row = {"name": "fastmix_poly", "shape": f"P_K(L) m={m} K={K}",
+           "max_abs_err": err, "tol": FASTMIX_TOL, "ok": ok}
+    row["ms"], row["host_us"] = time_ms(lambda: fm.poly_matrix(L, eta, K))
+    row["plain_ms"] = time_ms(lambda: fm.poly_matrix_plain(L, eta, K))[0]
+    row["library_ms"] = None   # no one PyTorch call builds the polynomial
+    row["library"] = "none"
+    row["bound_ms"], row["bound_by"] = bound(4 * 2 * m * m,
+                                             (2 * m + 3) * m * m * K, peaks)
     return row
 
 
@@ -393,7 +443,8 @@ def print_row(row: dict) -> None:
           f"plain_ms={row['plain_ms']:.6f} "
           f"library_ms={lib} "
           f"bound_ms={row['bound_ms']:.6f} ({row['bound_by']}) "
-          f"host_us_per_call={row['host_us']:.1f}", flush=True)
+          f"host_us_per_call={row['host_us']:.1f}"
+          + (f"; {row['note']}" if "note" in row else ""), flush=True)
 
 
 # ------------------------------------------------------------- main path
@@ -568,6 +619,7 @@ def main() -> int:
         "fastmix_track": check_fastmix(fm, peaks, 50, 300, 5, 8, True,
                                        False, 1),
         "fastmix": check_fastmix(fm, peaks, 50, 300, 5, 8, False, False, 2),
+        "fastmix_poly": check_fastmix_poly(fm, peaks, 50, 8),
         "gram": check_gram(gm, peaks, (50, 300, 5), torch.float32, 3),
         "apply_track": check_apply_track(fm, peaks, 50, 300, 5, 8, 12),
         "fastmix_track_ef": check_fastmix_ef(fm, peaks, 50, 300, 5, 8, True,
@@ -582,6 +634,7 @@ def main() -> int:
         check_fastmix(fm, peaks, 64, 4096, 32, 8, False, False, 5),
         check_fastmix(fm, peaks, 50, 300, 5, 8, True, True, 6),
         check_fastmix(fm, peaks, 64, 4096, 32, 8, False, True, 7),
+        check_fastmix_poly(fm, peaks, 64, 8),
         check_gram(gm, peaks, (64, 4096, 32), torch.float32, 8),
         check_gram(gm, peaks, (5000, 300, 5), torch.float32, 9),
         check_gram(gm, peaks, (257, 100), torch.float32, 10),
@@ -604,14 +657,17 @@ def main() -> int:
     res, sec, counts = counted(kernels, P.deepca, ops, topo, W0, k=k, T=T,
                                K=K, U=U, backend="cuda")
     launches = {"fastmix_track": counts["fastmix_track"],
+                "fastmix_poly": counts["fastmix_poly"],
                 "gram": counts["gram"]}
     print(f"main deepca w8a m={m} n={n} d={d} k={k} K={K} T={T} fp32 "
           f"cuda: us_per_iter={sec / T * 1e6:.1f} (deepca call incl. "
           f"trace) final_mean_tan_theta="
-          f"{float(res.trace.mean_tan_theta[-1]):.6e} launches={counts}",
-          flush=True)
-    if counts["fastmix_track"] < T or counts["gram"] < 2 * T:
-        fail(f"main path did not go through the kernels: {counts}")
+          f"{float(res.trace.mean_tan_theta[-1]):.6e} launches={counts} "
+          f"(P_K(L) builds: {counts['fastmix_poly']})", flush=True)
+    if counts["fastmix_track"] != T or counts["gram"] < 2 * T or \
+            counts["fastmix_poly"] < 1:
+        fail(f"main path did not go through the kernels (the gossip kernel "
+             f"exactly T={T} times): {counts}")
     ref, sec_ref = run_timed(P.deepca, ops, topo, W0, k=k, T=T, K=K, U=U,
                              backend="stacked")
     gap = subspace_gap(ref.W, res.W)
@@ -628,12 +684,28 @@ def main() -> int:
     launches["fastmix"] = dcounts["fastmix"]
     print(f"main depca w8a K={K} T={T} fp32 cuda: us_per_iter="
           f"{dsec / T * 1e6:.1f} final_mean_tan_theta="
-          f"{float(dres.trace.mean_tan_theta[-1]):.6e} launches={dcounts}",
-          flush=True)
-    if dcounts["fastmix"] != T or dcounts["fastmix_track"] != 0:
+          f"{float(dres.trace.mean_tan_theta[-1]):.6e} launches={dcounts} "
+          f"(P_K(L) builds: {dcounts['fastmix_poly']})", flush=True)
+    if dcounts["fastmix"] != T or dcounts["fastmix_track"] != 0 or \
+            dcounts["fastmix_poly"] < 1:
         fail(f"depca must launch the untracked kernel T times: {dcounts}")
     if not torch.isfinite(dres.W).all():
         fail("depca produced non-finite estimates")
+    # DePCA's increasing rounds (K + t at iteration t): one P_K(L) build
+    # per round count, one gossip launch per iteration
+    Ti = 20
+    ires, isec, icounts = counted(kernels, P.depca, ops, topo, W0, k=k,
+                                  T=Ti, K=K, U=U, backend="cuda",
+                                  increasing_consensus=True)
+    print(f"main depca increasing rounds w8a K={K}..{K + Ti - 1} T={Ti} "
+          f"fp32 cuda: us_per_iter={isec / Ti * 1e6:.1f} "
+          f"final_mean_tan_theta={float(ires.trace.mean_tan_theta[-1]):.6e} "
+          f"launches={icounts} (P_K(L) builds: {icounts['fastmix_poly']})",
+          flush=True)
+    if icounts["fastmix"] != Ti or icounts["fastmix_poly"] != Ti or \
+            not torch.isfinite(ires.W).all():
+        fail(f"increasing-rounds depca must build P and launch the gossip "
+             f"kernel once per iteration: {icounts}")
     breakdown(P, ops, topo, W0, U, K, T)
 
     # ---- 4b. the dense-operator path: A_j = X_j^T X_j of the same data
@@ -924,14 +996,18 @@ def main() -> int:
     csrc = "src/repro_torch/kernels/csrc/"
     sources = {"fastmix_track": csrc + "fastmix.cu",
                "fastmix": csrc + "fastmix.cu",
+               "fastmix_poly": csrc + "fastmix.cu",
                "gram": csrc + "gram.cu",
                "apply_track": csrc + "apply_track.cu",
                "fastmix_track_ef": csrc + "fastmix_ef.cu",
                "fastmix_ef": csrc + "fastmix_ef.cu",
                "power_matmul": csrc + "power_matmul.cu",
                "flash_attention": csrc + "flash_attention.cu"}
+    # the P_K(L) build is the first half of both no-wire FastMix kernels
     replaces = {"fastmix_track": "src/repro/kernels/fastmix.py:484",
                 "fastmix": "src/repro/kernels/fastmix.py:331",
+                "fastmix_poly": "src/repro/kernels/fastmix.py:484 and "
+                                "src/repro/kernels/fastmix.py:331",
                 "gram": "src/repro/kernels/gram.py:70",
                 "apply_track": "src/repro/kernels/fastmix.py:797",
                 "fastmix_track_ef": "src/repro/kernels/fastmix.py:565",
@@ -947,7 +1023,9 @@ def main() -> int:
          "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
          "bound_by": row["bound_by"], "library_ms": row["library_ms"],
          "library": row.get("library"), "shape": row["shape"],
-         "ok": row["ok"]}
+         "ok": row["ok"],
+         **{key: row[key] for key in ("per_round_bound_ms", "ms_excludes")
+            if key in row}}
         for name, row in main_rows.items()]}
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

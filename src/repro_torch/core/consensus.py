@@ -4,10 +4,12 @@
     Per-round mixing on the agent-major tensor (:mod:`.mixing`): the
     reference the fused backend is held against.
 ``cuda``
-    Fused execution: one launch of the hand-written FastMix kernel runs
-    all K rounds (and, for :meth:`ConsensusEngine.mix_track`, the
-    subspace-tracking combine).  It takes the place of the reference's
-    ``pallas`` backend.  On CPU tensors the kernel wrappers run their plain
+    Fused execution: one launch of the hand-written FastMix kernel per
+    call (with :meth:`ConsensusEngine.mix_track`, the subspace-tracking
+    combine too).  Without a wire the K rounds collapse to ``P_K(L)``,
+    which the engine builds once per round count and caches, and the
+    launch applies it in one pass; the bf16 wire runs the K rounds in the
+    launch.  It takes the place of the reference's ``pallas`` backend.  On CPU tensors the kernel wrappers run their plain
     twins — the counterpart of the reference's ``interpret=True``.  f64
     iterates never enter a kernel: they take the ``P_K(L)`` collapse (or
     the per-round bf16 wire loop) in f64.
@@ -82,9 +84,11 @@ def _check_ef(wire_dtype: Optional[str], ef) -> bool:
     return False
 
 
-def _fused_track_mix(S, G, G_prev, L, eta, rounds: int, *, wire: bool):
-    """Fused tracking + gossip (cuda backend): one kernel launch for fp32,
-    the f64 collapse (or per-round wire loop) for f64."""
+def _fused_track_mix(S, G, G_prev, L, eta, rounds: int, *, wire: bool,
+                     P=None):
+    """Fused tracking + gossip (cuda backend): one kernel launch for fp32
+    (applying the cached ``P`` without a wire), the f64 collapse (or
+    per-round wire loop) for f64."""
     if S.dtype == torch.float64:
         x = _fm.tracking_update(S, G, G_prev)
         if wire:
@@ -92,11 +96,11 @@ def _fused_track_mix(S, G, G_prev, L, eta, rounds: int, *, wire: bool):
         return _fm.fastmix_poly(x, L, eta, rounds)
     f32 = torch.float32
     out = _fm.fastmix_track_fused(S.to(f32), G.to(f32), G_prev.to(f32),
-                                  L, eta, rounds, wire_bf16=wire)
+                                  L, eta, rounds, wire_bf16=wire, P=P)
     return out.to(S.dtype)
 
 
-def _fused_mix(S, L, eta, rounds: int, *, wire: bool):
+def _fused_mix(S, L, eta, rounds: int, *, wire: bool, P=None):
     """Fused gossip (cuda backend); same dtype rules as
     :func:`_fused_track_mix`."""
     if S.dtype == torch.float64:
@@ -104,7 +108,7 @@ def _fused_mix(S, L, eta, rounds: int, *, wire: bool):
             return fastmix_wire(S, L, eta, rounds)
         return _fm.fastmix_poly(S, L, eta, rounds)
     out = _fm.fastmix_fused(S.to(torch.float32), L, eta, rounds,
-                            wire_bf16=wire)
+                            wire_bf16=wire, P=P)
     return out.to(S.dtype)
 
 
@@ -172,6 +176,10 @@ class ConsensusEngine:
     # re-upload the (m, m) matrix on every call
     _L_cache: dict = dataclasses.field(
         default_factory=dict, init=False, repr=False, compare=False)
+    # per-(dtype, device, rounds) cache of P_K(L), so the cuda backend's
+    # no-wire gossip is one launch per call
+    _P_cache: dict = dataclasses.field(
+        default_factory=dict, init=False, repr=False, compare=False)
 
     def __post_init__(self):
         if self.variant not in VARIANTS:
@@ -197,6 +205,19 @@ class ConsensusEngine:
                                   device=device)
             self._L_cache[key] = arr
         return arr
+
+    def _P(self, S: torch.Tensor, rounds: int) -> Optional[torch.Tensor]:
+        """The cached ``P_K(L)`` for the fp32 no-wire fused path (built on
+        first use: one ``fastmix_poly`` launch on the card), else None."""
+        if self.wire_dtype is not None or S.dtype == torch.float64:
+            return None
+        key = (torch.float32, S.device, rounds)
+        P = self._P_cache.get(key)
+        if P is None:
+            P = _fm.poly_matrix(self._L(torch.float32, S.device), self.eta,
+                                rounds)
+            self._P_cache[key] = P
+        return P
 
     def contraction_rate(self, rounds: Optional[int] = None) -> float:
         """Prop. 1 bound for this variant after ``rounds`` gossip rounds."""
@@ -254,7 +275,7 @@ class ConsensusEngine:
         if ef_mode:
             return _fused_mix_ef(S, ef, L, self.eta, r,
                                  wire=self.wire_dtype)
-        return _fused_mix(S, L, self.eta, r, wire=wire)
+        return _fused_mix(S, L, self.eta, r, wire=wire, P=self._P(S, r))
 
     def mix_track(self, S: torch.Tensor, G: torch.Tensor,
                   G_prev: torch.Tensor, rounds: Optional[int] = None, *,
@@ -271,7 +292,8 @@ class ConsensusEngine:
                 return _fused_track_mix_ef(S, G, G_prev, ef, L, self.eta, r,
                                            wire=self.wire_dtype)
             return _fused_track_mix(S, G, G_prev, L, self.eta, r,
-                                    wire=self.wire_dtype is not None)
+                                    wire=self.wire_dtype is not None,
+                                    P=self._P(S, r))
         return self.mix(_fm.tracking_update(S, G, G_prev), rounds=rounds,
                         ef=ef)
 

@@ -166,7 +166,7 @@ cudaError_t launch(const float* L, const float* S, const float* G,
 extern "C" {
 
 // Shared-memory bytes one block needs for (m, bn); the wrapper's
-// tile_width(m, ef=True) picks bn with the same formula.
+// ef_tile_width(m) picks bn with the same formula.
 size_t fastmix_ef_smem_bytes(int m, int bn) {
   const int mp = (m + kRowsPerThread - 1) / kRowsPerThread * kRowsPerThread;
   return sizeof(float) * ((size_t)mp * m + (size_t)3 * m * bn);

@@ -6,10 +6,16 @@ independently and all K rounds fuse into one pass over the iterate.
 
 * :func:`fastmix_fused` / :func:`fastmix_track_fused` — wrappers of the
   hand-written CUDA kernel ``csrc/fastmix.cu`` (the port of the
-  reference's Pallas ``_fastmix_fused`` / ``_fastmix_track_fused``).  On
-  a CUDA fp32 tensor each launches the kernel; on a CPU tensor each runs
-  its plain twin (:func:`fastmix_plain`), a per-round loop with the
-  kernel's arithmetic.  Any other device raises.
+  reference's Pallas ``_fastmix_fused`` / ``_fastmix_track_fused``).
+  Without a wire the K rounds collapse to one product with ``P_K(L)``:
+  :func:`poly_matrix` builds it (a launch of its own, or ``P=`` passes a
+  cached one) and one launch applies it in a single pass over the
+  iterate; its plain twin is :func:`fastmix_poly` (the recursion in fp32,
+  then ``P @ x``).  The bf16 wire, whose rounding is nonlinear, runs the
+  K rounds in one launch; its plain twin is :func:`fastmix_plain`, the
+  per-round loop with the kernel's arithmetic.  On a CUDA fp32 tensor
+  each wrapper launches the kernel; on a CPU tensor it runs the plain
+  twin.  Any other device raises.
 * :func:`fastmix_ef_fused` / :func:`fastmix_track_ef_fused` — the same
   over the fp8 error-feedback wire (``csrc/fastmix_ef.cu``, the port of
   ``_fastmix_ef_fused`` / ``_fastmix_track_ef_fused``); plain twin
@@ -18,8 +24,9 @@ independently and all K rounds fuse into one pass over the iterate.
   fused with tracking and the K rounds (``csrc/apply_track.cu``, the port
   of ``_apply_track_fused``); plain twin :func:`apply_track_plain`.
 * :func:`fastmix_poly` / :func:`fastmix_track_poly` — the algebraic
-  collapse ``S_out = P_K(L) S``.  This is the f64 path: f64 never enters
-  a kernel.
+  collapse ``S_out = P_K(L) S`` in the iterate's dtype: the plain twin of
+  the no-wire kernels in fp32, and the f64 path (f64 never enters a
+  kernel).
 * :func:`tracking_update` (Eqn. 3.1), :func:`quantize_wire` (bf16, fp8
   and int8 wires) and :func:`ef_quantize` (the error-feedback send) are
   the single compute sites the other modules route through.
@@ -27,6 +34,8 @@ independently and all K rounds fuse into one pass over the iterate.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import Optional
 
 import torch
 
@@ -38,18 +47,28 @@ from . import _build
 WIRE_ITEMSIZE = {None: 4, "bf16": 2, "int8": 1, "fp8": 1}
 
 #: Kernel launches by this module's wrappers (reset by the caller).
-LAUNCHES = {"fastmix": 0, "fastmix_track": 0, "fastmix_ef": 0,
-            "fastmix_track_ef": 0, "apply_track": 0}
+#: ``fastmix_poly`` counts the ``P_K(L)`` builds, so the gossip counts stay
+#: one per call.
+LAUNCHES = {"fastmix": 0, "fastmix_track": 0, "fastmix_poly": 0,
+            "fastmix_ef": 0, "fastmix_track_ef": 0, "apply_track": 0}
 
 #: Shared memory one block may use on sm_90 (232,448 bytes).
 SMEM_LIMIT = 232448
-#: Column-tile widths tried, widest first; the widest that fits is used.
+#: Column-tile widths of the fp8-EF kernels, widest first; the widest
+#: that fits is used.
 TILE_WIDTHS = (32, 16, 8)
+#: Column-tile widths of the FastMix kernels, widest first; their blocks
+#: have 256 threads.  Each thread owns 8 rows x 4 adjacent columns of a
+#: tile (the wide tile) or, where the iterate is narrow, 4 rows x 1 column;
+#: a warp holds 4 x 8 such thread tiles.
+FASTMIX_WIDTHS = (128, 64, 32, 16, 8)
+FASTMIX_THREADS = 256
+FASTMIX_TILES = {8: 4, 4: 1}
 #: Output-row tiles of the apply-track kernel, and its contraction chunks.
 ROW_TILES = (16, 8, 4, 2, 1)
 CONTRACTION_CHUNKS = (32, 16, 8)
 #: Streaming multiprocessors of an H100 SXM: the apply-track tile chooser
-#: prefers a grid at least this wide.
+#: prefers a grid at least this wide (the FastMix one asks the device).
 SM_COUNT = 132
 
 #: e4m3fn's largest finite value; the fp8 wire saturates there.
@@ -149,24 +168,104 @@ ef_quantize = _ef_quantize
 tracking_update = _tracking_update
 
 
-def tile_width(m: int, wire_bf16: bool = False, *, ef: bool = False) -> int:
-    """Widest column tile whose shared-memory working set fits one block:
-    ``(mp * m + bufs * m * BN) * 4`` bytes, with ``mp`` the agent count
-    rounded up to the kernels' 4-row groups and ``bufs`` 2 (prev, cur), or
-    3 with the bf16 wire's sent copy or the EF wire's replica ``h``."""
-    mp = -(-m // 4) * 4
-    bufs = 3 if wire_bf16 or ef else 2
+def _cdiv(a: int, b: int) -> int:
+    return -(-int(a) // b)
+
+
+def fastmix_smem(m: int, bn: int, bufs: int) -> int:
+    """Shared-memory bytes of one FastMix block (``smem_bytes`` in
+    ``csrc/fastmix.cu``): the transposed mixing matrix, ``m`` rows of
+    stride the agent count rounded up to 8, plus 4, and ``bufs`` ``m x BN``
+    buffers (2 for the round loop; for the ``P_K(L)`` pass 2 stages of 3
+    arrays with tracking, else 1, or one stage of 1)."""
+    return 4 * (m * (_cdiv(m, 8) * 8 + 4) + bufs * m * bn)
+
+
+def fastmix_warps(m: int, bn: int, rows: int) -> int:
+    """Warps of a FastMix block (``warps_needed`` in ``csrc/fastmix.cu``):
+    each holds 4 row groups x 8 column groups of ``rows x cols`` thread
+    tiles."""
+    return _cdiv(_cdiv(m, rows), 4) * _cdiv(bn // FASTMIX_TILES[rows], 8)
+
+
+def thread_rows(m: int, n: int, sms: int) -> int:
+    """Rows of a FastMix thread's tile: 8 (8 x 4, for throughput) when the
+    wide tiles alone give each of the ``sms`` SMs a full block of threads,
+    else 4 (4 x 1: a serial chain of FMAs 8x shorter, for small iterates
+    such as w8a's and the ``P_K(L)`` build) -- unless the narrow tile's
+    rows need more warps than a block has even at the narrowest width (m >
+    128), which takes the wide tile too."""
+    wide_fills = _cdiv(m, 8) * _cdiv(n, 4) >= sms * FASTMIX_THREADS
+    narrow_fits = (32 * fastmix_warps(m, FASTMIX_WIDTHS[-1], 4)
+                   <= FASTMIX_THREADS)
+    return 8 if wide_fills or not narrow_fits else 4
+
+
+def tile_width(m: int, n: int, rows: int, bufs: int, sms: int) -> int:
+    """Column-tile width ``BN`` of a FastMix kernel over an ``(m, n)``
+    iterate (``rows`` from :func:`thread_rows`, ``bufs`` as in
+    :func:`fastmix_smem`): the widest of :data:`FASTMIX_WIDTHS` whose block
+    fits (its warps of 4 x 8 thread tiles within :data:`FASTMIX_THREADS`,
+    :func:`fastmix_smem` within :data:`SMEM_LIMIT`) and whose grid
+    ``ceil(n / BN)`` still spans the ``sms`` SMs; else the narrowest that
+    fits.  An ``m`` that fits no width raises.
+    """
+    fits = [bn for bn in FASTMIX_WIDTHS
+            if 32 * fastmix_warps(m, bn, rows) <= FASTMIX_THREADS
+            and fastmix_smem(m, bn, bufs) <= SMEM_LIMIT]
+    if not fits:
+        raise ValueError(
+            f"fastmix kernel: m={m} agents do not fit one block's shared "
+            f"memory ({SMEM_LIMIT} bytes) even at tile width "
+            f"{FASTMIX_WIDTHS[-1]}")
+    wide = [bn for bn in fits if _cdiv(n, bn) >= sms]
+    return wide[0] if wide else fits[-1]
+
+
+@functools.lru_cache(maxsize=256)
+def rounds_tile(m: int, n: int, sms: int) -> tuple:
+    """``(rows, BN)`` of the round loop over an ``(m, n)`` iterate (the
+    bf16 wire, K = 0, and the ``P_K(L)`` build over ``n = m``): two
+    buffers of what is sent."""
+    rows = thread_rows(m, n, sms)
+    return rows, tile_width(m, n, rows, 2, sms)
+
+
+@functools.lru_cache(maxsize=256)
+def apply_tile(m: int, n: int, track: bool, sms: int) -> tuple:
+    """``(rows, BN, stages)`` of the one-pass ``P_K(L)`` apply: two
+    ``cp.async`` stages of S (and G, G_prev) where they fit beside ``P``,
+    else one stage of the combined iterate."""
+    rows = thread_rows(m, n, sms)
+    try:
+        return rows, tile_width(m, n, rows, 6 if track else 2, sms), 2
+    except ValueError:
+        return rows, tile_width(m, n, rows, 1, sms), 1
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def ef_tile_width(m: int) -> int:
+    """Column-tile width ``BN`` of the fp8-EF kernels (``csrc/fastmix_ef.cu``):
+    the widest of :data:`TILE_WIDTHS` whose ``(mp * m + 3 * m * BN) * 4``
+    bytes fit :data:`SMEM_LIMIT`, ``mp`` the agent count rounded up to 4.
+    An ``m`` that fits no width raises."""
+    mp = _cdiv(m, 4) * 4
     for bn in TILE_WIDTHS:
-        if 4 * (mp * m + bufs * m * bn) <= SMEM_LIMIT:
+        if 4 * (mp * m + 3 * m * bn) <= SMEM_LIMIT:
             return bn
     raise ValueError(
-        f"fastmix kernel: m={m} agents do not fit one block's shared "
+        f"fastmix_ef kernel: m={m} agents do not fit one block's shared "
         f"memory ({SMEM_LIMIT} bytes) even at tile width {TILE_WIDTHS[-1]}")
 
 
 def fastmix_plain(x: torch.Tensor, L: torch.Tensor, eta, K: int, *,
                   wire_bf16: bool = False) -> torch.Tensor:
-    """The kernel's plain twin on a flattened ``(m, n)`` fp32 iterate."""
+    """The round loop's plain twin on a flattened ``(m, n)`` fp32 iterate:
+    the per-round oracle, and the plain version of the bf16-wire kernel."""
     L = L.to(torch.float32)
     prev = cur = x.to(torch.float32)
     for _ in range(int(K)):
@@ -185,7 +284,26 @@ def _entry():
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 5 + [
         ctypes.c_int, ctypes.c_longlong, ctypes.c_float, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p]
+    return fn
+
+
+def _apply_entry():
+    fn = _build.load("fastmix").fastmix_apply
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 5 + [
+        ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    return fn
+
+
+def _poly_entry():
+    fn = _build.load("fastmix").fastmix_poly
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 2 + [
+        ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p]
     return fn
 
 
@@ -202,65 +320,141 @@ def _check_cuda(L: torch.Tensor, *xs: torch.Tensor) -> None:
         if x.shape != xs[0].shape:
             raise ValueError("S/G/G_prev shapes must match; got "
                              f"{[tuple(y.shape) for y in xs]}")
-    if L.device != dev or L.dtype != torch.float32 or not L.is_contiguous():
-        raise ValueError("L must be a contiguous fp32 tensor on "
-                         f"{dev}; got {L.dtype} on {L.device}")
-    if tuple(L.shape) != (m, m):
-        raise ValueError(f"L must be ({m}, {m}); got {tuple(L.shape)}")
+    _check_matrix("L", L, m, dev)
 
 
-def _launch(S, G, G_prev, L, eta, K: int, wire_bf16: bool,
-            track: bool) -> torch.Tensor:
+def _check_matrix(name: str, M: torch.Tensor, m: int, dev) -> None:
+    if M.device != dev or M.dtype != torch.float32 or not M.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous fp32 tensor on "
+                         f"{dev}; got {M.dtype} on {M.device}")
+    if tuple(M.shape) != (m, m):
+        raise ValueError(f"{name} must be ({m}, {m}); got {tuple(M.shape)}")
+
+
+def poly_matrix_plain(L: torch.Tensor, eta, K: int) -> torch.Tensor:
+    """``P_K(L)`` in ``L``'s dtype by the recursion ``P_{-1} = P_0 = I``,
+    ``P_{k+1} = (1 + eta) L P_k - eta P_{k-1}``: K ``(m, m)`` products."""
+    prev = cur = torch.eye(L.shape[0], dtype=L.dtype, device=L.device)
+    for _ in range(int(K)):
+        prev, cur = cur, (1.0 + eta) * (L @ cur) - eta * prev
+    return cur
+
+
+def poly_matrix(L: torch.Tensor, eta, K: int) -> torch.Tensor:
+    """``P_K(L)``, the ``(m, m)`` fp32 matrix that K FastMix rounds without
+    a wire collapse to.  On a CUDA tensor the build kernel runs the round
+    loop on the identity (one launch, counted as ``fastmix_poly``); on a
+    CPU tensor :func:`poly_matrix_plain` runs in fp32."""
+    if L.dim() != 2 or L.shape[0] != L.shape[1]:
+        raise ValueError(f"L must be square; got {tuple(L.shape)}")
+    if L.device.type == "cpu":
+        return poly_matrix_plain(L.to(torch.float32), eta, K)
+    if L.device.type != "cuda":
+        raise ValueError(f"fastmix runs on cuda or cpu tensors, got "
+                         f"{L.device}")
+    m = L.shape[0]
+    _check_matrix("L", L, m, L.device)
+    rows, bn = rounds_tile(m, m, _sm_count(L.device.index))
+    P = torch.empty_like(L)
+    stream = torch.cuda.current_stream(L.device).cuda_stream
+    err = _poly_entry()(L.data_ptr(), P.data_ptr(), m, float(eta), int(K),
+                        bn, rows, stream)
+    _build.check("fastmix", err)
+    LAUNCHES["fastmix_poly"] += 1
+    return P
+
+
+def _launch(S, G, G_prev, L, eta, K: int, wire_bf16: bool, track: bool,
+            P) -> torch.Tensor:
     m = S.shape[0]
     n = S.numel() // max(m, 1)
     out = torch.empty_like(S)
     if out.numel() == 0:
         return out
-    bn = tile_width(m, wire_bf16)
     stream = torch.cuda.current_stream(S.device).cuda_stream
-    err = _entry()(L.data_ptr(), S.data_ptr(),
-                   G.data_ptr() if track else None,
-                   G_prev.data_ptr() if track else None,
-                   out.data_ptr(), m, n, float(eta), int(K), bn,
-                   int(track), int(wire_bf16), stream)
+    g = G.data_ptr() if track else None
+    gp = G_prev.data_ptr() if track else None
+    sms = _sm_count(S.device.index)
+    if wire_bf16 or K <= 0:
+        rows, bn = rounds_tile(m, n, sms)
+        err = _entry()(L.data_ptr(), S.data_ptr(), g, gp, out.data_ptr(),
+                       m, n, float(eta), int(K), bn, rows, int(track),
+                       int(wire_bf16), stream)
+    else:
+        if P is None:
+            P = poly_matrix(L, eta, K)
+        _check_matrix("P", P, m, S.device)
+        rows, bn, stages = apply_tile(m, n, track, sms)
+        err = _apply_entry()(P.data_ptr(), S.data_ptr(), g, gp,
+                             out.data_ptr(), m, n, bn, rows, stages,
+                             int(track), stream)
     _build.check("fastmix", err)
     LAUNCHES["fastmix_track" if track else "fastmix"] += 1
     return out
 
 
-def fastmix_fused(S: torch.Tensor, L: torch.Tensor, eta, K: int, *,
-                  wire_bf16: bool = False) -> torch.Tensor:
-    """All K FastMix rounds in one launch; ``(m, ...)`` in, fp32 out.
+def _plain(x: torch.Tensor, L: torch.Tensor, eta, K: int, wire_bf16: bool,
+           P) -> torch.Tensor:
+    """The CPU path of the FastMix wrappers on a flattened fp32 iterate."""
+    if wire_bf16:
+        return fastmix_plain(x, L, eta, K, wire_bf16=True)
+    if K <= 0:
+        return x
+    if P is None:
+        return fastmix_poly(x, L.to(torch.float32), eta, K)
+    return P.to(torch.float32) @ x
 
-    ``eta=0`` degenerates to naive gossip ``L^K S``; ``wire_bf16`` rounds
-    each round's sent iterate to bf16 while accumulation stays fp32.
-    ``K <= 0`` returns ``S`` in fp32.
+
+def _check_P(P, m: int, wire_bf16: bool) -> None:
+    if P is None:
+        return
+    if wire_bf16:
+        raise ValueError("P= is the no-wire collapse; the bf16 wire's "
+                         "rounding is nonlinear and runs the rounds")
+    if tuple(P.shape) != (m, m):
+        raise ValueError(f"P must be ({m}, {m}); got {tuple(P.shape)}")
+
+
+def fastmix_fused(S: torch.Tensor, L: torch.Tensor, eta, K: int, *,
+                  wire_bf16: bool = False,
+                  P: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """All K FastMix rounds; ``(m, ...)`` in, fp32 out.
+
+    Without a wire one launch applies ``P_K(L)``: ``P`` is
+    ``poly_matrix(L, eta, K)`` when given (the engine caches it), else it
+    is built first (one more launch).  ``eta=0`` degenerates to naive
+    gossip ``L^K S``; ``wire_bf16`` rounds each round's sent iterate to
+    bf16 while accumulation stays fp32, and runs the K rounds in one
+    launch.  ``K <= 0`` returns ``S`` in fp32.
     """
+    m = S.shape[0]
+    _check_P(P, m, wire_bf16)
     if S.device.type == "cpu":
-        m = S.shape[0]
         if tuple(L.shape) != (m, m):
             raise ValueError(f"L must be ({m}, {m}); got {tuple(L.shape)}")
-        return fastmix_plain(_flat(S), L, eta, K,
-                             wire_bf16=wire_bf16).reshape(S.shape)
+        return _plain(_flat(S).to(torch.float32), L, eta, K, wire_bf16,
+                      P).reshape(S.shape)
     if S.device.type != "cuda":
         raise ValueError(f"fastmix runs on cuda or cpu tensors, got "
                          f"{S.device}")
     _check_cuda(L, S)
-    return _launch(S, None, None, L, eta, K, wire_bf16, track=False)
+    return _launch(S, None, None, L, eta, K, wire_bf16, False, P)
 
 
 def fastmix_track_fused(S: torch.Tensor, G: torch.Tensor,
                         G_prev: torch.Tensor, L: torch.Tensor, eta, K: int,
-                        *, wire_bf16: bool = False) -> torch.Tensor:
-    """Fused subspace tracking + all K FastMix rounds in one launch.
+                        *, wire_bf16: bool = False,
+                        P: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Fused subspace tracking + all K FastMix rounds.
 
     Semantically ``fastmix_fused(tracking_update(S, G, G_prev), L, eta,
-    K)``, with the tracked iterate formed on the kernel's shared-memory
-    tile instead of in device memory.  ``K <= 0`` returns the tracked
-    iterate in fp32.
+    K, P=P)``, with the tracked iterate formed on chip (in the kernel's
+    registers or shared-memory tile) instead of in device memory.  ``K <= 0`` returns the tracked iterate
+    in fp32.
     """
+    m = S.shape[0]
+    _check_P(P, m, wire_bf16)
     if S.device.type == "cpu":
-        m = S.shape[0]
         if not (S.shape == G.shape == G_prev.shape):
             raise ValueError("S/G/G_prev shapes must match; got "
                              f"{S.shape}, {G.shape}, {G_prev.shape}")
@@ -268,13 +462,12 @@ def fastmix_track_fused(S: torch.Tensor, G: torch.Tensor,
             raise ValueError(f"L must be ({m}, {m}); got {tuple(L.shape)}")
         x = tracking_update(S.to(torch.float32), G.to(torch.float32),
                             G_prev.to(torch.float32))
-        return fastmix_plain(_flat(x), L, eta, K,
-                             wire_bf16=wire_bf16).reshape(S.shape)
+        return _plain(_flat(x), L, eta, K, wire_bf16, P).reshape(S.shape)
     if S.device.type != "cuda":
         raise ValueError(f"fastmix runs on cuda or cpu tensors, got "
                          f"{S.device}")
     _check_cuda(L, S, G, G_prev)
-    return _launch(S, G, G_prev, L, eta, K, wire_bf16, track=True)
+    return _launch(S, G, G_prev, L, eta, K, wire_bf16, True, P)
 
 
 def _check_fp8(name: str, wire) -> None:
@@ -315,7 +508,7 @@ def _launch_ef(S, G, G_prev, err, L, eta, K: int, track: bool):
     out, err_out = torch.empty_like(S), torch.empty_like(S)
     if out.numel() == 0:
         return out, err_out
-    bn = tile_width(m, ef=True)
+    bn = ef_tile_width(m)
     stream = torch.cuda.current_stream(S.device).cuda_stream
     code = _ef_entry()(L.data_ptr(), S.data_ptr(),
                        G.data_ptr() if track else None,
@@ -498,16 +691,13 @@ def fastmix_poly(S: torch.Tensor, L: torch.Tensor, eta,
     """Algebraically fused FastMix: build ``P_K(L)`` then apply it once.
 
     ``P_{-1} = P_0 = I`` and ``P_{k+1} = (1+eta) L P_k - eta P_{k-1}``;
-    K tiny ``(m, m)`` products, then one pass over the iterate.
+    K tiny ``(m, m)`` products (:func:`poly_matrix_plain`), then one pass
+    over the iterate, all in ``S``'s dtype.
     """
     if K <= 0:
         return S
     L = L.to(device=S.device, dtype=S.dtype)
-    eye = torch.eye(L.shape[0], dtype=L.dtype, device=L.device)
-    prev = cur = eye
-    for _ in range(int(K)):
-        prev, cur = cur, (1.0 + eta) * (L @ cur) - eta * prev
-    return (cur @ _flat(S)).reshape(S.shape)
+    return (poly_matrix_plain(L, eta, K) @ _flat(S)).reshape(S.shape)
 
 
 def fastmix_track_poly(S: torch.Tensor, G: torch.Tensor,

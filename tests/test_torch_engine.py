@@ -225,3 +225,50 @@ def test_metrics_match_reference(dtype):
         want = np.asarray(jax.vmap(lambda w: ref_m.mean_tan_theta(Uj, w))(Xj))
         np.testing.assert_allclose(port_m.mean_tan_theta(Ut, Xt).numpy(),
                                    want, rtol=tol, atol=tol)
+
+
+def test_engine_caches_P_per_rounds(monkeypatch):
+    """The cuda backend builds ``P_K(L)`` once per (dtype, device, rounds)
+    and reuses it; f64 and the bf16 wire build none; DePCA's increasing
+    rounds build one per round count.  Results match the stacked backend
+    (1e-5)."""
+    from repro_torch.kernels import fastmix as fm
+    built = []
+    real = fm.poly_matrix
+    monkeypatch.setattr(fm, "poly_matrix", lambda L, eta, K: (
+        built.append(K), real(L, eta, K))[1])
+    topo = P.erdos_renyi(8, p=0.5, seed=1)
+    rng = np.random.default_rng(6)
+    S, G, Gp = (torch.from_numpy(rng.standard_normal((8, 20, 3))
+                                 .astype(np.float32)) for _ in range(3))
+    eng = P.ConsensusEngine(topo, K=5, backend="cuda")
+    ref = P.ConsensusEngine(topo, K=5, backend="stacked")
+    got = [eng.mix_track(S, G, Gp), eng.mix(S), eng.mix(S, rounds=3)]
+    assert built == [5, 3]
+    key = (torch.float32, torch.device("cpu"), 5)
+    assert set(eng._P_cache) == {key, (torch.float32, torch.device("cpu"),
+                                       3)}
+    P5 = eng._P_cache[key]
+    torch.testing.assert_close(P5, fm.poly_matrix_plain(
+        torch.from_numpy(topo.mixing).float(), eng.eta, 5), rtol=0, atol=0)
+    for _ in range(3):
+        got.append(eng.mix_track(S, G, Gp))
+    assert built == [5, 3] and eng._P_cache[key] is P5
+    want = [ref.mix_track(S, G, Gp), ref.mix(S), ref.mix(S, rounds=3)]
+    want += [want[0]] * 3
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    eng.mix(S.double())
+    P.ConsensusEngine(topo, K=5, backend="cuda", wire_dtype="bf16").mix(S)
+    assert built == [5, 3]
+
+    built.clear()
+    ops = P.synthetic_spiked(8, 16, 3, n_per_agent=12, seed=1, device="cpu")
+    W0 = torch.from_numpy(np.linalg.qr(rng.standard_normal((16, 3)))[0]
+                          .astype(np.float32))
+    res = P.depca(ops, topo, W0, k=3, T=4, K=2, backend="cuda",
+                  increasing_consensus=True)
+    assert built == [2, 3, 4, 5]
+    want = P.depca(ops, topo, W0, k=3, T=4, K=2, backend="stacked",
+                   increasing_consensus=True)
+    torch.testing.assert_close(res.W, want.W, rtol=1e-5, atol=1e-5)

@@ -1,6 +1,7 @@
 """Port parity: FastMix kernel wrappers (plain twins on the CPU) vs the
 reference Pallas kernels in interpret mode (the on-card checks are in
-test_torch_kernels_gpu.py).
+test_torch_kernels_gpu.py).  Without a wire the plain twin is the
+``P_K(L)`` collapse; with the bf16 wire it is the per-round loop.
 
 Tolerances: fp32 2e-5 (the reference's own kernel-vs-oracle bound,
 tests/test_kernels.py); the f64 ``P_K(L)`` collapse 1e-12.
@@ -23,6 +24,17 @@ torch.set_num_threads(1)
 
 CASES = [(4, 8, 2, 1), (8, 64, 8, 6), (12, 50, 7, 8), (16, 256, 8, 4),
          (5, 10, 3, 0)]
+#: The main path's agent counts (w8a's 50, the large cell's 64) and round
+#: counts up to 20, without a wire.  With the bf16 wire a sum-order
+#: difference (torch's CPU matmul against XLA's dot) may round a sent value
+#: to the other bf16 neighbour, about 1e-4 at m=50; the wire is held to the
+#: per-round loop bit for bit instead (test_wire_path_stays_per_round) and
+#: to the reference's wire kernel at CASES.
+WIDE = [(m, n, 3, K) for m, n in ((50, 30), (64, 12)) for K in (0, 1, 8, 20)]
+
+
+def erdos_renyi_mixing(m):
+    return erdos_renyi(m, p=0.5, seed=1)
 
 
 def _inputs(m, n, k, K, topo=ring):
@@ -125,9 +137,130 @@ def test_wrapper_rejects_bad_inputs():
         fm.fastmix_fused(S.to("meta"), torch.eye(4).to("meta"), 0.1, 2)
 
 
-@pytest.mark.parametrize("m,wire,bn", [(4, False, 32), (64, True, 32),
-                                       (200, True, 16), (220, True, 8)])
-def test_tile_width_fits_shared_memory(m, wire, bn):
-    assert fm.tile_width(m, wire) == bn
+@pytest.mark.parametrize("m,n,rows,bufs,bn", [
+    (4, 131072, 4, 2, 64), (64, 131072, 8, 2, 128), (64, 131072, 8, 6, 128),
+    (72, 131072, 8, 2, 64), (50, 1500, 4, 2, 8),
+    (50, 1500, 4, 6, 8), (64, 64, 4, 2, 8), (200, 10 ** 6, 8, 2, 32),
+    (200, 10 ** 6, 8, 6, 8), (224, 10 ** 6, 8, 2, 8), (7, 33, 4, 2, 8),
+    (128, 1500, 4, 2, 8), (200, 1500, 8, 2, 8), (200, 200, 8, 2, 8),
+    (220, 1500, 8, 1, 8), (220, 220, 8, 2, 8), (230, 230, 8, 2, 8)])
+def test_tile_width_fits_shared_memory(m, n, rows, bufs, bn):
+    """The widest tile whose block fits (at most 8 warps of 4 x 8 thread
+    tiles of 8 x 4 or 4 x 1, shared memory under the limit) and whose grid
+    spans the 132 SMs, else the narrowest that fits; the thread tile is
+    the wide one once it alone fills every SM with a block, or once the
+    narrow one's rows need more than 8 warps (m > 128)."""
+    assert fm.thread_rows(m, n, 132) == rows
+    assert fm.tile_width(m, n, rows, bufs, 132) == bn
+    assert fm.fastmix_smem(m, bn, bufs) <= fm.SMEM_LIMIT
+    assert 32 * fm.fastmix_warps(m, bn, rows) <= fm.FASTMIX_THREADS
+    for bad in (231, 400):
+        with pytest.raises(ValueError, match="shared"):
+            fm.tile_width(bad, 10 ** 6, 8, 2, 132)
+
+
+@pytest.mark.parametrize("n", ["m", 33, 1500, 131072])
+def test_every_agent_count_that_fits_gets_a_tile(n):
+    """Every m up to 230 has a round-loop tile (the bf16 wire, K = 0, and
+    the ``P_K(L)`` build at n = m) and an apply tile, tracked or not
+    (one stage where two do not fit beside P), each within a block's 8
+    warps and its shared memory; m = 231 raises."""
+    for m in range(1, 231):
+        cols = m if n == "m" else n
+        rows, bn = fm.rounds_tile(m, cols, 132)
+        assert 32 * fm.fastmix_warps(m, bn, rows) <= fm.FASTMIX_THREADS
+        assert fm.fastmix_smem(m, bn, 2) <= fm.SMEM_LIMIT
+        for track in (False, True):
+            rows, bn, stages = fm.apply_tile(m, cols, track, 132)
+            bufs = (6 if track else 2) if stages == 2 else 1
+            assert 32 * fm.fastmix_warps(m, bn, rows) <= fm.FASTMIX_THREADS
+            assert fm.fastmix_smem(m, bn, bufs) <= fm.SMEM_LIMIT
+            assert stages == 2 or (track and m > 200)
     with pytest.raises(ValueError, match="shared"):
-        fm.tile_width(400, True)
+        fm.rounds_tile(231, 231 if n == "m" else n, 132)
+
+
+@pytest.mark.parametrize("track", [False, True])
+@pytest.mark.parametrize("m,n,k,K", WIDE)
+def test_collapse_matches_reference_kernel_wide(m, n, k, K, track):
+    """The no-wire CPU path (the collapse) against the reference's
+    per-round Pallas kernels in interpret mode at the main path's m."""
+    (s, g, gp), L = _inputs(m, n, k, K, topo=erdos_renyi_mixing)
+    args = (s, g, gp) if track else (s,)
+    ref = ref_fm.fastmix_track_fused if track else ref_fm.fastmix_fused
+    want = ref(*map(jnp.asarray, args), jnp.asarray(L), 0.3, K,
+               block_n=128, interpret=True)
+    port = fm.fastmix_track_fused if track else fm.fastmix_fused
+    got = port(*map(torch.from_numpy, args), torch.from_numpy(L), 0.3, K)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
+                               atol=2e-5)
+
+
+@pytest.mark.parametrize("track", [False, True])
+@pytest.mark.parametrize("m,n,k,K", CASES + WIDE)
+def test_collapsed_plain_matches_reference_poly(m, n, k, K, track):
+    """Without a wire the CPU path is the collapse: the reference's own
+    fp32 ``fastmix_poly`` / ``fastmix_track_poly``."""
+    (s, g, gp), L = _inputs(m, n, k, K, topo=erdos_renyi_mixing)
+    args = (s, g, gp) if track else (s,)
+    ref = ref_fm.fastmix_track_poly if track else ref_fm.fastmix_poly
+    want = ref(*map(jnp.asarray, args), jnp.asarray(L), 0.3, K)
+    port = fm.fastmix_track_fused if track else fm.fastmix_fused
+    got = port(*map(torch.from_numpy, args), torch.from_numpy(L), 0.3, K)
+    assert got.dtype == torch.float32 and got.shape == s.shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
+                               atol=2e-5)
+
+
+@pytest.mark.parametrize("m,K", [(4, 1), (12, 8), (50, 0), (50, 20),
+                                 (64, 8), (64, 20)])
+def test_poly_matrix_matches_reference(m, K):
+    """``P_K(L)`` from the port against the reference's
+    ``fastmix_poly(eye(m), ...)``, fp32; the plain build is the
+    recursion (and the identity at K = 0)."""
+    L = erdos_renyi(m, p=0.5, seed=2).mixing.astype(np.float32)
+    eta = 0.3
+    want = ref_fm.fastmix_poly(jnp.eye(m, dtype=jnp.float32),
+                               jnp.asarray(L), eta, K)
+    got = fm.poly_matrix(torch.from_numpy(L), eta, K)
+    assert got.dtype == torch.float32 and got.shape == (m, m)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
+                               atol=2e-5)
+    torch.testing.assert_close(
+        fm.poly_matrix_plain(torch.from_numpy(L), eta, K), got, rtol=0,
+        atol=0)
+    # rows of P sum to one: L is doubly stochastic and the recursion's
+    # coefficients sum to one, so the agent mean is kept
+    np.testing.assert_allclose(got.sum(1).numpy(), np.ones(m), atol=2e-5)
+
+
+@pytest.mark.parametrize("track", [False, True])
+def test_passed_P_equals_the_built_one(track):
+    """``P=`` (the engine's cached polynomial) gives what the wrapper
+    builds itself; with the bf16 wire it is refused."""
+    (s, g, gp), L = _inputs(10, 20, 3, 6, topo=erdos_renyi_mixing)
+    args = [torch.from_numpy(a) for a in ((s, g, gp) if track else (s,))]
+    Lt = torch.from_numpy(L)
+    port = fm.fastmix_track_fused if track else fm.fastmix_fused
+    P = fm.poly_matrix(Lt, 0.3, 6)
+    torch.testing.assert_close(port(*args, Lt, 0.3, 6, P=P),
+                               port(*args, Lt, 0.3, 6), rtol=0, atol=0)
+    with pytest.raises(ValueError, match="wire"):
+        port(*args, Lt, 0.3, 6, wire_bf16=True, P=P)
+    with pytest.raises(ValueError, match="P must be"):
+        port(*args, Lt, 0.3, 6, P=P[:5, :5])
+
+
+@pytest.mark.parametrize("track", [False, True])
+@pytest.mark.parametrize("m,K", [(12, 8), (50, 20), (64, 8)])
+def test_wire_path_stays_per_round(m, K, track):
+    """The bf16 wire cannot collapse: the CPU path is the per-round loop
+    itself, bit for bit, and differs from the collapse."""
+    (s, g, gp), L = _inputs(m, 40, 3, K, topo=erdos_renyi_mixing)
+    S, G, Gp, Lt = map(torch.from_numpy, (s, g, gp, L))
+    x = fm.tracking_update(S, G, Gp) if track else S
+    got = (fm.fastmix_track_fused(S, G, Gp, Lt, 0.3, K, wire_bf16=True)
+           if track else fm.fastmix_fused(S, Lt, 0.3, K, wire_bf16=True))
+    want = fm.fastmix_plain(x.reshape(m, -1), Lt, 0.3, K, wire_bf16=True)
+    torch.testing.assert_close(got.reshape(m, -1), want, rtol=0, atol=0)
+    assert not torch.equal(got, fm.fastmix_poly(x, Lt, 0.3, K))

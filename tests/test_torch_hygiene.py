@@ -128,20 +128,29 @@ def test_build_rules_without_nvcc(monkeypatch):
         _build._nvcc()
 
 
+#: Every C entry point a wrapper binds: its id, source and binder.
+ENTRIES = ("apply_track", "fastmix", "fastmix_apply", "fastmix_ef",
+           "fastmix_poly", "flash_attention", "gram", "power_matmul")
+
+
 def _entries():
     from repro_torch.kernels import fastmix, flash_attention, gram
     from repro_torch.kernels import power_matmul
-    return {"gram": gram._entry, "fastmix": fastmix._entry,
-            "fastmix_ef": fastmix._ef_entry,
-            "apply_track": fastmix._apply_track_entry,
-            "power_matmul": power_matmul._entry,
-            "flash_attention": flash_attention._entry}
+    return {"gram": ("gram", gram._entry),
+            "fastmix": ("fastmix", fastmix._entry),
+            "fastmix_apply": ("fastmix", fastmix._apply_entry),
+            "fastmix_poly": ("fastmix", fastmix._poly_entry),
+            "fastmix_ef": ("fastmix_ef", fastmix._ef_entry),
+            "apply_track": ("apply_track", fastmix._apply_track_entry),
+            "power_matmul": ("power_matmul", power_matmul._entry),
+            "flash_attention": ("flash_attention", flash_attention._entry)}
 
 
-@pytest.mark.parametrize("source", sorted(_build.SOURCES))
+@pytest.mark.parametrize("source", ENTRIES)
 def test_ctypes_signature_matches_the_c_entry_point(source, monkeypatch):
     """Each wrapper declares as many ctypes arguments as its C entry point
-    takes (a missing or extra one would shift every argument after it)."""
+    takes (a missing or extra one would shift every argument after it).
+    The parameter names the entry; every source has at least one."""
     import re
     import types
 
@@ -155,7 +164,11 @@ def test_ctypes_signature_matches_the_c_entry_point(source, monkeypatch):
     monkeypatch.setattr(_build, "load", lambda name: (
         loaded.append(name), Lib())[1])
     loaded = []
-    _entries()[source]()
+    entries = _entries()
+    assert sorted(entries) == list(ENTRIES)
+    assert {src for src, _ in entries.values()} == set(_build.SOURCES)
+    source, bind = entries[source]
+    bind()
     assert loaded == [source] and len(seen) == 1
     fn = seen[0]
     text = (_build.CSRC / f"{source}.cu").read_text()

@@ -8,7 +8,8 @@ only PyTorch and the CUDA toolkit:
         tests/test_torch_kernels_gpu.py
 
 Tolerances: FastMix rtol = atol = 2e-5 (the reference's kernel-vs-oracle
-bound); apply-track rtol 2e-5 with atol 2e-5 * (max|S| + 1) on both
+bound), against the per-round oracle and, without a wire, the ``P_K(L)``
+collapse; the ``P_K(L)`` build the same; apply-track rtol 2e-5 with atol 2e-5 * (max|S| + 1) on both
 outputs; fp8-EF FastMix rtol = atol = 2e-5 for all but 1e-3 of the
 elements and 2e-3 for those (a sum-order difference may flip a sent value
 to the other fp8 neighbour, see test_torch_wire_ef.py); Gram rtol 1e-5
@@ -42,30 +43,110 @@ def sm90():
     torch.backends.cudnn.allow_tf32 = False
 
 
+def _on_card(a: np.ndarray, shifted: bool) -> torch.Tensor:
+    """``a`` on the card, contiguous; ``shifted`` puts its base 4 bytes
+    past a 16-byte boundary (the kernel's scalar-load variant)."""
+    if not shifted:
+        return torch.from_numpy(a).cuda()
+    buf = torch.empty(a.size + 1, device="cuda")[1:]
+    assert buf.data_ptr() % 16 != 0
+    return buf.view(a.shape).copy_(torch.from_numpy(a))
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["aligned", "shifted"])
 @pytest.mark.parametrize("track", [False, True])
 @pytest.mark.parametrize("wire", [False, True])
-@pytest.mark.parametrize("m,n,K", [(50, 1500, 8), (7, 33, 3), (16, 100, 0)])
-def test_fastmix_kernel_on_card(sm90, m, n, K, wire, track):
+@pytest.mark.parametrize("m,n,K", [(50, 1500, 8), (7, 33, 3), (16, 100, 0),
+                                   (64, 4096, 8), (64, 20000, 8),
+                                   (64, 20001, 3), (64, 1501, 20),
+                                   (50, 1502, 1), (7, 36, 0), (200, 1501, 8),
+                                   (220, 1500, 3)])
+def test_fastmix_kernel_on_card(sm90, m, n, K, wire, track, layout):
+    """Against the per-round oracle and, without a wire, the collapse (the
+    plain twin); ragged m (7, 50), ``n % 4 != 0``, a misaligned base and
+    K = 0 included, on both thread tiles (n = 20000 and 20001 at m = 64
+    take the wide one, as m > 128 does at any n; m = 220 tracked takes the
+    one-stage apply).  One gossip launch per call, plus one ``P_K(L)`` build
+    without a wire (no ``P=`` passed)."""
     rng = np.random.default_rng(m + n + K)
     L = torch.from_numpy(P.erdos_renyi(m, p=0.5, seed=0).mixing
                          .astype(np.float32)).cuda()
-    S, G, Gp = (torch.from_numpy(rng.standard_normal((m, n))
-                                 .astype(np.float32)).cuda()
-                for _ in range(3))
+    S, G, Gp = (_on_card(rng.standard_normal((m, n)).astype(np.float32),
+                         layout == "shifted") for _ in range(3))
     before = dict(fm.LAUNCHES)
+    x = fm.tracking_update(S, G, Gp) if track else S
     if track:
         got = fm.fastmix_track_fused(S, G, Gp, L, 0.3, K, wire_bf16=wire)
-        want = fm.fastmix_plain(fm.tracking_update(S, G, Gp), L, 0.3, K,
-                                wire_bf16=wire)
     else:
         got = fm.fastmix_fused(S, L, 0.3, K, wire_bf16=wire)
-        want = fm.fastmix_plain(S, L, 0.3, K, wire_bf16=wire)
+    want = fm.fastmix_plain(x, L, 0.3, K, wire_bf16=wire)
     torch.cuda.synchronize()
     name = "fastmix_track" if track else "fastmix"
     assert fm.LAUNCHES[name] == before[name] + 1
+    assert fm.LAUNCHES["fastmix_poly"] == before["fastmix_poly"] + int(
+        not wire and K > 0)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                rtol=2e-5, atol=2e-5)
+    if not wire:
+        np.testing.assert_allclose(got.cpu().numpy(),
+                                   fm.fastmix_poly(x, L, 0.3, K).cpu().numpy(),
+                                   rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [7, 50, 64, 200])
+@pytest.mark.parametrize("K", [0, 1, 8, 20])
+def test_fastmix_poly_kernel_on_card(sm90, m, K):
+    """The ``P_K(L)`` build kernel against ``fastmix_poly(eye(m))`` (the
+    recursion in torch ops), one ``fastmix_poly`` launch each; m = 200
+    takes the wide thread tile."""
+    L = torch.from_numpy(P.erdos_renyi(m, p=0.5, seed=0).mixing
+                         .astype(np.float32)).cuda()
+    before = fm.LAUNCHES["fastmix_poly"]
+    got = fm.poly_matrix(L, 0.3, K)
+    want = fm.fastmix_poly(torch.eye(m, device="cuda"), L, 0.3, K)
+    torch.cuda.synchronize()
+    assert fm.LAUNCHES["fastmix_poly"] == before + 1
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("track", [False, True])
+def test_fastmix_one_gossip_launch_with_P_on_card(sm90, track):
+    """With ``P=`` each call is exactly one gossip launch and no build;
+    the engine builds ``P`` once and then launches once per call.  A ``P``
+    the kernel cannot take raises."""
+    m, n = 50, 1500
+    rng = np.random.default_rng(3)
+    topo = P.erdos_renyi(m, p=0.5, seed=0)
+    L = torch.from_numpy(topo.mixing.astype(np.float32)).cuda()
+    S, G, Gp = (torch.from_numpy(rng.standard_normal((m, n))
+                                 .astype(np.float32)).cuda()
+                for _ in range(3))
+    Pk = fm.poly_matrix(L, 0.3, 8)
+    kernels.reset_launch_counts()
+    for _ in range(3):
+        got = (fm.fastmix_track_fused(S, G, Gp, L, 0.3, 8, P=Pk) if track
+               else fm.fastmix_fused(S, L, 0.3, 8, P=Pk))
+    name = "fastmix_track" if track else "fastmix"
+    counts = kernels.launch_counts()
+    assert counts[name] == 3 and counts["fastmix_poly"] == 0
+    x = fm.tracking_update(S, G, Gp) if track else S
+    np.testing.assert_allclose(got.cpu().numpy(),
+                               fm.fastmix_plain(x, L, 0.3, 8).cpu().numpy(),
+                               rtol=2e-5, atol=2e-5)
+    eng = P.ConsensusEngine(topo, K=8, backend="cuda")
+    kernels.reset_launch_counts()
+    for _ in range(4):
+        eng.mix_track(S, G, Gp) if track else eng.mix(S)
+    counts = kernels.launch_counts()
+    assert counts[name] == 4 and counts["fastmix_poly"] == 1
+    with pytest.raises(ValueError, match="P must be"):
+        fm.fastmix_fused(S, L, 0.3, 8, P=Pk.double())
+    with pytest.raises(ValueError, match="P must be"):
+        fm.fastmix_fused(S, L, 0.3, 8, P=Pk.cpu())
 
 
 def _ef_close(got, want):

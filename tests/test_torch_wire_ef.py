@@ -226,11 +226,11 @@ def test_ef_kernels_refuse_what_they_do_not_take():
                                   (220, 8)])
 def test_ef_tile_width_fits_shared_memory(m, bn):
     """L plus three (m, BN) buffers (prev, cur, the replica h)."""
-    assert fm.tile_width(m, ef=True) == bn
+    assert fm.ef_tile_width(m) == bn
     mp = -(-m // 4) * 4
     assert 4 * (mp * m + 3 * m * bn) <= fm.SMEM_LIMIT
     with pytest.raises(ValueError, match="shared"):
-        fm.tile_width(240, ef=True)
+        fm.ef_tile_width(240)
 
 
 # ----------------------------------------------------- engine EF contract
