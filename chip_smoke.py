@@ -17,14 +17,26 @@ What it does, in order; any failure raises and the exit code is non-zero:
    FastMix tracked/untracked (without a wire the ``P_K(L)`` collapse,
    also held to the per-round oracle, with the ``P_K(L)`` build as a
    kernel of its own; with the bf16 wire the K rounds) and the Gram
-   (slice 1), then apply-track and the two fp8-EF FastMix kernels;
+   (slice 1), then apply-track (the per-agent product, then FastMix's
+   tracked ``P_K(L)`` apply; also held to the per-round oracle), the two
+   fp8-EF FastMix kernels, and CholeskyQR2's cluster kernel (``cholqr2``,
+   orthogonality and sign-adjusted Q against its plain twin, at the w8a,
+   large and single-element shapes and on a batch that needs the rescue),
+   and past the resident gossip kernels' 230 agents the panel kernels
+   (m=256, 512, 768; on the quantized wires against twins that sum in
+   the kernels' order);
 4. drives the data-form main path through the user entry points at the
    paper's w8a scale (``deepca`` fp32 on ``backend="cuda"``, checked
    against the same run on ``backend="stacked"``), then DePCA (also with
    increasing rounds, one ``P_K(L)`` build per round count), counting
-   kernel launches; 4b. the dense-operator path (``A_j = X_j^T X_j`` of
+   kernel launches (CholeskyQR2 through ``cholqr2``, ``gram`` never);
+   4b. the dense-operator path (``A_j = X_j^T X_j`` of
    the same data) through apply-track; 4c. the error-feedback wires: fp8
-   DeEPCA and DePCA through the fp8-EF kernels, int8 through none;
+   DeEPCA and DePCA through the fp8-EF kernels, int8 through none; 4d.
+   ``deepca`` with m=256 agents, past the resident gossip kernels' limit
+   of 230: the panel kernels (exactly T gossip launches), against
+   ``stacked`` (step 3 also holds the panel kernels against their plain
+   versions at m=256);
 5. runs the f64 bench grid on the card (f64 never enters a kernel) and
    holds it to ``BENCH_deepca.json``;
 6. runs a large configuration (m=64, n=4096, d=4096, k=32) with data made
@@ -79,9 +91,20 @@ APPLY_TRACK_TOL = 2e-5      # rtol; atol 2e-5 * (max|S| + 1), both outputs
 #: EF_FLIP_TOL for those (a sum-order difference may flip a sent value to
 #: the other e4m3 neighbour; the element then moves by about one
 #: quantization step of its innovation).
+#: Past the resident kernels' limit (230 agents, 228 on fp8) the quantized
+#: wires' twins sum each round's product in the kernels' order
+#: (``mix_in_agent_order``): over hundreds of agents the library's order
+#: flips sent values often enough that a flip cascades past the rule.
+AGENT_ORDER = " (twin summed in the kernels' order)"
 EF_FLIP_SHARE, EF_FLIP_TOL = 1e-3, 2e-3
 SUBSPACE_TOL = 1e-4         # per-agent subspace distance, cuda vs stacked
 POWER_MATMUL_TOL = 1e-5     # rtol; atol 1e-5 * max|G|
+#: CholeskyQR2: max |Q^T Q - I| and the sign-adjusted Q against the plain
+#: twin (rtol; atol a tenth of it), tests/test_torch_cholqr.py's bounds
+CHOLQR_ORTH_TOL, CHOLQR_Q_TOL = 5e-6, 2e-4
+#: ... and, on the rescue batch, the projector of its ill-conditioned
+#: element against the twin's (the on-card test's bound)
+CHOLQR_PROJ_TOL = 1e-4
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # rtol = atol
 #: LM last-token logits, kernel vs plain attention, bf16: within
 #: LM_BF16_TOL * max|logits| (tests/test_torch_lm.py states the same bound
@@ -159,6 +182,12 @@ def bound(nbytes: float, flops: float, peaks, rate: str = "fp32"):
 
 
 # --------------------------------------------------------------- kernels
+def layout(fm, m: int, mode) -> str:
+    """Which gossip kernels take ``m`` agents: nothing to say for the
+    resident ones, a mark for the panel kernels."""
+    return "" if fm.kernel_fits(m, mode) else " (panel kernels)"
+
+
 def check_fastmix(fm, peaks, m: int, d: int, k: int, K: int, track: bool,
                   wire: bool, seed: int) -> dict:
     """FastMix at the main path's shape.  Without a wire the kernel applies
@@ -202,6 +231,14 @@ def check_fastmix(fm, peaks, m: int, d: int, k: int, K: int, track: bool,
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
     err_oracle = float((got - oracle).abs().max())
+    library_order = ""
+    if wire and not fm.kernel_fits(m, "bf16"):
+        library_order = (f"; in the library's order {err:.3e} (a sum now "
+                         "and then sends the other bf16 neighbour)")
+        want = oracle = fm.fastmix_plain(tracked(), L, eta, K,
+                                         wire_bf16=True,
+                                         product=fm.mix_in_agent_order)
+        err = err_oracle = float((got - want).abs().max())
     ok = all(bool(torch.allclose(got, ref, rtol=FASTMIX_TOL,
                                  atol=FASTMIX_TOL)) for ref in (want, oracle))
     # library yardstick: the collapsed polynomial applied by one matmul
@@ -210,7 +247,7 @@ def check_fastmix(fm, peaks, m: int, d: int, k: int, K: int, track: bool,
     row = {
         "name": "fastmix_track" if track else "fastmix",
         "shape": f"m={m} n={n} (d={d} k={k}) K={K} "
-                 f"wire={'bf16' if wire else 'fp32'}",
+                 f"wire={'bf16' if wire else 'fp32'}{layout(fm, m, None)}",
         "max_abs_err": err, "tol": FASTMIX_TOL, "ok": ok,
     }
     row["ms"], row["host_us"] = time_ms(kern)
@@ -226,7 +263,8 @@ def check_fastmix(fm, peaks, m: int, d: int, k: int, K: int, track: bool,
         (per_round_ms, per_round_by) if wire
         else bound(nbytes, 2.0 * m * m * n, peaks))
     row["per_round_bound_ms"] = per_round_ms
-    row["note"] = (f"max_abs_err vs the per-round oracle {err_oracle:.3e}; "
+    row["note"] = (f"max_abs_err vs the per-round oracle {err_oracle:.3e}"
+                   f"{AGENT_ORDER if library_order else ''}{library_order}; "
                    f"per-round bound {per_round_ms:.6f} ms ({per_round_by})")
     if not wire:
         row["ms_excludes"] = "the P_K(L) build (P= passed; see fastmix_poly)"
@@ -246,7 +284,8 @@ def check_fastmix_poly(fm, peaks, m: int, K: int) -> dict:
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
     ok = bool(torch.allclose(got, want, rtol=FASTMIX_TOL, atol=FASTMIX_TOL))
-    row = {"name": "fastmix_poly", "shape": f"P_K(L) m={m} K={K}",
+    row = {"name": "fastmix_poly",
+           "shape": f"P_K(L) m={m} K={K}{layout(fm, m, None)}",
            "max_abs_err": err, "tol": FASTMIX_TOL, "ok": ok}
     row["ms"], row["host_us"] = time_ms(lambda: fm.poly_matrix(L, eta, K))
     row["plain_ms"] = time_ms(lambda: fm.poly_matrix_plain(L, eta, K))[0]
@@ -289,7 +328,10 @@ def check_gram(gm, peaks, shape, dtype, seed: int) -> dict:
 
 
 def check_apply_track(fm, peaks, m: int, d: int, k: int, K: int,
-                      seed: int) -> dict:
+                      seed: int, wire: bool = False) -> dict:
+    """apply-track timed as the engine calls it: with the cached ``P_K(L)``
+    passed (no wire), or the rounds (bf16 wire).  Held to its plain twin
+    and, without a wire, also to the per-round oracle."""
     from repro_torch.core import erdos_renyi, fastmix_eta
     topo = erdos_renyi(m, p=0.5, seed=0)
     L = torch.as_tensor(topo.mixing, dtype=torch.float32, device="cuda")
@@ -298,33 +340,123 @@ def check_apply_track(fm, peaks, m: int, d: int, k: int, K: int,
     A = torch.randn(m, d, d, generator=g, device="cuda") / d ** 0.5
     W, S, Gp = (torch.randn(m, d, k, generator=g, device="cuda")
                 for _ in range(3))
+    P = None if wire else fm.poly_matrix(L, eta, K)
 
     def kern():
-        return fm.apply_track_fused(A, W, S, Gp, L, eta, K)
+        return fm.apply_track_fused(A, W, S, Gp, L, eta, K, wire_bf16=wire,
+                                    P=P)
 
     def plain():
-        return fm.apply_track_plain(A, W, S, Gp, L, eta, K)
+        return fm.apply_track_plain(A, W, S, Gp, L, eta, K, wire_bf16=wire,
+                                    P=P)
 
     (S_k, G_k), (S_p, G_p) = kern(), plain()
+    ordered = wire and not fm.kernel_fits(m, "bf16")
+    if ordered:           # the gossip twin on the kernel's own G
+        S_p = fm.fastmix_plain(
+            fm.tracking_update(S, G_k, Gp).reshape(m, -1), L, eta, K,
+            wire_bf16=True, product=fm.mix_in_agent_order).reshape(S.shape)
+    oracle = fm.fastmix_plain(fm.tracking_update(S, G_p, Gp).reshape(m, -1),
+                              L, eta, K, wire_bf16=wire).reshape(S.shape)
     torch.cuda.synchronize()
     atol = APPLY_TRACK_TOL * (float(S_p.abs().max()) + 1.0)
     err = max(float((S_k - S_p).abs().max()), float((G_k - G_p).abs().max()))
+    err_oracle = float((S_k - oracle).abs().max())
     ok = all(bool(torch.allclose(a, b, rtol=APPLY_TRACK_TOL, atol=atol))
-             for a, b in ((S_k, S_p), (G_k, G_p)))
+             for a, b in ((S_k, S_p), (G_k, G_p),
+                          *(() if ordered else ((S_k, oracle),))))
+    bm, kp, grid = fm.product_tile(m, d, k, fm.sm_count(0))
     row = {"name": "apply_track",
-           "shape": f"m={m} d={d} k={k} K={K} tile(bd, be)="
-                    f"{fm.tile_rows(m, k, False, d)}",
-           "max_abs_err": err, "tol": APPLY_TRACK_TOL, "ok": ok}
-    del S_k, G_k, S_p, G_p
+           "shape": f"m={m} d={d} k={k} K={K} "
+                    f"wire={'bf16' if wire else 'fp32'} product (BM, KP)="
+                    f"({bm}, {kp}) grid={grid}{layout(fm, m, None)}",
+           "max_abs_err": err, "tol": APPLY_TRACK_TOL, "ok": ok,
+           "note": f"max_abs_err of S_new vs the per-round oracle "
+                   f"{err_oracle:.3e}"
+                   + ("; S_new" + AGENT_ORDER + " on the kernel's G"
+                      if ordered else "")}
+    del S_k, G_k, S_p, G_p, oracle
     row["ms"], row["host_us"] = time_ms(kern)
     row["plain_ms"] = time_ms(plain)[0]
     # library yardstick: the dominant product alone, G = A W as one bmm
     row["library_ms"] = time_ms(lambda: torch.bmm(A, W))[0]
     row["library"] = "torch.bmm(A, W) (the local step only)"
     nbytes = 4 * (m * d * d + 5 * m * d * k + m * m)
-    flops = 2 * m * d * d * k + (2 * m + 3) * m * d * k * K + 2 * m * d * k
-    row["bound_ms"], row["bound_by"] = bound(nbytes, flops, peaks)
+    mix = (2 * m + 3) * m * d * k * K if wire else 2 * m * m * d * k
+    row["bound_ms"], row["bound_by"] = bound(
+        nbytes, 2 * m * d * d * k + mix + 2 * m * d * k, peaks)
+    if not wire:
+        row["ms_excludes"] = "the P_K(L) build (P= passed; see fastmix_poly)"
+        row["note"] += f"; ms {row['ms_excludes']}"
     return row
+
+
+def orth_err(Q) -> float:
+    eye = torch.eye(Q.shape[-1], device=Q.device)
+    return float((Q.mT @ Q - eye).abs().max())
+
+
+def check_cholqr2(cq, peaks, X, label: str, rescue: bool = False) -> dict:
+    """The cluster kernel against its plain twin: orthogonality, and Q
+    sign-adjusted (Alg. 2, as every call site does) against the twin's.
+    ``rescue``: the batch is :func:`rescue_batch`, so the kernel's flag
+    must be set (its third pass ran on every element).  Element 0 is held
+    like any other; of the rescued ones, element 1's first k/2 columns
+    (those before its rank deficiency) must be orthonormal, and element 2
+    orthonormal with its projector ``Q Q^T`` within CHOLQR_PROJ_TOL of the
+    twin's (its last directions sit near fp32's floor, so Q itself is not
+    compared)."""
+    from repro_torch.core.step import sign_adjust
+    B, d, k = X.shape
+    flag = torch.zeros(1, dtype=torch.int32, device="cuda")
+    got = cq.cholqr2_fused(X, flag=flag)
+    want = cq.cholqr2_plain(X)
+    torch.cuda.synchronize()
+    ok_rows = slice(0, 1) if rescue else slice(None)
+    orth = orth_err(got[ok_rows])
+    Qa, Qb = sign_adjust(got, X)[ok_rows], sign_adjust(want, X)[ok_rows]
+    err = float((Qa - Qb).abs().max())
+    ok = (orth < CHOLQR_ORTH_TOL and bool(torch.isfinite(got).all())
+          and bool(torch.allclose(Qa, Qb, rtol=CHOLQR_Q_TOL,
+                                  atol=CHOLQR_Q_TOL / 10))
+          and (int(flag) != 0) == rescue)
+    rescued = ""
+    if rescue:
+        orth_1, orth_2 = orth_err(got[1, :, :k // 2]), orth_err(got[2])
+        proj = float((got[2] @ got[2].mT - want[2] @ want[2].mT).abs().max())
+        ok = (ok and orth_1 < CHOLQR_ORTH_TOL and orth_2 < CHOLQR_ORTH_TOL
+              and proj < CHOLQR_PROJ_TOL)
+        rescued = (f"; rescued: max |Q^T Q - I| {orth_1:.3e} (element 1, "
+                   f"first {k // 2} columns) and {orth_2:.3e} (element 2), "
+                   f"element 2's projector vs the twin's {proj:.3e} (tol "
+                   f"{CHOLQR_PROJ_TOL:g})")
+    C, resident = cq.cluster_size(B, d, k, torch.cuda.get_device_properties(
+        X.device).multi_processor_count)
+    row = {"name": "cholqr2",
+           "shape": f"({B}, {d}, {k}) {label} cluster C={C} "
+                    f"slice {'in shared memory' if resident else 're-read'}",
+           "max_abs_err": err, "tol": CHOLQR_Q_TOL, "ok": ok,
+           "note": f"max |Q^T Q - I| {orth:.3e} (tol {CHOLQR_ORTH_TOL:g}); "
+                   f"rescue flag {int(flag)}{rescued}"}
+    row["ms"], row["host_us"] = time_ms(lambda: cq.cholqr2_fused(X))
+    row["plain_ms"] = time_ms(lambda: cq.cholqr2_plain(X))[0]
+    row["library_ms"] = time_ms(lambda: torch.linalg.qr(X).Q)[0]
+    row["library"] = "torch.linalg.qr(X).Q (Householder; column signs differ)"
+    row["bound_ms"], row["bound_by"] = bound(2 * B * d * k * 4,
+                                             2 * 4.0 * B * d * k * k, peaks)
+    return row
+
+
+def rescue_batch(d: int = 300, k: int = 4) -> torch.Tensor:
+    """A well-conditioned element, an exactly rank-deficient one (repeated
+    columns) and one of condition ~3e6: the screen flags the last two."""
+    rng = np.random.default_rng(0)
+    half = rng.standard_normal((d, k // 2))
+    ill = np.linalg.qr(rng.standard_normal((d, k)))[0] * np.array(
+        [1.0, 1e-3, 1e-5, 3e-7])
+    X = np.stack([rng.standard_normal((d, k)),
+                  np.concatenate([half, half], axis=1), ill])
+    return torch.as_tensor(X, dtype=torch.float32, device="cuda")
 
 
 def check_fastmix_ef(fm, peaks, m: int, d: int, k: int, K: int,
@@ -342,16 +474,18 @@ def check_fastmix_ef(fm, peaks, m: int, d: int, k: int, K: int,
         def kern():
             return fm.fastmix_track_ef_fused(S, G, Gp, err0, L, eta, K)
 
-        def plain():
+        def plain(product=torch.matmul):
             return fm.fastmix_ef_plain(fm.tracking_update(S, G, Gp), err0,
-                                       L, eta, K)
+                                       L, eta, K, product=product)
     else:
         def kern():
             return fm.fastmix_ef_fused(S, err0, L, eta, K)
 
-        def plain():
-            return fm.fastmix_ef_plain(S, err0, L, eta, K)
-    got, want = kern(), plain()
+        def plain(product=torch.matmul):
+            return fm.fastmix_ef_plain(S, err0, L, eta, K, product=product)
+    ordered = not fm.kernel_fits(m, "fp8")
+    got = kern()
+    want = plain(fm.mix_in_agent_order) if ordered else plain()
     torch.cuda.synchronize()
     err = max(float((a - b).abs().max()) for a, b in zip(got, want))
     off = sum(int((~torch.isclose(a, b, rtol=FASTMIX_TOL, atol=FASTMIX_TOL))
@@ -361,8 +495,11 @@ def check_fastmix_ef(fm, peaks, m: int, d: int, k: int, K: int,
         for a, b in zip(got, want))
     row = {"name": "fastmix_track_ef" if track else "fastmix_ef",
            "shape": f"m={m} n={n} (d={d} k={k}) K={K} wire=fp8-EF "
-                    f"(elements past {FASTMIX_TOL:g}: {off})",
+                    f"(elements past {FASTMIX_TOL:g}: {off})"
+                    f"{layout(fm, m, 'fp8')}",
            "max_abs_err": err, "tol": FASTMIX_TOL, "ok": ok}
+    if ordered:
+        row["note"] = AGENT_ORDER.strip()
     row["ms"], row["host_us"] = time_ms(kern)
     row["plain_ms"] = time_ms(plain)[0]
     row["library_ms"] = None       # no PyTorch call computes quantized rounds
@@ -588,6 +725,7 @@ def main() -> int:
     from repro_torch import core as P
     from repro_torch import kernels
     from repro_torch.kernels import _build
+    from repro_torch.kernels import cholqr as cq
     from repro_torch.kernels import fastmix as fm
     from repro_torch.kernels import gram as gm
 
@@ -625,9 +763,22 @@ def main() -> int:
         "fastmix_track_ef": check_fastmix_ef(fm, peaks, 50, 300, 5, 8, True,
                                              13),
         "fastmix_ef": check_fastmix_ef(fm, peaks, 50, 300, 5, 8, False, 14),
+        "cholqr2": check_cholqr2(cq, peaks, torch.randn(
+            50, 300, 5, generator=torch.Generator(device="cuda")
+            .manual_seed(18), device="cuda"), "(w8a: one per iteration)"),
     }
+    g = torch.Generator(device="cuda").manual_seed(19)
     extra_rows = [
         check_apply_track(fm, peaks, 64, 4096, 32, 8, 15),
+        check_apply_track(fm, peaks, 50, 300, 5, 8, 20, wire=True),
+        *(check_cholqr2(cq, peaks, torch.randn(*shape, generator=g,
+                                               device="cuda"), label)
+          for shape, label in (((64, 4096, 32), "(large)"),
+                               ((1, 300, 5), "(centralized w8a)"),
+                               ((1, 4096, 32), "(centralized large)"),
+                               ((3, 257, 33), "(ragged)"))),
+        check_cholqr2(cq, peaks, rescue_batch(), "(rescue batch)",
+                      rescue=True),
         check_fastmix_ef(fm, peaks, 64, 4096, 32, 8, True, 16),
         check_fastmix_ef(fm, peaks, 64, 4096, 32, 8, False, 17),
         check_fastmix(fm, peaks, 64, 4096, 32, 8, True, False, 4),
@@ -635,6 +786,20 @@ def main() -> int:
         check_fastmix(fm, peaks, 50, 300, 5, 8, True, True, 6),
         check_fastmix(fm, peaks, 64, 4096, 32, 8, False, True, 7),
         check_fastmix_poly(fm, peaks, 64, 8),
+        # past the resident kernels' m <= 230 (228 on fp8): the panel
+        # kernels, at 4d's agent count and the reference's own limits
+        # (512 tracked, 768 untracked)
+        check_fastmix(fm, peaks, 256, 300, 5, 8, True, False, 21),
+        check_fastmix(fm, peaks, 256, 300, 5, 8, False, False, 22),
+        check_fastmix(fm, peaks, 256, 300, 5, 8, True, True, 23),
+        check_fastmix(fm, peaks, 512, 300, 5, 8, True, False, 24),
+        check_fastmix(fm, peaks, 768, 300, 5, 8, False, True, 25),
+        check_fastmix_poly(fm, peaks, 256, 8),
+        check_fastmix_poly(fm, peaks, 768, 8),
+        check_fastmix_ef(fm, peaks, 256, 300, 5, 8, True, 26),
+        check_fastmix_ef(fm, peaks, 512, 300, 5, 8, False, 27),
+        check_apply_track(fm, peaks, 256, 300, 5, 8, 28),
+        check_apply_track(fm, peaks, 256, 300, 5, 8, 29, wire=True),
         check_gram(gm, peaks, (64, 4096, 32), torch.float32, 8),
         check_gram(gm, peaks, (5000, 300, 5), torch.float32, 9),
         check_gram(gm, peaks, (257, 100), torch.float32, 10),
@@ -658,16 +823,17 @@ def main() -> int:
                                K=K, U=U, backend="cuda")
     launches = {"fastmix_track": counts["fastmix_track"],
                 "fastmix_poly": counts["fastmix_poly"],
-                "gram": counts["gram"]}
+                "cholqr2": counts["cholqr2"], "gram": counts["gram"]}
     print(f"main deepca w8a m={m} n={n} d={d} k={k} K={K} T={T} fp32 "
           f"cuda: us_per_iter={sec / T * 1e6:.1f} (deepca call incl. "
           f"trace) final_mean_tan_theta="
           f"{float(res.trace.mean_tan_theta[-1]):.6e} launches={counts} "
           f"(P_K(L) builds: {counts['fastmix_poly']})", flush=True)
-    if counts["fastmix_track"] != T or counts["gram"] < 2 * T or \
-            counts["fastmix_poly"] < 1:
+    if counts["fastmix_track"] != T or counts["cholqr2"] < T or \
+            counts["gram"] != 0 or counts["fastmix_poly"] < 1:
         fail(f"main path did not go through the kernels (the gossip kernel "
-             f"exactly T={T} times): {counts}")
+             f"exactly T={T} times, cholqr2 at least T, gram never): "
+             f"{counts}")
     ref, sec_ref = run_timed(P.deepca, ops, topo, W0, k=k, T=T, K=K, U=U,
                              backend="stacked")
     gap = subspace_gap(ref.W, res.W)
@@ -724,7 +890,8 @@ def main() -> int:
           f"{float(ref.trace.mean_tan_theta[-1]):.6e}; per-agent subspace "
           f"distance cuda vs stacked {gap:.3e} (tol {SUBSPACE_TOL:g})",
           flush=True)
-    if counts["apply_track"] != T or counts["fastmix_track"] != 0:
+    if counts["apply_track"] != T or counts["fastmix_track"] != 0 or \
+            counts["cholqr2"] < T:
         fail(f"dense deepca must launch apply_track T times: {counts}")
     if not (gap <= SUBSPACE_TOL and torch.isfinite(res.W).all()):
         fail(f"dense deepca cuda vs stacked subspace distance {gap}")
@@ -787,6 +954,31 @@ def main() -> int:
     del res, ref, ref64, ops64, dres, ires
     w8a = (ops.mean_matrix().contiguous(), W0, U)
 
+    # ---- 4d. past the resident gossip kernels' limit: m=256, the panels
+    mb, Tb = 256, 30
+    ops_b = P.libsvm_like(mb, 200, d, seed=0)
+    topo_b = P.erdos_renyi(mb, p=0.5, seed=0)
+    Ub, _ = P.top_k_eigvecs(ops_b.mean_matrix(), k)
+    res, sec, counts = counted(kernels, P.deepca, ops_b, topo_b, W0, k=k,
+                               T=Tb, K=K, U=Ub, backend="cuda")
+    ref, sec_ref = run_timed(P.deepca, ops_b, topo_b, W0, k=k, T=Tb, K=K,
+                             U=Ub, backend="stacked")
+    gap = subspace_gap(ref.W, res.W)
+    print(f"panel deepca m={mb} n=200 d={d} k={k} K={K} T={Tb} fp32 cuda "
+          f"(past the resident gossip kernels' m <= 230): us_per_iter="
+          f"{sec / Tb * 1e6:.1f} final_mean_tan_theta="
+          f"{float(res.trace.mean_tan_theta[-1]):.6e} launches={counts}; "
+          f"stacked us_per_iter={sec_ref / Tb * 1e6:.1f}; per-agent "
+          f"subspace distance cuda vs stacked {gap:.3e} (tol "
+          f"{SUBSPACE_TOL:g})", flush=True)
+    if counts["fastmix_track"] != Tb or counts["fastmix_poly"] < 1 or \
+            counts["cholqr2"] < Tb or counts["gram"] != 0:
+        fail(f"m={mb} must launch the gossip kernel exactly once per "
+             f"iteration: {counts}")
+    if not (gap <= SUBSPACE_TOL and torch.isfinite(res.W).all()):
+        fail(f"m={mb} deepca cuda vs stacked subspace distance {gap}")
+    del ops_b, res, ref
+
     # ---- 5. f64 bench grid on the card (no kernel takes f64)
     bench = json.loads((ROOT / "BENCH_deepca.json").read_text())
     want = next(r["final_tan"] for r in bench["rows"]
@@ -822,7 +1014,8 @@ def main() -> int:
           f"launches={counts} max_memory_allocated="
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB",
           flush=True)
-    if counts["fastmix_track"] < T or counts["gram"] < 2 * T:
+    if counts["fastmix_track"] < T or counts["cholqr2"] < T or \
+            counts["gram"] != 0:
         fail(f"large run did not go through the kernels: {counts}")
     if not (torch.isfinite(res.W).all() and torch.isfinite(tans).all()
             and float(tans[-1]) < float(tans[0])):
@@ -910,9 +1103,9 @@ def main() -> int:
               flush=True)
         if label == "w8a":
             launches["power_matmul"] = counts["power_matmul"]
-        if counts["power_matmul"] != T:
+        if counts["power_matmul"] != T or counts["cholqr2"] < T:
             fail(f"centralized {label} must launch power_matmul T={T} "
-                 f"times: {counts}")
+                 f"times and cholqr2 at least T: {counts}")
         if not (torch.isfinite(res["W"]).all() and torch.isfinite(tans).all()
                 and float(tans[-1]) < float(tans[0])):
             fail(f"centralized {label}: non-finite or non-decreasing tan")
@@ -998,6 +1191,7 @@ def main() -> int:
                "fastmix": csrc + "fastmix.cu",
                "fastmix_poly": csrc + "fastmix.cu",
                "gram": csrc + "gram.cu",
+               "cholqr2": csrc + "cholqr2.cu",
                "apply_track": csrc + "apply_track.cu",
                "fastmix_track_ef": csrc + "fastmix_ef.cu",
                "fastmix_ef": csrc + "fastmix_ef.cu",
@@ -1009,12 +1203,17 @@ def main() -> int:
                 "fastmix_poly": "src/repro/kernels/fastmix.py:484 and "
                                 "src/repro/kernels/fastmix.py:331",
                 "gram": "src/repro/kernels/gram.py:70",
+                "cholqr2": "src/repro/kernels/gram.py:70 by way of "
+                           "src/repro/kernels/cholqr.py::_gram_nk",
                 "apply_track": "src/repro/kernels/fastmix.py:797",
                 "fastmix_track_ef": "src/repro/kernels/fastmix.py:565",
                 "fastmix_ef": "src/repro/kernels/fastmix.py:401",
                 "power_matmul": "src/repro/kernels/power_matmul.py:71",
                 "flash_attention": "src/repro/kernels/flash_attention.py:96"}
-    if any(launches[name] <= 0 for name in main_rows):
+    # the standalone Gram (the reference's ops.gram) left the main path:
+    # cholqr2 forms CholeskyQR2's Gram there
+    off_path = {"gram"}
+    if any(launches[name] <= 0 for name in main_rows if name not in off_path):
         fail(f"a kernel was not launched on its path: {launches}")
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": sources[name],
@@ -1024,6 +1223,8 @@ def main() -> int:
          "bound_by": row["bound_by"], "library_ms": row["library_ms"],
          "library": row.get("library"), "shape": row["shape"],
          "ok": row["ok"],
+         **({"path": "none: on the main path cholqr2 forms CholeskyQR2's Gram"}
+            if name in off_path else {}),
          **{key: row[key] for key in ("per_round_bound_ms", "ms_excludes")
             if key in row}}
         for name, row in main_rows.items()]}

@@ -24,6 +24,11 @@ and return the per-agent wire replica ``ef``.  On the ``cuda`` backend fp8
 runs the fp8-EF kernels; int8 has no kernel (its per-agent scale is a
 reduction over every column tile, as in the reference) and runs the
 per-round reference as torch ops on the card.
+
+The gossip kernels take every agent count: up to 230 (228 on the fp8
+wire) they hold ``L`` (or ``P_K(L)``) in one block's shared memory, and
+past that their panel kernels stream it through shared memory
+(:func:`repro_torch.kernels.fastmix.kernel_fits` says which run).
 """
 from __future__ import annotations
 
@@ -303,10 +308,11 @@ class ConsensusEngine:
         """Local apply + Eqn. (3.1) combine + Eqn. (3.2) gossip ->
         ``(S_new, G)``.
 
-        Dense operators on the ``cuda`` backend launch the fused
-        apply-track kernel (in fp32, as the reference's kernel computes):
-        ``G = A_j W_j`` is formed on the kernel's tile and fed straight
-        into the combine and the rounds.  Everything else (Gram-form data
+        Dense operators on the ``cuda`` backend launch the apply-track
+        kernels (in fp32, as the reference's kernel computes): the
+        per-agent product writes ``G``, and the gossip kernel forms the
+        tracked iterate on its tile and applies the cached ``P_K(L)`` (the
+        bf16 wire: runs the rounds).  Everything else (Gram-form data
         operators, f64, the ``stacked`` backend) composes ``ops.apply``
         with :meth:`mix_track`.  EF wire modes
         raise: they compose ``ops.apply`` with ``mix_track(..., ef=)``,
@@ -328,7 +334,7 @@ class ConsensusEngine:
                 dense.to(f32).contiguous(), W.to(f32).contiguous(),
                 S.to(f32).contiguous(), G_prev.to(f32).contiguous(),
                 self._L(f32, S.device), self.eta, r,
-                wire_bf16=self.wire_dtype is not None)
+                wire_bf16=self.wire_dtype is not None, P=self._P(S, r))
             return S_new.to(S.dtype), G.to(S.dtype)
         G = ops.apply(W)
         return self.mix_track(S, G, G_prev, rounds=rounds), G

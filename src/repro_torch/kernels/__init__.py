@@ -4,10 +4,10 @@ Importing this package builds nothing and imports no GPU toolchain: a
 kernel is compiled (``_build``) the first time a wrapper launches it on a
 CUDA tensor.
 """
-from . import fastmix, flash_attention, gram, power_matmul
+from . import cholqr, fastmix, flash_attention, gram, power_matmul
 
-_COUNTERS = (fastmix.LAUNCHES, gram.LAUNCHES, power_matmul.LAUNCHES,
-             flash_attention.LAUNCHES)
+_COUNTERS = (fastmix.LAUNCHES, gram.LAUNCHES, cholqr.LAUNCHES,
+             power_matmul.LAUNCHES, flash_attention.LAUNCHES)
 
 
 def launch_counts() -> dict:
@@ -24,5 +24,5 @@ def reset_launch_counts() -> None:
             counts[key] = 0
 
 
-__all__ = ["fastmix", "flash_attention", "gram", "power_matmul",
+__all__ = ["cholqr", "fastmix", "flash_attention", "gram", "power_matmul",
            "launch_counts", "reset_launch_counts"]

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` compiles, with one ``nvcc`` process per source,
 into ``_build/<hash>/lib<name>.so`` beside this file (a directory that
-``.gitignore`` lists).  The hash covers the source text and the flags, so
-an edited source rebuilds and an unchanged one loads at once.  Nothing is
+``.gitignore`` lists).  The hash covers the source text, the shared
+headers (``csrc/*.cuh``) and the flags, so an edited source or header
+rebuilds and an unchanged one loads at once.  Nothing is
 built or loaded at import: the first launch of a kernel builds it, and
 :func:`build_all` builds every source in parallel ahead of time.
 
@@ -27,7 +28,7 @@ BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 SOURCES = ("fastmix", "gram", "fastmix_ef", "apply_track", "power_matmul",
-           "flash_attention")
+           "flash_attention", "cholqr2")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -46,7 +47,9 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers +
+                            " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_ROOT / digest[:16] / f"lib{name}.so"
 
 

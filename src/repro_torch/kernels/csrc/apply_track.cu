@@ -1,6 +1,6 @@
-// Dense local power step fused with subspace tracking (Eqn. 3.1) and all K
-// FastMix rounds (Alg. 3): DeEPCA's whole gossip half-iteration in one
-// launch, for explicit per-agent matrices A_j.
+// Dense local power step followed by subspace tracking (Eqn. 3.1) and the
+// FastMix gossip (Alg. 3): DeEPCA's gossip half-iteration for explicit
+// per-agent matrices A_j, two kernels behind one C entry.
 //
 // Replaces the Pallas TPU kernel
 //   src/repro/kernels/fastmix.py::_apply_track_fused (pallas_call :797,
@@ -8,366 +8,317 @@
 //
 // What it computes, for every agent a and every column of the flattened
 // (m, d*k) iterate:
-//   G[a]     = A[a] @ W[a]          (fp32 FMAs over the contraction, ascending)
-//   prev=cur = (S + G) - G_prev
-//   K times:  sent  = wire ? bf16_rne(cur) : cur
-//             mixed = sum_j L[i, j] * sent[j]   (fp32 FMAs, j ascending)
-//             prev, cur = cur, (1 + eta) * mixed - eta * prev
-//   S_new = cur, and G written once (the next iteration's G_prev).
+//   G[a]  = A[a] @ W[a]          (fp32 FMAs over the contraction, ascending)
+//   x     = (S + G) - G_prev
+//   S_new = P_K(L) x                            (no wire, K > 0)
+//         = K rounds  sent = bf16_rne(cur); mixed = L sent;
+//                     prev, cur = cur, (1 + eta) mixed - eta prev   (bf16)
+//         = x                                   (K = 0)
+//   and G written once (the next iteration's G_prev).
 //
 // What bounds it on an H100: A (m d^2 floats) is read once, W, S, G_prev
-// once and S_new, G written once; the local step is 2 m d^2 k flops and the
-// rounds (2m + 3) m d k K.  At m = 64, d = 4096, k = 32 the local step
-// dominates with 16 flops per 4-byte element of A, so HBM and the fp32
-// CUDA-core rate bound it about equally: 4.5 GB at 3.35 TB/s is 1.3 ms,
-// 69 GFLOP at 67 TFLOP/s is 1.0 ms.  A second cost comes from the fusion
-// itself: every row block stages all of W (32 MiB there) from L2.
+// once and S_new, G written once: 4 (m d^2 + 5 m d k + m^2) bytes; the
+// product is 2 m d^2 k flops and the P_K(L) apply 2 m^2 d k.  At m = 64,
+// d = 4096, k = 32 that is 4.3 GB (1.3 ms at 3.35 TB/s) against 69 GFLOP
+// (1.0 ms at 67 TFLOP/s fp32): HBM bounds it, the fp32 CUDA cores close
+// behind.
 //
-// What the design does about it: the rounds mix across agents, so one block
-// owns a block of bd output rows for ALL m agents: the columns
-// [r0*k, (r0+bd)*k) of the flattened iterate, a (m, bd*k) tile.  In a loop
-// over the contraction axis it stages A[:, rows, e-chunk] (transposed, so a
-// thread's rows are adjacent) and W[:, e-chunk, :] (one contiguous run per
-// agent) through shared memory with asynchronous copies, all of a chunk in
-// flight at once.  Each thread owns TR x TC tiles of one agent's G (rows x
-// adjacent columns), one sequential FMA chain per output: TR + TC shared
-// loads feed TR * TC FMAs.  When every thread owns at most one tile its
-// sums stay in registers for the whole contraction; otherwise they live in
-// the shared (m, bd*k) tile between chunks.  Then it writes G, forms prev = (S + G) - G_prev in
-// tracking_update's order, runs the K rounds exactly as fastmix.cu does (L
-// resident, four rows per thread, nxt over prev in place) and writes S_new.
-// Agent blocks of both stages are padded by one word so that agents land on
-// different shared-memory banks.  The wrapper's tile_rows() picks bd and
-// the chunk be (both powers of two) to fit 227 KB and to give at least one
-// block per SM where d allows; the entry point picks the thread tile
-// (pick_tile).  L and eta are runtime operands and K is a loop bound.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
+// What the design does about it.  The rounds mix across agents, but the
+// product does not, so the two run as separate kernels on the stream and
+// the product never stages another agent's W:
+//   1. apply_product_kernel: grid (ceil(d / BM), m), agent-major, so the
+//      blocks of one agent run together and W[a] stays in L2.  A block owns
+//      BM output rows and all k columns (padded and masked to KP; past 64 it
+//      loops over column tiles of 64) and walks the contraction in chunks of
+//      32 through a 3-stage ring of 16-byte cp.async.cg copies (4-byte
+//      copies where d or k is not a multiple of 4), one barrier per stage.
+//      Each thread owns a TR x TC register tile: 8 x 4 at KP >= 32, 4 x 4 at
+//      KP = 16, one row by the 8 padded columns at KP = 8 (k = 5).  Its rows
+//      are strided by BM / TR, so a warp's 16-byte loads of A land on
+//      distinct banks; 4 columns of e per A load feed TR x TC x 4 FMAs.
+//      Every output is one fp32 FMA chain over e ascending (no TF32).
+//   2. FastMix's tracked kernels (fastmix_tiles.cuh, shared with fastmix.cu):
+//      without a wire the one-pass apply of the cached P_K(L), forming the
+//      tracked iterate from S, G, G_prev on its tile; with the bf16 wire, or
+//      K = 0, the register-tiled round loop over L.  Past their resident
+//      limit (m > 230) FastMix's panel kernels, which take any m.
+// The wrapper (kernels/fastmix.py) picks BM, KP and FastMix's tile; this
+// entry refuses what does not fit.  L, P and eta are runtime operands.
+#include "fastmix_tiles.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kRowsPerThread = 4;
+constexpr int kBK = 32;               // contraction chunk
+constexpr int kRing = 3;              // cp.async stages
+constexpr int kAStride = kBK + 4;     // A stage row stride: 16-byte rows whose
+                                      // bank offset steps 4 words per row
 
-__device__ __forceinline__ float wire_round(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
+// Thread tile of a KP-wide output tile: 1 x 8 at KP = 8, 4 x 4 at 16, else
+// 8 x 4.
+template <int KP> struct TileOf {
+  static constexpr int TR = KP == 8 ? 1 : KP == 16 ? 4 : 8;
+  static constexpr int TC = KP == 8 ? 8 : 4;
+};
+
+template <int BM, int KP>
+__host__ __device__ constexpr int product_threads() {
+  return (BM / TileOf<KP>::TR) * (KP / TileOf<KP>::TC);
 }
 
-// One 4-byte global -> shared copy in flight (cp.async, sm_80+): the thread
-// issues every copy of a chunk before waiting on any, so a chunk costs one
-// memory latency, not one per element.  A copy with valid == false writes
-// a zero and reads nothing (src-size 0).
-__device__ __forceinline__ void copy_async(float* dst, const float* src,
-                                           bool valid) {
+template <int BM, int KP>
+__host__ __device__ constexpr size_t product_smem() {
+  return sizeof(float) * kRing * (BM * kAStride + kBK * KP);
+}
+
+__device__ __forceinline__ void copy16(float* dst, const float* src,
+                                       bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(s), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void copy4(float* dst, const float* src,
+                                      bool valid) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
                :: "r"(s), "l"(src), "r"(valid ? 4 : 0) : "memory");
 }
 
-__device__ __forceinline__ void copy_wait_all() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-__host__ __device__ __forceinline__ int log2_of(int v) {
-  int s = 0;
-  while ((1 << s) < v) ++s;
-  return s;
-}
-
-// Where tile `item` (agent, row tile, column tile) of the local step lives:
-// offsets into the A stage, the W stage and the (m, bd*k) tile, and its
-// first column.
-struct Tile {
-  int a, w, g, c0;
-};
-
-__device__ __forceinline__ Tile tile_of(int item, int ncg, int nrg, int tr,
-                                        int tc, int a_st, int w_st, int bn,
-                                        int k) {
-  const int cg = item % ncg, rest = item / ncg;
-  const int rg = rest % nrg, a = rest / nrg;
-  const int c0 = cg * tc;
-  return {a * a_st + rg * tr, a * w_st + c0, a * bn + rg * tr * k + c0, c0};
-}
-
-template <int TR, int TC>
-__device__ __forceinline__ void load_tile(float (&acc)[TR][TC],
-                                          const float* g, int k, int c0) {
-#pragma unroll
-  for (int i = 0; i < TR; ++i)
-#pragma unroll
-    for (int j = 0; j < TC; ++j)
-      acc[i][j] = c0 + j < k ? g[i * k + j] : 0.0f;
-}
-
-template <int TR, int TC>
-__device__ __forceinline__ void store_tile(const float (&acc)[TR][TC],
-                                           float* g, int k, int c0) {
-#pragma unroll
-  for (int i = 0; i < TR; ++i)
-#pragma unroll
-    for (int j = 0; j < TC; ++j)
-      if (c0 + j < k) g[i * k + j] = acc[i][j];
-}
-
-// One staged chunk into a TR x TC tile: TR + TC shared loads per step feed
-// TR * TC FMAs, each output's chain running over e ascending.
-template <int TR, int TC>
-__device__ __forceinline__ void chunk_fma(float (&acc)[TR][TC],
-                                          const float* ap, const float* wp,
-                                          int bd, int k, int c0, int ne) {
-  for (int e = 0; e < ne; ++e) {
-    float av[TR], wv[TC];
-#pragma unroll
-    for (int i = 0; i < TR; ++i) av[i] = ap[e * bd + i];
-#pragma unroll
-    for (int j = 0; j < TC; ++j) wv[j] = c0 + j < k ? wp[e * k + j] : 0.0f;
-#pragma unroll
-    for (int i = 0; i < TR; ++i)
-#pragma unroll
-      for (int j = 0; j < TC; ++j)
-        acc[i][j] = __fmaf_rn(av[i], wv[j], acc[i][j]);
-  }
-}
-
-template <int TR, int TC>
-__global__ void __launch_bounds__(kThreads)
-apply_track_kernel(const float* __restrict__ L, const float* __restrict__ A,
-                   const float* __restrict__ W, const float* __restrict__ S,
-                   const float* __restrict__ Gp, float* __restrict__ S_new,
-                   float* __restrict__ G_out, int m, int d, int k, float eta,
-                   int K, int bd, int be, int wire) {
-  extern __shared__ float smem[];
-  const int mp = (m + kRowsPerThread - 1) / kRowsPerThread * kRowsPerThread;
-  const int bn = bd * k;                  // tile columns
-  const int bd_shift = log2_of(bd), be_shift = log2_of(be);
-  const int a_st = be * bd + 1;           // padded agent block, A stage
-  const int w_st = be * k + 1;            // padded agent block, W stage
-  float* sL = smem;                       // mp x m   (rows >= m are zero)
-  float* prev = sL + mp * m;              // m x bn   (G accumulates here)
-  float* cur = prev + m * bn;             // m x bn
-  float* sent = wire ? cur + m * bn : cur;
-  float* As = cur + (wire ? 2 : 1) * m * bn;   // m x [be][bd] (+1)
-  float* Ws = As + m * a_st;                   // m x [be][k]  (+1)
-
-  const int tid = threadIdx.x;
-  const int r0 = blockIdx.x * bd;
-  const int rows = min(bd, d - r0);
-  const int ncols = rows * k;             // valid tile columns
-  const long long dk = (long long)d * k;
-  const long long col0 = (long long)r0 * k;
-
-  for (int idx = tid; idx < mp * m; idx += kThreads)
-    sL[idx] = idx < m * m ? L[idx] : 0.0f;
-  for (int idx = tid; idx < m * bn; idx += kThreads) prev[idx] = 0.0f;
-
-  // ---- the local power step G[a] = A[a] @ W[a] on this block's rows
-  const int ncg = (k + TC - 1) / TC;      // column tiles per agent row block
-  const int nrg = bd / TR;                // row tiles
-  const int items = m * nrg * ncg;
-  // one tile per thread: its sums stay in registers for the whole
-  // contraction; else each chunk adds into the shared (m, bd*k) tile
-  const bool in_regs = items <= kThreads;
-  const int warp = tid >> 5, lane = tid & 31;
-  float acc[TR][TC];
-#pragma unroll
-  for (int i = 0; i < TR; ++i)
-#pragma unroll
-    for (int j = 0; j < TC; ++j) acc[i][j] = 0.0f;
-  for (int e0 = 0; e0 < d; e0 += be) {
-    const int ne = min(be, d - e0);
-    __syncthreads();                      // the previous chunk is consumed
-    for (int idx = tid; idx < m * bd * be; idx += kThreads) {
-      const int e = idx & (be - 1), ar = idx >> be_shift;
-      const int r = ar & (bd - 1), a = ar >> bd_shift;
-      const bool valid = r < rows && e < ne;
-      copy_async(As + a * a_st + e * bd + r,
-                 valid ? A + ((long long)a * d + r0 + r) * d + e0 + e : A,
-                 valid);
+// Chunk `chunk` of A[a][row0 .. row0 + BM, :] and W[a][:, c0 .. c0 + KP)
+// into one ring slot, zero-filled past d and k.
+template <int BM, int KP, bool VA>
+__device__ __forceinline__ void load_chunk(float* As, float* Ws,
+                                           const float* __restrict__ Aa,
+                                           const float* __restrict__ Wa,
+                                           int d, int k, int row0, int c0,
+                                           int chunk, bool vw) {
+  constexpr int NT = product_threads<BM, KP>();
+  const int e0 = chunk * kBK;
+  if (VA) {                             // d % 4 == 0: a chunk is in or out
+    for (int idx = threadIdx.x; idx < BM * (kBK / 4); idx += NT) {
+      const int r = idx / (kBK / 4), e = idx % (kBK / 4) * 4;
+      const bool ok = row0 + r < d && e0 + e < d;
+      copy16(As + r * kAStride + e,
+             ok ? Aa + (long long)(row0 + r) * d + e0 + e : Aa, ok);
     }
-    for (int a = warp; a < m; a += kThreads / 32) {   // one run per agent
-      const float* src = W + ((long long)a * d + e0) * k;
-      float* dst = Ws + a * w_st;
-      for (int x = lane; x < be * k; x += 32)
-        copy_async(dst + x, x < ne * k ? src + x : W, x < ne * k);
-    }
-    copy_wait_all();
-    __syncthreads();
-    for (int item = tid; item < items; item += kThreads) {
-      const Tile t = tile_of(item, ncg, nrg, TR, TC, a_st, w_st, bn, k);
-      if (!in_regs) load_tile<TR, TC>(acc, prev + t.g, k, t.c0);
-      chunk_fma<TR, TC>(acc, As + t.a, Ws + t.w, bd, k, t.c0, ne);
-      if (!in_regs) store_tile<TR, TC>(acc, prev + t.g, k, t.c0);
+  } else {
+    for (int idx = threadIdx.x; idx < BM * kBK; idx += NT) {
+      const int r = idx / kBK, e = idx % kBK;
+      const bool ok = row0 + r < d && e0 + e < d;
+      copy4(As + r * kAStride + e,
+            ok ? Aa + (long long)(row0 + r) * d + e0 + e : Aa, ok);
     }
   }
-  if (in_regs && tid < items) {
-    const Tile t = tile_of(tid, ncg, nrg, TR, TC, a_st, w_st, bn, k);
-    store_tile<TR, TC>(acc, prev + t.g, k, t.c0);
-  }
-  __syncthreads();
-
-  // ---- G out; the tracked iterate (s + g) - gp
-  for (int idx = tid; idx < m * bn; idx += kThreads) {
-    const int a = idx / bn, col = idx % bn;
-    float v = 0.0f;
-    if (col < ncols) {
-      const long long g = (long long)a * dk + col0 + col;
-      const float gv = prev[idx];
-      G_out[g] = gv;
-      v = __fsub_rn(__fadd_rn(S[g], gv), Gp[g]);
+  if (vw) {                             // k % 4 == 0
+    for (int idx = threadIdx.x; idx < kBK * (KP / 4); idx += NT) {
+      const int e = idx / (KP / 4), c = idx % (KP / 4) * 4;
+      const bool ok = e0 + e < d && c0 + c < k;
+      copy16(Ws + e * KP + c, ok ? Wa + (long long)(e0 + e) * k + c0 + c : Wa,
+             ok);
     }
-    prev[idx] = v;
-    cur[idx] = v;
-    if (wire) sent[idx] = wire_round(v);
+  } else {
+    for (int idx = threadIdx.x; idx < kBK * KP; idx += NT) {
+      const int e = idx / KP, c = idx % KP;
+      const bool ok = e0 + e < d && c0 + c < k;
+      copy4(Ws + e * KP + c, ok ? Wa + (long long)(e0 + e) * k + c0 + c : Wa,
+            ok);
+    }
   }
-  __syncthreads();
+}
 
-  // ---- the K rounds on the resident tile (fastmix.cu's arithmetic)
-  const float one_eta = __fadd_rn(1.0f, eta);
-  const int quads = (mp / kRowsPerThread) * bn;     // (row group, column)
-  for (int round = 0; round < K; ++round) {
-    for (int item = tid; item < quads; item += kThreads) {
-      const int c = item % bn;
-      const int i0 = item / bn * kRowsPerThread;
-      float acc[kRowsPerThread] = {0.0f, 0.0f, 0.0f, 0.0f};
-      for (int j = 0; j < m; ++j) {
-        const float s = sent[j * bn + c];
+// G[a][row0 .. row0 + BM, :] = A[a][row0 .. row0 + BM, :] @ W[a].
+template <int BM, int KP, bool VA>
+__global__ void __launch_bounds__(product_threads<BM, KP>())
+apply_product_kernel(const float* __restrict__ A,
+                     const float* __restrict__ W, float* __restrict__ G,
+                     int d, int k, bool vw) {
+  constexpr int TR = TileOf<KP>::TR, TC = TileOf<KP>::TC;
+  constexpr int CG = KP / TC, RG = BM / TR;
+  constexpr int slot = BM * kAStride + kBK * KP;
+  extern __shared__ float4 smem4[];
+  float* const ring = reinterpret_cast<float*>(smem4);
+  const int a = blockIdx.y, row0 = blockIdx.x * BM;
+  const float* Aa = A + (long long)a * d * d;
+  const float* Wa = W + (long long)a * d * k;
+  float* Ga = G + (long long)a * d * k;
+  const int cg = threadIdx.x % CG, rg = threadIdx.x / CG;
+  const int chunks = (d + kBK - 1) / kBK;
+
+  for (int c0 = 0; c0 < k; c0 += KP) {
+    float acc[TR][TC];
 #pragma unroll
-        for (int r = 0; r < kRowsPerThread; ++r)
-          acc[r] = __fmaf_rn(sL[(i0 + r) * m + j], s, acc[r]);
+    for (int r = 0; r < TR; ++r)
+#pragma unroll
+      for (int q = 0; q < TC; ++q) acc[r][q] = 0.0f;
+#pragma unroll
+    for (int s = 0; s < kRing - 1; ++s) {
+      if (s < chunks)
+        load_chunk<BM, KP, VA>(ring + s * slot, ring + s * slot + BM * kAStride,
+                               Aa, Wa, d, k, row0, c0, s, vw);
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+    }
+    for (int ch = 0; ch < chunks; ++ch) {
+      asm volatile("cp.async.wait_group %0;\n" :: "n"(kRing - 2) : "memory");
+      __syncthreads();       // chunk ch landed; slot (ch - 1) % kRing is free
+      const int nx = ch + kRing - 1;
+      if (nx < chunks) {
+        float* st = ring + (nx % kRing) * slot;
+        load_chunk<BM, KP, VA>(st, st + BM * kAStride, Aa, Wa, d, k, row0, c0,
+                               nx, vw);
       }
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+      const float* As = ring + (ch % kRing) * slot;
+      const float* Ws = As + BM * kAStride;
+#pragma unroll 2
+      for (int e = 0; e < kBK; e += 4) {
+        float av[TR][4];
 #pragma unroll
-      for (int r = 0; r < kRowsPerThread; ++r) {
-        const int i = i0 + r;
-        if (i < m) {
-          const int e = i * bn + c;
-          prev[e] = __fsub_rn(__fmul_rn(one_eta, acc[r]),
-                              __fmul_rn(eta, prev[e]));
+        for (int r = 0; r < TR; ++r) {
+          const float4 t = *reinterpret_cast<const float4*>(
+              As + (rg + RG * r) * kAStride + e);
+          av[r][0] = t.x; av[r][1] = t.y; av[r][2] = t.z; av[r][3] = t.w;
+        }
+#pragma unroll
+        for (int ee = 0; ee < 4; ++ee) {
+          float wv[TC];
+#pragma unroll
+          for (int h = 0; h < TC / 4; ++h) {
+            const float4 t = *reinterpret_cast<const float4*>(
+                Ws + (e + ee) * KP + cg * TC + 4 * h);
+            wv[4 * h] = t.x; wv[4 * h + 1] = t.y;
+            wv[4 * h + 2] = t.z; wv[4 * h + 3] = t.w;
+          }
+#pragma unroll
+          for (int r = 0; r < TR; ++r)
+#pragma unroll
+            for (int q = 0; q < TC; ++q)
+              acc[r][q] = __fmaf_rn(av[r][ee], wv[q], acc[r][q]);
         }
       }
     }
-    __syncthreads();
-    float* t = prev; prev = cur; cur = t;     // prev <- cur, cur <- nxt
-    if (wire) {
-      for (int idx = tid; idx < m * bn; idx += kThreads)
-        sent[idx] = wire_round(cur[idx]);
-      __syncthreads();
-    } else {
-      sent = cur;
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+#pragma unroll
+    for (int r = 0; r < TR; ++r) {
+      const int row = row0 + rg + RG * r;
+      if (row >= d) continue;
+      float* g = Ga + (long long)row * k + c0 + cg * TC;
+#pragma unroll
+      for (int q = 0; q < TC; ++q)
+        if (c0 + cg * TC + q < k) g[q] = acc[r][q];
     }
-  }
-
-  for (int idx = tid; idx < m * bn; idx += kThreads) {
-    const int a = idx / bn, col = idx % bn;
-    if (col < ncols) S_new[(long long)a * dk + col0 + col] = cur[idx];
+    __syncthreads();          // the next column tile refills the ring
   }
 }
 
-template <int TR, int TC>
-cudaError_t launch(const float* L, const float* A, const float* W,
-                   const float* S, const float* Gp, float* S_new, float* G,
-                   int m, int d, int k, float eta, int K, int bd, int be,
-                   int wire, size_t smem, cudaStream_t stream) {
-  auto kern = apply_track_kernel<TR, TC>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+struct SmemAllowed {
+  std::mutex mu;
+  size_t allowed[kMaxDevices] = {};
+};
+
+template <int BM, int KP, bool VA>
+cudaError_t launch_product(const float* A, const float* W, float* G, int m,
+                           int d, int k, bool vw, cudaStream_t stream) {
+  static SmemAllowed cache;
+  auto kern = apply_product_kernel<BM, KP, VA>;
+  constexpr size_t smem = product_smem<BM, KP>();
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  const int blocks = (d + bd - 1) / bd;
-  kern<<<blocks, kThreads, smem, stream>>>(L, A, W, S, Gp, S_new, G, m, d, k,
-                                           eta, K, bd, be, wire);
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  {
+    std::lock_guard<std::mutex> lock(cache.mu);
+    if (cache.allowed[dev] < smem) {
+      err = cudaFuncSetAttribute(
+          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return err;
+      cache.allowed[dev] = smem;
+    }
+  }
+  const dim3 grid((d + BM - 1) / BM, m);
+  kern<<<grid, product_threads<BM, KP>(), smem, stream>>>(A, W, G, d, k, vw);
   return cudaGetLastError();
 }
 
-// The thread tile (TR x TC, powers of two up to 8, TR <= bd, TC <= k
-// rounded up): fewest passes of the block's threads over the tiles first
-// (one pass keeps the sums in registers), then the most threads busy, then
-// the largest tile (the most reuse of each staged value).
-void pick_tile(int m, int k, int bd, int* tr, int* tc) {
-  const int kp = 1 << log2_of(k);
-  long long best_passes = 0, best_busy = 0;
-  int best_area = 0;
-  *tr = *tc = 1;
-  for (int r = 1; r <= 8 && r <= bd; r *= 2) {
-    for (int c = 1; c <= 8 && c <= kp; c *= 2) {
-      const long long tiles = (long long)m * (bd / r) * ((k + c - 1) / c);
-      const long long passes = (tiles + kThreads - 1) / kThreads;
-      const long long busy = tiles < kThreads ? tiles : kThreads;
-      const bool better =
-          best_area == 0 || passes < best_passes ||
-          (passes == best_passes &&
-           (busy > best_busy || (busy == best_busy && r * c > best_area)));
-      if (better) {
-        best_passes = passes;
-        best_busy = busy;
-        best_area = r * c;
-        *tr = r;
-        *tc = c;
-      }
-    }
+template <int BM, bool VA>
+cudaError_t product_kp(int kp, const float* A, const float* W, float* G,
+                       int m, int d, int k, bool vw, cudaStream_t st) {
+  switch (kp) {
+    case 8: return launch_product<BM, 8, VA>(A, W, G, m, d, k, vw, st);
+    case 16: return launch_product<BM, 16, VA>(A, W, G, m, d, k, vw, st);
+    case 32: return launch_product<BM, 32, VA>(A, W, G, m, d, k, vw, st);
+    default: return launch_product<BM, 64, VA>(A, W, G, m, d, k, vw, st);
   }
 }
 
-template <int TR>
-cudaError_t launch_tc(int tc, const float* L, const float* A, const float* W,
-                      const float* S, const float* Gp, float* S_new, float* G,
-                      int m, int d, int k, float eta, int K, int bd, int be,
-                      int wire, size_t smem, cudaStream_t st) {
-  switch (tc) {
-    case 1: return launch<TR, 1>(L, A, W, S, Gp, S_new, G, m, d, k, eta, K,
-                                 bd, be, wire, smem, st);
-    case 2: return launch<TR, 2>(L, A, W, S, Gp, S_new, G, m, d, k, eta, K,
-                                 bd, be, wire, smem, st);
-    case 4: return launch<TR, 4>(L, A, W, S, Gp, S_new, G, m, d, k, eta, K,
-                                 bd, be, wire, smem, st);
-    default: return launch<TR, 8>(L, A, W, S, Gp, S_new, G, m, d, k, eta, K,
-                                  bd, be, wire, smem, st);
-  }
+cudaError_t agent_product(int bm, int kp, const float* A, const float* W, float* G,
+                    int m, int d, int k, cudaStream_t st) {
+  const bool va = d % 4 == 0 && aligned16(A);
+  const bool vw = k % 4 == 0 && aligned16(W);
+  if (bm == 128)
+    return va ? product_kp<128, true>(kp, A, W, G, m, d, k, vw, st)
+              : product_kp<128, false>(kp, A, W, G, m, d, k, vw, st);
+  return va ? product_kp<64, true>(kp, A, W, G, m, d, k, vw, st)
+            : product_kp<64, false>(kp, A, W, G, m, d, k, vw, st);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Shared-memory bytes one block needs; the wrapper's apply_track_smem()
-// is the same formula.
-size_t apply_track_smem_bytes(int m, int k, int bd, int be, int wire_bf16) {
-  const int mp = (m + kRowsPerThread - 1) / kRowsPerThread * kRowsPerThread;
-  return sizeof(float) * ((size_t)mp * m +
-                          (size_t)(wire_bf16 ? 3 : 2) * m * bd * k +
-                          (size_t)m * (be * bd + 1) + (size_t)m * (be * k + 1));
-}
-
-// (S_new, G) = (FastMix^K(S + A W - Gp), A W) for A (m, d, d), W, S, Gp,
-// S_new, G (m, d, k), all fp32 and contiguous; bd and be are powers of two.
-// Returns cudaError_t.
-int apply_track(const void* L, const void* A, const void* W, const void* S,
-                const void* Gp, void* S_new, void* G, int m, int d, int k,
-                float eta, int K, int bd, int be, int wire_bf16,
+// (S_new, G) = (gossip(S + A W - Gp), A W) for A (m, d, d), W, S, Gp, S_new,
+// G (m, d, k), all fp32 and contiguous.  M is P_K(L) (m, m) when the call
+// applies it (no wire, K > 0: stages 1 or 2, FastMix's apply tile rows x
+// bn), else L (the bf16 wire or K = 0: FastMix's round tile); one_eta is
+// 1 + eta rounded once to fp32.  rows 0 takes FastMix's panel kernels
+// instead (m past their resident limit; `work` holds 2 m d k floats for the
+// rounds when K >= 2, else it may be null).
+// bm (64 or 128) and kp (8, 16, 32 or 64, at least min(k, 64)) shape the
+// product.  Every kernel goes on `stream`.  Returns cudaError_t.
+int apply_track(const void* M, const void* A, const void* W, const void* S,
+                const void* Gp, void* S_new, void* G, void* work, int m,
+                int d, int k, float one_eta, float eta, int K, int bm,
+                int kp, int rows, int bn, int stages, int wire_bf16,
                 void* stream) {
-  if (bd <= 0 || be <= 0 || (bd & (bd - 1)) || (be & (be - 1)))
+  const bool rounds_path = wire_bf16 || K <= 0;
+  const bool panel = rows == 0;
+  if (m <= 0 || d <= 0 || k <= 0 || (bm != 64 && bm != 128) ||
+      (kp != 8 && kp != 16 && kp != 32 && kp != 64) ||
+      kp < (k < 64 ? k : 64) || (!panel && !valid_tile(m, bn, rows)) ||
+      (!panel && !rounds_path && stages != 1 && stages != 2) ||
+      (panel && rounds_path && K >= 2 && work == nullptr))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = apply_track_smem_bytes(m, k, bd, be, wire_bf16);
-  int tr, tc;
-  pick_tile(m, k, bd, &tr, &tc);
   cudaStream_t st = (cudaStream_t)stream;
-  const float* l = (const float*)L;
   const float* a = (const float*)A;
   const float* w = (const float*)W;
   const float* s = (const float*)S;
   const float* gp = (const float*)Gp;
+  const float* mm = (const float*)M;
   float* sn = (float*)S_new;
   float* g = (float*)G;
-  switch (tr) {
-    case 1: return launch_tc<1>(tc, l, a, w, s, gp, sn, g, m, d, k, eta, K,
-                                bd, be, wire_bf16, smem, st);
-    case 2: return launch_tc<2>(tc, l, a, w, s, gp, sn, g, m, d, k, eta, K,
-                                bd, be, wire_bf16, smem, st);
-    case 4: return launch_tc<4>(tc, l, a, w, s, gp, sn, g, m, d, k, eta, K,
-                                bd, be, wire_bf16, smem, st);
-    default: return launch_tc<8>(tc, l, a, w, s, gp, sn, g, m, d, k, eta, K,
-                                 bd, be, wire_bf16, smem, st);
+  cudaError_t err = agent_product(bm, kp, a, w, g, m, d, k, st);
+  if (err != cudaSuccess) return (int)err;
+  const long long n = (long long)d * k;
+  if (panel) {
+    const Src x = source(s, g, gp, true);
+    float* wk = (float*)work;
+    if (!rounds_path)
+      return (int)launch_panel<kApply, false>(mm, x, x, x, sn, m, n, 1.0f,
+                                              0.0f, st);
+    return wire_bf16
+        ? (int)panel_rounds<true>(mm, x, sn, wk, m, n, one_eta, eta, K,
+                                    st)
+        : (int)panel_rounds<false>(mm, x, sn, wk, m, n, one_eta, eta,
+                                     K, st);
   }
+  const bool vec = vectorizable(s, g, gp, sn, n, 1);
+  if (rounds_path)
+    return wire_bf16
+        ? (int)rounds<true, true>(mm, s, g, gp, sn, m, n, one_eta, eta, K,
+                                  bn, rows, vec, st)
+        : (int)rounds<true, false>(mm, s, g, gp, sn, m, n, one_eta, eta, K,
+                                   bn, rows, vec, st);
+  return (int)apply<true>(mm, s, g, gp, sn, m, n, bn, rows, stages == 2, vec,
+                          st);
 }
 
 const char* apply_track_error_string(int err) {

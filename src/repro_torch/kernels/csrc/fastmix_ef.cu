@@ -40,13 +40,17 @@
 // to store it.  Each round is two phases separated by a barrier: every
 // thread advances h on its elements (the send), then each thread mixes
 // four rows of one column (the receive), writing nxt over prev in place.
-#include <cuda_runtime.h>
+// That holds L in one block's shared memory, which takes m <= 228.  Past
+// it each round is two launches: an elementwise send that advances h in
+// err_out, then FastMix's panel kernel (fastmix_tiles.cuh) for the
+// receive, the iterates rotating through device memory.
 #include <cuda_fp16.h>
 #include <cuda_fp8.h>
 
+#include "fastmix_tiles.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
 constexpr int kRowsPerThread = 4;
 constexpr float kFp8Max = 448.0f;
 
@@ -70,8 +74,8 @@ __global__ void __launch_bounds__(kThreads)
 fastmix_ef_kernel(const float* __restrict__ L, const float* __restrict__ S,
                   const float* __restrict__ G, const float* __restrict__ Gp,
                   const float* __restrict__ err, float* __restrict__ out,
-                  float* __restrict__ err_out, int m, long long n, float eta,
-                  int K, int bn) {
+                  float* __restrict__ err_out, int m, long long n,
+                  float one_eta, float eta, int K, int bn) {
   extern __shared__ float smem[];
   const int mp = (m + kRowsPerThread - 1) / kRowsPerThread * kRowsPerThread;
   float* sL = smem;                       // mp x m   (rows >= m are zero)
@@ -100,7 +104,6 @@ fastmix_ef_kernel(const float* __restrict__ L, const float* __restrict__ S,
   }
   __syncthreads();
 
-  const float one_eta = __fadd_rn(1.0f, eta);
   const int c = tid % bn;
   const int group = tid / bn;
   const int groups = kThreads / bn;
@@ -148,17 +151,57 @@ fastmix_ef_kernel(const float* __restrict__ L, const float* __restrict__ S,
 template <bool TRACK>
 cudaError_t launch(const float* L, const float* S, const float* G,
                    const float* Gp, const float* err, float* out,
-                   float* err_out, int m, long long n, float eta, int K,
-                   int bn, size_t smem, cudaStream_t stream) {
+                   float* err_out, int m, long long n, float one_eta,
+                   float eta, int K, int bn, size_t smem,
+                   cudaStream_t stream) {
   auto kern = fastmix_ef_kernel<TRACK>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   const long long tiles = (n + bn - 1) / bn;
   kern<<<(unsigned)tiles, kThreads, smem, stream>>>(L, S, G, Gp, err, out,
-                                                    err_out, m, n, eta, K,
-                                                    bn);
+                                                    err_out, m, n, one_eta,
+                                                    eta, K, bn);
   return cudaGetLastError();
+}
+
+// One send over every element: h_out = ef_send(cur, h_in) (in place
+// when h_in == h_out).
+__global__ void __launch_bounds__(kThreads)
+ef_send_kernel(Src cur, const float* h_in, float* h_out, int m,
+               long long n) {
+  const long long total = (long long)m * n;
+  for (long long g = (long long)blockIdx.x * kThreads + threadIdx.x;
+       g < total; g += (long long)gridDim.x * kThreads)
+    h_out[g] = ef_send(cur.at((int)(g / n), g % n, n), h_in[g]);
+}
+
+// K rounds past the resident limit: per round the send (h in err_out;
+// err is read in the first), then the panel receive.  K <= 0: out = x,
+// err_out = err.
+cudaError_t ef_panel_rounds(const float* L, Src x, const float* err,
+                            float* out, float* err_out, float* work, int m,
+                            long long n, float one_eta, float eta, int K,
+                            cudaStream_t st) {
+  if (K <= 0) {
+    const cudaError_t e = copy_source(x, out, m, n, st);
+    if (e != cudaSuccess) return e;
+    return copy_source(buffer(err), err_out, m, n, st);
+  }
+  for (int t = 0; t < K; ++t) {
+    const Src cur = t == 0 ? x : buffer(round_out(out, work, m, n, t - 1, K));
+    const Src prev =
+        t <= 1 ? x : buffer(round_out(out, work, m, n, t - 2, K));
+    ef_send_kernel<<<elementwise_blocks(m, n), kThreads, 0, st>>>(
+        cur, t == 0 ? err : err_out, err_out, m, n);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    e = launch_panel<kEfRecv, false>(L, buffer(err_out), prev, cur,
+                                     round_out(out, work, m, n, t, K), m, n,
+                                     one_eta, eta, st);
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -174,12 +217,13 @@ size_t fastmix_ef_smem_bytes(int m, int bn) {
 
 // (out, err_out) = fp8-EF FastMix^K(track ? S + G - Gp : S, err) over the
 // (m, n) fp32 iterate.  G and Gp are ignored (may be null) when track == 0.
-// Returns cudaError_t.
+// bn 0: the panel path (2K launches; `work` holds 2 m n floats when
+// K >= 2, else it may be null).  Returns cudaError_t.
 int fastmix_ef_rounds(const void* L, const void* S, const void* G,
                       const void* Gp, const void* err, void* out,
-                      void* err_out, int m, long long n, float eta, int K,
-                      int bn, int track, void* stream) {
-  const size_t smem = fastmix_ef_smem_bytes(m, bn);
+                      void* err_out, void* work, int m, long long n,
+                      float one_eta, float eta, int K, int bn, int track,
+                      void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const float* l = (const float*)L;
   const float* s = (const float*)S;
@@ -188,10 +232,16 @@ int fastmix_ef_rounds(const void* L, const void* S, const void* G,
   const float* e = (const float*)err;
   float* o = (float*)out;
   float* eo = (float*)err_out;
-  return track ? launch<true>(l, s, g, gp, e, o, eo, m, n, eta, K, bn, smem,
-                              st)
-               : launch<false>(l, s, g, gp, e, o, eo, m, n, eta, K, bn,
-                               smem, st);
+  if (bn == 0) {
+    if (m <= 0 || (K >= 2 && work == nullptr)) return cudaErrorInvalidValue;
+    return ef_panel_rounds(l, source(s, g, gp, track), e, o, eo,
+                           (float*)work, m, n, one_eta, eta, K, st);
+  }
+  const size_t smem = fastmix_ef_smem_bytes(m, bn);
+  return track ? launch<true>(l, s, g, gp, e, o, eo, m, n, one_eta, eta, K,
+                              bn, smem, st)
+               : launch<false>(l, s, g, gp, e, o, eo, m, n, one_eta, eta, K,
+                               bn, smem, st);
 }
 
 const char* fastmix_ef_error_string(int err) {

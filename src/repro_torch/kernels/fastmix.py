@@ -21,8 +21,15 @@ independently and all K rounds fuse into one pass over the iterate.
   ``_fastmix_ef_fused`` / ``_fastmix_track_ef_fused``); plain twin
   :func:`fastmix_ef_plain`.
 * :func:`apply_track_fused` — the dense local power step ``A_j W_j``
-  fused with tracking and the K rounds (``csrc/apply_track.cu``, the port
-  of ``_apply_track_fused``); plain twin :func:`apply_track_plain`.
+  followed by tracking and the gossip (``csrc/apply_track.cu``, the port
+  of ``_apply_track_fused``): a per-agent product kernel, then the FastMix
+  kernels' tracked ``P_K(L)`` apply (or, on the bf16 wire, their rounds);
+  plain twin :func:`apply_track_plain`.
+* :func:`kernel_fits` — whether one block's shared memory holds ``L``
+  (or ``P``) for ``m`` agents, so that the resident kernels run; past it
+  every wrapper launches the panel kernels (``csrc/fastmix_tiles.cuh``),
+  which stream ``L``/``P`` and the iterate through shared memory and take
+  any agent count.
 * :func:`fastmix_poly` / :func:`fastmix_track_poly` — the algebraic
   collapse ``S_out = P_K(L) S`` in the iterate's dtype: the plain twin of
   the no-wire kernels in fp32, and the f64 path (f64 never enters a
@@ -51,7 +58,6 @@ WIRE_ITEMSIZE = {None: 4, "bf16": 2, "int8": 1, "fp8": 1}
 #: one per call.
 LAUNCHES = {"fastmix": 0, "fastmix_track": 0, "fastmix_poly": 0,
             "fastmix_ef": 0, "fastmix_track_ef": 0, "apply_track": 0}
-
 #: Shared memory one block may use on sm_90 (232,448 bytes).
 SMEM_LIMIT = 232448
 #: Column-tile widths of the fp8-EF kernels, widest first; the widest
@@ -64,13 +70,11 @@ TILE_WIDTHS = (32, 16, 8)
 FASTMIX_WIDTHS = (128, 64, 32, 16, 8)
 FASTMIX_THREADS = 256
 FASTMIX_TILES = {8: 4, 4: 1}
-#: Output-row tiles of the apply-track kernel, and its contraction chunks.
-ROW_TILES = (16, 8, 4, 2, 1)
-CONTRACTION_CHUNKS = (32, 16, 8)
-#: Streaming multiprocessors of an H100 SXM: the apply-track tile chooser
-#: prefers a grid at least this wide (the FastMix one asks the device).
-SM_COUNT = 132
-
+#: Row tiles of apply-track's per-agent product, largest first, and its
+#: padded column widths (k is masked up to the next one; past 64 the block
+#: loops over column tiles of 64).
+PRODUCT_ROWS = (128, 64)
+PRODUCT_COLS = (8, 16, 32, 64)
 #: e4m3fn's largest finite value; the fp8 wire saturates there.
 FP8_MAX = 448.0
 
@@ -201,18 +205,23 @@ def thread_rows(m: int, n: int, sms: int) -> int:
     return 8 if wide_fills or not narrow_fits else 4
 
 
+def _fitting_widths(m: int, rows: int, bufs: int) -> list:
+    """The widths of :data:`FASTMIX_WIDTHS` whose block fits: its warps of
+    4 x 8 thread tiles within :data:`FASTMIX_THREADS` and
+    :func:`fastmix_smem` within :data:`SMEM_LIMIT`."""
+    return [bn for bn in FASTMIX_WIDTHS
+            if 32 * fastmix_warps(m, bn, rows) <= FASTMIX_THREADS
+            and fastmix_smem(m, bn, bufs) <= SMEM_LIMIT]
+
+
 def tile_width(m: int, n: int, rows: int, bufs: int, sms: int) -> int:
     """Column-tile width ``BN`` of a FastMix kernel over an ``(m, n)``
     iterate (``rows`` from :func:`thread_rows`, ``bufs`` as in
-    :func:`fastmix_smem`): the widest of :data:`FASTMIX_WIDTHS` whose block
-    fits (its warps of 4 x 8 thread tiles within :data:`FASTMIX_THREADS`,
-    :func:`fastmix_smem` within :data:`SMEM_LIMIT`) and whose grid
+    :func:`fastmix_smem`): the widest of :func:`_fitting_widths` whose grid
     ``ceil(n / BN)`` still spans the ``sms`` SMs; else the narrowest that
     fits.  An ``m`` that fits no width raises.
     """
-    fits = [bn for bn in FASTMIX_WIDTHS
-            if 32 * fastmix_warps(m, bn, rows) <= FASTMIX_THREADS
-            and fastmix_smem(m, bn, bufs) <= SMEM_LIMIT]
+    fits = _fitting_widths(m, rows, bufs)
     if not fits:
         raise ValueError(
             f"fastmix kernel: m={m} agents do not fit one block's shared "
@@ -226,7 +235,10 @@ def tile_width(m: int, n: int, rows: int, bufs: int, sms: int) -> int:
 def rounds_tile(m: int, n: int, sms: int) -> tuple:
     """``(rows, BN)`` of the round loop over an ``(m, n)`` iterate (the
     bf16 wire, K = 0, and the ``P_K(L)`` build over ``n = m``): two
-    buffers of what is sent."""
+    buffers of what is sent.  ``(0, 0)`` past :func:`kernel_fits`: the
+    panel kernels, one launch per round."""
+    if not kernel_fits(m, None):
+        return 0, 0
     rows = thread_rows(m, n, sms)
     return rows, tile_width(m, n, rows, 2, sms)
 
@@ -235,42 +247,99 @@ def rounds_tile(m: int, n: int, sms: int) -> tuple:
 def apply_tile(m: int, n: int, track: bool, sms: int) -> tuple:
     """``(rows, BN, stages)`` of the one-pass ``P_K(L)`` apply: two
     ``cp.async`` stages of S (and G, G_prev) where they fit beside ``P``,
-    else one stage of the combined iterate."""
+    else one stage of the combined iterate.  ``(0, 0, 0)`` past
+    :func:`kernel_fits`: the panel kernel."""
+    if not kernel_fits(m, None):
+        return 0, 0, 0
     rows = thread_rows(m, n, sms)
-    try:
-        return rows, tile_width(m, n, rows, 6 if track else 2, sms), 2
-    except ValueError:
-        return rows, tile_width(m, n, rows, 1, sms), 1
+    two = 6 if track else 2
+    if _fitting_widths(m, rows, two):
+        return rows, tile_width(m, n, rows, two, sms), 2
+    return rows, tile_width(m, n, rows, 1, sms), 1
+
+
+def _ef_widths(m: int) -> list:
+    mp = _cdiv(m, 4) * 4
+    return [bn for bn in TILE_WIDTHS if 4 * (mp * m + 3 * m * bn) <= SMEM_LIMIT]
+
+
+def kernel_fits(m: int, mode) -> bool:
+    """Whether the resident gossip kernels, which hold ``L`` (or ``P``) in
+    one block's shared memory, take ``m`` agents in ``mode``: ``None`` (no
+    wire: the ``P_K(L)`` build's round loop and the apply), ``"bf16"`` (the
+    round loop) or ``"fp8"`` (the fp8-EF kernels).
+
+    The limits are the tile widths' own: the round loop's two buffers
+    beside ``L`` at the narrowest width on the 8 x 4 thread tile (the tile
+    :func:`thread_rows` falls back to; the 4 x 1 one takes no more agents)
+    give m <= 230, and the apply's one stage takes at least as many; the
+    fp8-EF widths give m <= 228.  Past them the choosers pick the panel
+    kernels, which take any ``m``.
+    """
+    if mode == "fp8":
+        return bool(_ef_widths(m))
+    if mode in (None, "bf16"):
+        return m > 0 and bool(_fitting_widths(m, 8, 2))
+    raise ValueError(f"no gossip kernel for wire mode {mode!r}")
 
 
 @functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index`` (asked once):
+    what the tile choosers size their grids by."""
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def ef_tile_width(m: int) -> int:
     """Column-tile width ``BN`` of the fp8-EF kernels (``csrc/fastmix_ef.cu``):
     the widest of :data:`TILE_WIDTHS` whose ``(mp * m + 3 * m * BN) * 4``
-    bytes fit :data:`SMEM_LIMIT`, ``mp`` the agent count rounded up to 4.
-    An ``m`` that fits no width raises."""
-    mp = _cdiv(m, 4) * 4
-    for bn in TILE_WIDTHS:
-        if 4 * (mp * m + 3 * m * bn) <= SMEM_LIMIT:
-            return bn
-    raise ValueError(
-        f"fastmix_ef kernel: m={m} agents do not fit one block's shared "
-        f"memory ({SMEM_LIMIT} bytes) even at tile width {TILE_WIDTHS[-1]}")
+    bytes fit :data:`SMEM_LIMIT`, ``mp`` the agent count rounded up to 4;
+    0 where none fits (m > 228): the panel path, two launches per round."""
+    fits = _ef_widths(m)
+    return fits[0] if fits else 0
+
+
+def _work(m: int, n: int, K: int, panel: bool, like: torch.Tensor):
+    """Scratch of the panel rounds: two ``(m, n)`` fp32 iterates when they
+    run two rounds or more, else none."""
+    if panel and K >= 2:
+        return torch.empty((2, m, n), dtype=torch.float32,
+                           device=like.device)
+    return None
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def mix_in_agent_order(M: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``M @ x`` in fp32 summed as the gossip kernels sum it: per output one
+    FMA chain over the agents ascending, each step formed in f64 (the
+    product of two fp32 values is exact there) and rounded to fp32.  It
+    differs from a true fp32 FMA only where the f64 sum lands on an fp32
+    rounding midpoint.  A quantized wire rounds what each agent sends, so
+    two orders of summation now and then send different values; in this
+    order the plain twins send what the kernels send."""
+    M64 = M.to(torch.float64)
+    acc = torch.zeros_like(x, dtype=torch.float32)
+    for j in range(M.shape[0]):
+        acc = (acc.to(torch.float64) + M64[:, j:j + 1] * x[j].to(
+            torch.float64)).to(torch.float32)
+    return acc
 
 
 def fastmix_plain(x: torch.Tensor, L: torch.Tensor, eta, K: int, *,
-                  wire_bf16: bool = False) -> torch.Tensor:
+                  wire_bf16: bool = False,
+                  product=torch.matmul) -> torch.Tensor:
     """The round loop's plain twin on a flattened ``(m, n)`` fp32 iterate:
-    the per-round oracle, and the plain version of the bf16-wire kernel."""
+    the per-round oracle, and the plain version of the bf16-wire kernel.
+    ``product`` forms each round's ``L @ sent`` (:func:`mix_in_agent_order`
+    sums in the kernels' order)."""
     L = L.to(torch.float32)
     prev = cur = x.to(torch.float32)
     for _ in range(int(K)):
         sent = quantize_wire(cur) if wire_bf16 else cur
-        mixed = L @ sent
+        mixed = product(L, sent)
         prev, cur = cur, (1.0 + eta) * mixed - eta * prev
     return cur
 
@@ -282,10 +351,9 @@ def _flat(x: torch.Tensor) -> torch.Tensor:
 def _entry():
     fn = _build.load("fastmix").fastmix_rounds
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [
-        ctypes.c_int, ctypes.c_longlong, ctypes.c_float, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [
+        ctypes.c_int, ctypes.c_longlong, ctypes.c_float, ctypes.c_float] + [
+        ctypes.c_int] * 5 + [ctypes.c_void_p]
     return fn
 
 
@@ -301,9 +369,9 @@ def _apply_entry():
 def _poly_entry():
     fn = _build.load("fastmix").fastmix_poly
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 2 + [
-        ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 3 + [
+        ctypes.c_int, ctypes.c_float, ctypes.c_float] + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p]
     return fn
 
 
@@ -343,8 +411,9 @@ def poly_matrix_plain(L: torch.Tensor, eta, K: int) -> torch.Tensor:
 def poly_matrix(L: torch.Tensor, eta, K: int) -> torch.Tensor:
     """``P_K(L)``, the ``(m, m)`` fp32 matrix that K FastMix rounds without
     a wire collapse to.  On a CUDA tensor the build kernel runs the round
-    loop on the identity (one launch, counted as ``fastmix_poly``); on a
-    CPU tensor :func:`poly_matrix_plain` runs in fp32."""
+    loop on the identity (one launch, or K panel launches past
+    :func:`kernel_fits`; counted as one ``fastmix_poly``); on a CPU tensor
+    :func:`poly_matrix_plain` runs in fp32."""
     if L.dim() != 2 or L.shape[0] != L.shape[1]:
         raise ValueError(f"L must be square; got {tuple(L.shape)}")
     if L.device.type == "cpu":
@@ -354,11 +423,13 @@ def poly_matrix(L: torch.Tensor, eta, K: int) -> torch.Tensor:
                          f"{L.device}")
     m = L.shape[0]
     _check_matrix("L", L, m, L.device)
-    rows, bn = rounds_tile(m, m, _sm_count(L.device.index))
+    rows, bn = rounds_tile(m, m, sm_count(L.device.index))
     P = torch.empty_like(L)
+    work = _work(m, m, K, rows == 0, L)
     stream = torch.cuda.current_stream(L.device).cuda_stream
-    err = _poly_entry()(L.data_ptr(), P.data_ptr(), m, float(eta), int(K),
-                        bn, rows, stream)
+    err = _poly_entry()(L.data_ptr(), P.data_ptr(), _ptr(work), m,
+                        1.0 + float(eta), float(eta), int(K), bn, rows,
+                        stream)
     _build.check("fastmix", err)
     LAUNCHES["fastmix_poly"] += 1
     return P
@@ -374,12 +445,13 @@ def _launch(S, G, G_prev, L, eta, K: int, wire_bf16: bool, track: bool,
     stream = torch.cuda.current_stream(S.device).cuda_stream
     g = G.data_ptr() if track else None
     gp = G_prev.data_ptr() if track else None
-    sms = _sm_count(S.device.index)
+    sms = sm_count(S.device.index)
     if wire_bf16 or K <= 0:
         rows, bn = rounds_tile(m, n, sms)
+        work = _work(m, n, K, rows == 0, S)
         err = _entry()(L.data_ptr(), S.data_ptr(), g, gp, out.data_ptr(),
-                       m, n, float(eta), int(K), bn, rows, int(track),
-                       int(wire_bf16), stream)
+                       _ptr(work), m, n, 1.0 + float(eta), float(eta),
+                       int(K), bn, rows, int(track), int(wire_bf16), stream)
     else:
         if P is None:
             P = poly_matrix(L, eta, K)
@@ -479,16 +551,17 @@ def _check_fp8(name: str, wire) -> None:
 
 
 def fastmix_ef_plain(x: torch.Tensor, err: torch.Tensor, L: torch.Tensor,
-                     eta, K: int):
+                     eta, K: int, *, product=torch.matmul):
     """The fp8-EF kernels' plain twin on flattened ``(m, n)`` fp32 tensors
     -> ``(S_out, err_out)``: each round advances the replica by the
-    companded innovation, then mixes ``cur + L h - h``."""
+    companded innovation, then mixes ``cur + L h - h`` (``product`` forms
+    ``L @ h``, as in :func:`fastmix_plain`)."""
     L = L.to(torch.float32)
     prev = cur = x.to(torch.float32)
     h = err.to(torch.float32)
     for _ in range(int(K)):
         h = ef_quantize(cur, h, "fp8")
-        mixed = cur + L @ h - h
+        mixed = cur + product(L, h) - h
         prev, cur = cur, (1.0 + eta) * mixed - eta * prev
     return cur, h
 
@@ -496,9 +569,9 @@ def fastmix_ef_plain(x: torch.Tensor, err: torch.Tensor, L: torch.Tensor,
 def _ef_entry():
     fn = _build.load("fastmix_ef").fastmix_ef_rounds
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + [
-        ctypes.c_int, ctypes.c_longlong, ctypes.c_float, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 8 + [
+        ctypes.c_int, ctypes.c_longlong, ctypes.c_float, ctypes.c_float] + [
+        ctypes.c_int] * 3 + [ctypes.c_void_p]
     return fn
 
 
@@ -509,12 +582,14 @@ def _launch_ef(S, G, G_prev, err, L, eta, K: int, track: bool):
     if out.numel() == 0:
         return out, err_out
     bn = ef_tile_width(m)
+    work = _work(m, n, K, bn == 0, S)
     stream = torch.cuda.current_stream(S.device).cuda_stream
     code = _ef_entry()(L.data_ptr(), S.data_ptr(),
                        G.data_ptr() if track else None,
                        G_prev.data_ptr() if track else None,
                        err.data_ptr(), out.data_ptr(), err_out.data_ptr(),
-                       m, n, float(eta), int(K), bn, int(track), stream)
+                       _ptr(work), m, n, 1.0 + float(eta), float(eta),
+                       int(K), bn, int(track), stream)
     _build.check("fastmix_ef", code)
     LAUNCHES["fastmix_track_ef" if track else "fastmix_ef"] += 1
     return out, err_out
@@ -577,83 +652,69 @@ def fastmix_track_ef_fused(S: torch.Tensor, G: torch.Tensor,
 
 
 # ------------------------------------------------------------------------
-# apply -> track -> mix: the dense DeEPCA gossip half-iteration in one launch
+# apply -> track -> mix: the dense DeEPCA gossip half-iteration
 # ------------------------------------------------------------------------
-def apply_track_smem(m: int, k: int, bd: int, be: int,
-                     wire_bf16: bool) -> int:
-    """Shared-memory bytes of one apply-track block: ``L`` (rows padded
-    to 4), the ``(m, bd*k)`` prev/cur tiles (plus the bf16 wire's sent
-    copy), the ``A`` stage ``(m, be*bd+1)`` and the ``W`` stage
-    ``(m, be*k+1)`` (the +1s stagger agents across shared-memory
-    banks)."""
-    mp = -(-m // 4) * 4
-    bufs = 3 if wire_bf16 else 2
-    return 4 * (mp * m + bufs * m * bd * k + m * (be * bd + 1)
-                + m * (be * k + 1))
+@functools.lru_cache(maxsize=256)
+def product_tile(m: int, d: int, k: int, sms: int) -> tuple:
+    """``(BM, KP, grid)`` of apply-track's per-agent product ``A[a] @ W[a]``.
 
-
-def tile_rows(m: int, k: int, wire_bf16: bool, d: int):
-    """``(bd, be)`` of the apply-track kernel: output rows per block and
-    contraction chunk.
-
-    Each ``bd`` of :data:`ROW_TILES` takes the widest chunk that fits
-    :data:`SMEM_LIMIT`; the largest ``bd`` whose grid ``ceil(d / bd)``
-    still spans :data:`SM_COUNT` blocks wins, else the smallest (the
-    widest grid).  An ``m`` that does not fit even at ``bd = 1`` raises.
+    ``KP`` is the narrowest of :data:`PRODUCT_COLS` that holds ``k`` (64
+    past it: the block loops over column tiles).  ``BM`` is the largest of
+    :data:`PRODUCT_ROWS` whose agent-major grid ``(ceil(d / BM), m)`` still
+    spans the device's ``sms`` SMs, else the smallest.
     """
-    fits = []
-    for bd in ROW_TILES:
-        be = next((be for be in CONTRACTION_CHUNKS
-                   if apply_track_smem(m, k, bd, be, wire_bf16)
-                   <= SMEM_LIMIT), None)
-        if be is not None:
-            fits.append((bd, be))
-    if not fits:
-        raise ValueError(
-            f"apply_track kernel: m={m} agents with k={k} do not fit one "
-            f"block's shared memory ({SMEM_LIMIT} bytes) even at one "
-            "output row")
-    wide = [t for t in fits if -(-int(d) // t[0]) >= SM_COUNT]
-    return wide[0] if wide else fits[-1]
+    kp = next(c for c in PRODUCT_COLS if c >= min(k, PRODUCT_COLS[-1]))
+    bm = next((r for r in PRODUCT_ROWS if m * _cdiv(d, r) >= sms),
+              PRODUCT_ROWS[-1])
+    return bm, kp, (_cdiv(d, bm), m)
 
 
 def apply_track_plain(A: torch.Tensor, W: torch.Tensor, S: torch.Tensor,
                       G_prev: torch.Tensor, L: torch.Tensor, eta, K: int, *,
-                      wire_bf16: bool = False):
-    """The apply-track kernel's plain twin -> ``(S_new, G)`` in fp32:
-    ``G = A @ W``, then the tracked :func:`fastmix_plain`."""
+                      wire_bf16: bool = False,
+                      P: Optional[torch.Tensor] = None):
+    """The apply-track kernels' plain twin -> ``(S_new, G)`` in fp32:
+    ``G = A @ W``, then the tracked gossip as the FastMix wrappers' CPU
+    path computes it (``P @ x`` with ``P`` given, else the ``P_K(L)``
+    collapse; the per-round :func:`fastmix_plain` on the bf16 wire)."""
     f32 = torch.float32
     G = A.to(f32) @ W.to(f32)
     x = tracking_update(S.to(f32), G, G_prev.to(f32))
-    S_new = fastmix_plain(_flat(x), L, eta, K, wire_bf16=wire_bf16)
+    S_new = _plain(_flat(x), L, eta, K, wire_bf16, P)
     return S_new.reshape(S.shape), G
 
 
 def _apply_track_entry():
     fn = _build.load("apply_track").apply_track
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [
+        ctypes.c_float, ctypes.c_float] + [ctypes.c_int] * 7 + [
         ctypes.c_void_p]
     return fn
 
 
 def apply_track_fused(A: torch.Tensor, W: torch.Tensor, S: torch.Tensor,
                       G_prev: torch.Tensor, L: torch.Tensor, eta, K: int, *,
-                      wire_bf16: bool = False):
-    """Fused local apply + subspace tracking + K FastMix rounds, one launch.
+                      wire_bf16: bool = False,
+                      P: Optional[torch.Tensor] = None):
+    """Local apply + subspace tracking + K FastMix rounds in one call.
 
     Semantically::
 
         G = A @ W                                   # (m, d, d) @ (m, d, k)
-        S_new = fastmix_track_fused(S, G, G_prev, L, eta, K)
+        S_new = fastmix_track_fused(S, G, G_prev, L, eta, K, P=P)
         return S_new, G
 
-    but ``G`` is formed block by block in shared memory and fed straight
-    into the combine and the rounds; it is written once, as the next
-    iteration's ``G_prev``.  Returns ``(S_new, G)``, both ``(m, d, k)``
-    fp32.  ``K <= 0`` returns the bare tracked combine.
+    One C entry launches two kernels on the current stream: the per-agent
+    product writes ``G`` once (it is the next iteration's ``G_prev``), and
+    the FastMix kernel forms ``(S + G) - G_prev`` on its tile and applies
+    ``P_K(L)`` (``P`` when given, as the engine caches it, else built
+    first: one ``fastmix_poly`` launch) or, on the bf16 wire, runs the
+    rounds.  Counted as one ``apply_track`` launch.  Returns ``(S_new,
+    G)``, both ``(m, d, k)`` fp32.  ``K <= 0`` returns the bare tracked
+    combine.  Past the resident gossip kernels' agent limit
+    (:func:`kernel_fits`) the gossip runs on FastMix's panel kernels, from
+    the same C entry.
     """
     m, d, k = W.shape
     if tuple(A.shape) != (m, d, d):
@@ -664,9 +725,10 @@ def apply_track_fused(A: torch.Tensor, W: torch.Tensor, S: torch.Tensor,
                          f"{tuple(S.shape)}, {tuple(G_prev.shape)}")
     if tuple(L.shape) != (m, m):
         raise ValueError(f"L must be ({m}, {m}); got {tuple(L.shape)}")
+    _check_P(P, m, wire_bf16)
     if A.device.type == "cpu":
         return apply_track_plain(A, W, S, G_prev, L, eta, K,
-                                 wire_bf16=wire_bf16)
+                                 wire_bf16=wire_bf16, P=P)
     if A.device.type != "cuda":
         raise ValueError(f"apply_track runs on cuda or cpu tensors, got "
                          f"{A.device}")
@@ -675,12 +737,25 @@ def apply_track_fused(A: torch.Tensor, W: torch.Tensor, S: torch.Tensor,
     S_new, G = torch.empty_like(S), torch.empty_like(S)
     if S.numel() == 0:
         return S_new, G
-    bd, be = tile_rows(m, k, wire_bf16, d)
+    n = d * k
+    sms = sm_count(A.device.index)
+    work = None
+    if wire_bf16 or K <= 0:
+        M = L
+        rows, bn = rounds_tile(m, n, sms)
+        stages = 0
+        work = _work(m, n, K, rows == 0, S)
+    else:
+        M = poly_matrix(L, eta, K) if P is None else P
+        _check_matrix("P", M, m, A.device)
+        rows, bn, stages = apply_tile(m, n, True, sms)
+    bm, kp, _ = product_tile(m, d, k, sms)
     stream = torch.cuda.current_stream(A.device).cuda_stream
     code = _apply_track_entry()(
-        L.data_ptr(), A.data_ptr(), W.data_ptr(), S.data_ptr(),
-        G_prev.data_ptr(), S_new.data_ptr(), G.data_ptr(), m, d, k,
-        float(eta), int(K), bd, be, int(wire_bf16), stream)
+        M.data_ptr(), A.data_ptr(), W.data_ptr(), S.data_ptr(),
+        G_prev.data_ptr(), S_new.data_ptr(), G.data_ptr(), _ptr(work), m,
+        d, k, 1.0 + float(eta), float(eta), int(K), bm, kp, rows, bn, stages,
+        int(wire_bf16), stream)
     _build.check("apply_track", code)
     LAUNCHES["apply_track"] += 1
     return S_new, G

@@ -90,19 +90,47 @@ def test_apply_track_shape_errors():
         fm.apply_track_fused(*meta, 0.3, 2)
 
 
-@pytest.mark.parametrize("m,k,wire,d,want", [
-    (50, 5, False, 300, (2, 32)),        # w8a: widest grid past 132 blocks
-    (64, 32, False, 4096, (8, 8)),       # the large configuration
-    (64, 32, True, 4096, (4, 8)),        # ... with the bf16 wire's buffer
-    (8, 3, False, 40, (1, 32)),          # d < 132: the widest grid
-    (8, 3, False, 4096, (16, 32)),       # small m, k: the largest tile
+@pytest.mark.parametrize("m,d,k,sms,want", [
+    (50, 300, 5, 132, (128, 8, (3, 50))),      # w8a: 150 blocks of 128 rows
+    (64, 4096, 32, 132, (128, 32, (32, 64))),  # the large configuration
+    (64, 4096, 64, 132, (128, 64, (32, 64))),  # k = 64: one column tile
+    (8, 40, 3, 132, (64, 8, (1, 8))),          # d < 132: the smaller rows
+    (200, 300, 5, 132, (128, 8, (3, 200))),    # m = 200
+    (2, 4096, 100, 132, (64, 64, (64, 2))),    # k > 64: column tiles of 64
+    (1, 16384, 32, 132, (64, 32, (256, 1))),   # 128 blocks of 128 < 132
+    (1, 16384, 32, 114, (128, 32, (128, 1))),  # ... >= an H100 PCIe's 114
 ])
-def test_tile_rows_fits_shared_memory(m, k, wire, d, want):
-    bd, be = fm.tile_rows(m, k, wire, d)
-    assert (bd, be) == want
-    assert fm.apply_track_smem(m, k, bd, be, wire) <= fm.SMEM_LIMIT
-    with pytest.raises(ValueError, match="shared memory"):
-        fm.tile_rows(200, 64, False, 4096)
+def test_product_tile(m, d, k, sms, want):
+    """apply-track's product takes all k columns in one block (KP, the
+    next of 8/16/32/64), 128 rows where the agent-major grid still spans
+    the device's SMs, else 64."""
+    bm, kp, grid = fm.product_tile(m, d, k, sms)
+    assert (bm, kp, grid) == want
+    assert kp >= min(k, 64) and bm in fm.PRODUCT_ROWS
+    assert grid[0] * bm >= d and grid[1] == m
+
+
+@pytest.mark.parametrize("wire", [False, True])
+@pytest.mark.parametrize("m,d,k,K", [(8, 40, 3, 4), (12, 24, 6, 8)])
+def test_apply_track_plain_with_P_matches_reference_kernel(m, d, k, K,
+                                                           wire):
+    """The kernels' plain twin with the engine's cached ``P_K(L)`` (no
+    wire), or the rounds (bf16 wire), against the reference's
+    interpret-mode kernel; the same bound."""
+    A, W, S, Gp, L = _inputs(m, d, k, seed=m + d + 1)
+    S_r, G_r = (np.asarray(t) for t in ref_fm.apply_track_fused(
+        *map(jnp.asarray, (A, W, S, Gp, L)), 0.3, K, block_d=16,
+        block_e=16, interpret=True, wire_bf16=wire))
+    Lt = torch.from_numpy(L)
+    Pk = None if wire else fm.poly_matrix(Lt, 0.3, K)
+    S_p, G_p = fm.apply_track_plain(*map(torch.from_numpy, (A, W, S, Gp)),
+                                    Lt, 0.3, K, wire_bf16=wire, P=Pk)
+    scale = float(np.abs(S_r).max()) + 1.0
+    _close(G_p.numpy(), G_r, scale)
+    _close(S_p.numpy(), S_r, scale)
+    with pytest.raises(ValueError, match="bf16 wire"):
+        fm.apply_track_fused(*map(torch.from_numpy, (A, W, S, Gp)), Lt, 0.3,
+                             K, wire_bf16=True, P=fm.poly_matrix(Lt, 0.3, K))
 
 
 # ------------------------------------------------------------- the engine

@@ -116,3 +116,41 @@ def test_householder_fallbacks(monkeypatch):
     wide = torch.from_numpy(rng.standard_normal((2, 3, 5)))       # k > d
     torch.testing.assert_close(port.cholqr2(wide), torch.linalg.qr(wide).Q,
                                rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("B,d,k,sms,want", [
+    (50, 300, 5, 132, (4, True)),    # w8a: B * C = 200 covers 132 SMs
+    (64, 4096, 32, 132, (4, True)),  # large: 1024 rows x 32 in 164 KB
+    (2, 8192, 64, 132, (8, False)),  # 1024 rows x 64 do not fit: re-read
+    (1, 4096, 32, 132, (16, True)),  # a lone element takes 16 blocks
+    (1, 300, 5, 132, (8, True)),     # ... where its rows allow 32 a block
+    (3, 257, 33, 132, (8, True)),
+    (5000, 300, 5, 132, (1, True)),  # the trace's batch already covers
+    (4, 40, 8, 132, (1, True)),      # too few rows to split
+    (30, 300, 5, 132, (8, True)),    # 30 x 4 = 120 is short of 132 ...
+    (30, 300, 5, 114, (4, True)),    # ... and covers an H100 PCIe's 114
+])
+def test_cluster_size(B, d, k, sms, want):
+    C, resident = port.cluster_size(B, d, k, sms)
+    assert (C, resident) == want
+    assert (B * C >= sms or C in (8, 16)
+            or -(-d // (2 * C)) < port.MIN_SLICE_ROWS)
+    assert resident == (port.cholqr2_smem(-(-d // C), k, True)
+                        <= port.SMEM_LIMIT)
+    assert port.cholqr2_smem(-(-d // C), k, False) <= port.SMEM_LIMIT
+
+
+def test_cholqr2_fused_cpu_is_the_plain_twin():
+    """On a CPU tensor the kernel's wrapper runs its plain twin; it takes
+    (B, d, k) with k <= min(d, 64) only."""
+    X = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (3, 40, 6)).astype(np.float32))
+    torch.testing.assert_close(port.cholqr2_fused(X), port.cholqr2_plain(X),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(port.cholqr2(X), port.cholqr2_plain(X),
+                               rtol=0, atol=0)
+    for bad in (X[0], X[:, :5], torch.zeros(2, 80, 65)):
+        with pytest.raises(ValueError, match="cholqr2 kernel takes"):
+            port.cholqr2_fused(bad)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        port.cholqr2_fused(X.to("meta"))

@@ -272,3 +272,69 @@ def test_engine_caches_P_per_rounds(monkeypatch):
     want = P.depca(ops, topo, W0, k=3, T=4, K=2, backend="stacked",
                    increasing_consensus=True)
     torch.testing.assert_close(res.W, want.W, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("mode,limit", [(None, 230), ("bf16", 230),
+                                        ("fp8", 228)])
+@pytest.mark.parametrize("m", [228, 229, 230, 231])
+def test_kernel_fits_is_the_choosers_limit(m, mode, limit):
+    """The resident gossip kernels take m <= 230 agents (228 on the fp8
+    wire), the limits of their tile widths; past them the choosers pick
+    the panel kernels (rows / BN 0), and a direct width request raises."""
+    from repro_torch.kernels import fastmix as fm
+    assert fm.kernel_fits(m, mode) == (m <= limit)
+    if mode == "fp8":
+        assert (fm.ef_tile_width(m) > 0) == (m <= limit)
+    else:
+        rows, bn = fm.rounds_tile(m, 1500, 132)
+        assert ((rows, bn) != (0, 0)) == (m <= limit)
+        assert (fm.apply_tile(m, 1500, True, 132)[0] > 0) == (m <= limit)
+        if m > limit:
+            with pytest.raises(ValueError, match="shared memory"):
+                fm.tile_width(m, 1500, 8, 2, 132)
+    with pytest.raises(ValueError, match="no gossip kernel"):
+        fm.kernel_fits(m, "int8")
+
+
+@pytest.mark.parametrize("wire", [None, "bf16", "fp8"])
+def test_engine_past_the_resident_limit_calls_the_kernels(wire,
+                                                          monkeypatch):
+    """A ``cuda`` engine at m = 240 calls the kernel wrappers as it does
+    at any m (on the card they launch the panel kernels; here, on CPU
+    tensors, their plain twins), builds and caches ``P_K(L)`` without a
+    wire, and matches ``stacked``."""
+    from repro_torch.kernels import fastmix as fm
+    called = []
+    for name in ("fastmix_fused", "fastmix_track_fused", "fastmix_ef_fused",
+                 "fastmix_track_ef_fused", "apply_track_fused"):
+        def spy(*a, _f=getattr(fm, name), _n=name, **k):
+            called.append(_n)
+            return _f(*a, **k)
+        monkeypatch.setattr(fm, name, spy)
+    m, d, k = 240, 6, 2
+    rng = np.random.default_rng(0)
+    S, G, Gp, E = (torch.from_numpy(rng.standard_normal((m, d, k))
+                                    .astype(np.float32)) for _ in range(4))
+    topo = P.erdos_renyi(m, p=0.5, seed=0)
+    cuda = P.ConsensusEngine(topo, K=4, backend="cuda", wire_dtype=wire)
+    ref = P.ConsensusEngine(topo, K=4, backend="stacked", wire_dtype=wire)
+    ef = {"ef": E} if wire == "fp8" else {}
+    got = [cuda.mix(S, **ef), cuda.mix_track(S, G, Gp, **ef)]
+    want = [ref.mix(S, **ef), ref.mix_track(S, G, Gp, **ef)]
+    if wire == "fp8":
+        assert called == ["fastmix_ef_fused", "fastmix_track_ef_fused"]
+    else:
+        A = torch.from_numpy(rng.standard_normal((m, d, d))
+                             .astype(np.float32))
+        ops = P.StackedOperators(dense=A)
+        got.append(cuda.apply_mix_track(S, G, Gp, ops))
+        want.append(ref.apply_mix_track(S, G, Gp, ops))
+        assert called == ["fastmix_fused", "fastmix_track_fused",
+                          "apply_track_fused"]
+    assert bool(cuda._P_cache) == (wire is None)
+    assert not fm.kernel_fits(m, wire)
+    flat = lambda r: r if isinstance(r, tuple) else (r,)  # noqa: E731
+    for g, w in zip(got, want):
+        for a, b in zip(flat(g), flat(w)):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5,
+                                       atol=1e-5)

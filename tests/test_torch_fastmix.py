@@ -164,7 +164,8 @@ def test_every_agent_count_that_fits_gets_a_tile(n):
     """Every m up to 230 has a round-loop tile (the bf16 wire, K = 0, and
     the ``P_K(L)`` build at n = m) and an apply tile, tracked or not
     (one stage where two do not fit beside P), each within a block's 8
-    warps and its shared memory; m = 231 raises."""
+    warps and its shared memory; from m = 231 on the choosers pick the
+    panel kernels ((0, 0) and (0, 0, 0)), which take any m."""
     for m in range(1, 231):
         cols = m if n == "m" else n
         rows, bn = fm.rounds_tile(m, cols, 132)
@@ -176,8 +177,11 @@ def test_every_agent_count_that_fits_gets_a_tile(n):
             assert 32 * fm.fastmix_warps(m, bn, rows) <= fm.FASTMIX_THREADS
             assert fm.fastmix_smem(m, bn, bufs) <= fm.SMEM_LIMIT
             assert stages == 2 or (track and m > 200)
-    with pytest.raises(ValueError, match="shared"):
-        fm.rounds_tile(231, 231 if n == "m" else n, 132)
+    for m in (231, 512, 768):
+        cols = m if n == "m" else n
+        assert fm.rounds_tile(m, cols, 132) == (0, 0)
+        for track in (False, True):
+            assert fm.apply_tile(m, cols, track, 132) == (0, 0, 0)
 
 
 @pytest.mark.parametrize("track", [False, True])
@@ -264,3 +268,35 @@ def test_wire_path_stays_per_round(m, K, track):
     want = fm.fastmix_plain(x.reshape(m, -1), Lt, 0.3, K, wire_bf16=True)
     torch.testing.assert_close(got.reshape(m, -1), want, rtol=0, atol=0)
     assert not torch.equal(got, fm.fastmix_poly(x, Lt, 0.3, K))
+
+
+@pytest.mark.parametrize("wire", [None, "bf16", "fp8"])
+def test_plain_twins_sum_in_the_kernels_order(wire):
+    """``mix_in_agent_order`` is ``L @ x`` within fp32 rounding, summed
+    one agent at a time; the plain twins take it as their product and
+    then agree with their library-order selves (at m = 12 no sent value
+    lands on the other side of a rounding)."""
+    (s, _, _), L = _inputs(12, 40, 3, 6, topo=erdos_renyi_mixing)
+    S, Lt = torch.from_numpy(s).reshape(12, -1), torch.from_numpy(L)
+    want = (Lt.double() @ S.double()).float()
+    torch.testing.assert_close(fm.mix_in_agent_order(Lt, S), want,
+                               rtol=1e-6, atol=1e-6)
+    step = torch.zeros_like(S)
+    for j in range(12):
+        step = (step.double()
+                + Lt[:, j:j + 1].double() * S[j].double()).float()
+    torch.testing.assert_close(fm.mix_in_agent_order(Lt, S), step, rtol=0,
+                               atol=0)
+    ordered = {"product": fm.mix_in_agent_order}
+    if wire == "fp8":
+        err = S + 0.05 * torch.from_numpy(
+            np.random.default_rng(5).standard_normal(S.shape)
+            .astype(np.float32))
+        pairs = zip(fm.fastmix_ef_plain(S, err, Lt, 0.3, 6, **ordered),
+                    fm.fastmix_ef_plain(S, err, Lt, 0.3, 6))
+    else:
+        pairs = [(fm.fastmix_plain(S, Lt, 0.3, 6, wire_bf16=bool(wire),
+                                   **ordered),
+                  fm.fastmix_plain(S, Lt, 0.3, 6, wire_bf16=bool(wire)))]
+    for a, b in pairs:
+        torch.testing.assert_close(a, b, rtol=2e-5, atol=2e-5)

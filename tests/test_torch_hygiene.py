@@ -115,7 +115,7 @@ def test_build_rules_without_nvcc(monkeypatch):
     assert sorted(_build.SOURCES) == sorted(
         p.stem for p in _build.CSRC.glob("*.cu"))
     assert {"fastmix", "gram", "fastmix_ef", "apply_track", "power_matmul",
-            "flash_attention"} <= set(_build.SOURCES)
+            "flash_attention", "cholqr2"} <= set(_build.SOURCES)
     paths = [_build._lib_path(name) for name in _build.SOURCES]
     assert len(set(paths)) == len(paths)
     for name, path in zip(_build.SOURCES, paths):
@@ -129,14 +129,16 @@ def test_build_rules_without_nvcc(monkeypatch):
 
 
 #: Every C entry point a wrapper binds: its id, source and binder.
-ENTRIES = ("apply_track", "fastmix", "fastmix_apply", "fastmix_ef",
-           "fastmix_poly", "flash_attention", "gram", "power_matmul")
+ENTRIES = ("apply_track", "cholqr2", "fastmix", "fastmix_apply",
+           "fastmix_ef", "fastmix_poly", "flash_attention", "gram",
+           "power_matmul")
 
 
 def _entries():
-    from repro_torch.kernels import fastmix, flash_attention, gram
+    from repro_torch.kernels import cholqr, fastmix, flash_attention, gram
     from repro_torch.kernels import power_matmul
     return {"gram": ("gram", gram._entry),
+            "cholqr2": ("cholqr2", cholqr._entry),
             "fastmix": ("fastmix", fastmix._entry),
             "fastmix_apply": ("fastmix", fastmix._apply_entry),
             "fastmix_poly": ("fastmix", fastmix._poly_entry),

@@ -9,10 +9,15 @@ only PyTorch and the CUDA toolkit:
 
 Tolerances: FastMix rtol = atol = 2e-5 (the reference's kernel-vs-oracle
 bound), against the per-round oracle and, without a wire, the ``P_K(L)``
-collapse; the ``P_K(L)`` build the same; apply-track rtol 2e-5 with atol 2e-5 * (max|S| + 1) on both
+collapse (past 230 agents, where the panel kernels run, the quantized
+wires' oracle sums in the kernels' order, ``mix_in_agent_order``); the
+panel kernels bit for bit against the resident ones where both run; the
+``P_K(L)`` build the same; apply-track rtol 2e-5 with atol 2e-5 * (max|S| + 1) on both
 outputs; fp8-EF FastMix rtol = atol = 2e-5 for all but 1e-3 of the
 elements and 2e-3 for those (a sum-order difference may flip a sent value
-to the other fp8 neighbour, see test_torch_wire_ef.py); Gram rtol 1e-5
+to the other fp8 neighbour, see test_torch_wire_ef.py); CholeskyQR2
+orthogonality < 5e-6 and sign-adjusted Q within 2e-4 of its plain twin
+(tests/test_torch_cholqr.py's bounds); Gram rtol 1e-5
 (fp32) / 2e-2 (bf16) with atol scaled by max|G|; the whole slice, cuda
 vs stacked backend, per-agent subspace distance 1e-4; power matmul rtol
 1e-5 with atol 1e-5 * max|G| (one fp32 FMA chain per output against the
@@ -27,6 +32,7 @@ import torch
 
 from repro_torch import core as P
 from repro_torch import kernels
+from repro_torch.kernels import cholqr as cq
 from repro_torch.kernels import fastmix as fm
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import gram as gm
@@ -61,14 +67,22 @@ def _on_card(a: np.ndarray, shifted: bool) -> torch.Tensor:
                                    (64, 4096, 8), (64, 20000, 8),
                                    (64, 20001, 3), (64, 1501, 20),
                                    (50, 1502, 1), (7, 36, 0), (200, 1501, 8),
-                                   (220, 1500, 3)])
+                                   (220, 1500, 3), (231, 1500, 8),
+                                   (256, 1501, 2), (300, 100, 0),
+                                   (512, 300, 3), (768, 257, 1)])
 def test_fastmix_kernel_on_card(sm90, m, n, K, wire, track, layout):
     """Against the per-round oracle and, without a wire, the collapse (the
     plain twin); ragged m (7, 50), ``n % 4 != 0``, a misaligned base and
     K = 0 included, on both thread tiles (n = 20000 and 20001 at m = 64
     take the wide one, as m > 128 does at any n; m = 220 tracked takes the
-    one-stage apply).  One gossip launch per call, plus one ``P_K(L)`` build
-    without a wire (no ``P=`` passed)."""
+    one-stage apply) and on the panel kernels past m = 230 (K = 0 to 8, so
+    every turn of the buffer rotation, up to the reference's 512 tracked
+    and 768 untracked agents).  There the bf16 wire's oracle sums in the
+    kernels' order (``mix_in_agent_order``): with the library's order,
+    over hundreds of terms a sum now and then rounds to the other bf16
+    neighbour when it is sent (126 of 153600 elements past 2e-5 at
+    m = 512, K = 3 on the H100).  One gossip launch per call, plus one
+    ``P_K(L)`` build without a wire (no ``P=`` passed)."""
     rng = np.random.default_rng(m + n + K)
     L = torch.from_numpy(P.erdos_renyi(m, p=0.5, seed=0).mixing
                          .astype(np.float32)).cuda()
@@ -80,7 +94,9 @@ def test_fastmix_kernel_on_card(sm90, m, n, K, wire, track, layout):
         got = fm.fastmix_track_fused(S, G, Gp, L, 0.3, K, wire_bf16=wire)
     else:
         got = fm.fastmix_fused(S, L, 0.3, K, wire_bf16=wire)
-    want = fm.fastmix_plain(x, L, 0.3, K, wire_bf16=wire)
+    ordered = wire and not fm.kernel_fits(m, "bf16")
+    want = fm.fastmix_plain(x, L, 0.3, K, wire_bf16=wire, product=(
+        fm.mix_in_agent_order if ordered else torch.matmul))
     torch.cuda.synchronize()
     name = "fastmix_track" if track else "fastmix"
     assert fm.LAUNCHES[name] == before[name] + 1
@@ -95,12 +111,12 @@ def test_fastmix_kernel_on_card(sm90, m, n, K, wire, track, layout):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("m", [7, 50, 64, 200])
+@pytest.mark.parametrize("m", [7, 50, 64, 200, 240, 768])
 @pytest.mark.parametrize("K", [0, 1, 8, 20])
 def test_fastmix_poly_kernel_on_card(sm90, m, K):
     """The ``P_K(L)`` build kernel against ``fastmix_poly(eye(m))`` (the
     recursion in torch ops), one ``fastmix_poly`` launch each; m = 200
-    takes the wide thread tile."""
+    takes the wide thread tile, m = 240 and 768 the panel rounds."""
     L = torch.from_numpy(P.erdos_renyi(m, p=0.5, seed=0).mixing
                          .astype(np.float32)).cuda()
     before = fm.LAUNCHES["fastmix_poly"]
@@ -149,6 +165,70 @@ def test_fastmix_one_gossip_launch_with_P_on_card(sm90, track):
         fm.fastmix_fused(S, L, 0.3, 8, P=Pk.cpu())
 
 
+def _panel_everywhere(monkeypatch):
+    """Make every gossip chooser pick the panel kernels."""
+    monkeypatch.setattr(fm, "rounds_tile", lambda m, n, sms: (0, 0))
+    monkeypatch.setattr(fm, "apply_tile", lambda m, n, track, sms: (0, 0, 0))
+    monkeypatch.setattr(fm, "ef_tile_width", lambda m: 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("track", [False, True])
+@pytest.mark.parametrize("mode", ["fp32", "bf16", "fp8"])
+@pytest.mark.parametrize("m,n,K", [(50, 1501, 8), (200, 300, 8), (7, 33, 2),
+                                   (64, 100, 1), (16, 100, 0), (228, 64, 3)])
+def test_panel_kernels_equal_the_resident_ones_on_card(sm90, monkeypatch, m,
+                                                       n, K, mode, track):
+    """Where both run, the panel kernels give the resident kernels' result
+    bit for bit (the same fp32 FMA chain per output over the agents
+    ascending, the same combine and rounding), the ``P_K(L)`` build too:
+    K = 0 to 8 turns the buffer rotation every way."""
+    rng = np.random.default_rng(m + n + K + 7)
+    L = torch.from_numpy(P.erdos_renyi(m, p=0.5, seed=0).mixing
+                         .astype(np.float32)).cuda()
+    S, G, Gp, E = (torch.from_numpy(rng.standard_normal((m, n))
+                                    .astype(np.float32)).cuda()
+                   for _ in range(4))
+
+    def run():
+        if mode == "fp8":
+            return (fm.fastmix_track_ef_fused(S, G, Gp, E, L, 0.3, K) if track
+                    else fm.fastmix_ef_fused(S, E, L, 0.3, K))
+        wire = mode == "bf16"
+        return ((fm.fastmix_track_fused(S, G, Gp, L, 0.3, K, wire_bf16=wire),)
+                if track else (fm.fastmix_fused(S, L, 0.3, K, wire_bf16=wire),))
+
+    resident, P_res = run(), fm.poly_matrix(L, 0.3, K)
+    _panel_everywhere(monkeypatch)
+    panel, P_pan = run(), fm.poly_matrix(L, 0.3, K)
+    torch.cuda.synchronize()
+    assert torch.equal(P_pan, P_res)
+    for a, b in zip(resident, panel):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wire", [False, True])
+@pytest.mark.parametrize("K", [0, 2, 8])
+def test_apply_track_panel_equals_resident_on_card(sm90, monkeypatch, K,
+                                                   wire):
+    """apply-track's gossip on the panel kernels gives the resident one's
+    ``(S_new, G)`` bit for bit."""
+    m, d, k = 50, 300, 5
+    rng = np.random.default_rng(K + 11)
+    A, W, S, Gp = (torch.from_numpy(rng.standard_normal(shape)
+                                    .astype(np.float32)).cuda()
+                   for shape in ((m, d, d), (m, d, k), (m, d, k), (m, d, k)))
+    L = torch.from_numpy(P.erdos_renyi(m, p=0.5, seed=0).mixing
+                         .astype(np.float32)).cuda()
+    resident = fm.apply_track_fused(A, W, S, Gp, L, 0.3, K, wire_bf16=wire)
+    _panel_everywhere(monkeypatch)
+    panel = fm.apply_track_fused(A, W, S, Gp, L, 0.3, K, wire_bf16=wire)
+    torch.cuda.synchronize()
+    for a, b in zip(resident, panel):
+        assert torch.equal(a, b)
+
+
 def _ef_close(got, want):
     got, want = got.cpu().numpy(), want.cpu().numpy()
     off = ~np.isclose(got, want, rtol=2e-5, atol=2e-5)
@@ -156,11 +236,19 @@ def _ef_close(got, want):
     np.testing.assert_allclose(got, want, rtol=2e-3, atol=2e-3)
 
 
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("track", [False, True])
 @pytest.mark.parametrize("m,n,K", [(50, 1500, 8), (7, 33, 3), (16, 100, 0),
-                                   (64, 4096, 8)])
+                                   (64, 4096, 8), (229, 300, 8),
+                                   (256, 1501, 2), (300, 100, 0),
+                                   (512, 257, 1), (240, 64, 3)])
 def test_fastmix_ef_kernel_on_card(sm90, m, n, K, track):
+    """Against the plain twin; past m = 228 the panel path (a send and a
+    receive launch per round), whose twin sums in the kernels' order
+    (``mix_in_agent_order``): in the library's order a flipped fp8 send
+    cascades through the dense L into most of its column (0.42% of the
+    elements at m = 229, K = 8 on the H100, past the rule's 0.1%)."""
     rng = np.random.default_rng(m + n + K + 1)
     L = torch.from_numpy(P.erdos_renyi(m, p=0.5, seed=0).mixing
                          .astype(np.float32)).cuda()
@@ -168,13 +256,15 @@ def test_fastmix_ef_kernel_on_card(sm90, m, n, K, track):
                                     .astype(np.float32)).cuda()
                    for _ in range(4))
     before = dict(fm.LAUNCHES)
+    product = (torch.matmul if fm.kernel_fits(m, "fp8")
+               else fm.mix_in_agent_order)
     if track:
         got = fm.fastmix_track_ef_fused(S, G, Gp, E, L, 0.3, K)
         want = fm.fastmix_ef_plain(fm.tracking_update(S, G, Gp), E, L, 0.3,
-                                   K)
+                                   K, product=product)
     else:
         got = fm.fastmix_ef_fused(S, E, L, 0.3, K)
-        want = fm.fastmix_ef_plain(S, E, L, 0.3, K)
+        want = fm.fastmix_ef_plain(S, E, L, 0.3, K, product=product)
     torch.cuda.synchronize()
     name = "fastmix_track_ef" if track else "fastmix_ef"
     assert fm.LAUNCHES[name] == before[name] + 1
@@ -185,8 +275,18 @@ def test_fastmix_ef_kernel_on_card(sm90, m, n, K, track):
 @pytest.mark.gpu
 @pytest.mark.parametrize("wire", [False, True])
 @pytest.mark.parametrize("m,d,k,K", [(50, 300, 5, 8), (8, 40, 3, 4),
-                                     (5, 17, 2, 0), (64, 512, 32, 8)])
+                                     (5, 17, 2, 0), (64, 512, 32, 8),
+                                     (200, 300, 5, 8), (16, 258, 64, 8),
+                                     (4, 130, 70, 3), (240, 60, 4, 8),
+                                     (300, 33, 5, 2), (256, 40, 3, 0)])
 def test_apply_track_kernel_on_card(sm90, m, d, k, K, wire):
+    """Both outputs against the plain twin (which builds ``P_K(L)`` as the
+    wrapper does without a wire), and without a wire also against the
+    per-round oracle; one ``apply_track`` launch per call.  m = 200, k = 64
+    (one full column tile, d % 4 != 0: the 4-byte copies), k = 70 (two
+    column tiles), and m past 230 (FastMix's panel kernels; on the bf16
+    wire there S_new's twin sums in the kernels' order, as in
+    test_fastmix_kernel_on_card)."""
     rng = np.random.default_rng(m + d + k + K)
     A = rng.standard_normal((m, d, d)).astype(np.float32)
     A = torch.from_numpy((A + A.transpose(0, 2, 1)) / 2).cuda()
@@ -200,10 +300,26 @@ def test_apply_track_kernel_on_card(sm90, m, d, k, K, wire):
     S_p, G_p = fm.apply_track_plain(A, W, S, Gp, L, 0.3, K, wire_bf16=wire)
     torch.cuda.synchronize()
     assert fm.LAUNCHES["apply_track"] == before + 1
+    if wire and not fm.kernel_fits(m, "bf16"):    # on the kernel's own G
+        x = fm.tracking_update(S, G_k, Gp).reshape(m, d * k)
+        S_p = fm.fastmix_plain(x, L, 0.3, K, wire_bf16=True,
+                               product=fm.mix_in_agent_order).reshape(S.shape)
     scale = float(S_p.abs().max()) + 1.0
     for got, want in ((G_k, G_p), (S_k, S_p)):
         np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                    rtol=2e-5, atol=2e-5 * scale)
+    if not wire:
+        x = fm.tracking_update(S, G_p, Gp).reshape(m, d * k)
+        oracle = fm.fastmix_plain(x, L, 0.3, K).reshape(m, d, k)
+        np.testing.assert_allclose(S_k.cpu().numpy(), oracle.cpu().numpy(),
+                                   rtol=2e-5, atol=2e-5 * scale)
+        Pk = fm.poly_matrix(L, 0.3, K)
+        before = dict(fm.LAUNCHES)
+        S_c, _ = fm.apply_track_fused(A, W, S, Gp, L, 0.3, K, P=Pk)
+        torch.cuda.synchronize()
+        assert fm.LAUNCHES["apply_track"] == before["apply_track"] + 1
+        assert fm.LAUNCHES["fastmix_poly"] == before["fastmix_poly"]
+        assert torch.equal(S_c, S_k)
 
 
 @pytest.mark.gpu
@@ -221,6 +337,127 @@ def test_gram_kernel_on_card(sm90, shape, dtype):
     scale = float(want.abs().max())
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                rtol=tol, atol=tol * scale)
+
+
+def _orth_err(Q):
+    eye = torch.eye(Q.shape[-1], dtype=Q.dtype, device=Q.device)
+    return float((Q.mT @ Q - eye).abs().max())
+
+
+def _check_cholqr2(Q, X):
+    """Orthogonality < 5e-6 and, sign-adjusted, within 2e-4 of the plain
+    twin (the bounds tests/test_torch_cholqr.py holds the port to)."""
+    from repro_torch.core.step import sign_adjust
+    want = cq.cholqr2_plain(X)
+    assert bool(torch.isfinite(Q).all())
+    assert _orth_err(Q) < 5e-6
+    np.testing.assert_allclose(sign_adjust(Q, X).cpu().numpy(),
+                               sign_adjust(want, X).cpu().numpy(),
+                               rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(50, 300, 5), (64, 4096, 32), (1, 300, 5),
+                                   (1, 4096, 32), (3, 257, 33), (2, 8192, 64),
+                                   (4, 40, 8)])
+def test_cholqr2_kernel_on_card(sm90, shape):
+    """Against the plain twin; one ``cholqr2`` launch per call and no
+    ``gram`` launch; a well-conditioned batch leaves the rescue flag 0.
+    (2, 8192, 64) re-reads its slice from device memory."""
+    g = torch.Generator(device="cuda").manual_seed(len(shape) + shape[0])
+    X = torch.randn(*shape, generator=g, device="cuda")
+    flag = torch.zeros(1, dtype=torch.int32, device="cuda")
+    kernels.reset_launch_counts()
+    Q = cq.cholqr2_fused(X, flag=flag)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["cholqr2"] == 1 and counts["gram"] == 0
+    assert int(flag) == 0
+    _check_cholqr2(Q, X)
+
+
+def _rescue_inputs(d: int = 300, k: int = 4):
+    """A batch of a well-conditioned element, an exactly rank-deficient one
+    and one of cond ~3e6, and a clean batch that shares the first."""
+    rng = np.random.default_rng(0)
+    good = rng.standard_normal((d, k))
+    half = rng.standard_normal((d, k // 2))
+    deficient = np.concatenate([half, half], axis=1)
+    base = np.linalg.qr(rng.standard_normal((d, k)))[0]
+    ill = base * np.array([1.0, 1e-3, 1e-5, 3e-7])
+    batch = np.stack([good, deficient, ill]).astype(np.float32)
+    clean = np.stack([good, *rng.standard_normal((2, d, k))])
+    return batch, clean.astype(np.float32)
+
+
+@pytest.mark.gpu
+def test_cholqr2_rescue_runs_on_the_whole_batch_on_card(sm90):
+    """An exactly rank-deficient element and one of cond ~3e6 set the
+    rescue flag; the gated third pass then runs on every element, so a
+    well-conditioned element's Q differs in its last bits from the same
+    element's in a clean batch of the same shape, and all stay within the
+    twin's bounds (which runs the third pass on the whole batch too)."""
+    k = 4
+    batch, clean = (torch.from_numpy(a).cuda() for a in _rescue_inputs())
+    flags = [torch.zeros(1, dtype=torch.int32, device="cuda")
+             for _ in range(2)]
+    Q = cq.cholqr2_fused(batch, flag=flags[0])
+    Qc = cq.cholqr2_fused(clean, flag=flags[1])
+    torch.cuda.synchronize()
+    assert int(flags[0]) != 0 and int(flags[1]) == 0
+    assert not torch.equal(Q[0], Qc[0])
+    assert bool(torch.isfinite(Q).all())
+    _check_cholqr2(Q[:1], batch[:1])
+    assert _orth_err(Q[1:2, :, :k // 2]) < 5e-6
+    assert _orth_err(Q[2:]) < 5e-6
+    want = cq.cholqr2_plain(batch)
+    P_got, P_want = (q[2] @ q[2].mT for q in (Q, want))
+    assert float((P_got - P_want).abs().max()) < 1e-4
+    np.testing.assert_allclose(Q[0].cpu().numpy(), want[0].cpu().numpy(),
+                               rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.gpu
+def test_cholqr2_stream_flag_clears_itself_on_card(sm90):
+    """Without ``flag=`` a call uses its stream's flag pair, which the
+    gated launch leaves zero: after a rescue the next clean batch runs no
+    third pass (its Q equals a call with a fresh flag of its own)."""
+    batch, clean = (torch.from_numpy(a).cuda() for a in _rescue_inputs())
+    Q = cq.cholqr2_fused(batch)
+    Qc = cq.cholqr2_fused(clean)
+    torch.cuda.synchronize()
+    pair = cq._FLAGS[(0, torch.cuda.current_stream().cuda_stream)]
+    assert pair.tolist() == [0, 0]
+    fresh = torch.zeros(1, dtype=torch.int32, device="cuda")
+    assert torch.equal(Qc, cq.cholqr2_fused(clean, flag=fresh))
+    assert int(fresh) == 0
+    flagged = torch.zeros(1, dtype=torch.int32, device="cuda")
+    assert torch.equal(Q, cq.cholqr2_fused(batch, flag=flagged))
+    assert int(flagged) != 0
+
+
+@pytest.mark.gpu
+def test_deepca_past_the_kernel_limit_on_card(sm90):
+    """m = 256 agents, past the resident gossip kernels' limit: exactly one
+    gossip launch per iteration (the panel kernels) and one ``P_K(L)``
+    build, CholeskyQR2 its kernel, and the result matches ``stacked``
+    within 1e-4."""
+    m, n, d, k, T = 256, 40, 60, 4, 8
+    ops = P.libsvm_like(m, n, d, seed=0)
+    topo = P.erdos_renyi(m, p=0.5, seed=0)
+    W0 = torch.linalg.qr(torch.from_numpy(np.random.default_rng(1)
+                                          .standard_normal((d, k))
+                                          .astype(np.float32)).cuda()).Q
+    kernels.reset_launch_counts()
+    got = P.deepca(ops, topo, W0, k=k, T=T, K=8, backend="cuda")
+    counts = kernels.launch_counts()
+    assert not fm.kernel_fits(m, None)
+    assert counts["fastmix_track"] == T and counts["fastmix_poly"] == 1
+    assert counts["cholqr2"] >= T
+    want = P.deepca(ops, topo, W0, k=k, T=T, K=8, backend="stacked")
+    Qa, Qb = (P.qr_orth(W.double()) for W in (want.W, got.W))
+    gap = torch.linalg.matrix_norm(Qb - Qa @ (Qa.mT @ Qb)).max()
+    assert float(gap) < 1e-4
 
 
 @pytest.mark.gpu
@@ -245,6 +482,13 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(sm90):
         fm.apply_track_fused(A.double(), W, W, W, L, 0.1, 2)
     with pytest.raises(ValueError, match="contiguous"):
         fm.apply_track_fused(A.mT, W, W, W, L, 0.1, 2)
+    X = torch.zeros(2, 8, 3, device="cuda")
+    with pytest.raises(TypeError, match="fp32"):
+        cq.cholqr2_fused(X.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        cq.cholqr2_fused(torch.zeros(2, 3, 8, device="cuda").mT)
+    with pytest.raises(ValueError, match="flag"):
+        cq.cholqr2_fused(X, flag=torch.zeros(1, device="cuda"))
 
 
 @pytest.mark.gpu
@@ -258,7 +502,8 @@ def test_slice_cuda_matches_stacked_on_card(sm90):
     kernels.reset_launch_counts()
     got = P.deepca(ops, topo, W0, k=k, T=10, K=8, backend="cuda")
     counts = kernels.launch_counts()
-    assert counts["fastmix_track"] == 10 and counts["gram"] >= 30
+    assert counts["fastmix_track"] == 10 and counts["cholqr2"] >= 10
+    assert counts["gram"] == 0
     want = P.deepca(ops, topo, W0, k=k, T=10, K=8, backend="stacked")
     Qa, Qb = (P.qr_orth(W.double()) for W in (want.W, got.W))
     gap = torch.linalg.matrix_norm(Qb - Qa @ (Qa.mT @ Qb)).max()
