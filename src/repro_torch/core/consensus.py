@@ -25,9 +25,9 @@ runs the fp8-EF kernels; int8 has no kernel (its per-agent scale is a
 reduction over every column tile, as in the reference) and runs the
 per-round reference as torch ops on the card.
 
-The gossip kernels take every agent count: up to 230 (228 on the fp8
-wire) they hold ``L`` (or ``P_K(L)``) in one block's shared memory, and
-past that their panel kernels stream it through shared memory
+The gossip kernels take every agent count: up to 230 they hold ``L``
+(or ``P_K(L)``) in one block's shared memory, and past that their panel
+kernels stream it through shared memory
 (:func:`repro_torch.kernels.fastmix.kernel_fits` says which run).
 """
 from __future__ import annotations

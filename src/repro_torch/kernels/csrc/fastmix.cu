@@ -96,15 +96,15 @@ int fastmix_rounds(const void* L, const void* S, const void* G,
   const bool vec = vectorizable(S, G, Gp, out, n, track);
   if (track)
     return wire_bf16
-        ? rounds<true, true>(l, s, g, gp, o, m, n, one_eta, eta, K, bn, rows,
-                             vec, st)
-        : rounds<true, false>(l, s, g, gp, o, m, n, one_eta, eta, K, bn,
-                              rows, vec, st);
+        ? rounds<true, kWireBf16>(l, s, g, gp, nullptr, o, nullptr, m, n,
+                                  one_eta, eta, K, bn, rows, vec, st)
+        : rounds<true, kWireNone>(l, s, g, gp, nullptr, o, nullptr, m, n,
+                                  one_eta, eta, K, bn, rows, vec, st);
   return wire_bf16
-      ? rounds<false, true>(l, s, g, gp, o, m, n, one_eta, eta, K, bn, rows,
-                            vec, st)
-      : rounds<false, false>(l, s, g, gp, o, m, n, one_eta, eta, K, bn,
-                             rows, vec, st);
+      ? rounds<false, kWireBf16>(l, s, g, gp, nullptr, o, nullptr, m, n,
+                                 one_eta, eta, K, bn, rows, vec, st)
+      : rounds<false, kWireNone>(l, s, g, gp, nullptr, o, nullptr, m, n,
+                                 one_eta, eta, K, bn, rows, vec, st);
 }
 
 // out = P (track ? S + G - Gp : S) over the (m, n) fp32 iterate in one
@@ -147,10 +147,12 @@ int fastmix_poly(const void* L, void* P, void* work, int m, float one_eta,
   }
   if (!valid_tile(m, bn, rows)) return cudaErrorInvalidValue;
   return rows == 4
-      ? launch_rounds<false, false, false, true, 4, 1>(
-            l, nullptr, nullptr, nullptr, p, m, m, one_eta, eta, K, bn, st)
-      : launch_rounds<false, false, false, true, 8, 4>(
-            l, nullptr, nullptr, nullptr, p, m, m, one_eta, eta, K, bn, st);
+      ? launch_rounds<false, kWireNone, false, true, 4, 1>(
+            l, nullptr, nullptr, nullptr, nullptr, p, nullptr, m, m,
+            one_eta, eta, K, bn, st)
+      : launch_rounds<false, kWireNone, false, true, 8, 4>(
+            l, nullptr, nullptr, nullptr, nullptr, p, nullptr, m, m,
+            one_eta, eta, K, bn, st);
 }
 
 const char* fastmix_error_string(int err) {

@@ -18,9 +18,12 @@
 //             prev, cur = cur, (1 + eta) * mixed - eta * prev
 //   out = cur, err_out = h         (fp32)
 //
-// The cube root is (float)cbrt((double)v), the same route as the plain
-// version's f64 root rounded to fp32.  The clamp keeps NaN (comparisons,
-// not fminf/fmaxf, which would drop it), and the cast is Hopper's native
+// The value sent is the f64 route's, e4m3(clamp((float)cbrt((double)v))),
+// the same as the plain version's f64 root rounded to fp32: the kernel
+// takes the fp32 root cbrtf and falls back to the f64 one only next to an
+// e4m3 rounding boundary (send_fp8 in fastmix_tiles.cuh; equal on all 2^32
+// inputs, checked on the card).  The clamp keeps NaN (comparisons, not
+// fminf/fmaxf, which would drop it), and the cast is Hopper's native
 // round-to-nearest-even e4m3 conversion with saturation, so the kernel and
 // the reference's clip-then-cast agree.  Build without --use_fast_math: it
 // would flush the subnormal innovations the companded wire reaches (down to
@@ -32,138 +35,35 @@
 // cube root per element.  At m = 64 that is about 1 flop per byte: the fp32
 // CUDA-core rate bounds it, and the f64 root (H100's f64 rate is half its
 // fp32 rate, and cbrt costs tens of f64 operations) adds a term of the same
-// order per round.
+// order per round (scripts/ef_round_phases.py times each phase of a round
+// on the card).  At m = 50, n = 1500 (w8a) there is little work in all:
+// the launch and each thread's serial chain per round set the time.
 //
-// What the design does about it: as in fastmix.cu, one block owns a
-// BN-column tile for all K rounds, with L, prev, cur and the replica h in
-// shared memory; global memory is touched once to load the tile and once
-// to store it.  Each round is two phases separated by a barrier: every
-// thread advances h on its elements (the send), then each thread mixes
-// four rows of one column (the receive), writing nxt over prev in place.
-// That holds L in one block's shared memory, which takes m <= 228.  Past
-// it each round is two launches: an elementwise send that advances h in
-// err_out, then FastMix's panel kernel (fastmix_tiles.cuh) for the
-// receive, the iterates rotating through device memory.
-#include <cuda_fp16.h>
-#include <cuda_fp8.h>
-
+// What the design does about it: it is FastMix's register-tiled round loop
+// (fastmix_tiles.cuh, fastmix_rounds_kernel) on a third wire.  One block owns
+// a BN-column tile for all K rounds, with L in shared memory transposed;
+// each thread owns an R x C register tile of prev and cur (8 x 4 where the
+// iterate is wide, 4 x 1 where it is narrow, as the wrapper's rounds_tile
+// picks), so for each agent j one load of h[j][c..c+C) and one or two
+// broadcast loads of Lt[j][i0..i0+R) feed R x C FMAs.  What an agent sends is
+// its replica h, so the double-buffered sent array holds h itself: at the
+// end of a round each thread advances h = ef_send(cur, h) on its own tile
+// (reading its h back from the buffer the round mixed) and writes it to the
+// other buffer, and the next round forms L h and (cur + L h) - h from there.
+// The sends run in a pass of their own after the combine, when the
+// product's accumulators are dead, which keeps the f64 roots' temporaries
+// in fewer registers.
+// One barrier per round; global memory is read once and written once.  At
+// w8a the 4 x 1 tile gives 188 blocks of 4 warps and 4 cube roots per
+// thread per round.  L in one block's shared memory beside the two buffers
+// takes m <= 230 (the round loop's own limit).  Past it each round is two
+// launches: an elementwise send that advances h in err_out, then FastMix's
+// panel kernel (fastmix_tiles.cuh) for the receive, the iterates rotating
+// through device memory.  The launch goes through the Setup cache
+// (launch.cuh): the shared-memory attribute is set once per device and size.
 #include "fastmix_tiles.cuh"
 
 namespace {
-
-constexpr int kRowsPerThread = 4;
-constexpr float kFp8Max = 448.0f;
-
-// Round to e4m3fn (nearest even, saturating) and back: exact through half.
-__device__ __forceinline__ float fp8_round(float f) {
-  const __nv_fp8_storage_t q =
-      __nv_cvt_float_to_fp8(f, __NV_SATFINITE, __NV_E4M3);
-  return __half2float(__half(__nv_cvt_fp8_to_halfraw(q, __NV_E4M3)));
-}
-
-// One error-feedback send: the replica advanced by the companded innovation.
-__device__ __forceinline__ float ef_send(float cur, float h) {
-  float f = (float)cbrt((double)__fsub_rn(cur, h));
-  f = f > kFp8Max ? kFp8Max : (f < -kFp8Max ? -kFp8Max : f);   // NaN stays
-  const float fq = fp8_round(f);
-  return __fadd_rn(h, __fmul_rn(__fmul_rn(fq, fq), fq));
-}
-
-template <bool TRACK>
-__global__ void __launch_bounds__(kThreads)
-fastmix_ef_kernel(const float* __restrict__ L, const float* __restrict__ S,
-                  const float* __restrict__ G, const float* __restrict__ Gp,
-                  const float* __restrict__ err, float* __restrict__ out,
-                  float* __restrict__ err_out, int m, long long n,
-                  float one_eta, float eta, int K, int bn) {
-  extern __shared__ float smem[];
-  const int mp = (m + kRowsPerThread - 1) / kRowsPerThread * kRowsPerThread;
-  float* sL = smem;                       // mp x m   (rows >= m are zero)
-  float* prev = sL + mp * m;              // m x bn
-  float* cur = prev + m * bn;             // m x bn
-  float* h = cur + m * bn;                // m x bn   wire replica
-
-  const int tid = threadIdx.x;
-  const long long c0 = (long long)blockIdx.x * bn;
-
-  for (int idx = tid; idx < mp * m; idx += kThreads)
-    sL[idx] = idx < m * m ? L[idx] : 0.0f;
-  for (int idx = tid; idx < m * bn; idx += kThreads) {
-    const int i = idx / bn, c = idx % bn;
-    const long long col = c0 + c;
-    float v = 0.0f, e = 0.0f;
-    if (col < n) {
-      const long long g = (long long)i * n + col;
-      v = S[g];
-      if (TRACK) v = __fsub_rn(__fadd_rn(v, G[g]), Gp[g]);  // (s + g) - gp
-      e = err[g];
-    }
-    prev[idx] = v;
-    cur[idx] = v;
-    h[idx] = e;
-  }
-  __syncthreads();
-
-  const int c = tid % bn;
-  const int group = tid / bn;
-  const int groups = kThreads / bn;
-  for (int round = 0; round < K; ++round) {
-    for (int idx = tid; idx < m * bn; idx += kThreads)       // the send
-      h[idx] = ef_send(cur[idx], h[idx]);
-    __syncthreads();
-    // the receive; nxt overwrites prev in place: prev[i][c] is read only by
-    // the thread that writes it, and h, cur are only read in this phase
-    for (int i0 = group * kRowsPerThread; i0 < m;
-         i0 += groups * kRowsPerThread) {
-      float acc[kRowsPerThread] = {0.0f, 0.0f, 0.0f, 0.0f};
-      for (int j = 0; j < m; ++j) {
-        const float hj = h[j * bn + c];
-#pragma unroll
-        for (int r = 0; r < kRowsPerThread; ++r)
-          acc[r] = __fmaf_rn(sL[(i0 + r) * m + j], hj, acc[r]);
-      }
-#pragma unroll
-      for (int r = 0; r < kRowsPerThread; ++r) {
-        const int i = i0 + r;
-        if (i < m) {
-          const int e = i * bn + c;
-          const float mixed = __fsub_rn(__fadd_rn(cur[e], acc[r]), h[e]);
-          prev[e] = __fsub_rn(__fmul_rn(one_eta, mixed),
-                              __fmul_rn(eta, prev[e]));
-        }
-      }
-    }
-    __syncthreads();
-    float* t = prev; prev = cur; cur = t;     // prev <- cur, cur <- nxt
-  }
-
-  for (int idx = tid; idx < m * bn; idx += kThreads) {
-    const int i = idx / bn, cc = idx % bn;
-    const long long col = c0 + cc;
-    if (col < n) {
-      const long long g = (long long)i * n + col;
-      out[g] = cur[idx];
-      err_out[g] = h[idx];
-    }
-  }
-}
-
-template <bool TRACK>
-cudaError_t launch(const float* L, const float* S, const float* G,
-                   const float* Gp, const float* err, float* out,
-                   float* err_out, int m, long long n, float one_eta,
-                   float eta, int K, int bn, size_t smem,
-                   cudaStream_t stream) {
-  auto kern = fastmix_ef_kernel<TRACK>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  const long long tiles = (n + bn - 1) / bn;
-  kern<<<(unsigned)tiles, kThreads, smem, stream>>>(L, S, G, Gp, err, out,
-                                                    err_out, m, n, one_eta,
-                                                    eta, K, bn);
-  return cudaGetLastError();
-}
 
 // One send over every element: h_out = ef_send(cur, h_in) (in place
 // when h_in == h_out).
@@ -208,22 +108,16 @@ cudaError_t ef_panel_rounds(const float* L, Src x, const float* err,
 
 extern "C" {
 
-// Shared-memory bytes one block needs for (m, bn); the wrapper's
-// ef_tile_width(m) picks bn with the same formula.
-size_t fastmix_ef_smem_bytes(int m, int bn) {
-  const int mp = (m + kRowsPerThread - 1) / kRowsPerThread * kRowsPerThread;
-  return sizeof(float) * ((size_t)mp * m + (size_t)3 * m * bn);
-}
-
 // (out, err_out) = fp8-EF FastMix^K(track ? S + G - Gp : S, err) over the
 // (m, n) fp32 iterate.  G and Gp are ignored (may be null) when track == 0.
-// bn 0: the panel path (2K launches; `work` holds 2 m n floats when
-// K >= 2, else it may be null).  Returns cudaError_t.
+// rows 8 or 4 picks the round loop's thread tile and bn its column tile (the
+// wrapper's rounds_tile); rows 0 the panel path (2K launches; `work` holds
+// 2 m n floats when K >= 2, else it may be null).  Returns cudaError_t.
 int fastmix_ef_rounds(const void* L, const void* S, const void* G,
                       const void* Gp, const void* err, void* out,
                       void* err_out, void* work, int m, long long n,
-                      float one_eta, float eta, int K, int bn, int track,
-                      void* stream) {
+                      float one_eta, float eta, int K, int bn, int rows,
+                      int track, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const float* l = (const float*)L;
   const float* s = (const float*)S;
@@ -232,16 +126,19 @@ int fastmix_ef_rounds(const void* L, const void* S, const void* G,
   const float* e = (const float*)err;
   float* o = (float*)out;
   float* eo = (float*)err_out;
-  if (bn == 0) {
+  if (rows == 0) {
     if (m <= 0 || (K >= 2 && work == nullptr)) return cudaErrorInvalidValue;
     return ef_panel_rounds(l, source(s, g, gp, track), e, o, eo,
                            (float*)work, m, n, one_eta, eta, K, st);
   }
-  const size_t smem = fastmix_ef_smem_bytes(m, bn);
-  return track ? launch<true>(l, s, g, gp, e, o, eo, m, n, one_eta, eta, K,
-                              bn, smem, st)
-               : launch<false>(l, s, g, gp, e, o, eo, m, n, one_eta, eta, K,
-                               bn, smem, st);
+  if (!valid_tile(m, bn, rows)) return cudaErrorInvalidValue;
+  const bool vec = vectorizable(S, G, Gp, out, n, track) && aligned16(err) &&
+                   aligned16(err_out);
+  return track
+      ? rounds<true, kWireFp8Ef>(l, s, g, gp, e, o, eo, m, n, one_eta, eta,
+                                 K, bn, rows, vec, st)
+      : rounds<false, kWireFp8Ef>(l, s, g, gp, e, o, eo, m, n, one_eta, eta,
+                                  K, bn, rows, vec, st);
 }
 
 const char* fastmix_ef_error_string(int err) {

@@ -1,18 +1,26 @@
 // FastMix's device code and launch helpers, shared by fastmix.cu (its C
 // entries), apply_track.cu (the tracked gossip after the per-agent
-// product) and fastmix_ef.cu (the panel receive past its resident limit).
-// Each source compiles its own copy (anonymous namespace); what the
-// kernels compute and why they are built this way is set out at the top of
-// fastmix.cu, and above the panel kernels at the end of this file.
+// product) and fastmix_ef.cu (the round loop on the fp8-EF wire, and the
+// panel receive past its resident limit).  Each source compiles its own
+// copy (anonymous namespace); what the kernels compute and why they are
+// built this way is set out at the top of fastmix.cu and fastmix_ef.cu,
+// and above the panel kernels at the end of this file.
 #pragma once
-#include <cstdint>
-#include <mutex>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
+
+#include "launch.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
+
+// What the round loop sends: the iterate itself, its bf16 rounding, or the
+// fp8 error-feedback replica (fastmix_ef.cu).
+enum { kWireNone, kWireBf16, kWireFp8Ef };
+constexpr float kFp8Max = 448.0f;
 
 __host__ __device__ __forceinline__ int padded_rows(int m) {
   return (m + 7) / 8 * 8;
@@ -36,6 +44,40 @@ __host__ __device__ __forceinline__ size_t smem_bytes(int m, int bn,
 
 __device__ __forceinline__ float wire_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// e4m3fn(clamp(f)): the clamp keeps NaN (comparisons, not fminf/fmaxf,
+// which would drop it), the cast rounds to nearest even and saturates.
+__device__ __forceinline__ __nv_fp8_storage_t fp8_of(float f) {
+  f = f > kFp8Max ? kFp8Max : (f < -kFp8Max ? -kFp8Max : f);
+  return __nv_cvt_float_to_fp8(f, __NV_SATFINITE, __NV_E4M3);
+}
+
+// What an agent sends for the innovation v, the reference's route: the
+// cube root in f64, rounded to fp32 once, then e4m3fn(clamp(.)).
+__device__ __noinline__ __nv_fp8_storage_t send_fp8_f64(float v) {
+  return fp8_of((float)cbrt((double)v));
+}
+
+// The same e4m3 value from the fp32 root a = cbrtf(v) (within 1 ulp): the
+// f64 route's root lies within 2^-22 |a| of a, so where a (1 - 2^-20) and
+// a (1 + 2^-20) cast to one e4m3 value, it casts to that value too;
+// elsewhere (some 2^-16 of the inputs, next to an e4m3 rounding boundary)
+// the f64 route decides.  Equal to send_fp8_f64 on all 2^32 fp32 inputs
+// (the on-card test_fp8_send_equals_the_f64_route_on_every_input).
+__device__ __forceinline__ __nv_fp8_storage_t send_fp8(float v) {
+  const float a = cbrtf(v);
+  const __nv_fp8_storage_t lo = fp8_of(__fmul_rn(a, 1.0f - 0x1p-20f));
+  const __nv_fp8_storage_t hi = fp8_of(__fmul_rn(a, 1.0f + 0x1p-20f));
+  return lo == hi ? lo : send_fp8_f64(v);
+}
+
+// One error-feedback send: the replica advanced by the companded innovation
+// (e4m3 -> fp32 exactly, through half).
+__device__ __forceinline__ float ef_send(float cur, float h) {
+  const float fq = __half2float(
+      __half(__nv_cvt_fp8_to_halfraw(send_fp8(__fsub_rn(cur, h)), __NV_E4M3)));
+  return __fadd_rn(h, __fmul_rn(__fmul_rn(fq, fq), fq));
 }
 
 __device__ __forceinline__ float tracked(float s, float g, float gp) {
@@ -217,15 +259,21 @@ __device__ __forceinline__ void put_sent(float* x, int bn, int m, int i0,
 }
 
 // K rounds with M = L over one BN-column tile per block, from x (or from
-// I when IDENTITY: the P_K(L) build, n = m).
-template <bool TRACK, bool WIRE_BF16, bool VEC, bool IDENTITY, int R, int C>
+// I when IDENTITY: the P_K(L) build, n = m).  On the fp8-EF wire the
+// replica h is what each agent sends, so the sent buffer holds it: the
+// thread reads its own tile of h back from the buffer it mixes, and its
+// registers hold prev and cur only (as on the other wires).  err is the
+// replica on entry, err_out on exit (both unused on the other wires).
+template <bool TRACK, int WIRE, bool VEC, bool IDENTITY, int R, int C>
 __global__ void __launch_bounds__(kThreads, R == 8 ? 2 : 1)
 fastmix_rounds_kernel(const float* __restrict__ M,
                       const float* __restrict__ S,
                       const float* __restrict__ G,
-                      const float* __restrict__ Gp, float* __restrict__ out,
-                      int m, long long n, float one_eta, float eta, int K,
-                      int bn) {
+                      const float* __restrict__ Gp,
+                      const float* __restrict__ err, float* __restrict__ out,
+                      float* __restrict__ err_out, int m, long long n,
+                      float one_eta, float eta, int K, int bn) {
+  constexpr bool EF = WIRE == kWireFp8Ef;
   extern __shared__ float4 smem4[];
   float* const Mt = reinterpret_cast<float*>(smem4);   // m x ms
   const int ms = mt_stride(m);
@@ -240,7 +288,19 @@ fastmix_rounds_kernel(const float* __restrict__ M,
   if (active) {
     if (IDENTITY) identity_tile<R, C>(m, i0, col, cur);
     else load_tile<TRACK, VEC, R, C>(S, G, Gp, m, n, i0, col, cur);
-    put_sent<WIRE_BF16, R, C>(sent, bn, m, i0, c, cur);
+    if constexpr (EF) {               // the first send (none when K = 0)
+      float h[R][C];
+      load_tile<false, VEC, R, C>(err, nullptr, nullptr, m, n, i0, col, h);
+      if (K > 0) {
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+#pragma unroll
+          for (int q = 0; q < C; ++q) h[r][q] = ef_send(cur[r][q], h[r][q]);
+      }
+      put_sent<false, R, C>(sent, bn, m, i0, c, h);
+    } else {
+      put_sent<WIRE == kWireBf16, R, C>(sent, bn, m, i0, c, cur);
+    }
   }
   __syncthreads();
 
@@ -253,23 +313,58 @@ fastmix_rounds_kernel(const float* __restrict__ M,
     // the previous barrier, so nobody still reads what is overwritten.
     const float* src = sent + (round & 1) * m * bn;
     float* dst = sent + ((round + 1) & 1) * m * bn;
+    const bool send = round + 1 < K;
     if (active) {
       float acc[R][C];
       product<R, C>(Mt, ms, src, bn, m, i0, c, acc);
 #pragma unroll
-      for (int r = 0; r < R; ++r)
+      for (int r = 0; r < R; ++r) {
+        float h[C] = {};              // EF: the agent's own replica
+        if constexpr (EF) {
+          if (i0 + r < m) load_n<C>(src + (i0 + r) * bn + c, h);
+        }
 #pragma unroll
         for (int q = 0; q < C; ++q) {
-          const float nxt = __fsub_rn(__fmul_rn(one_eta, acc[r][q]),
+          float mixed = acc[r][q];
+          if constexpr (EF)
+            mixed = __fsub_rn(__fadd_rn(cur[r][q], mixed), h[q]);
+          const float nxt = __fsub_rn(__fmul_rn(one_eta, mixed),
                                       __fmul_rn(eta, prev[r][q]));
           prev[r][q] = cur[r][q];
           cur[r][q] = nxt;
         }
-      if (round + 1 < K) put_sent<WIRE_BF16, R, C>(dst, bn, m, i0, c, cur);
+      }
+      if constexpr (EF) {
+        // the send, in a pass of its own once acc is dead: the f64 roots'
+        // temporaries then fit beside prev and cur without spilling
+        if (send) {
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            if (i0 + r >= m) continue;
+            float h[C];
+            load_n<C>(src + (i0 + r) * bn + c, h);
+#pragma unroll
+            for (int q = 0; q < C; ++q) h[q] = ef_send(cur[r][q], h[q]);
+            store_n<C>(dst + (i0 + r) * bn + c, h);
+          }
+        }
+      } else if (send) {
+        put_sent<WIRE == kWireBf16, R, C>(dst, bn, m, i0, c, cur);
+      }
     }
     __syncthreads();
   }
-  if (active) store_tile<VEC, R, C>(out, m, n, i0, col, cur);
+  if (active) {
+    store_tile<VEC, R, C>(out, m, n, i0, col, cur);
+    if constexpr (EF) {               // the last replica sent (err if K = 0)
+      const float* last = sent + (K > 0 ? (K - 1) & 1 : 0) * m * bn;
+      float h[R][C] = {};
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        if (i0 + r < m) load_n<C>(last + (i0 + r) * bn + c, h[r]);
+      store_tile<VEC, R, C>(err_out, m, n, i0, col, h);
+    }
+  }
 }
 
 __device__ __forceinline__ void cp_async(float* dst, const float* src,
@@ -403,10 +498,6 @@ fastmix_apply_kernel(const float* __restrict__ P,
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-bool aligned16(const void* p) {
-  return (reinterpret_cast<std::uintptr_t>(p) & 15) == 0;
-}
-
 // 16-byte copies need every row to start 16-byte aligned.
 bool vectorizable(const void* S, const void* G, const void* Gp,
                   const void* out, long long n, int track) {
@@ -421,63 +512,21 @@ bool valid_tile(int m, int bn, int rows) {
          32 * warps_needed(m, bn, rows, cols) <= kThreads;
 }
 
-constexpr int kMaxDevices = 64;
-
-// What one kernel instantiation needs from the CUDA runtime before it launches
-// with `smem` dynamic shared-memory bytes on a device: the attribute that
-// allows them (raised, never lowered, so a concurrent launch of a larger
-// size stays allowed) and how many blocks the device holds at once (the
-// persistent apply kernel's grid).  Asked once per device and size, then
-// kept: a launch then costs no runtime query.
-struct Setup {
-  std::mutex mu;
-  size_t allowed[kMaxDevices] = {};
-  size_t smem[kMaxDevices] = {};
-  int resident[kMaxDevices] = {};
-};
-
-template <typename Kernel>
-cudaError_t setup(Setup& cache, Kernel kern, size_t smem, int* resident) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  std::lock_guard<std::mutex> lock(cache.mu);
-  if (cache.allowed[dev] < smem) {
-    err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    cache.allowed[dev] = smem;
-  }
-  if (cache.smem[dev] != smem) {
-    int sms = 0, per_sm = 0;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return err;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
-                                                        kThreads, smem);
-    if (err != cudaSuccess) return err;
-    if (per_sm < 1) return cudaErrorInvalidConfiguration;
-    cache.smem[dev] = smem;
-    cache.resident[dev] = sms * per_sm;
-  }
-  *resident = cache.resident[dev];
-  return cudaSuccess;
-}
-
-template <bool TRACK, bool WIRE_BF16, bool VEC, bool IDENTITY, int R, int C>
+// err and err_out are the fp8-EF wire's replica (null on the others).
+template <bool TRACK, int WIRE, bool VEC, bool IDENTITY, int R, int C>
 cudaError_t launch_rounds(const float* L, const float* S, const float* G,
-                          const float* Gp, float* out, int m, long long n,
-                          float one_eta, float eta, int K, int bn,
-                          cudaStream_t stream) {
+                          const float* Gp, const float* err, float* out,
+                          float* err_out, int m, long long n, float one_eta,
+                          float eta, int K, int bn, cudaStream_t stream) {
   static Setup cache;
-  auto kern = fastmix_rounds_kernel<TRACK, WIRE_BF16, VEC, IDENTITY, R, C>;
+  auto kern = fastmix_rounds_kernel<TRACK, WIRE, VEC, IDENTITY, R, C>;
   const size_t smem = smem_bytes(m, bn, 2);
   int resident = 0;
-  cudaError_t err = setup(cache, kern, smem, &resident);
-  if (err != cudaSuccess) return err;
+  cudaError_t e = setup(cache, kern, kThreads, smem, &resident);
+  if (e != cudaSuccess) return e;
   const long long tiles = (n + bn - 1) / bn;
-  kern<<<(unsigned)tiles, kThreads, smem, stream>>>(L, S, G, Gp, out, m, n,
-                                                    one_eta, eta, K, bn);
+  kern<<<(unsigned)tiles, kThreads, smem, stream>>>(
+      L, S, G, Gp, err, out, err_out, m, n, one_eta, eta, K, bn);
   return cudaGetLastError();
 }
 
@@ -490,7 +539,7 @@ cudaError_t launch_apply(const float* P, const float* S, const float* G,
   const size_t smem =
       smem_bytes(m, bn, two_stages ? 2 * (TRACK ? 3 : 1) : 1);
   int resident = 0;
-  cudaError_t err = setup(cache, kern, smem, &resident);
+  cudaError_t err = setup(cache, kern, kThreads, smem, &resident);
   if (err != cudaSuccess) return err;
   const long long tiles = (n + bn - 1) / bn;
   const long long grid = tiles < resident ? tiles : resident;
@@ -499,18 +548,23 @@ cudaError_t launch_apply(const float* P, const float* S, const float* G,
   return cudaGetLastError();
 }
 
-template <bool TRACK, bool WIRE_BF16>
+// K rounds on the thread tile `rows` picks (8: 8 x 4, 4: 4 x 1); err and
+// err_out as in launch_rounds.
+template <bool TRACK, int WIRE>
 cudaError_t rounds(const float* L, const float* S, const float* G,
-                   const float* Gp, float* out, int m, long long n,
-                   float one_eta, float eta, int K, int bn, int rows,
-                   bool vec, cudaStream_t st) {
+                   const float* Gp, const float* err, float* out,
+                   float* err_out, int m, long long n, float one_eta,
+                   float eta, int K, int bn, int rows, bool vec,
+                   cudaStream_t st) {
   if (rows == 4)
-    return launch_rounds<TRACK, WIRE_BF16, false, false, 4, 1>(
-        L, S, G, Gp, out, m, n, one_eta, eta, K, bn, st);
-  return vec ? launch_rounds<TRACK, WIRE_BF16, true, false, 8, 4>(
-                   L, S, G, Gp, out, m, n, one_eta, eta, K, bn, st)
-             : launch_rounds<TRACK, WIRE_BF16, false, false, 8, 4>(
-                   L, S, G, Gp, out, m, n, one_eta, eta, K, bn, st);
+    return launch_rounds<TRACK, WIRE, false, false, 4, 1>(
+        L, S, G, Gp, err, out, err_out, m, n, one_eta, eta, K, bn, st);
+  return vec ? launch_rounds<TRACK, WIRE, true, false, 8, 4>(
+                   L, S, G, Gp, err, out, err_out, m, n, one_eta, eta, K,
+                   bn, st)
+             : launch_rounds<TRACK, WIRE, false, false, 8, 4>(
+                   L, S, G, Gp, err, out, err_out, m, n, one_eta, eta, K,
+                   bn, st);
 }
 
 template <bool TRACK>
@@ -530,7 +584,7 @@ cudaError_t apply(const float* P, const float* S, const float* G,
 
 // ------------------------------------------------------------------ panels
 // Any agent count.  Where M (m x m) does not fit one block's shared memory
-// beside the iterate's tile (m past 230; 228 on the fp8 wire), the P_K(L)
+// beside the iterate's tile (m past 230), the P_K(L)
 // apply, and each round, is one launch of a tiled product over a
 // (ceil(n / 64), ceil(m / 64)) grid.  A block owns 64 rows x 64 columns of
 // the output and walks the agents in chunks of 16, staging M's 64 x 16

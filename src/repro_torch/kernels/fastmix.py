@@ -17,9 +17,9 @@ independently and all K rounds fuse into one pass over the iterate.
   each wrapper launches the kernel; on a CPU tensor it runs the plain
   twin.  Any other device raises.
 * :func:`fastmix_ef_fused` / :func:`fastmix_track_ef_fused` — the same
-  over the fp8 error-feedback wire (``csrc/fastmix_ef.cu``, the port of
-  ``_fastmix_ef_fused`` / ``_fastmix_track_ef_fused``); plain twin
-  :func:`fastmix_ef_plain`.
+  round loop over the fp8 error-feedback wire (``csrc/fastmix_ef.cu``, the
+  port of ``_fastmix_ef_fused`` / ``_fastmix_track_ef_fused``), on the
+  tile :func:`rounds_tile` picks; plain twin :func:`fastmix_ef_plain`.
 * :func:`apply_track_fused` — the dense local power step ``A_j W_j``
   followed by tracking and the gossip (``csrc/apply_track.cu``, the port
   of ``_apply_track_fused``): a per-agent product kernel, then the FastMix
@@ -60,9 +60,6 @@ LAUNCHES = {"fastmix": 0, "fastmix_track": 0, "fastmix_poly": 0,
             "fastmix_ef": 0, "fastmix_track_ef": 0, "apply_track": 0}
 #: Shared memory one block may use on sm_90 (232,448 bytes).
 SMEM_LIMIT = 232448
-#: Column-tile widths of the fp8-EF kernels, widest first; the widest
-#: that fits is used.
-TILE_WIDTHS = (32, 16, 8)
 #: Column-tile widths of the FastMix kernels, widest first; their blocks
 #: have 256 threads.  Each thread owns 8 rows x 4 adjacent columns of a
 #: tile (the wide tile) or, where the iterate is narrow, 4 rows x 1 column;
@@ -234,9 +231,10 @@ def tile_width(m: int, n: int, rows: int, bufs: int, sms: int) -> int:
 @functools.lru_cache(maxsize=256)
 def rounds_tile(m: int, n: int, sms: int) -> tuple:
     """``(rows, BN)`` of the round loop over an ``(m, n)`` iterate (the
-    bf16 wire, K = 0, and the ``P_K(L)`` build over ``n = m``): two
-    buffers of what is sent.  ``(0, 0)`` past :func:`kernel_fits`: the
-    panel kernels, one launch per round."""
+    bf16 wire, the fp8-EF wire, K = 0, and the ``P_K(L)`` build over
+    ``n = m``): two buffers of what is sent.  ``(0, 0)`` past
+    :func:`kernel_fits`: the panel kernels, one launch per round (two on
+    the fp8-EF wire)."""
     if not kernel_fits(m, None):
         return 0, 0
     rows = thread_rows(m, n, sms)
@@ -258,27 +256,19 @@ def apply_tile(m: int, n: int, track: bool, sms: int) -> tuple:
     return rows, tile_width(m, n, rows, 1, sms), 1
 
 
-def _ef_widths(m: int) -> list:
-    mp = _cdiv(m, 4) * 4
-    return [bn for bn in TILE_WIDTHS if 4 * (mp * m + 3 * m * bn) <= SMEM_LIMIT]
-
-
 def kernel_fits(m: int, mode) -> bool:
     """Whether the resident gossip kernels, which hold ``L`` (or ``P``) in
     one block's shared memory, take ``m`` agents in ``mode``: ``None`` (no
-    wire: the ``P_K(L)`` build's round loop and the apply), ``"bf16"`` (the
-    round loop) or ``"fp8"`` (the fp8-EF kernels).
+    wire: the ``P_K(L)`` build's round loop and the apply), ``"bf16"`` or
+    ``"fp8"`` (the round loop on the bf16 or the fp8-EF wire).
 
-    The limits are the tile widths' own: the round loop's two buffers
-    beside ``L`` at the narrowest width on the 8 x 4 thread tile (the tile
+    The limit is the tile widths' own: the round loop's two buffers beside
+    ``L`` at the narrowest width on the 8 x 4 thread tile (the tile
     :func:`thread_rows` falls back to; the 4 x 1 one takes no more agents)
-    give m <= 230, and the apply's one stage takes at least as many; the
-    fp8-EF widths give m <= 228.  Past them the choosers pick the panel
-    kernels, which take any ``m``.
+    give m <= 230, and the apply's one stage takes at least as many.  Past
+    it the choosers pick the panel kernels, which take any ``m``.
     """
-    if mode == "fp8":
-        return bool(_ef_widths(m))
-    if mode in (None, "bf16"):
+    if mode in (None, "bf16", "fp8"):
         return m > 0 and bool(_fitting_widths(m, 8, 2))
     raise ValueError(f"no gossip kernel for wire mode {mode!r}")
 
@@ -288,15 +278,6 @@ def sm_count(index: int) -> int:
     """Streaming multiprocessors of CUDA device ``index`` (asked once):
     what the tile choosers size their grids by."""
     return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-def ef_tile_width(m: int) -> int:
-    """Column-tile width ``BN`` of the fp8-EF kernels (``csrc/fastmix_ef.cu``):
-    the widest of :data:`TILE_WIDTHS` whose ``(mp * m + 3 * m * BN) * 4``
-    bytes fit :data:`SMEM_LIMIT`, ``mp`` the agent count rounded up to 4;
-    0 where none fits (m > 228): the panel path, two launches per round."""
-    fits = _ef_widths(m)
-    return fits[0] if fits else 0
 
 
 def _work(m: int, n: int, K: int, panel: bool, like: torch.Tensor):
@@ -312,19 +293,40 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+def _fma_f32(p: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``p + c`` rounded once to fp32, for ``p`` an exact f64 product of two
+    fp32 values and ``c`` fp32: what ``__fmaf_rn`` returns.  The f64 sum
+    ``s`` rounds once already; where it lands exactly on an fp32 rounding
+    midpoint, the sign of its rounding error (TwoSum) says on which side
+    the exact sum lies, and the result takes that neighbour."""
+    c = c.to(torch.float64)
+    s = p + c
+    t = s - p
+    e = (p - (s - t)) + (c - t)                    # s + e == p + c exactly
+    r = s.to(torch.float32)
+    r64 = r.to(torch.float64)
+    inf = torch.tensor(float("inf"), dtype=torch.float32, device=s.device)
+    nb = torch.nextafter(r, torch.where(s > r64, inf, -inf))
+    nb64 = nb.to(torch.float64)
+    past = (s != r64) & ((r64 + nb64) * 0.5 == s) & (e * (nb64 - s) > 0)
+    return torch.where(past, nb, r)
+
+
 def mix_in_agent_order(M: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """``M @ x`` in fp32 summed as the gossip kernels sum it: per output one
-    FMA chain over the agents ascending, each step formed in f64 (the
-    product of two fp32 values is exact there) and rounded to fp32.  It
-    differs from a true fp32 FMA only where the f64 sum lands on an fp32
-    rounding midpoint.  A quantized wire rounds what each agent sends, so
-    two orders of summation now and then send different values; in this
-    order the plain twins send what the kernels send."""
+    """``M @ x`` in fp32 summed as the kernels sum it: per output one fp32
+    FMA chain over the contraction ascending, from 0, each step rounded
+    once (:func:`_fma_f32`), so it equals the kernels' sums bit for bit.
+    ``M`` is ``(..., r, j)`` and ``x`` ``(..., j, n)`` (a batch of agents
+    for apply-track's product).  A quantized wire rounds what each agent
+    sends, so two orders of summation now and then send different values;
+    in this order the plain twins send what the kernels send."""
     M64 = M.to(torch.float64)
-    acc = torch.zeros_like(x, dtype=torch.float32)
-    for j in range(M.shape[0]):
-        acc = (acc.to(torch.float64) + M64[:, j:j + 1] * x[j].to(
-            torch.float64)).to(torch.float32)
+    x64 = x.to(torch.float64)
+    acc = torch.zeros(torch.broadcast_shapes(M.shape[:-1] + (1,),
+                                             x.shape[:-2] + (1, x.shape[-1])),
+                      dtype=torch.float32, device=x.device)
+    for j in range(M.shape[-1]):
+        acc = _fma_f32(M64[..., :, j:j + 1] * x64[..., j:j + 1, :], acc)
     return acc
 
 
@@ -571,7 +573,7 @@ def _ef_entry():
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 8 + [
         ctypes.c_int, ctypes.c_longlong, ctypes.c_float, ctypes.c_float] + [
-        ctypes.c_int] * 3 + [ctypes.c_void_p]
+        ctypes.c_int] * 4 + [ctypes.c_void_p]
     return fn
 
 
@@ -581,15 +583,15 @@ def _launch_ef(S, G, G_prev, err, L, eta, K: int, track: bool):
     out, err_out = torch.empty_like(S), torch.empty_like(S)
     if out.numel() == 0:
         return out, err_out
-    bn = ef_tile_width(m)
-    work = _work(m, n, K, bn == 0, S)
+    rows, bn = rounds_tile(m, n, sm_count(S.device.index))
+    work = _work(m, n, K, rows == 0, S)
     stream = torch.cuda.current_stream(S.device).cuda_stream
     code = _ef_entry()(L.data_ptr(), S.data_ptr(),
                        G.data_ptr() if track else None,
                        G_prev.data_ptr() if track else None,
                        err.data_ptr(), out.data_ptr(), err_out.data_ptr(),
                        _ptr(work), m, n, 1.0 + float(eta), float(eta),
-                       int(K), bn, int(track), stream)
+                       int(K), bn, rows, int(track), stream)
     _build.check("fastmix_ef", code)
     LAUNCHES["fastmix_track_ef" if track else "fastmix_ef"] += 1
     return out, err_out

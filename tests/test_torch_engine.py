@@ -275,23 +275,21 @@ def test_engine_caches_P_per_rounds(monkeypatch):
 
 
 @pytest.mark.parametrize("mode,limit", [(None, 230), ("bf16", 230),
-                                        ("fp8", 228)])
+                                        ("fp8", 230)])
 @pytest.mark.parametrize("m", [228, 229, 230, 231])
 def test_kernel_fits_is_the_choosers_limit(m, mode, limit):
-    """The resident gossip kernels take m <= 230 agents (228 on the fp8
-    wire), the limits of their tile widths; past them the choosers pick
-    the panel kernels (rows / BN 0), and a direct width request raises."""
+    """The resident gossip kernels take m <= 230 agents on every wire (the
+    fp8-EF kernels run the same round loop, two buffers beside L), the
+    limit of their tile widths; past it the choosers pick the panel
+    kernels (rows / BN 0), and a direct width request raises."""
     from repro_torch.kernels import fastmix as fm
     assert fm.kernel_fits(m, mode) == (m <= limit)
-    if mode == "fp8":
-        assert (fm.ef_tile_width(m) > 0) == (m <= limit)
-    else:
-        rows, bn = fm.rounds_tile(m, 1500, 132)
-        assert ((rows, bn) != (0, 0)) == (m <= limit)
-        assert (fm.apply_tile(m, 1500, True, 132)[0] > 0) == (m <= limit)
-        if m > limit:
-            with pytest.raises(ValueError, match="shared memory"):
-                fm.tile_width(m, 1500, 8, 2, 132)
+    rows, bn = fm.rounds_tile(m, 1500, 132)
+    assert ((rows, bn) != (0, 0)) == (m <= limit)
+    assert (fm.apply_tile(m, 1500, True, 132)[0] > 0) == (m <= limit)
+    if m > limit:
+        with pytest.raises(ValueError, match="shared memory"):
+            fm.tile_width(m, 1500, 8, 2, 132)
     with pytest.raises(ValueError, match="no gossip kernel"):
         fm.kernel_fits(m, "int8")
 

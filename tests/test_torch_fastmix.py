@@ -161,13 +161,14 @@ def test_tile_width_fits_shared_memory(m, n, rows, bufs, bn):
 
 @pytest.mark.parametrize("n", ["m", 33, 1500, 131072])
 def test_every_agent_count_that_fits_gets_a_tile(n):
-    """Every m up to 230 has a round-loop tile (the bf16 wire, K = 0, and
-    the ``P_K(L)`` build at n = m) and an apply tile, tracked or not
+    """Every m up to 230 has a round-loop tile (the bf16 and fp8-EF wires,
+    K = 0, and the ``P_K(L)`` build at n = m) and an apply tile, tracked or not
     (one stage where two do not fit beside P), each within a block's 8
     warps and its shared memory; from m = 231 on the choosers pick the
     panel kernels ((0, 0) and (0, 0, 0)), which take any m."""
     for m in range(1, 231):
         cols = m if n == "m" else n
+        assert all(fm.kernel_fits(m, mode) for mode in (None, "bf16", "fp8"))
         rows, bn = fm.rounds_tile(m, cols, 132)
         assert 32 * fm.fastmix_warps(m, bn, rows) <= fm.FASTMIX_THREADS
         assert fm.fastmix_smem(m, bn, 2) <= fm.SMEM_LIMIT
@@ -179,6 +180,8 @@ def test_every_agent_count_that_fits_gets_a_tile(n):
             assert stages == 2 or (track and m > 200)
     for m in (231, 512, 768):
         cols = m if n == "m" else n
+        assert not any(fm.kernel_fits(m, mode)
+                       for mode in (None, "bf16", "fp8"))
         assert fm.rounds_tile(m, cols, 132) == (0, 0)
         for track in (False, True):
             assert fm.apply_tile(m, cols, track, 132) == (0, 0, 0)
@@ -300,3 +303,50 @@ def test_plain_twins_sum_in_the_kernels_order(wire):
                   fm.fastmix_plain(S, Lt, 0.3, 6, wire_bf16=bool(wire)))]
     for a, b in pairs:
         torch.testing.assert_close(a, b, rtol=2e-5, atol=2e-5)
+
+
+def _exact_fma(a, b, c):
+    """fp32 ``a * b + c`` rounded once, from the exact rational sum."""
+    from fractions import Fraction
+    x = Fraction(float(a)) * Fraction(float(b)) + Fraction(float(c))
+    r = np.float32(float(x))
+    cands = (r, np.nextafter(r, np.float32(np.inf)),
+             np.nextafter(r, np.float32(-np.inf)))
+    return min(cands, key=lambda v: (abs(Fraction(float(v)) - x),
+                                     int(np.float32(v).view(np.int32)) & 1))
+
+
+def test_fma_f32_rounds_once():
+    """``_fma_f32`` is ``__fmaf_rn``: one rounding of the exact sum.  Where
+    the f64 sum lands on an fp32 midpoint (1 + 2^-23 + 2^-24 - 2^-54 rounds
+    to 1 + 2^-23 + 2^-24 in f64, whose fp32 rounding to even is 1 + 2^-22)
+    it takes the side the exact sum lies on; elsewhere it agrees with the
+    exact rounding on random operands of all relative sizes."""
+    a = np.float32(2.0 ** -12 * (1 + 2.0 ** -15))
+    b = np.float32(2.0 ** -12 * (1 - 2.0 ** -15))
+    c = np.float32(1 + 2.0 ** -23)
+    p = torch.tensor([float(a) * float(b)], dtype=torch.float64)
+    got = fm._fma_f32(p, torch.tensor([c]))
+    assert (p + float(c)).float().item() == 1 + 2.0 ** -22   # rounded twice
+    assert got.item() == _exact_fma(a, b, c) == c
+    rng = np.random.default_rng(0)
+    A, B, C = (rng.standard_normal(3000).astype(np.float32) for _ in range(3))
+    B *= np.float32(2.0) ** rng.integers(-30, 4, 3000).astype(np.float32)
+    got = fm._fma_f32(torch.from_numpy(A).double() * torch.from_numpy(B)
+                      .double(), torch.from_numpy(C)).numpy()
+    want = np.array([_exact_fma(*v) for v in zip(A, B, C)], np.float32)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_mix_in_agent_order_batches_agents():
+    """Over a batch (apply-track's per-agent product ``A[a] @ W[a]``) the
+    in-order chain is each agent's own, within fp32 rounding of the
+    product."""
+    rng = np.random.default_rng(2)
+    A = torch.from_numpy(rng.standard_normal((3, 20, 20)).astype(np.float32))
+    W = torch.from_numpy(rng.standard_normal((3, 20, 4)).astype(np.float32))
+    got = fm.mix_in_agent_order(A, W)
+    assert got.shape == (3, 20, 4) and got.dtype == torch.float32
+    for a in range(3):
+        assert torch.equal(got[a], fm.mix_in_agent_order(A[a], W[a]))
+    torch.testing.assert_close(got, A @ W, rtol=1e-5, atol=1e-5)

@@ -13,25 +13,35 @@ collapse (past 230 agents, where the panel kernels run, the quantized
 wires' oracle sums in the kernels' order, ``mix_in_agent_order``); the
 panel kernels bit for bit against the resident ones where both run; the
 ``P_K(L)`` build the same; apply-track rtol 2e-5 with atol 2e-5 * (max|S| + 1) on both
-outputs; fp8-EF FastMix rtol = atol = 2e-5 for all but 1e-3 of the
-elements and 2e-3 for those (a sum-order difference may flip a sent value
-to the other fp8 neighbour, see test_torch_wire_ef.py); CholeskyQR2
+outputs, and its product bit for bit against the in-order FMA chain
+(``mix_in_agent_order``); fp8-EF FastMix bit for bit against its twin
+summed in the kernels' order where the resident round loop runs (its
+send equal to the f64 root's on all 2^32 fp32 inputs), and
+otherwise (and below 200 agents against the library's order too) rtol =
+atol = 2e-5 for all but 1e-3 of the elements and 2e-3 for those (a
+sum-order difference may flip a sent value to the other fp8 neighbour,
+see test_torch_wire_ef.py); CholeskyQR2
 orthogonality < 5e-6 and sign-adjusted Q within 2e-4 of its plain twin
 (tests/test_torch_cholqr.py's bounds); Gram rtol 1e-5
 (fp32) / 2e-2 (bf16) with atol scaled by max|G|; the whole slice, cuda
 vs stacked backend, per-agent subspace distance 1e-4; power matmul rtol
-1e-5 with atol 1e-5 * max|G| (one fp32 FMA chain per output against the
-library's order); flash attention rtol = atol = 2e-5 (fp32) and 2e-2
+1e-5 with atol 1e-5 * max|G| against the library's order, and bit for bit
+against its twin in the kernel's order (the cluster split) and across
+calls; flash attention rtol = atol = 2e-5 (fp32) and 2e-2
 (bf16: one bf16 rounding of the output may fall either side); the LM's
 last-token logits, kernel vs plain attention, within 5e-2 * max|logits|
 in bf16 (LM_BF16_TOL of test_torch_lm.py) and 1e-4 in fp32.
 """
+import ctypes
+import subprocess
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch import core as P
 from repro_torch import kernels
+from repro_torch.kernels import _build
 from repro_torch.kernels import cholqr as cq
 from repro_torch.kernels import fastmix as fm
 from repro_torch.kernels import flash_attention as fa
@@ -169,7 +179,6 @@ def _panel_everywhere(monkeypatch):
     """Make every gossip chooser pick the panel kernels."""
     monkeypatch.setattr(fm, "rounds_tile", lambda m, n, sms: (0, 0))
     monkeypatch.setattr(fm, "apply_tile", lambda m, n, track, sms: (0, 0, 0))
-    monkeypatch.setattr(fm, "ef_tile_width", lambda m: 0)
 
 
 @pytest.mark.gpu
@@ -244,11 +253,14 @@ def _ef_close(got, want):
                                    (256, 1501, 2), (300, 100, 0),
                                    (512, 257, 1), (240, 64, 3)])
 def test_fastmix_ef_kernel_on_card(sm90, m, n, K, track):
-    """Against the plain twin; past m = 228 the panel path (a send and a
-    receive launch per round), whose twin sums in the kernels' order
-    (``mix_in_agent_order``): in the library's order a flipped fp8 send
-    cascades through the dense L into most of its column (0.42% of the
-    elements at m = 229, K = 8 on the H100, past the rule's 0.1%)."""
+    """Against the plain twin summed in the kernels' order
+    (``mix_in_agent_order``): bit for bit where the resident round loop
+    runs (m <= 230), within the flip rule past it (the panel path, a send
+    and a receive launch per round).  Below 200 agents also against the
+    twin in the library's order, within the flip rule; over a couple of
+    hundred agents a flipped fp8 send there cascades through the dense L
+    into most of its column (0.42% of the elements at m = 229, K = 8 on
+    the H100, past the rule's 0.1%)."""
     rng = np.random.default_rng(m + n + K + 1)
     L = torch.from_numpy(P.erdos_renyi(m, p=0.5, seed=0).mixing
                          .astype(np.float32)).cuda()
@@ -256,20 +268,70 @@ def test_fastmix_ef_kernel_on_card(sm90, m, n, K, track):
                                     .astype(np.float32)).cuda()
                    for _ in range(4))
     before = dict(fm.LAUNCHES)
-    product = (torch.matmul if fm.kernel_fits(m, "fp8")
-               else fm.mix_in_agent_order)
+    x = fm.tracking_update(S, G, Gp) if track else S
     if track:
         got = fm.fastmix_track_ef_fused(S, G, Gp, E, L, 0.3, K)
-        want = fm.fastmix_ef_plain(fm.tracking_update(S, G, Gp), E, L, 0.3,
-                                   K, product=product)
     else:
         got = fm.fastmix_ef_fused(S, E, L, 0.3, K)
-        want = fm.fastmix_ef_plain(S, E, L, 0.3, K, product=product)
+    ordered = fm.fastmix_ef_plain(x, E, L, 0.3, K,
+                                  product=fm.mix_in_agent_order)
     torch.cuda.synchronize()
     name = "fastmix_track_ef" if track else "fastmix_ef"
     assert fm.LAUNCHES[name] == before[name] + 1
-    for g, w in zip(got, want):
-        _ef_close(g, w)
+    for g, w in zip(got, ordered):
+        if fm.kernel_fits(m, "fp8"):
+            assert float((g - w).abs().max()) == 0.0
+        else:
+            _ef_close(g, w)
+    if m < 200:
+        for g, w in zip(got, fm.fastmix_ef_plain(x, E, L, 0.3, K)):
+            _ef_close(g, w)
+
+
+#: Counts the fp32 innovations whose fp8-EF send (``send_fp8``: the fp32
+#: root, the f64 route next to an e4m3 rounding boundary) differs from the
+#: f64 route's (``send_fp8_f64``); NaN against NaN counts as equal.
+SEND_CHECK = r"""
+#include "fastmix_tiles.cuh"
+__global__ void count_send_mismatches(unsigned long long* bad) {
+  for (unsigned long long i = blockIdx.x * (unsigned long long)blockDim.x +
+           threadIdx.x; i < (1ull << 32);
+       i += (unsigned long long)gridDim.x * blockDim.x) {
+    const float v = __uint_as_float((unsigned)i);
+    const __nv_fp8_storage_t a = send_fp8(v), b = send_fp8_f64(v);
+    if (a != b && !((a & 0x7f) == 0x7f && (b & 0x7f) == 0x7f))
+      atomicAdd(bad, 1ull);
+  }
+}
+extern "C" long long send_mismatches() {
+  unsigned long long* bad = nullptr;
+  unsigned long long count = 0;
+  if (cudaMalloc(&bad, sizeof(count)) != cudaSuccess) return -1;
+  cudaMemset(bad, 0, sizeof(count));
+  count_send_mismatches<<<132 * 16, 256>>>(bad);
+  const cudaError_t err =
+      cudaMemcpy(&count, bad, sizeof(count), cudaMemcpyDeviceToHost);
+  cudaFree(bad);
+  return err == cudaSuccess ? (long long)count : -1;
+}
+"""
+
+
+@pytest.mark.gpu
+def test_fp8_send_equals_the_f64_route_on_every_input(sm90, tmp_path):
+    """The fp8-EF kernels take the cube root in fp32 and the f64 route
+    (``(float)cbrt((double)v)``, the reference's) only where the e4m3 cast
+    could tell them apart: over all 2^32 fp32 innovations they send the
+    f64 route's e4m3 value.  Built from the kernels' own header with the
+    kernels' flags."""
+    src = tmp_path / "send_check.cu"
+    src.write_text(SEND_CHECK)
+    lib = tmp_path / "libsend_check.so"
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I",
+                    str(_build.CSRC), "-o", str(lib), str(src)], check=True)
+    fn = ctypes.CDLL(str(lib)).send_mismatches
+    fn.restype = ctypes.c_longlong
+    assert fn() == 0
 
 
 @pytest.mark.gpu
@@ -546,10 +608,28 @@ def test_dense_and_ef_paths_launch_their_kernels(sm90):
     assert torch.isfinite(res.W).all()
 
 
+def _power_in_order(a, w):
+    """The power matmul summed as the kernel sums it: each rank of the
+    split an in-order fp32 FMA chain over its contraction range, the
+    partials then added in rank order."""
+    d, k = w.shape
+    split = pm.power_tile(d, k, fm.sm_count(a.device.index))[2]
+    parts = [fm.mix_in_agent_order(a[:, s:e], w[s:e])
+             for s, e in pm.split_ranges(d, split)]
+    out = parts[0]
+    for part in parts[1:]:
+        out = out + part
+    return out
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("d,k", [(300, 5), (4096, 32), (257, 33), (16, 1),
-                                 (130, 70)])
+@pytest.mark.parametrize("d,k", [(d, k) for d in (300, 4096, 257, 130)
+                                 for k in (1, 5, 32, 33, 70)] + [(16, 1)])
 def test_power_matmul_kernel_on_card(sm90, d, k):
+    """Within the tolerance of the library's product, bit for bit equal to
+    the twin in the kernel's own order (the cluster split the chooser
+    picks: S = 8 at d = 300, 257 and 4096, 4 at d = 130, none at d = 16),
+    and equal across calls (the partials are summed in rank order)."""
     rng = np.random.default_rng(d + k)
     a = torch.from_numpy(rng.standard_normal((d, d)).astype(np.float32)
                          ).cuda()
@@ -557,12 +637,34 @@ def test_power_matmul_kernel_on_card(sm90, d, k):
                          ).cuda()
     before = pm.LAUNCHES["power_matmul"]
     got = pm.power_matmul(a, w)
+    again = pm.power_matmul(a, w)
     want = pm.power_matmul_plain(a, w)
     torch.cuda.synchronize()
-    assert pm.LAUNCHES["power_matmul"] == before + 1
+    assert pm.LAUNCHES["power_matmul"] == before + 2
+    assert torch.equal(got, again)
+    assert torch.equal(got, _power_in_order(a, w))
     scale = float(want.abs().max())
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                rtol=1e-5, atol=1e-5 * scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,d,k", [(50, 300, 5), (64, 4096, 32)])
+def test_apply_track_product_is_the_in_order_chain_on_card(sm90, m, d, k):
+    """apply-track's G (its product, now in product_tiles.cuh, shared with
+    the power matmul) is one fp32 FMA chain per output over the
+    contraction ascending from 0, bit for bit, at w8a and at the large
+    shape: the order the product had before the move."""
+    g = torch.Generator(device="cuda").manual_seed(m + d)
+    A = torch.randn(m, d, d, generator=g, device="cuda")
+    W, S, Gp = (torch.randn(m, d, k, generator=g, device="cuda")
+                for _ in range(3))
+    L = torch.from_numpy(P.erdos_renyi(m, p=0.5, seed=0).mixing
+                         .astype(np.float32)).cuda()
+    _, G = fm.apply_track_fused(A, W, S, Gp, L, 0.3, 8)
+    want = fm.mix_in_agent_order(A, W)
+    torch.cuda.synchronize()
+    assert torch.equal(G, want)
 
 
 @pytest.mark.gpu

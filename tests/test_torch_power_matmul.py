@@ -23,6 +23,7 @@ from repro.kernels import ops as ref_ops
 from repro.kernels import ref as ref_oracles
 from repro_torch import core as P
 from repro_torch import kernels
+from repro_torch.kernels import fastmix as fm
 from repro_torch.kernels import power_matmul as pm
 from repro_torch.kernels import ref as port_oracles
 
@@ -105,3 +106,55 @@ def test_centralized_power_method_matches_reference_w8a_like(dtype):
         # curve down to fp32 rounding
         big = tan_ref > 1e-4
         np.testing.assert_allclose(tan[big], tan_ref[big], rtol=1e-2)
+
+
+@pytest.mark.parametrize("d,k,sms", [(4096, 32, 132), (300, 5, 132),
+                                     (257, 33, 132), (130, 70, 132),
+                                     (16, 1, 132), (4096, 1, 114),
+                                     (16384, 32, 132), (33, 5, 132)])
+def test_power_tile_spans_the_sms(d, k, sms):
+    """The tile chooser: BM rows (128 first: W is read once per BM rows)
+    and the cluster size S (1 first, at most 8, at most the 32-wide
+    chunks) of the first pair whose grid spans the SMs, else of the
+    largest grid; KP the padded width as apply-track's product pads it."""
+    bm, kp, split, grid = pm.power_tile(d, k, sms)
+    chunks = -(-d // 32)
+    assert bm in (64, 128) and split in pm.SPLITS and split <= chunks
+    assert grid == (-(-d // bm) * split, 1)
+    assert kp == fm.product_tile(1, d, k, sms)[1]
+    options = [-(-d // r) * s for r in (128, 64) for s in pm.SPLITS
+               if s <= chunks]
+    if max(options) >= sms:
+        assert grid[0] >= sms
+    else:
+        assert grid[0] == max(options)
+    if (d, k, sms) == (4096, 32, 132):
+        assert (bm, kp, split, grid) == (128, 32, 8, (256, 1))
+    if (d, k, sms) == (300, 5, 132):            # no S <= 8 reaches 132
+        assert (bm, kp, split, grid) == (64, 8, 8, (40, 1))
+
+
+@pytest.mark.parametrize("d", [1, 31, 32, 33, 130, 257, 300, 4096])
+def test_split_ranges_cover_the_contraction(d):
+    """Every split the kernel may take cuts the contraction into S
+    contiguous, non-empty ranges of whole 32-wide chunks (the last ragged)
+    that cover [0, d) exactly."""
+    for split in pm.SPLITS:
+        if split > -(-d // 32):
+            continue
+        ranges = pm.split_ranges(d, split)
+        assert len(ranges) == split and ranges[0][0] == 0
+        assert ranges[-1][1] == d
+        for (a, b), (c, _) in zip(ranges, ranges[1:]):
+            assert b == c
+        for a, b in ranges:
+            assert a < b and a % 32 == 0
+
+
+@pytest.mark.parametrize("k,kp", [(1, 8), (5, 8), (8, 8), (16, 16), (32, 32),
+                                  (33, 64), (64, 64), (70, 64)])
+def test_power_tile_pads_k(k, kp):
+    """k pads to the next of 8, 16, 32, 64; past 64 the block loops over
+    column tiles of 64."""
+    for d in (300, 4096):
+        assert pm.power_tile(d, k, 132)[1] == kp

@@ -222,15 +222,22 @@ def test_ef_kernels_refuse_what_they_do_not_take():
         fm.fastmix_ef_fused(S.to("meta"), S.to("meta"), L.to("meta"), 0.1, 2)
 
 
-@pytest.mark.parametrize("m,bn", [(4, 32), (64, 32), (140, 32), (200, 16),
-                                  (220, 8)])
-def test_ef_tile_width_fits_shared_memory(m, bn):
-    """L plus three (m, BN) buffers (prev, cur, the replica h); where none
-    fits (m = 240) the width is 0: the panel path."""
-    assert fm.ef_tile_width(m) == bn
-    mp = -(-m // 4) * 4
-    assert 4 * (mp * m + 3 * m * bn) <= fm.SMEM_LIMIT
-    assert fm.ef_tile_width(240) == 0
+@pytest.mark.parametrize("m,n", [(4, 32), (64, 32), (140, 32), (200, 16),
+                                 (220, 8)])
+def test_ef_tile_width_fits_shared_memory(m, n):
+    """The fp8-EF kernels run FastMix's round loop on the tile
+    ``rounds_tile`` picks: L (transposed) plus two (m, BN) buffers of the
+    replica h, the only thing they keep in shared memory beside it, within
+    the block's warps and the shared-memory limit.  Where none fits
+    (m = 240) the tile is (0, 0): the panel path."""
+    for cols in (n, 1500, 131072):
+        rows, bn = fm.rounds_tile(m, cols, 132)
+        assert rows in fm.FASTMIX_TILES and bn in fm.FASTMIX_WIDTHS
+        assert fm.fastmix_smem(m, bn, 2) <= fm.SMEM_LIMIT
+        assert 32 * fm.fastmix_warps(m, bn, rows) <= fm.FASTMIX_THREADS
+    assert fm.kernel_fits(m, "fp8")
+    assert fm.rounds_tile(240, n, 132) == (0, 0)
+    assert not fm.kernel_fits(240, "fp8")
 
 
 # ----------------------------------------------------- engine EF contract
