@@ -30,7 +30,7 @@ What it does, in order; any failure raises and the exit code is non-zero:
 4. drives the data-form main path through the user entry points at the
    paper's w8a scale (``deepca`` fp32 on ``backend="cuda"``, checked
    against the same run on ``backend="stacked"``), then DePCA (also with
-   increasing rounds, one ``P_K(L)`` build per round count), counting
+   increasing rounds, one ``P_K(L)`` build for the run's window), counting
    kernel launches (CholeskyQR2 through ``cholqr2``, ``gram`` never);
    4b. the dense-operator path (``A_j = X_j^T X_j`` of
    the same data) through apply-track; 4c. the error-feedback wires: fp8
@@ -38,9 +38,19 @@ What it does, in order; any failure raises and the exit code is non-zero:
    ``deepca`` with m=256 agents, past the resident gossip kernels' limit
    of 230: the panel kernels (exactly T gossip launches), against
    ``stacked`` (step 3 also holds the panel kernels against their plain
-   versions at m=256);
+   versions at m=256); 4e. time-varying graphs (the paper's Remark 3) at
+   w8a scale: ``deepca(schedule=...)`` on a rewired and an edge-dropout ER
+   schedule, data form, dense and fp8, against ``stacked`` (exactly one
+   ``P_K(L)`` build per window, T gossip launches); 4f. ``run_batch``:
+   8 w8a-scale problems, static and dynamic (offsets 0-7), equal to 8
+   ``run`` calls bit for bit with T gossip launches for the whole batch;
+   step 3 also holds the slice axis's kernels (a window of T builds in
+   one launch, the tracked apply over a problem axis) against their single
+   launches and plain versions;
 5. runs the f64 bench grid on the card (f64 never enters a kernel) and
-   holds it to ``BENCH_deepca.json``;
+   holds it to ``BENCH_deepca.json``; 5b. runs
+   ``scripts/bench_torch_deepca.py --quick`` and ``benchmarks/bench_diff.py``
+   on its rows against ``BENCH_deepca.json`` (the card's ``us`` left out);
 6. runs a large configuration (m=64, n=4096, d=4096, k=32) with data made
    on the card from a seed; 6b. the same size with dense operators;
 7. slice 3: holds the power-matmul (the cluster-split product, also
@@ -298,6 +308,104 @@ def check_fastmix_poly(fm, peaks, m: int, K: int) -> dict:
     row["library"] = "none"
     row["bound_ms"], row["bound_by"] = bound(4 * 2 * m * m,
                                              (2 * m + 3) * m * m * K, peaks)
+    return row
+
+
+def _schedule_stack(m: int, T: int):
+    """T graphs of a rewired ER schedule: their fp32 mixing matrices on
+    the card and their momenta."""
+    from repro_torch.core import TopologySchedule, fastmix_eta
+    topos = TopologySchedule.periodic_rewiring(m, p=0.5, seed=0) \
+        .topologies(0, T)
+    L = torch.as_tensor(np.stack([tp.mixing for tp in topos]),
+                        dtype=torch.float32, device="cuda")
+    return L, [fastmix_eta(tp.lambda2) for tp in topos]
+
+
+def check_poly_window(fm, peaks, m: int, K: int, T: int) -> dict:
+    """A window's T polynomials ``P_K(L_t)`` in one launch (each slice its
+    own ``L_t`` and momentum): bit for bit against T single builds, and
+    against its plain version (T plain builds) within FASTMIX_TOL."""
+    L, etas = _schedule_stack(m, T)
+    coef = fm.coef_table(etas, L.device)
+    got = fm.poly_matrix(L, etas, K, coef=coef)
+    singles = torch.stack([fm.poly_matrix(L[t], etas[t], K)
+                           for t in range(T)])
+
+    def plain():
+        return torch.stack([fm.poly_matrix_plain(L[t], etas[t], K)
+                            for t in range(T)])
+
+    want = plain()
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    bit = bool(torch.equal(got, singles))
+    ok = bit and bool(torch.allclose(got, want, rtol=FASTMIX_TOL,
+                                     atol=FASTMIX_TOL))
+    row = {"name": "fastmix_poly_window",
+           "shape": f"T={T} x P_K(L_t) m={m} K={K} in one launch",
+           "max_abs_err": err, "tol": FASTMIX_TOL, "ok": ok}
+    row["ms"], row["host_us"] = time_ms(
+        lambda: fm.poly_matrix(L, etas, K, coef=coef))
+    row["plain_ms"] = time_ms(plain)[0]
+    singles_ms = time_ms(lambda: [fm.poly_matrix(L[t], etas[t], K)
+                                  for t in range(T)], reps=2)[0]
+    row["library_ms"] = None   # no one PyTorch call builds the polynomial
+    row["library"] = "none"
+    row["bound_ms"], row["bound_by"] = bound(
+        4 * 2 * m * m * T + 8 * T, (2 * m + 3) * m * m * K * T, peaks)
+    row["note"] = (f"equal to {T} single builds bit for bit: {bit}; the "
+                   f"{T} single launches take {singles_ms:.6f} ms")
+    return row
+
+
+def check_batched_apply(fm, peaks, B: int, m: int, d: int, k: int,
+                        K: int) -> dict:
+    """The tracked ``P_K(L)`` apply over a problem axis: B problems, each
+    its own ``P`` (a dynamic batch's slices), in one launch; bit for bit
+    against B single launches and against its plain version."""
+    L, etas = _schedule_stack(m, B)
+    Ps = fm.poly_matrix(L, etas, K)
+    g = torch.Generator(device="cuda").manual_seed(31)
+    S, G, Gp = (torch.randn(B, m, d, k, generator=g, device="cuda")
+                for _ in range(3))
+    n = d * k
+
+    def kern():
+        return fm.fastmix_track_fused(S, G, Gp, L, etas, K, P=Ps,
+                                      batched=True)
+
+    def singles():
+        return [fm.fastmix_track_fused(S[b], G[b], Gp[b], L[b], etas[b], K,
+                                       P=Ps[b]) for b in range(B)]
+
+    def plain():
+        return torch.stack([Ps[b] @ fm.tracking_update(S[b], G[b], Gp[b])
+                            .reshape(m, n) for b in range(B)])
+
+    got = kern()
+    bit = all(bool(torch.equal(got[b], x)) for b, x in enumerate(singles()))
+    want = plain()
+    torch.cuda.synchronize()
+    err = float((got.reshape(B, m, n) - want).abs().max())
+    ok = bit and bool(torch.allclose(got.reshape(B, m, n), want,
+                                     rtol=FASTMIX_TOL, atol=FASTMIX_TOL))
+    x = fm.tracking_update(S, G, Gp).reshape(B, m, n).contiguous()
+    row = {"name": "fastmix_track_batch",
+           "shape": f"B={B} problems x m={m} n={n} (d={d} k={k}) K={K}, "
+                    "one P_K(L) per problem, in one launch",
+           "max_abs_err": err, "tol": FASTMIX_TOL, "ok": ok}
+    row["ms"], row["host_us"] = time_ms(kern)
+    row["plain_ms"] = time_ms(plain)[0]
+    singles_ms = time_ms(singles, reps=2)[0]
+    row["library_ms"] = time_ms(lambda: torch.matmul(Ps, x))[0]
+    row["library"] = "torch.matmul(P, x) over the problem axis"
+    row["bound_ms"], row["bound_by"] = bound(
+        4 * B * (m * n * 4 + m * m), 2.0 * B * m * m * n, peaks)
+    row["ms_excludes"] = "the window's P_K(L) build (P= passed)"
+    row["note"] = (f"equal to {B} single launches bit for bit: {bit}; the "
+                   f"{B} single launches take {singles_ms:.6f} ms; ms "
+                   f"{row['ms_excludes']}")
     return row
 
 
@@ -588,6 +696,49 @@ def check_flash(fa, peaks, b: int, h: int, hkv: int, s: int, hd: int,
     return row
 
 
+def bench_rows(root: Path) -> None:
+    """``scripts/bench_torch_deepca.py --quick`` (the w8a_like grid at K=8,
+    f64) on the card, then ``benchmarks/bench_diff.py``'s verdict against
+    the committed ``BENCH_deepca.json`` on the accuracy, round and byte
+    columns: the card's ``us`` are left out of the diff, as they are
+    never compared with the committed CPU-host times."""
+    import importlib.util
+    import tempfile
+
+    def load(path: Path):
+        spec = importlib.util.spec_from_file_location(path.stem, path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+
+    bench = load(root / "scripts" / "bench_torch_deepca.py")
+    bdiff = load(root / "benchmarks" / "bench_diff.py")
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "bench_torch_deepca.json"
+        tic = time.perf_counter()
+        if bench.main(["--quick", "--json", str(out)]) != 0:
+            fail("scripts/bench_torch_deepca.py --quick failed")
+        sec = time.perf_counter() - tic
+        payload = json.loads(out.read_text())
+    for row in payload["rows"]:
+        row.pop("us", None)
+    base = bdiff.load(str(root / "BENCH_deepca.json"))
+    report = bdiff.diff(base, payload)
+    for row in payload["rows"]:
+        print("bench " + " ".join(f"{k}={v}" for k, v in row.items()))
+    print(f"bench_torch_deepca --quick: {len(payload['rows'])} rows in "
+          f"{sec:.1f} s on {payload['device']}; bench_diff vs "
+          f"BENCH_deepca.json (us left out): compared {report['compared']} "
+          f"shared rows, regressions {report['regressions']}, improvements "
+          f"{report['improvements']}, {len(report['warnings'])} warnings "
+          f"(rows of the full grid the quick run leaves out, and the quick "
+          f"flag); RESULT {'OK' if report['ok'] else 'REGRESSED'}",
+          flush=True)
+    if not report["ok"]:
+        fail("bench_diff: the port's quick rows regressed against "
+             "BENCH_deepca.json")
+
+
 def print_row(row: dict) -> None:
     lib = row["library_ms"]
     lib = "none" if lib is None else f"{lib:.6f}"
@@ -783,6 +934,10 @@ def main() -> int:
         "cholqr2": check_cholqr2(cq, peaks, torch.randn(
             50, 300, 5, generator=torch.Generator(device="cuda")
             .manual_seed(18), device="cuda"), "(w8a: one per iteration)"),
+        # the slice axis: a schedule window's builds, a batch's gossip
+        "fastmix_poly_window": check_poly_window(fm, peaks, 50, 8, 100),
+        "fastmix_track_batch": check_batched_apply(fm, peaks, 8, 50, 300, 5,
+                                                   8),
     }
     g = torch.Generator(device="cuda").manual_seed(19)
     extra_rows = [
@@ -874,8 +1029,8 @@ def main() -> int:
         fail(f"depca must launch the untracked kernel T times: {dcounts}")
     if not torch.isfinite(dres.W).all():
         fail("depca produced non-finite estimates")
-    # DePCA's increasing rounds (K + t at iteration t): one P_K(L) build
-    # per round count, one gossip launch per iteration
+    # DePCA's increasing rounds (K + t at iteration t): the window's T
+    # polynomials in one P_K(L) build, one gossip launch per iteration
     Ti = 20
     ires, isec, icounts = counted(kernels, P.depca, ops, topo, W0, k=k,
                                   T=Ti, K=K, U=U, backend="cuda",
@@ -885,10 +1040,11 @@ def main() -> int:
           f"final_mean_tan_theta={float(ires.trace.mean_tan_theta[-1]):.6e} "
           f"launches={icounts} (P_K(L) builds: {icounts['fastmix_poly']})",
           flush=True)
-    if icounts["fastmix"] != Ti or icounts["fastmix_poly"] != Ti or \
+    if icounts["fastmix"] != Ti or icounts["fastmix_poly"] != 1 or \
             not torch.isfinite(ires.W).all():
-        fail(f"increasing-rounds depca must build P and launch the gossip "
-             f"kernel once per iteration: {icounts}")
+        fail(f"increasing-rounds depca must build its window's P_K(L) in "
+             f"one launch and launch the gossip kernel once per iteration: "
+             f"{icounts}")
     breakdown(P, ops, topo, W0, U, K, T)
 
     # ---- 4b. the dense-operator path: A_j = X_j^T X_j of the same data
@@ -996,6 +1152,112 @@ def main() -> int:
         fail(f"m={mb} deepca cuda vs stacked subspace distance {gap}")
     del ops_b, res, ref
 
+    # ---- 4e. time-varying graphs (the paper's Remark 3) at w8a scale: the
+    # w8a data of 4 (ops, W0, U), two schedules of the paper's ER graph
+    dense = P.StackedOperators(dense=(ops.data.mT @ ops.data).contiguous())
+    ops64 = P.StackedOperators(data=ops.data.double())
+    scheds = {
+        "rewire": P.TopologySchedule.periodic_rewiring(m, p=0.5, seed=0,
+                                                       period=10),
+        "dropout": P.TopologySchedule.edge_dropout(
+            P.erdos_renyi(m, 0.5, seed=0), p_drop=0.1, seed=0),
+    }
+    fp8 = dict(wire_dtype="fp8", accelerated=True)
+    forms = (("data", ops, {}, "fastmix_track", 1),
+             ("dense", dense, {}, "apply_track", 1),
+             ("fp8", ops, fp8, "fastmix_track_ef", 0))
+    for label, sched in scheds.items():
+        for form, o, kw, gossip, builds in forms:
+            run = dict(k=k, K=K, U=U, schedule=sched, **kw)
+            P.deepca(o, None, W0, T=3, backend="cuda", **run)    # warm-up
+            res, sec, counts = counted(kernels, P.deepca, o, None, W0, T=T,
+                                       backend="cuda", **run)
+            if label == "rewire" and form == "data":
+                launches["fastmix_poly_window"] = counts["fastmix_poly"]
+            ref, sec_ref = run_timed(P.deepca, o, None, W0, T=T,
+                                     backend="stacked", **run)
+            gap = subspace_gap(ref.W, res.W)
+            tol, rule = SUBSPACE_TOL, f"cuda vs stacked {gap:.3e}"
+            if form == "fp8":     # the fp8 rule of 4c: against the f64 run
+                ref64, _ = run_timed(P.deepca, ops64, None, W0.double(),
+                                     T=T, backend="stacked",
+                                     **{**run, "U": U.double()})
+                spread = subspace_gap(ref64.W, ref.W)
+                tol = max(2 * spread, SUBSPACE_TOL)
+                gap = subspace_gap(ref64.W, res.W)
+                rule = (f"from the f64 run: stacked fp32 {spread:.3e}, cuda "
+                        f"{gap:.3e}")
+            print(f"schedule {label} deepca {form} w8a m={m} K={K} T={T} "
+                  f"fp32 cuda: us_per_iter={sec / T * 1e6:.1f} (deepca call "
+                  f"incl. window and trace) final_mean_tan_theta="
+                  f"{float(res.trace.mean_tan_theta[-1]):.6e} launches="
+                  f"{counts}; stacked us_per_iter={sec_ref / T * 1e6:.1f}; "
+                  f"per-agent subspace distance {rule} (tol {tol:.3e})",
+                  flush=True)
+            if counts[gossip] != T or counts["fastmix_poly"] != builds or \
+                    counts["cholqr2"] < T or counts["gram"] != 0:
+                fail(f"schedule {label} {form}: want exactly {T} {gossip} "
+                     f"launches and {builds} P_K(L) build per window: "
+                     f"{counts}")
+            if not (gap <= tol and torch.isfinite(res.W).all()):
+                fail(f"schedule {label} {form}: subspace distance {gap}")
+    dyn = P.DynamicConsensusEngine.for_algorithm("deepca", scheds["rewire"],
+                                                 K=K, backend="cuda")
+    drv = P.IterationDriver(step=P.PowerStep.for_algorithm("deepca", K),
+                            dynamic=dyn)
+    _, sec_drv = run_timed(drv.run, ops, W0, T=T)
+    print(f"breakdown schedule rewire deepca w8a T={T}: driver "
+          f"us_per_iter={sec_drv / T * 1e6:.1f} (the window's copy and "
+          f"build included)", flush=True)
+    profile_window(f"schedule driver w8a {T} iterations (one window)",
+                   "iteration", lambda: drv.run(ops, W0, T=T), units=T)
+    del dense, ops64, res, ref
+
+    # ---- 4f. run_batch: B w8a-scale problems through the problem axis
+    B = 8
+    probs = [P.libsvm_like(m, n, d, seed=s) for s in range(B)]
+    gb = sum(p.data.numel() for p in probs) * 4 / 1e9
+    step = P.PowerStep.for_algorithm("deepca", K)
+    drivers = {
+        "static": (P.IterationDriver(step=step, engine=P.ConsensusEngine
+                                     .for_algorithm("deepca",
+                                                    P.erdos_renyi(m, 0.5,
+                                                                  seed=0),
+                                                    K=K, backend="cuda")),
+                   [0] * B, 0),
+        "dynamic": (P.IterationDriver(step=step, dynamic=dyn),
+                    list(range(B)), 1),
+    }
+    for label, (drv, offs, builds) in drivers.items():
+        drv.run_batch(probs, W0, T=2, t0=offs)                # warm-up
+        out, sec, counts = counted(kernels, drv.run_batch, probs, W0, T=T,
+                                   t0=offs)
+        if label == "dynamic":
+            launches["fastmix_track_batch"] = counts["fastmix_track"]
+        seq = 0.0
+        same = True
+        for b in range(B):
+            ref, sec_b = run_timed(drv.run, probs[b], W0, T=T, t0=offs[b])
+            seq += sec_b
+            same = same and bool(torch.equal(out.W[b], ref.carry[1])) and \
+                bool(torch.equal(out.S[b], ref.carry[0]))
+        print(f"batch {label} run_batch B={B} x w8a (data {gb:.2f} GB) K={K} "
+              f"T={T} fp32 cuda: us_per_iter={sec / T * 1e6:.1f} for the "
+              f"batch; {B} sequential runs us_per_iter={seq / T * 1e6:.1f}; "
+              f"launches={counts}; equal to {B} run calls bit for bit: "
+              f"{same}", flush=True)
+        if counts["fastmix_track"] != T or counts["cholqr2"] != T or \
+                counts["fastmix_poly"] != builds:
+            fail(f"run_batch {label}: want {T} gossip launches, {T} cholqr2 "
+                 f"and {builds} P_K(L) build for the whole batch: {counts}")
+        if not (same and torch.isfinite(out.W).all()):
+            fail(f"run_batch {label} differs from {B} separate runs")
+    profile_window(f"run_batch dynamic B={B} w8a, 10 iterations",
+                   "iteration",
+                   lambda: drivers["dynamic"][0].run_batch(
+                       probs, W0, T=10, t0=list(range(B))), units=10)
+    del probs, out, drivers, drv, dyn
+
     # ---- 5. f64 bench grid on the card (no kernel takes f64)
     bench = json.loads((ROOT / "BENCH_deepca.json").read_text())
     want = next(r["final_tan"] for r in bench["rows"]
@@ -1012,6 +1274,9 @@ def main() -> int:
         fail(f"f64 final tan {got} not within 2x of {want}")
     if any(c64.values()):
         fail(f"f64 entered a kernel: {c64}")
+
+    # ---- 5b. the port's bench script (quick grid) and bench_diff's verdict
+    bench_rows(ROOT)
 
     # ---- 6. a large configuration, data made on the card
     m, n, d, k, K, T = 64, 4096, 4096, 32, 8, 20
@@ -1207,6 +1472,8 @@ def main() -> int:
     sources = {"fastmix_track": csrc + "fastmix.cu",
                "fastmix": csrc + "fastmix.cu",
                "fastmix_poly": csrc + "fastmix.cu",
+               "fastmix_poly_window": csrc + "fastmix.cu",
+               "fastmix_track_batch": csrc + "fastmix.cu",
                "gram": csrc + "gram.cu",
                "cholqr2": csrc + "cholqr2.cu",
                "apply_track": csrc + "apply_track.cu",
@@ -1219,6 +1486,9 @@ def main() -> int:
                 "fastmix": "src/repro/kernels/fastmix.py:331",
                 "fastmix_poly": "src/repro/kernels/fastmix.py:484 and "
                                 "src/repro/kernels/fastmix.py:331",
+                "fastmix_poly_window": "src/repro/kernels/fastmix.py:484 "
+                                       "and src/repro/kernels/fastmix.py:331",
+                "fastmix_track_batch": "src/repro/kernels/fastmix.py:484",
                 "gram": "src/repro/kernels/gram.py:70",
                 "cholqr2": "src/repro/kernels/gram.py:70 by way of "
                            "src/repro/kernels/cholqr.py::_gram_nk",
@@ -1230,6 +1500,13 @@ def main() -> int:
     # the standalone Gram (the reference's ops.gram) left the main path:
     # cholqr2 forms CholeskyQR2's Gram there
     off_path = {"gram"}
+    # the same kernels launched with the slice axis (grid z): launches are
+    # those of the schedule phase (4e, rewire, data form) and of the
+    # dynamic run_batch (4f)
+    sliced = {"fastmix_poly_window": "fastmix_poly over a schedule "
+                                     "window's T graphs",
+              "fastmix_track_batch": "fastmix_track over run_batch's B "
+                                     "problems"}
     if any(launches[name] <= 0 for name in main_rows if name not in off_path):
         fail(f"a kernel was not launched on its path: {launches}")
     line = {"kernels": [
@@ -1242,6 +1519,7 @@ def main() -> int:
          "ok": row["ok"],
          **({"path": "none: on the main path cholqr2 forms CholeskyQR2's Gram"}
             if name in off_path else {}),
+         **({"slice_axis": sliced[name]} if name in sliced else {}),
          **{key: row[key] for key in ("per_round_bound_ms", "ms_excludes")
             if key in row}}
         for name, row in main_rows.items()]}

@@ -7,6 +7,11 @@ decentralized algorithms share the resumable ``(S, W, G_prev[, W_prev]
 [, ef], offset)`` state contract: a resumed run continues round accounting and
 DePCA's increasing-rounds count where the previous run stopped.
 
+Both take ``schedule=`` (time-varying graphs, the paper's Remark 3) or a
+pre-built :class:`~.consensus.DynamicConsensusEngine` as ``engine=``:
+iteration t (global, offset by a resumed state) mixes with
+``schedule.topology_at(t)``.
+
 Tensors handed in run where they live; numpy arrays go to ``device``
 (``None``: the operators' device for the decentralized wrappers, the card
 for :func:`centralized_power_method`).
@@ -22,7 +27,7 @@ import torch
 from .._device import as_tensor, resolve_device
 from ..kernels.power_matmul import power_matmul
 from . import metrics
-from .consensus import ConsensusEngine
+from .consensus import ConsensusEngine, DynamicConsensusEngine
 from .driver import IterationDriver
 from .mixing import consensus_error
 from .operators import StackedOperators, top_k_eigvecs
@@ -97,18 +102,23 @@ def resolve_engines(algorithm: str, topology: Optional[Topology], K: int, *,
                     accelerate: bool = True, backend: str = "auto",
                     engine=None, schedule=None,
                     wire_dtype: Optional[str] = None, device=None):
-    """``(dynamic, static)`` engine pair from the wrapper arguments;
-    ``wire_dtype=None`` defers to ``REPRO_WIRE_DTYPE``."""
-    if schedule is not None or (engine is not None and
-                                not isinstance(engine, ConsensusEngine)):
-        raise NotImplementedError(
-            "time-varying topologies (schedule= / dynamic engines) are not "
-            "ported yet (ROADMAP queue 1 item 2)")
-    if engine is not None:
+    """``(dynamic, static)`` engine pair from the wrapper arguments: a
+    pre-built ``engine`` of either kind as it is (a static one yields to a
+    ``schedule``), else a :class:`DynamicConsensusEngine` over ``schedule``
+    or a :class:`ConsensusEngine` over ``topology``.  ``wire_dtype=None``
+    defers to ``REPRO_WIRE_DTYPE``."""
+    if isinstance(engine, DynamicConsensusEngine):
+        return engine, None
+    if engine is not None and schedule is None:
         return None, engine
     if wire_dtype is None:
         from ..runtime.config import get_config
         wire_dtype = get_config().wire_dtype
+    if schedule is not None:
+        return DynamicConsensusEngine.for_algorithm(
+            algorithm, schedule, K=K, backend=backend,
+            accelerate=accelerate, wire_dtype=wire_dtype,
+            device=device), None
     return None, ConsensusEngine.for_algorithm(
         algorithm, topology, K=K, backend=backend, accelerate=accelerate,
         wire_dtype=wire_dtype, device=device)
@@ -133,14 +143,15 @@ def _run_decentralized(algorithm: str, ops: StackedOperators,
         U, _ = top_k_eigvecs(ops.mean_matrix(), k)
     else:
         U = as_tensor(U, dev)
-    _, eng = resolve_engines(algorithm, topology, K, accelerate=accelerate,
-                             backend=backend, engine=engine,
-                             schedule=schedule, wire_dtype=wire_dtype,
-                             device=dev)
+    dyn, eng = resolve_engines(algorithm, topology, K,
+                               accelerate=accelerate, backend=backend,
+                               engine=engine, schedule=schedule,
+                               wire_dtype=wire_dtype, device=dev)
     accelerated, momentum = resolve_acceleration(accelerated, momentum)
     step = PowerStep.for_algorithm(
         algorithm, K, increasing_consensus=increasing_consensus,
-        accelerated=accelerated, momentum=momentum, ef_wire=eng.ef_wire)
+        accelerated=accelerated, momentum=momentum,
+        ef_wire=(dyn or eng).ef_wire)
     rounds0 = iters0 = 0
     carry = None
     if state is not None:
@@ -149,7 +160,7 @@ def _run_decentralized(algorithm: str, ops: StackedOperators,
         if off is not None:
             rounds0, iters0 = (int(v) for v in np.asarray(
                 off.cpu() if isinstance(off, torch.Tensor) else off))
-    run = IterationDriver(step=step, engine=eng).run(
+    run = IterationDriver(step=step, engine=eng, dynamic=dyn).run(
         ops, W0, T=T, t0=iters0, carry=carry)
     trace = collect_trace(ops, U, run.S_hist, run.W_hist, None,
                           rounds=run.rounds, rounds0=rounds0,
@@ -176,8 +187,10 @@ def deepca(ops: StackedOperators, topology: Optional[Topology], W0, *,
     ``accelerated``/``momentum`` for momentum power iterations
     (``REPRO_ACCEL`` when ``None``), ``wire_dtype`` ``None``/``"bf16"``/
     ``"int8"``/``"fp8"`` (``REPRO_WIRE_DTYPE`` when ``None``; the last two
-    carry an error-feedback slot in ``state``), ``state`` to resume.
-    ``schedule=`` and dynamic engines raise ``NotImplementedError``.
+    carry an error-feedback slot in ``state``), ``state`` to resume (round
+    accounting and schedule indexing continue at the global step).
+    ``topology`` may be ``None`` when ``schedule`` (time-varying graphs,
+    Remark 3) or a dynamic ``engine`` gives the per-step graphs.
     """
     return _run_decentralized("deepca", ops, topology, W0, k=k, T=T, K=K,
                               U=U, accelerate=accelerate, state=state,
@@ -197,7 +210,8 @@ def depca(ops: StackedOperators, topology: Optional[Topology], W0, *,
           device=None) -> DecentralizedPCAResult:
     """Baseline decentralized power method (Eqn. 3.4): local step, K
     consensus rounds, QR — no subspace tracking.  With
-    ``increasing_consensus`` iteration t gossips ``K + t`` rounds."""
+    ``increasing_consensus`` iteration t gossips ``K + t`` rounds.
+    ``schedule`` and ``state`` as in :func:`deepca`."""
     return _run_decentralized("depca", ops, topology, W0, k=k, T=T, K=K,
                               U=U, accelerate=accelerate, state=state,
                               backend=backend, engine=engine,

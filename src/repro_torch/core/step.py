@@ -172,24 +172,61 @@ class PowerStep:
             + ((ef,) if self.ef_wire else ())
         return (S_new, W_new, G) + new_extras, (S_new, W_new)
 
-    def make_mix(self, engine, rounds: Optional[int] = None):
-        """Stacked-form ``mix`` callable for one iteration on an engine."""
+    def make_mix(self, engine, rounds: Optional[int] = None, *,
+                 batched: bool = False):
+        """Stacked-form ``mix`` callable for one iteration on an engine
+        (``batched``: the iterates carry a leading problem axis)."""
         r = self.rounds if rounds is None else rounds
+        kw = {"batched": True} if batched else {}
         if self.ef_wire:
             if self.track:
                 return lambda S, G, G_prev, ef: engine.mix_track(
-                    S, G, G_prev, rounds=r, ef=ef)
-            return lambda S, G, G_prev, ef: engine.mix(G, rounds=r, ef=ef)
+                    S, G, G_prev, rounds=r, ef=ef, **kw)
+            return lambda S, G, G_prev, ef: engine.mix(G, rounds=r, ef=ef,
+                                                       **kw)
         if self.track:
             return lambda S, G, G_prev: engine.mix_track(S, G, G_prev,
-                                                         rounds=r)
-        return lambda S, G, G_prev: engine.mix(G, rounds=r)
+                                                         rounds=r, **kw)
+        return lambda S, G, G_prev: engine.mix(G, rounds=r, **kw)
 
-    def make_apply_mix(self, engine, ops, rounds: Optional[int] = None):
+    def make_apply_mix(self, engine, ops, rounds: Optional[int] = None, *,
+                       batched: bool = False):
         """Fused ``apply_mix`` callable, or ``None`` for non-tracking and
         EF-wire steps."""
         if not self.track or self.ef_wire:
             return None
         r = self.rounds if rounds is None else rounds
-        return lambda S, W, G_prev: engine.apply_mix_track(S, W, G_prev,
-                                                           ops, rounds=r)
+        kw = {"batched": True} if batched else {}
+        return lambda S, W, G_prev: engine.apply_mix_track(
+            S, W, G_prev, ops, rounds=r, **kw)
+
+    def make_mix_traced(self, dynamic, L, eta, rounds: Optional[int] = None,
+                        *, P=None, coef=None):
+        """Operand-driven ``mix`` for one step on a
+        :class:`~.consensus.DynamicConsensusEngine`: the step's ``(L,
+        eta)`` slice and, from its window, ``P_K(L)`` and the kernels'
+        coefficient table (``L`` of ``(B, m, m)``: a problem axis)."""
+        r = self.rounds if rounds is None else rounds
+        kw = {"P": P, "coef": coef}
+        if self.ef_wire:
+            if self.track:
+                return lambda S, G, G_prev, ef: dynamic.mix_track_traced(
+                    S, G, G_prev, L, eta, rounds=r, ef=ef, **kw)
+            return lambda S, G, G_prev, ef: dynamic.mix_traced(
+                G, L, eta, rounds=r, ef=ef, **kw)
+        if self.track:
+            return lambda S, G, G_prev: dynamic.mix_track_traced(
+                S, G, G_prev, L, eta, rounds=r, **kw)
+        return lambda S, G, G_prev: dynamic.mix_traced(G, L, eta, rounds=r,
+                                                       **kw)
+
+    def make_apply_mix_traced(self, dynamic, ops, L, eta,
+                              rounds: Optional[int] = None, *, P=None,
+                              coef=None):
+        """Operand-driven ``apply_mix`` for one step on a dynamic engine
+        (``None`` for non-tracking and EF-wire steps)."""
+        if not self.track or self.ef_wire:
+            return None
+        r = self.rounds if rounds is None else rounds
+        return lambda S, W, G_prev: dynamic.apply_mix_track_traced(
+            S, W, G_prev, ops, L, eta, rounds=r, P=P, coef=coef)

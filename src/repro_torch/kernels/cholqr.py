@@ -24,9 +24,10 @@ Robustness: pass 1 is screened per element (non-finite factor, tiny pivot
 or a blown-up condition estimate); flagged elements redo pass 1 on a
 shifted Gram, and a third pass repairs the shift's orthogonality loss.
 The reference applies pass 3 to the whole batch whenever any element is
-flagged (``lax.cond``); the kernel gates it on a device flag, and the
-plain twin computes it always and selects it with
-``torch.where(bad.any(), ...)``; neither syncs with the host.  ``k > d``,
+flagged (``lax.cond``; under its vmap over problems, per problem); the
+kernel gates it on a device flag per group of elements (one problem's
+agents), and the plain twin computes it always and selects it per group
+with ``torch.where``; neither syncs with the host.  ``k > d``,
 ``k > 64`` and ``REPRO_QR_IMPL=householder`` use ``torch.linalg.qr``.
 
 Sign convention: R has a positive diagonal, so Q's column signs may differ
@@ -130,11 +131,30 @@ def _chol_pass(X: torch.Tensor) -> torch.Tensor:
     return _apply_rinv(X, _chol_small(G, pivot_floor=_pivot_floor(G)))
 
 
-def cholqr2_plain(X: torch.Tensor) -> torch.Tensor:
+def _in_flagged_group(bad: torch.Tensor, group: Optional[int]):
+    """Per element, whether its group of ``group`` consecutive elements
+    (default: the last leading axis, one problem's agents) holds a flagged
+    one."""
+    if bad.dim() == 0:
+        return bad
+    g = bad.shape[-1] if group is None else int(group)
+    flat = bad.reshape(-1)
+    pad = -flat.numel() % g
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    hit = flat.reshape(-1, g).any(-1, keepdim=True).expand(-1, g)
+    return hit.reshape(-1)[:bad.numel()].reshape(bad.shape)
+
+
+def cholqr2_plain(X: torch.Tensor,
+                  group: Optional[int] = None) -> torch.Tensor:
     """Batched CholeskyQR2 in torch ops: ``(..., d, k) -> (..., d, k)``
     orthonormal Q, ``k <= d`` and ``k <= 64``.
 
-    fp32/bf16 inputs work in fp32; f64 stays f64 end to end.
+    fp32/bf16 inputs work in fp32; f64 stays f64 end to end.  The third
+    pass runs on every element of a group that holds a flagged one:
+    groups of ``group`` elements, by default the last leading axis (the
+    agents of one problem).
     """
     d, k = X.shape[-2], X.shape[-1]
     dt = torch.float64 if X.dtype == torch.float64 else torch.float32
@@ -156,9 +176,10 @@ def cholqr2_plain(X: torch.Tensor) -> torch.Tensor:
                      _chol_small(Gs, pivot_floor=_pivot_floor(Gs)), L1)
     Q = _apply_rinv(x, L1)
 
-    # ---- pass 2 (always) + pass 3 selected for the whole batch
+    # ---- pass 2 (always) + pass 3 selected per group
     Q = _chol_pass(Q)
-    return torch.where(bad.any(), _chol_pass(Q), Q)
+    return torch.where(_in_flagged_group(bad, group)[..., None, None],
+                       _chol_pass(Q), Q)
 
 
 def cholqr2_smem(rows: int, k: int, resident: bool) -> int:
@@ -192,27 +213,31 @@ def cluster_size(B: int, d: int, k: int, sms: int) -> tuple:
 def _entry():
     fn = _build.load("cholqr2").cholqr2
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p]
     return fn
 
 
-#: The rescue flag and its reader count, one zeroed pair per (device,
-#: stream): the gated launch leaves both zero again, so a call needs no
-#: memset.
+#: The rescue flags and their reader counts, ``groups`` zeroed pairs per
+#: (device, stream[, groups]): the gated launch leaves them zero again, so
+#: a call needs no memset.
 _FLAGS: dict = {}
 
 
-def _stream_flag(device: torch.device, stream: int) -> torch.Tensor:
-    key = (device.index, stream)
-    flag = _FLAGS.get(key)
-    if flag is None:
-        flag = _FLAGS[key] = torch.zeros(2, dtype=torch.int32, device=device)
-    return flag
+def _stream_flags(device: torch.device, stream: int,
+                  groups: int) -> torch.Tensor:
+    """``(2 groups,)`` int32: the flags, then the counters."""
+    key = (device.index, stream) + ((groups,) if groups > 1 else ())
+    flags = _FLAGS.get(key)
+    if flags is None:
+        flags = _FLAGS[key] = torch.zeros(2 * groups, dtype=torch.int32,
+                                          device=device)
+    return flags
 
 
 def cholqr2_fused(X: torch.Tensor, *,
-                  flag: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  flag: Optional[torch.Tensor] = None,
+                  group: Optional[int] = None) -> torch.Tensor:
     """CholeskyQR2 of an fp32 ``(B, d, k)`` factor (``k <= 64``, ``k <=
     d``) -> ``Q`` of the same shape, fp32.
 
@@ -222,7 +247,10 @@ def cholqr2_fused(X: torch.Tensor, *,
     zeroed int32 on the card, receives the kernel's rescue flag (nonzero
     when an element was rescued and the third pass ran on every element);
     without it the call uses its stream's own flag, which the kernel
-    clears.
+    clears.  ``group``: elements per problem (default B, one problem): the
+    cluster is chosen for one problem, and each problem gates its third
+    pass on its own flag (``flag`` then holds ``ceil(B / group)`` ints), so
+    a batch of problems gives each the result of a call on it alone.
     """
     if X.dim() != 3:
         raise ValueError(f"cholqr2 kernel takes (B, d, k); got "
@@ -231,8 +259,11 @@ def cholqr2_fused(X: torch.Tensor, *,
     if not 1 <= k <= min(d, MAX_UNROLL_K):
         raise ValueError(f"cholqr2 kernel takes 1 <= k <= min(d, "
                          f"{MAX_UNROLL_K}); got d={d}, k={k}")
+    group = B if group is None else int(group)
+    if group < 1:
+        raise ValueError(f"group must be >= 1, got {group}")
     if X.device.type == "cpu":
-        return cholqr2_plain(X)
+        return cholqr2_plain(X, group=group)
     if X.device.type != "cuda":
         raise ValueError(f"cholqr2 runs on cuda or cpu tensors, got "
                          f"{X.device}")
@@ -247,17 +278,19 @@ def cholqr2_fused(X: torch.Tensor, *,
     if B == 0:
         return Q
     stream = torch.cuda.current_stream(X.device).cuda_stream
+    groups = -(-B // group)
     if flag is None:
-        pair = _stream_flag(X.device, stream)
-        flag_ptr, arrived_ptr = pair.data_ptr(), pair[1:].data_ptr()
+        flags = _stream_flags(X.device, stream, groups)
+        flag_ptr, arrived_ptr = flags.data_ptr(), flags[groups:].data_ptr()
     elif (flag.device != X.device or flag.dtype != torch.int32
-          or flag.numel() != 1):
-        raise ValueError("flag must be one int32 on the factor's device")
+          or flag.numel() != groups or not flag.is_contiguous()):
+        raise ValueError(f"flag must be {groups} int32 on the factor's "
+                         "device, one per group")
     else:
         flag_ptr, arrived_ptr = flag.data_ptr(), None
-    C, resident = cluster_size(B, d, k, sm_count(X.device.index))
+    C, resident = cluster_size(group, d, k, sm_count(X.device.index))
     err = _entry()(X.data_ptr(), Q.data_ptr(), flag_ptr, arrived_ptr, B, d,
-                   k, C, int(resident), stream)
+                   k, C, int(resident), group, stream)
     _build.check("cholqr2", err)
     LAUNCHES["cholqr2"] += 1
     return Q
@@ -267,16 +300,18 @@ def _cholqr2(X: torch.Tensor) -> torch.Tensor:
     """Batched CholeskyQR2: ``(..., d, k) -> (..., d, k)`` orthonormal Q.
 
     fp32/bf16 factors on the card go through :func:`cholqr2_fused` in fp32
-    (leading axes flattened into its batch); CPU and f64 factors take
-    :func:`cholqr2_plain`; ``k > d`` and ``k > 64`` take
-    ``torch.linalg.qr``.
+    (leading axes flattened into its batch, the last of them its group:
+    the agents of one problem, so a batch of problems gets each problem's
+    own result); CPU and f64 factors take :func:`cholqr2_plain`, grouped
+    the same way; ``k > d`` and ``k > 64`` take ``torch.linalg.qr``.
     """
     d, k = X.shape[-2], X.shape[-1]
     if k > d or k > MAX_UNROLL_K:
         return torch.linalg.qr(X).Q
     if X.is_cuda and X.dtype != torch.float64:
         x = X.to(torch.float32).reshape(-1, d, k).contiguous()
-        return cholqr2_fused(x).reshape(X.shape)
+        group = X.shape[-3] if X.dim() >= 3 else 1
+        return cholqr2_fused(x, group=group).reshape(X.shape)
     return cholqr2_plain(X)
 
 

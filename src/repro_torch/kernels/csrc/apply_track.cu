@@ -52,17 +52,30 @@ extern "C" {
 // instead (m past their resident limit; `work` holds 2 m d k floats for the
 // rounds when K >= 2, else it may be null).
 // bm (64 or 128) and kp (8, 16, 32 or 64, at least min(k, 64)) shape the
-// product.  Every kernel goes on `stream`.  Returns cudaError_t.
+// product.  `problems` problems run in one call: A is (problems, m, d, d),
+// W, S, Gp, S_new and G (problems, m, d, k); the product runs over all
+// problems * m agents, the gossip kernel over `problems` slices (problem z
+// mixes with M + z m_stride: 0 for one shared M), each problem's
+// (1 + eta, eta) from coef when it is not null (pairs coef_stride floats
+// apart; see fastmix.cu).  The panel kernels take one problem per call.
+// Every kernel goes on `stream`.  Returns cudaError_t.
 int apply_track(const void* M, const void* A, const void* W, const void* S,
                 const void* Gp, void* S_new, void* G, void* work, int m,
                 int d, int k, float one_eta, float eta, int K, int bm,
                 int kp, int rows, int bn, int stages, int wire_bf16,
-                void* stream) {
+                int problems, long long m_stride, const void* coef,
+                long long coef_stride, void* stream) {
   const bool rounds_path = wire_bf16 || K <= 0;
   const bool panel = rows == 0;
-  if (m <= 0 || !product_shape_ok(d, k, bm, kp, 1) ||
+  const long long n = (long long)d * k;
+  const Slices sl = {problems, (long long)m * n, m_stride,
+                     (const float*)coef, coef_stride, nullptr};
+  if (m <= 0 || !valid_slices(sl) ||
+      (long long)problems * m > 65535 ||
+      !product_shape_ok(d, k, bm, kp, 1) ||
       (!panel && !valid_tile(m, bn, rows)) ||
       (!panel && !rounds_path && stages != 1 && stages != 2) ||
+      (panel && (problems != 1 || coef != nullptr)) ||
       (panel && rounds_path && K >= 2 && work == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
@@ -73,9 +86,9 @@ int apply_track(const void* M, const void* A, const void* W, const void* S,
   const float* mm = (const float*)M;
   float* sn = (float*)S_new;
   float* g = (float*)G;
-  cudaError_t err = agent_product<false>(bm, kp, 1, a, w, g, m, d, k, st);
+  cudaError_t err =
+      agent_product<false>(bm, kp, 1, a, w, g, problems * m, d, k, st);
   if (err != cudaSuccess) return (int)err;
-  const long long n = (long long)d * k;
   if (panel) {
     const Src x = source(s, g, gp, true);
     float* wk = (float*)work;
@@ -88,15 +101,17 @@ int apply_track(const void* M, const void* A, const void* W, const void* S,
         : (int)panel_rounds<false>(mm, x, sn, wk, m, n, one_eta, eta,
                                      K, st);
   }
-  const bool vec = vectorizable(s, g, gp, sn, n, 1);
+  const bool vec = vectorizable(s, g, gp, sn, n, 1, sl.x);
   if (rounds_path)
     return wire_bf16
         ? (int)rounds<true, kWireBf16>(mm, s, g, gp, nullptr, sn, nullptr, m,
-                                       n, one_eta, eta, K, bn, rows, vec, st)
+                                       n, one_eta, eta, K, bn, rows, vec, sl,
+                                       st)
         : (int)rounds<true, kWireNone>(mm, s, g, gp, nullptr, sn, nullptr, m,
-                                       n, one_eta, eta, K, bn, rows, vec, st);
+                                       n, one_eta, eta, K, bn, rows, vec, sl,
+                                       st);
   return (int)apply<true>(mm, s, g, gp, sn, m, n, bn, rows, stages == 2, vec,
-                          st);
+                          problems, sl.x, m_stride, st);
 }
 
 const char* apply_track_error_string(int err) {

@@ -16,8 +16,9 @@
 //            s = 11 (d k + k (k + 1)) eps trace(G), floored likewise;
 //            Q = X L^-T
 //   pass 2:  the same on Q, unscreened
-//   pass 3:  when any element of the batch was flagged, once more on every
-//            element (the second launch, gated by a device flag).
+//   pass 3:  when any element of its group (the batch, or one problem of
+//            a batch of problems) was flagged, once more on every element
+//            of the group (the second launch, gated by the group's flag).
 //
 // What bounds it on an H100: X is read once and Q written once, 8 B d k
 // bytes, for 2 passes x 4 B d k^2 flops (the Gram and X R^-1 each 2 B d k^2):
@@ -43,9 +44,13 @@
 // A flagged element sets a device flag (atomicOr); the second launch reads
 // it first and returns at once when it is 0, else runs one plain pass over
 // every element -- the meaning of the reference's lax.cond(jnp.any(bad),
-// ...), with no host sync.  Given a counter, the last block of the second
-// launch to read the flag clears flag and counter, so one flag serves every
-// call on a stream with no memset between.  Sums are fp32 FMAs, and sqrt
+// ...), with no host sync.  The batch may hold several problems (a batch
+// of problems through the driver's problem axis): elements come in groups
+// of `group`, each group with a flag of its own, as the reference's vmap
+// over problems selects the third pass per problem.  Given counters, the
+// last block of a group in the second launch to read its flag clears flag
+// and counter, so one set of flags serves every call on a stream with no
+// memset between.  Sums are fp32 FMAs, and sqrt
 // and division are IEEE (no fast math).
 #include <cfloat>
 #include <cstdint>
@@ -317,23 +322,28 @@ __device__ __forceinline__ void copy_async(float* dst, const float* src,
                  :: "r"(s), "l"(src) : "memory");
 }
 
-// MAIN: passes 1 and 2 from X into Q (screened first pass, flag set on a
-// rescue).  Otherwise the gated third pass, in place on Q; with `arrived`
-// (else null) the last block to read the flag clears it and `arrived`.
+// MAIN: passes 1 and 2 from X into Q (screened first pass, the element's
+// group flag set on a rescue).  Otherwise the gated third pass, in place on
+// Q; with `arrived` (else null) the last block of a group to read its flag
+// clears it and the group's counter.  Element y belongs to group y / group.
 // RESIDENT: the block's rows live in shared memory (else each pass
 // re-reads them).
 template <bool MAIN, bool RESIDENT>
 __global__ void __launch_bounds__(kThreads)
 cholqr2_kernel(const float* __restrict__ X, float* Q, int* flag,
-               int* arrived, int d, int k, int rows_per) {
+               int* arrived, int d, int k, int rows_per, int group) {
+  const int g = (int)blockIdx.y / group;
+  flag += g;
   if (!MAIN) {
     __shared__ int seen;
     if (threadIdx.x == 0) {
       seen = *reinterpret_cast<volatile int*>(flag);
       if (arrived != nullptr) {
+        arrived += g;
+        const int members = min(group, (int)gridDim.y - g * group);
         __threadfence();                // the read above precedes the count
-        if (atomicAdd(arrived, 1) == (int)(gridDim.x * gridDim.y) - 1) {
-          *flag = 0;                    // every block has read it
+        if (atomicAdd(arrived, 1) == (int)gridDim.x * members - 1) {
+          *flag = 0;                    // every block of the group read it
           *arrived = 0;
         }
       }
@@ -419,7 +429,8 @@ struct Setup {
 
 template <bool MAIN, bool RESIDENT>
 cudaError_t launch(const float* X, float* Q, int* flag, int* arrived, int B,
-                   int d, int k, int C, size_t smem, cudaStream_t stream) {
+                   int d, int k, int C, int group, size_t smem,
+                   cudaStream_t stream) {
   static Setup cache;
   auto kern = cholqr2_kernel<MAIN, RESIDENT>;
   int dev = 0;
@@ -454,7 +465,8 @@ cudaError_t launch(const float* X, float* Q, int* flag, int* arrived, int B,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const int rows_per = (d + C - 1) / C;
-  err = cudaLaunchKernelEx(&cfg, kern, X, Q, flag, arrived, d, k, rows_per);
+  err = cudaLaunchKernelEx(&cfg, kern, X, Q, flag, arrived, d, k, rows_per,
+                           group);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -465,13 +477,15 @@ extern "C" {
 
 // Q = CholeskyQR2(X) for X, Q (B, d, k) fp32 contiguous, 1 <= k <= 64,
 // k <= d: clusters of C blocks (1, 2, 4, 8 or 16) per element, the row
-// slice in shared memory when `resident`.  `flag` is one device int, zero
-// on entry.  With `arrived` (one device int, zero on entry) both are zero
-// again on exit; without it (null) the flag is left nonzero when the third
-// pass ran.  Two launches on `stream`.  Returns cudaError_t.
+// slice in shared memory when `resident`.  The elements come in groups of
+// `group` (the last may be shorter), each gating its third pass on its own
+// flag: `flag` holds ceil(B / group) device ints, zero on entry.  With
+// `arrived` (as many ints, zero on entry) both are zero again on exit;
+// without it (null) a group's flag is left nonzero when its third pass
+// ran.  Two launches on `stream`.  Returns cudaError_t.
 int cholqr2(const void* X, void* Q, void* flag, void* arrived, int B, int d,
-            int k, int C, int resident, void* stream) {
-  if (B < 1 || B > kMaxBatch || k < 1 || k > kMaxK || k > d ||
+            int k, int C, int resident, int group, void* stream) {
+  if (B < 1 || B > kMaxBatch || k < 1 || k > kMaxK || k > d || group < 1 ||
       (C != 1 && C != 2 && C != 4 && C != 8 && C != 16))
     return (int)cudaErrorInvalidValue;
   const int rows_per = (d + C - 1) / C;
@@ -483,13 +497,15 @@ int cholqr2(const void* X, void* Q, void* flag, void* arrived, int B, int d,
   int* a = (int*)arrived;
   cudaStream_t st = (cudaStream_t)stream;
   if (resident) {
-    cudaError_t err = launch<true, true>(x, q, f, a, B, d, k, C, smem, st);
+    cudaError_t err =
+        launch<true, true>(x, q, f, a, B, d, k, C, group, smem, st);
     if (err != cudaSuccess) return (int)err;
-    return (int)launch<false, true>(x, q, f, a, B, d, k, C, smem, st);
+    return (int)launch<false, true>(x, q, f, a, B, d, k, C, group, smem, st);
   }
-  cudaError_t err = launch<true, false>(x, q, f, a, B, d, k, C, smem, st);
+  cudaError_t err =
+      launch<true, false>(x, q, f, a, B, d, k, C, group, smem, st);
   if (err != cudaSuccess) return (int)err;
-  return (int)launch<false, false>(x, q, f, a, B, d, k, C, smem, st);
+  return (int)launch<false, false>(x, q, f, a, B, d, k, C, group, smem, st);
 }
 
 const char* cholqr2_error_string(int err) {

@@ -55,6 +55,14 @@
 // iterate stream through shared memory in panels over a grid of 64 x 64
 // output tiles, one launch per round (and one for the apply), the
 // iterates of the rounds in device memory.
+// The slice axis (the grid's z; Slices in fastmix_tiles.cuh): one launch
+// runs many independent slices -- a batch of problems (the iterate strided
+// by m n, L or P shared or one per problem), or a window of P_K(L_t) builds
+// (T slices of L, each with its own (1 + eta, eta) and K from small device
+// tables).  Each slice runs on the tile one slice alone would take, so its
+// sums, and its bits, are those of its own launch; what the axis saves is
+// the launches (a schedule window's T builds were T launches of 7 blocks on
+// 132 SMs; a batch's gossip B launches).
 // Ragged edges: rows of Mt past m are zero, columns past n load as zero
 // and are not stored; a row length n that is not a multiple of 4, or a
 // base that is not 16-byte aligned, takes the 4-byte variant.  M, eta and
@@ -69,6 +77,14 @@ extern "C" {
 // these entries refuse a thread tile whose warps exceed the block, and the
 // shared-memory attribute refuses bytes past the card's limit.
 //
+// Every entry takes `slices` slices of its operands in one launch (the
+// grid's z, fastmix_tiles.cuh's Slices): slice z at x_stride floats into the
+// iterate and its outputs and m_stride floats into L (or P; 0 = shared).
+// coef, when not null, holds each slice's (1 + eta, eta) as fp32 pairs
+// coef_stride floats apart, in place of one_eta and eta; ks, when not null
+// (fastmix_poly only), each slice's K.  The panel kernels (rows 0) take one
+// slice per call: the wrapper loops over the slices there.
+//
 // out = FastMix^K(track ? S + G - Gp : S) over the (m, n) fp32 iterate, K
 // rounds in one launch; rows 8 or 4 picks the thread tile, rows 0 the
 // panel kernels (K launches; `work` holds 2 m n floats when K >= 2, else
@@ -77,15 +93,22 @@ extern "C" {
 int fastmix_rounds(const void* L, const void* S, const void* G,
                    const void* Gp, void* out, void* work, int m, long long n,
                    float one_eta, float eta, int K, int bn, int rows,
-                   int track, int wire_bf16, void* stream) {
+                   int track, int wire_bf16, int slices, long long x_stride,
+                   long long m_stride, const void* coef,
+                   long long coef_stride, void* stream) {
   const float* l = (const float*)L;
   const float* s = (const float*)S;
   const float* g = (const float*)G;
   const float* gp = (const float*)Gp;
   float* o = (float*)out;
   cudaStream_t st = (cudaStream_t)stream;
+  const Slices sl = {slices, x_stride, m_stride, (const float*)coef,
+                     coef_stride, nullptr};
+  if (!valid_slices(sl)) return cudaErrorInvalidValue;
   if (rows == 0) {
-    if (m <= 0 || (K >= 2 && work == nullptr)) return cudaErrorInvalidValue;
+    if (m <= 0 || slices != 1 || coef != nullptr ||
+        (K >= 2 && work == nullptr))
+      return cudaErrorInvalidValue;
     const Src x = source(s, g, gp, track);
     float* w = (float*)work;
     return wire_bf16
@@ -93,18 +116,18 @@ int fastmix_rounds(const void* L, const void* S, const void* G,
         : panel_rounds<false>(l, x, o, w, m, n, one_eta, eta, K, st);
   }
   if (!valid_tile(m, bn, rows)) return cudaErrorInvalidValue;
-  const bool vec = vectorizable(S, G, Gp, out, n, track);
+  const bool vec = vectorizable(S, G, Gp, out, n, track, x_stride);
   if (track)
     return wire_bf16
         ? rounds<true, kWireBf16>(l, s, g, gp, nullptr, o, nullptr, m, n,
-                                  one_eta, eta, K, bn, rows, vec, st)
+                                  one_eta, eta, K, bn, rows, vec, sl, st)
         : rounds<true, kWireNone>(l, s, g, gp, nullptr, o, nullptr, m, n,
-                                  one_eta, eta, K, bn, rows, vec, st);
+                                  one_eta, eta, K, bn, rows, vec, sl, st);
   return wire_bf16
       ? rounds<false, kWireBf16>(l, s, g, gp, nullptr, o, nullptr, m, n,
-                                 one_eta, eta, K, bn, rows, vec, st)
+                                 one_eta, eta, K, bn, rows, vec, sl, st)
       : rounds<false, kWireNone>(l, s, g, gp, nullptr, o, nullptr, m, n,
-                                 one_eta, eta, K, bn, rows, vec, st);
+                                 one_eta, eta, K, bn, rows, vec, sl, st);
 }
 
 // out = P (track ? S + G - Gp : S) over the (m, n) fp32 iterate in one
@@ -112,36 +135,50 @@ int fastmix_rounds(const void* L, const void* S, const void* G,
 // ring) or 1; rows 0: the panel kernel.  Returns cudaError_t.
 int fastmix_apply(const void* P, const void* S, const void* G,
                   const void* Gp, void* out, int m, long long n, int bn,
-                  int rows, int stages, int track, void* stream) {
+                  int rows, int stages, int track, int slices,
+                  long long x_stride, long long m_stride, void* stream) {
   const float* p = (const float*)P;
   const float* s = (const float*)S;
   const float* g = (const float*)G;
   const float* gp = (const float*)Gp;
   float* o = (float*)out;
   cudaStream_t st = (cudaStream_t)stream;
+  const Slices sl = {slices, x_stride, m_stride, nullptr, 0, nullptr};
+  if (!valid_slices(sl)) return cudaErrorInvalidValue;
   if (rows == 0) {
-    if (m <= 0) return cudaErrorInvalidValue;
+    if (m <= 0 || slices != 1) return cudaErrorInvalidValue;
     const Src x = source(s, g, gp, track);
     return launch_panel<kApply, false>(p, x, x, x, o, m, n, 1.0f, 0.0f, st);
   }
   if (!valid_tile(m, bn, rows) || (stages != 1 && stages != 2))
     return cudaErrorInvalidValue;
-  const bool vec = vectorizable(S, G, Gp, out, n, track);
+  const bool vec = vectorizable(S, G, Gp, out, n, track, x_stride);
   const bool two = stages == 2;
-  return track ? apply<true>(p, s, g, gp, o, m, n, bn, rows, two, vec, st)
-               : apply<false>(p, s, g, gp, o, m, n, bn, rows, two, vec, st);
+  return track ? apply<true>(p, s, g, gp, o, m, n, bn, rows, two, vec,
+                             slices, x_stride, m_stride, st)
+               : apply<false>(p, s, g, gp, o, m, n, bn, rows, two, vec,
+                              slices, x_stride, m_stride, st);
 }
 
 // P = P_K(L), (m, m) fp32 row-major: the round loop applied to I, on the
 // narrow thread tile (rows 4: m columns are little work) where it fits;
-// rows 0: the panel rounds (`work` as in fastmix_rounds, n = m).
+// rows 0: the panel rounds (`work` as in fastmix_rounds, n = m).  With
+// slices, slice z builds P + z m m from L + z m_stride (a window of
+// polynomials: one launch for all of them).
 int fastmix_poly(const void* L, void* P, void* work, int m, float one_eta,
-                 float eta, int K, int bn, int rows, void* stream) {
+                 float eta, int K, int bn, int rows, int slices,
+                 long long m_stride, const void* coef, long long coef_stride,
+                 const void* ks, void* stream) {
   const float* l = (const float*)L;
   float* p = (float*)P;
   cudaStream_t st = (cudaStream_t)stream;
+  const Slices sl = {slices, (long long)m * m, m_stride, (const float*)coef,
+                     coef_stride, (const int*)ks};
+  if (!valid_slices(sl)) return cudaErrorInvalidValue;
   if (rows == 0) {
-    if (m <= 0 || (K >= 2 && work == nullptr)) return cudaErrorInvalidValue;
+    if (m <= 0 || slices != 1 || coef != nullptr || ks != nullptr ||
+        (K >= 2 && work == nullptr))
+      return cudaErrorInvalidValue;
     return panel_rounds<false>(l, identity(), p, (float*)work, m, m,
                                one_eta, eta, K, st);
   }
@@ -149,10 +186,10 @@ int fastmix_poly(const void* L, void* P, void* work, int m, float one_eta,
   return rows == 4
       ? launch_rounds<false, kWireNone, false, true, 4, 1>(
             l, nullptr, nullptr, nullptr, nullptr, p, nullptr, m, m,
-            one_eta, eta, K, bn, st)
+            one_eta, eta, K, bn, sl, st)
       : launch_rounds<false, kWireNone, false, true, 8, 4>(
             l, nullptr, nullptr, nullptr, nullptr, p, nullptr, m, m,
-            one_eta, eta, K, bn, st);
+            one_eta, eta, K, bn, sl, st);
 }
 
 const char* fastmix_error_string(int err) {

@@ -112,12 +112,16 @@ extern "C" {
 // (m, n) fp32 iterate.  G and Gp are ignored (may be null) when track == 0.
 // rows 8 or 4 picks the round loop's thread tile and bn its column tile (the
 // wrapper's rounds_tile); rows 0 the panel path (2K launches; `work` holds
-// 2 m n floats when K >= 2, else it may be null).  Returns cudaError_t.
+// 2 m n floats when K >= 2, else it may be null).  slices, x_stride,
+// m_stride, coef and coef_stride as in fastmix.cu's fastmix_rounds (one
+// slice per call on the panel path).  Returns cudaError_t.
 int fastmix_ef_rounds(const void* L, const void* S, const void* G,
                       const void* Gp, const void* err, void* out,
                       void* err_out, void* work, int m, long long n,
                       float one_eta, float eta, int K, int bn, int rows,
-                      int track, void* stream) {
+                      int track, int slices, long long x_stride,
+                      long long m_stride, const void* coef,
+                      long long coef_stride, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const float* l = (const float*)L;
   const float* s = (const float*)S;
@@ -126,19 +130,24 @@ int fastmix_ef_rounds(const void* L, const void* S, const void* G,
   const float* e = (const float*)err;
   float* o = (float*)out;
   float* eo = (float*)err_out;
+  const Slices sl = {slices, x_stride, m_stride, (const float*)coef,
+                     coef_stride, nullptr};
+  if (!valid_slices(sl)) return cudaErrorInvalidValue;
   if (rows == 0) {
-    if (m <= 0 || (K >= 2 && work == nullptr)) return cudaErrorInvalidValue;
+    if (m <= 0 || slices != 1 || coef != nullptr ||
+        (K >= 2 && work == nullptr))
+      return cudaErrorInvalidValue;
     return ef_panel_rounds(l, source(s, g, gp, track), e, o, eo,
                            (float*)work, m, n, one_eta, eta, K, st);
   }
   if (!valid_tile(m, bn, rows)) return cudaErrorInvalidValue;
-  const bool vec = vectorizable(S, G, Gp, out, n, track) && aligned16(err) &&
-                   aligned16(err_out);
+  const bool vec = vectorizable(S, G, Gp, out, n, track, x_stride) &&
+                   aligned16(err) && aligned16(err_out);
   return track
       ? rounds<true, kWireFp8Ef>(l, s, g, gp, e, o, eo, m, n, one_eta, eta,
-                                 K, bn, rows, vec, st)
+                                 K, bn, rows, vec, sl, st)
       : rounds<false, kWireFp8Ef>(l, s, g, gp, e, o, eo, m, n, one_eta, eta,
-                                  K, bn, rows, vec, st);
+                                  K, bn, rows, vec, sl, st);
 }
 
 const char* fastmix_ef_error_string(int err) {

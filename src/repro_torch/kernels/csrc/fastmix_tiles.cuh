@@ -42,6 +42,23 @@ __host__ __device__ __forceinline__ size_t smem_bytes(int m, int bn,
   return sizeof(float) * ((size_t)m * mt_stride(m) + (size_t)bufs * m * bn);
 }
 
+// The slices of one launch (blockIdx.z): slice z reads and writes its
+// iterate (S, G, G_prev, the EF replica and the outputs) z * x floats past
+// the first slice's, and its mixing matrix z * l floats past (l = 0: one
+// matrix shared by every slice).  With coef, slice z takes its (1 + eta,
+// eta) from coef[z * coef_stride + 0, 1] in place of the scalar arguments,
+// and with k its round count from k[z].  A problem axis has x = m n; a
+// window of P_K(L_t) builds has x = l = m m.  Each slice runs on the tile
+// one slice alone would take, so its sums are those of a launch of its own.
+struct Slices {
+  int count;
+  long long x;
+  long long l;
+  const float* coef;
+  long long coef_stride;
+  const int* k;
+};
+
 __device__ __forceinline__ float wire_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
@@ -272,8 +289,21 @@ fastmix_rounds_kernel(const float* __restrict__ M,
                       const float* __restrict__ Gp,
                       const float* __restrict__ err, float* __restrict__ out,
                       float* __restrict__ err_out, int m, long long n,
-                      float one_eta, float eta, int K, int bn) {
+                      float one_eta, float eta, int K, int bn, Slices sl) {
   constexpr bool EF = WIRE == kWireFp8Ef;
+  const long long z = blockIdx.z;
+  M += z * sl.l;
+  out += z * sl.x;
+  if (!IDENTITY) {
+    S += z * sl.x;
+    if (TRACK) { G += z * sl.x; Gp += z * sl.x; }
+  }
+  if (EF) { err += z * sl.x; err_out += z * sl.x; }
+  if (sl.coef != nullptr) {
+    one_eta = sl.coef[z * sl.coef_stride];
+    eta = sl.coef[z * sl.coef_stride + 1];
+  }
+  if (sl.k != nullptr) K = sl.k[z];
   extern __shared__ float4 smem4[];
   float* const Mt = reinterpret_cast<float*>(smem4);   // m x ms
   const int ms = mt_stride(m);
@@ -458,7 +488,13 @@ fastmix_apply_kernel(const float* __restrict__ P,
                      const float* __restrict__ S,
                      const float* __restrict__ G,
                      const float* __restrict__ Gp, float* __restrict__ out,
-                     int m, long long n, int bn, bool two_stages) {
+                     int m, long long n, int bn, bool two_stages,
+                     long long xs, long long ps) {
+  const long long z = blockIdx.z;          // the slice: x = xs, P = ps
+  P += z * ps;
+  S += z * xs;
+  out += z * xs;
+  if (TRACK) { G += z * xs; Gp += z * xs; }
   extern __shared__ float4 smem4[];
   float* const Mt = reinterpret_cast<float*>(smem4);   // m x ms
   const int ms = mt_stride(m);
@@ -498,10 +534,10 @@ fastmix_apply_kernel(const float* __restrict__ P,
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// 16-byte copies need every row to start 16-byte aligned.
+// 16-byte copies need every row of every slice to start 16-byte aligned.
 bool vectorizable(const void* S, const void* G, const void* Gp,
-                  const void* out, long long n, int track) {
-  return n % 4 == 0 && aligned16(S) && aligned16(out) &&
+                  const void* out, long long n, int track, long long xs) {
+  return n % 4 == 0 && xs % 4 == 0 && aligned16(S) && aligned16(out) &&
          (!track || (aligned16(G) && aligned16(Gp)));
 }
 
@@ -512,12 +548,21 @@ bool valid_tile(int m, int bn, int rows) {
          32 * warps_needed(m, bn, rows, cols) <= kThreads;
 }
 
+// The grid's z dimension holds the slices.
+constexpr int kMaxSlices = 65535;
+
+bool valid_slices(const Slices& sl) {
+  return sl.count >= 1 && sl.count <= kMaxSlices && sl.x >= 0 && sl.l >= 0 &&
+         sl.coef_stride >= 0;
+}
+
 // err and err_out are the fp8-EF wire's replica (null on the others).
 template <bool TRACK, int WIRE, bool VEC, bool IDENTITY, int R, int C>
 cudaError_t launch_rounds(const float* L, const float* S, const float* G,
                           const float* Gp, const float* err, float* out,
                           float* err_out, int m, long long n, float one_eta,
-                          float eta, int K, int bn, cudaStream_t stream) {
+                          float eta, int K, int bn, const Slices& sl,
+                          cudaStream_t stream) {
   static Setup cache;
   auto kern = fastmix_rounds_kernel<TRACK, WIRE, VEC, IDENTITY, R, C>;
   const size_t smem = smem_bytes(m, bn, 2);
@@ -525,15 +570,17 @@ cudaError_t launch_rounds(const float* L, const float* S, const float* G,
   cudaError_t e = setup(cache, kern, kThreads, smem, &resident);
   if (e != cudaSuccess) return e;
   const long long tiles = (n + bn - 1) / bn;
-  kern<<<(unsigned)tiles, kThreads, smem, stream>>>(
-      L, S, G, Gp, err, out, err_out, m, n, one_eta, eta, K, bn);
+  const dim3 grid((unsigned)tiles, 1, (unsigned)sl.count);
+  kern<<<grid, kThreads, smem, stream>>>(L, S, G, Gp, err, out, err_out, m,
+                                         n, one_eta, eta, K, bn, sl);
   return cudaGetLastError();
 }
 
 template <bool TRACK, bool VEC, int R, int C>
 cudaError_t launch_apply(const float* P, const float* S, const float* G,
                          const float* Gp, float* out, int m, long long n,
-                         int bn, bool two_stages, cudaStream_t stream) {
+                         int bn, bool two_stages, int slices, long long xs,
+                         long long ps, cudaStream_t stream) {
   static Setup cache;
   auto kern = fastmix_apply_kernel<TRACK, VEC, R, C>;
   const size_t smem =
@@ -541,10 +588,13 @@ cudaError_t launch_apply(const float* P, const float* S, const float* G,
   int resident = 0;
   cudaError_t err = setup(cache, kern, kThreads, smem, &resident);
   if (err != cudaSuccess) return err;
+  // the persistent blocks the device holds, shared out over the slices
   const long long tiles = (n + bn - 1) / bn;
-  const long long grid = tiles < resident ? tiles : resident;
-  kern<<<(unsigned)grid, kThreads, smem, stream>>>(P, S, G, Gp, out, m, n,
-                                                   bn, two_stages);
+  long long per_slice = (resident + slices - 1) / slices;
+  if (per_slice > tiles) per_slice = tiles;
+  const dim3 grid((unsigned)per_slice, 1, (unsigned)slices);
+  kern<<<grid, kThreads, smem, stream>>>(P, S, G, Gp, out, m, n, bn,
+                                         two_stages, xs, ps);
   return cudaGetLastError();
 }
 
@@ -555,31 +605,34 @@ cudaError_t rounds(const float* L, const float* S, const float* G,
                    const float* Gp, const float* err, float* out,
                    float* err_out, int m, long long n, float one_eta,
                    float eta, int K, int bn, int rows, bool vec,
-                   cudaStream_t st) {
+                   const Slices& sl, cudaStream_t st) {
   if (rows == 4)
     return launch_rounds<TRACK, WIRE, false, false, 4, 1>(
-        L, S, G, Gp, err, out, err_out, m, n, one_eta, eta, K, bn, st);
+        L, S, G, Gp, err, out, err_out, m, n, one_eta, eta, K, bn, sl, st);
   return vec ? launch_rounds<TRACK, WIRE, true, false, 8, 4>(
                    L, S, G, Gp, err, out, err_out, m, n, one_eta, eta, K,
-                   bn, st)
+                   bn, sl, st)
              : launch_rounds<TRACK, WIRE, false, false, 8, 4>(
                    L, S, G, Gp, err, out, err_out, m, n, one_eta, eta, K,
-                   bn, st);
+                   bn, sl, st);
 }
 
+// out = P x over `slices` slices (iterate stride xs, P stride ps).
 template <bool TRACK>
 cudaError_t apply(const float* P, const float* S, const float* G,
                   const float* Gp, float* out, int m, long long n, int bn,
-                  int rows, bool two, bool vec, cudaStream_t st) {
+                  int rows, bool two, bool vec, int slices, long long xs,
+                  long long ps, cudaStream_t st) {
   if (rows == 4)
     return vec ? launch_apply<TRACK, true, 4, 1>(P, S, G, Gp, out, m, n, bn,
-                                                 two, st)
+                                                 two, slices, xs, ps, st)
                : launch_apply<TRACK, false, 4, 1>(P, S, G, Gp, out, m, n,
-                                                  bn, two, st);
+                                                  bn, two, slices, xs, ps,
+                                                  st);
   return vec ? launch_apply<TRACK, true, 8, 4>(P, S, G, Gp, out, m, n, bn,
-                                               two, st)
+                                               two, slices, xs, ps, st)
              : launch_apply<TRACK, false, 8, 4>(P, S, G, Gp, out, m, n, bn,
-                                                two, st);
+                                                two, slices, xs, ps, st);
 }
 
 // ------------------------------------------------------------------ panels

@@ -42,8 +42,10 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import numbers
 from typing import Optional
 
+import numpy as np
 import torch
 
 from . import _build
@@ -350,36 +352,93 @@ def _flat(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(x.shape[0], -1)
 
 
-def _entry():
-    fn = _build.load("fastmix").fastmix_rounds
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [
-        ctypes.c_int, ctypes.c_longlong, ctypes.c_float, ctypes.c_float] + [
-        ctypes.c_int] * 5 + [ctypes.c_void_p]
-    return fn
+# ------------------------------------------------------------------------
+# slices: a problem axis, or a window of P_K(L_t) builds, in one launch
+# ------------------------------------------------------------------------
+def _scalar(v) -> bool:
+    """A number (Python, numpy or a 0-d tensor), not a per-slice one."""
+    if isinstance(v, torch.Tensor):
+        return v.dim() == 0
+    return isinstance(v, numbers.Number) or np.ndim(v) == 0
 
 
-def _apply_entry():
-    fn = _build.load("fastmix").fastmix_apply
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [
-        ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    return fn
+def _per_slice(value, b: int):
+    """Slice ``b`` of a per-slice operand: a ``(B, m, m)`` matrix, a
+    sequence of per-slice momenta or round counts; a shared one (an
+    ``(m, m)`` matrix, a number, ``None``) as it is."""
+    if value is None:
+        return value
+    if isinstance(value, torch.Tensor):
+        return value[b] if value.dim() == 3 else value
+    return value if _scalar(value) else value[b]
 
 
-def _poly_entry():
-    fn = _build.load("fastmix").fastmix_poly
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [
-        ctypes.c_int, ctypes.c_float, ctypes.c_float] + [ctypes.c_int] * 3 + [
-        ctypes.c_void_p]
-    return fn
+def _is_batched(batched: bool, *mats) -> bool:
+    """A call has a leading problem axis when asked, or when a mixing
+    matrix comes one per problem ``(B, m, m)``."""
+    return batched or any(M is not None and M.dim() == 3 for M in mats)
 
 
-def _check_cuda(L: torch.Tensor, *xs: torch.Tensor) -> None:
+def _host_etas(eta, count: int):
+    """Per-slice momenta as Python floats, or ``None`` for one shared
+    ``eta``."""
+    if _scalar(eta):
+        return None
+    if isinstance(eta, torch.Tensor):
+        eta = eta.detach().cpu()
+    etas = [float(e) for e in eta]
+    if len(etas) != count:
+        raise ValueError(f"{len(etas)} momenta for {count} slices")
+    return etas
+
+
+def coef_table(etas, device) -> torch.Tensor:
+    """The kernels' per-slice ``(1 + eta, eta)`` pairs, fp32, on ``device``:
+    ``1 + eta`` rounded once on the host from the double sum, as the scalar
+    arguments and the plain versions form it.  Callers that launch a slice
+    of the same window many times make it once (one host-to-device copy)
+    and pass views of it as ``coef=``."""
+    e = np.asarray(etas, dtype=np.float64)
+    table = np.stack([(1.0 + e).astype(np.float32), e.astype(np.float32)],
+                     axis=-1)
+    return torch.as_tensor(table, device=device)
+
+
+def _coef_arg(etas, coef, count: int, device):
+    """``(pointer, stride, keep-alive)`` of the per-slice coefficient
+    table, or ``(None, 0, None)`` for a shared momentum."""
+    if etas is None:
+        return None, 0, None
+    if coef is None:
+        coef = coef_table(etas, device)
+    if (coef.device != device or coef.dtype != torch.float32
+            or tuple(coef.shape) != (count, 2) or coef.stride(1) != 1):
+        raise ValueError(f"coef must be a ({count}, 2) fp32 table on "
+                         f"{device} with contiguous pairs")
+    return coef.data_ptr(), coef.stride(0), coef
+
+
+def _matrix_stride(name: str, M: torch.Tensor, m: int, count: int,
+                   dev) -> int:
+    """Slice stride (floats) of a mixing matrix: 0 when shared ``(m, m)``,
+    else that of a ``(count, m, m)`` stack whose slices are row-major
+    (a strided view of a window's stack is fine)."""
+    if M.device != dev or M.dtype != torch.float32:
+        raise ValueError(f"{name} must be fp32 on {dev}; got {M.dtype} on "
+                         f"{M.device}")
+    if M.dim() == 2:
+        _check_matrix(name, M, m, dev)
+        return 0
+    if tuple(M.shape) != (count, m, m) or M.stride(2) != 1 or \
+            M.stride(1) != m:
+        raise ValueError(f"{name} must be ({m}, {m}) or ({count}, {m}, {m}) "
+                         f"with row-major slices; got {tuple(M.shape)}")
+    return M.stride(0)
+
+
+def _check_cuda(L: torch.Tensor, *xs: torch.Tensor, batched: bool = False):
     dev = xs[0].device
-    m = xs[0].shape[0]
+    m = xs[0].shape[1 if batched else 0]
     for x in xs:
         if x.device != dev:
             raise ValueError("fastmix operands must share one device")
@@ -390,7 +449,8 @@ def _check_cuda(L: torch.Tensor, *xs: torch.Tensor) -> None:
         if x.shape != xs[0].shape:
             raise ValueError("S/G/G_prev shapes must match; got "
                              f"{[tuple(y.shape) for y in xs]}")
-    _check_matrix("L", L, m, dev)
+    count = xs[0].shape[0] if batched else 1
+    _matrix_stride("L", L, m, count, dev)
 
 
 def _check_matrix(name: str, M: torch.Tensor, m: int, dev) -> None:
@@ -410,60 +470,173 @@ def poly_matrix_plain(L: torch.Tensor, eta, K: int) -> torch.Tensor:
     return cur
 
 
-def poly_matrix(L: torch.Tensor, eta, K: int) -> torch.Tensor:
+def _window_count(L: torch.Tensor, eta, K) -> Optional[int]:
+    """Slices of a ``P_K(L)`` build: ``L``'s stack, else the per-slice
+    momenta or round counts; ``None`` for one ``(m, m)`` build."""
+    if L.dim() == 3:
+        return L.shape[0]
+    for v in (eta, K):
+        if not _scalar(v):
+            return len(v)
+    return None
+
+
+def poly_matrix(L: torch.Tensor, eta, K, *,
+                coef: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``P_K(L)``, the ``(m, m)`` fp32 matrix that K FastMix rounds without
     a wire collapse to.  On a CUDA tensor the build kernel runs the round
     loop on the identity (one launch, or K panel launches past
     :func:`kernel_fits`; counted as one ``fastmix_poly``); on a CPU tensor
-    :func:`poly_matrix_plain` runs in fp32."""
-    if L.dim() != 2 or L.shape[0] != L.shape[1]:
-        raise ValueError(f"L must be square; got {tuple(L.shape)}")
+    :func:`poly_matrix_plain` runs in fp32.
+
+    A window of T polynomials builds in the same one launch: ``L`` a
+    ``(T, m, m)`` stack (or one ``(m, m)`` matrix shared by the window),
+    ``eta`` a number or T momenta, ``K`` a number or T round counts (each
+    slice its own K: DePCA's increasing rounds); the result is ``(T, m,
+    m)``, slice t equal to the single build of ``(L_t, eta_t, K_t)``.
+    ``coef``: the momenta's :func:`coef_table` when the caller made it
+    already (a window does), else it is made here.  Past
+    :func:`kernel_fits` the panel rounds run slice by slice.
+    """
+    if L.dim() not in (2, 3) or L.shape[-1] != L.shape[-2]:
+        raise ValueError(f"L must be (m, m) or (T, m, m); got "
+                         f"{tuple(L.shape)}")
+    T = _window_count(L, eta, K)
+    if T is not None:
+        if L.dim() == 3 and L.shape[0] != T:
+            raise ValueError(f"L holds {L.shape[0]} slices for {T}")
+        ks = [int(K)] * T if _scalar(K) else [int(k) for k in K]
+        etas = _host_etas(eta, T)
+        if len(ks) != T:
+            raise ValueError(f"{len(ks)} round counts for {T} slices")
     if L.device.type == "cpu":
-        return poly_matrix_plain(L.to(torch.float32), eta, K)
+        if T is None:
+            return poly_matrix_plain(L.to(torch.float32), eta, K)
+        return torch.stack([poly_matrix_plain(
+            _per_slice(L, t).to(torch.float32),
+            eta if etas is None else etas[t], ks[t]) for t in range(T)])
     if L.device.type != "cuda":
         raise ValueError(f"fastmix runs on cuda or cpu tensors, got "
                          f"{L.device}")
-    m = L.shape[0]
-    _check_matrix("L", L, m, L.device)
+    m = L.shape[-1]
+    if T is None:
+        _check_matrix("L", L, m, L.device)
+        return _build_poly(L, m, float(eta), int(K))
+    ls = _matrix_stride("L", L, m, T, L.device)
     rows, bn = rounds_tile(m, m, sm_count(L.device.index))
-    P = torch.empty_like(L)
-    work = _work(m, m, K, rows == 0, L)
+    if rows == 0:           # the panel rounds: one build per slice
+        P = torch.stack([_build_poly(
+            _per_slice(L, t), m, eta if etas is None else etas[t], ks[t],
+            count=False) for t in range(T)])
+        LAUNCHES["fastmix_poly"] += 1
+        return P
+    P = torch.empty((T, m, m), dtype=torch.float32, device=L.device)
+    coef, cs, _keep = _coef_arg(etas, coef, T, L.device)
+    shared_k = len(set(ks)) == 1
+    k_dev = None if shared_k else torch.as_tensor(
+        np.asarray(ks, dtype=np.int32), device=L.device)
+    one_eta, eta0 = (1.0 + float(eta), float(eta)) if etas is None \
+        else (1.0, 0.0)
     stream = torch.cuda.current_stream(L.device).cuda_stream
-    err = _poly_entry()(L.data_ptr(), P.data_ptr(), _ptr(work), m,
-                        1.0 + float(eta), float(eta), int(K), bn, rows,
+    err = _poly_entry()(L.data_ptr(), P.data_ptr(), None, m, one_eta, eta0,
+                        ks[0], bn, rows, T, ls, coef, cs, _ptr(k_dev),
                         stream)
     _build.check("fastmix", err)
     LAUNCHES["fastmix_poly"] += 1
     return P
 
 
+def _build_poly(L: torch.Tensor, m: int, eta: float, K: int, *,
+                count: bool = True) -> torch.Tensor:
+    """One ``(m, m)`` build from a row-major ``L`` (a slice of a stack)."""
+    rows, bn = rounds_tile(m, m, sm_count(L.device.index))
+    P = torch.empty((m, m), dtype=torch.float32, device=L.device)
+    work = _work(m, m, K, rows == 0, L)
+    stream = torch.cuda.current_stream(L.device).cuda_stream
+    err = _poly_entry()(L.data_ptr(), P.data_ptr(), _ptr(work), m,
+                        1.0 + float(eta), float(eta), int(K), bn, rows, 1, 0,
+                        None, 0, None, stream)
+    _build.check("fastmix", err)
+    if count:
+        LAUNCHES["fastmix_poly"] += 1
+    return P
+
+
+def _entry():
+    fn = _build.load("fastmix").fastmix_rounds
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 6 + [
+        ctypes.c_int, ctypes.c_longlong, ctypes.c_float, ctypes.c_float] + [
+        ctypes.c_int] * 6 + [ctypes.c_longlong, ctypes.c_longlong,
+                             ctypes.c_void_p, ctypes.c_longlong,
+                             ctypes.c_void_p]
+    return fn
+
+
+def _apply_entry():
+    fn = _build.load("fastmix").fastmix_apply
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 5 + [
+        ctypes.c_int, ctypes.c_longlong] + [ctypes.c_int] * 5 + [
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
+    return fn
+
+
+def _poly_entry():
+    fn = _build.load("fastmix").fastmix_poly
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 3 + [
+        ctypes.c_int, ctypes.c_float, ctypes.c_float] + [ctypes.c_int] * 4 + [
+        ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
+        ctypes.c_void_p, ctypes.c_void_p]
+    return fn
+
+
 def _launch(S, G, G_prev, L, eta, K: int, wire_bf16: bool, track: bool,
-            P) -> torch.Tensor:
-    m = S.shape[0]
-    n = S.numel() // max(m, 1)
+            P, batched: bool = False, coef=None,
+            count: bool = True) -> torch.Tensor:
+    B = S.shape[0] if batched else 1
+    m = S.shape[1] if batched else S.shape[0]
+    n = S.numel() // max(B * m, 1)
     out = torch.empty_like(S)
     if out.numel() == 0:
         return out
-    stream = torch.cuda.current_stream(S.device).cuda_stream
+    dev = S.device
+    etas = _host_etas(eta, B) if batched else None
+    rounds_path = wire_bf16 or K <= 0
+    if not rounds_path and P is None:
+        P = poly_matrix(L, eta if etas is None else etas, K)
+    M = L if rounds_path else P
+    ms = _matrix_stride("L" if rounds_path else "P", M, m, B, dev)
+    if batched and not kernel_fits(m, None):   # panels: slice by slice
+        for b in range(B):
+            out[b] = _launch(S[b], G[b] if track else None,
+                             G_prev[b] if track else None, _per_slice(L, b),
+                             eta if etas is None else etas[b], K, wire_bf16,
+                             track, _per_slice(P, b), count=False)
+        LAUNCHES["fastmix_track" if track else "fastmix"] += 1
+        return out
+    sms = sm_count(dev.index)
+    stream = torch.cuda.current_stream(dev).cuda_stream
     g = G.data_ptr() if track else None
     gp = G_prev.data_ptr() if track else None
-    sms = sm_count(S.device.index)
-    if wire_bf16 or K <= 0:
+    if rounds_path:
         rows, bn = rounds_tile(m, n, sms)
         work = _work(m, n, K, rows == 0, S)
-        err = _entry()(L.data_ptr(), S.data_ptr(), g, gp, out.data_ptr(),
-                       _ptr(work), m, n, 1.0 + float(eta), float(eta),
-                       int(K), bn, rows, int(track), int(wire_bf16), stream)
+        cp, cs, _keep = _coef_arg(etas, coef, B, dev)
+        e = float(eta) if etas is None else 0.0
+        err = _entry()(M.data_ptr(), S.data_ptr(), g, gp, out.data_ptr(),
+                       _ptr(work), m, n, 1.0 + e, e, int(K), bn, rows,
+                       int(track), int(wire_bf16), B, m * n, ms, cp, cs,
+                       stream)
     else:
-        if P is None:
-            P = poly_matrix(L, eta, K)
-        _check_matrix("P", P, m, S.device)
         rows, bn, stages = apply_tile(m, n, track, sms)
-        err = _apply_entry()(P.data_ptr(), S.data_ptr(), g, gp,
+        err = _apply_entry()(M.data_ptr(), S.data_ptr(), g, gp,
                              out.data_ptr(), m, n, bn, rows, stages,
-                             int(track), stream)
+                             int(track), B, m * n, ms, stream)
     _build.check("fastmix", err)
-    LAUNCHES["fastmix_track" if track else "fastmix"] += 1
+    if count:
+        LAUNCHES["fastmix_track" if track else "fastmix"] += 1
     return out
 
 
@@ -485,13 +658,19 @@ def _check_P(P, m: int, wire_bf16: bool) -> None:
     if wire_bf16:
         raise ValueError("P= is the no-wire collapse; the bf16 wire's "
                          "rounding is nonlinear and runs the rounds")
-    if tuple(P.shape) != (m, m):
+    if tuple(P.shape[-2:]) != (m, m):
         raise ValueError(f"P must be ({m}, {m}); got {tuple(P.shape)}")
+
+
+def _check_L_cpu(L: torch.Tensor, m: int) -> None:
+    if tuple(L.shape[-2:]) != (m, m):
+        raise ValueError(f"L must be ({m}, {m}); got {tuple(L.shape)}")
 
 
 def fastmix_fused(S: torch.Tensor, L: torch.Tensor, eta, K: int, *,
                   wire_bf16: bool = False,
-                  P: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  P: Optional[torch.Tensor] = None, batched: bool = False,
+                  coef: Optional[torch.Tensor] = None) -> torch.Tensor:
     """All K FastMix rounds; ``(m, ...)`` in, fp32 out.
 
     Without a wire one launch applies ``P_K(L)``: ``P`` is
@@ -500,48 +679,73 @@ def fastmix_fused(S: torch.Tensor, L: torch.Tensor, eta, K: int, *,
     gossip ``L^K S``; ``wire_bf16`` rounds each round's sent iterate to
     bf16 while accumulation stays fp32, and runs the K rounds in one
     launch.  ``K <= 0`` returns ``S`` in fp32.
+
+    A leading problem axis ``(B, m, ...)`` (``batched``, implied by an
+    ``L`` or ``P`` stack) runs B problems in the same one launch, each on
+    the tile one problem takes: ``L`` and ``P`` either shared ``(m, m)``
+    or one per problem ``(B, m, m)`` (strided views of a window's stack
+    are fine), ``eta`` a number or B momenta (``coef`` their
+    :func:`coef_table`, made once per window).  Slice b equals the call on
+    problem b alone.
     """
-    m = S.shape[0]
+    batched = _is_batched(batched, L, P)
+    m = S.shape[1 if batched else 0]
     _check_P(P, m, wire_bf16)
     if S.device.type == "cpu":
-        if tuple(L.shape) != (m, m):
-            raise ValueError(f"L must be ({m}, {m}); got {tuple(L.shape)}")
+        _check_L_cpu(L, m)
+        if batched:
+            etas = _host_etas(eta, S.shape[0])
+            return torch.stack([fastmix_fused(
+                S[b], _per_slice(L, b), eta if etas is None else etas[b], K,
+                wire_bf16=wire_bf16, P=_per_slice(P, b))
+                for b in range(S.shape[0])])
         return _plain(_flat(S).to(torch.float32), L, eta, K, wire_bf16,
                       P).reshape(S.shape)
     if S.device.type != "cuda":
         raise ValueError(f"fastmix runs on cuda or cpu tensors, got "
                          f"{S.device}")
-    _check_cuda(L, S)
-    return _launch(S, None, None, L, eta, K, wire_bf16, False, P)
+    _check_cuda(L, S, batched=batched)
+    return _launch(S, None, None, L, eta, K, wire_bf16, False, P, batched,
+                   coef)
 
 
 def fastmix_track_fused(S: torch.Tensor, G: torch.Tensor,
                         G_prev: torch.Tensor, L: torch.Tensor, eta, K: int,
                         *, wire_bf16: bool = False,
-                        P: Optional[torch.Tensor] = None) -> torch.Tensor:
+                        P: Optional[torch.Tensor] = None,
+                        batched: bool = False,
+                        coef: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Fused subspace tracking + all K FastMix rounds.
 
     Semantically ``fastmix_fused(tracking_update(S, G, G_prev), L, eta,
     K, P=P)``, with the tracked iterate formed on chip (in the kernel's
-    registers or shared-memory tile) instead of in device memory.  ``K <= 0`` returns the tracked iterate
-    in fp32.
+    registers or shared-memory tile) instead of in device memory.  ``K <=
+    0`` returns the tracked iterate in fp32.  ``batched``, ``coef`` and
+    the per-problem ``L``/``P``/``eta`` as in :func:`fastmix_fused`.
     """
-    m = S.shape[0]
+    batched = _is_batched(batched, L, P)
+    m = S.shape[1 if batched else 0]
     _check_P(P, m, wire_bf16)
     if S.device.type == "cpu":
         if not (S.shape == G.shape == G_prev.shape):
             raise ValueError("S/G/G_prev shapes must match; got "
                              f"{S.shape}, {G.shape}, {G_prev.shape}")
-        if tuple(L.shape) != (m, m):
-            raise ValueError(f"L must be ({m}, {m}); got {tuple(L.shape)}")
+        _check_L_cpu(L, m)
+        if batched:
+            etas = _host_etas(eta, S.shape[0])
+            return torch.stack([fastmix_track_fused(
+                S[b], G[b], G_prev[b], _per_slice(L, b),
+                eta if etas is None else etas[b], K, wire_bf16=wire_bf16,
+                P=_per_slice(P, b)) for b in range(S.shape[0])])
         x = tracking_update(S.to(torch.float32), G.to(torch.float32),
                             G_prev.to(torch.float32))
         return _plain(_flat(x), L, eta, K, wire_bf16, P).reshape(S.shape)
     if S.device.type != "cuda":
         raise ValueError(f"fastmix runs on cuda or cpu tensors, got "
                          f"{S.device}")
-    _check_cuda(L, S, G, G_prev)
-    return _launch(S, G, G_prev, L, eta, K, wire_bf16, True, P)
+    _check_cuda(L, S, G, G_prev, batched=batched)
+    return _launch(S, G, G_prev, L, eta, K, wire_bf16, True, P, batched,
+                   coef)
 
 
 def _check_fp8(name: str, wire) -> None:
@@ -573,84 +777,124 @@ def _ef_entry():
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 8 + [
         ctypes.c_int, ctypes.c_longlong, ctypes.c_float, ctypes.c_float] + [
-        ctypes.c_int] * 4 + [ctypes.c_void_p]
+        ctypes.c_int] * 5 + [ctypes.c_longlong, ctypes.c_longlong,
+                             ctypes.c_void_p, ctypes.c_longlong,
+                             ctypes.c_void_p]
     return fn
 
 
-def _launch_ef(S, G, G_prev, err, L, eta, K: int, track: bool):
-    m = S.shape[0]
-    n = S.numel() // max(m, 1)
+def _launch_ef(S, G, G_prev, err, L, eta, K: int, track: bool,
+               batched: bool = False, coef=None, count: bool = True):
+    B = S.shape[0] if batched else 1
+    m = S.shape[1] if batched else S.shape[0]
+    n = S.numel() // max(B * m, 1)
     out, err_out = torch.empty_like(S), torch.empty_like(S)
     if out.numel() == 0:
         return out, err_out
-    rows, bn = rounds_tile(m, n, sm_count(S.device.index))
+    dev = S.device
+    etas = _host_etas(eta, B) if batched else None
+    ls = _matrix_stride("L", L, m, B, dev)
+    rows, bn = rounds_tile(m, n, sm_count(dev.index))
+    name = "fastmix_track_ef" if track else "fastmix_ef"
+    if batched and rows == 0:       # panels: slice by slice
+        for b in range(B):
+            out[b], err_out[b] = _launch_ef(
+                S[b], G[b] if track else None, G_prev[b] if track else None,
+                err[b], _per_slice(L, b), eta if etas is None else etas[b],
+                K, track, count=False)
+        LAUNCHES[name] += 1
+        return out, err_out
     work = _work(m, n, K, rows == 0, S)
-    stream = torch.cuda.current_stream(S.device).cuda_stream
+    cp, cs, _keep = _coef_arg(etas, coef, B, dev)
+    e = float(eta) if etas is None else 0.0
+    stream = torch.cuda.current_stream(dev).cuda_stream
     code = _ef_entry()(L.data_ptr(), S.data_ptr(),
                        G.data_ptr() if track else None,
                        G_prev.data_ptr() if track else None,
                        err.data_ptr(), out.data_ptr(), err_out.data_ptr(),
-                       _ptr(work), m, n, 1.0 + float(eta), float(eta),
-                       int(K), bn, rows, int(track), stream)
+                       _ptr(work), m, n, 1.0 + e, e, int(K), bn, rows,
+                       int(track), B, m * n, ls, cp, cs, stream)
     _build.check("fastmix_ef", code)
-    LAUNCHES["fastmix_track_ef" if track else "fastmix_ef"] += 1
+    if count:
+        LAUNCHES[name] += 1
     return out, err_out
 
 
+def _ef_plain_call(S, err, L, eta, K, G=None, G_prev=None):
+    m = S.shape[0]
+    _check_L_cpu(L, m)
+    x = S if G is None else tracking_update(
+        S.to(torch.float32), G.to(torch.float32), G_prev.to(torch.float32))
+    out, h = fastmix_ef_plain(_flat(x), _flat(err), L, eta, K)
+    return out.reshape(S.shape), h.reshape(S.shape)
+
+
+def _ef_cpu(S, err, L, eta, K, G, G_prev, batched):
+    """The fp8-EF wrappers' CPU path; a problem axis runs problem by
+    problem."""
+    if not batched:
+        return _ef_plain_call(S, err, L, eta, K, G, G_prev)
+    etas = _host_etas(eta, S.shape[0])
+    outs = [_ef_plain_call(S[b], err[b], _per_slice(L, b),
+                           eta if etas is None else etas[b], K,
+                           None if G is None else G[b],
+                           None if G_prev is None else G_prev[b])
+            for b in range(S.shape[0])]
+    return (torch.stack([o for o, _ in outs]),
+            torch.stack([h for _, h in outs]))
+
+
 def fastmix_ef_fused(S: torch.Tensor, err: torch.Tensor, L: torch.Tensor,
-                     eta, K: int, *, wire: str = "fp8"):
+                     eta, K: int, *, wire: str = "fp8",
+                     batched: bool = False,
+                     coef: Optional[torch.Tensor] = None):
     """All K fp8 error-feedback FastMix rounds in one launch.
 
     ``err`` is the per-agent wire replica (zeros on the first call).
     Returns ``(S_out, err_out)``, both fp32 with ``S``'s shape.  Only the
     fp8 wire has a kernel: int8's per-agent scale is a reduction over
-    every column tile.
+    every column tile.  ``batched``, ``coef`` and a per-problem ``L`` /
+    ``eta`` as in :func:`fastmix_fused`.
     """
     _check_fp8("fastmix_ef_fused", wire)
     if S.shape != err.shape:
         raise ValueError(f"S/err shapes must match; got {tuple(S.shape)}, "
                          f"{tuple(err.shape)}")
+    batched = _is_batched(batched, L)
     if S.device.type == "cpu":
-        m = S.shape[0]
-        if tuple(L.shape) != (m, m):
-            raise ValueError(f"L must be ({m}, {m}); got {tuple(L.shape)}")
-        out, h = fastmix_ef_plain(_flat(S), _flat(err), L, eta, K)
-        return out.reshape(S.shape), h.reshape(S.shape)
+        return _ef_cpu(S, err, L, eta, K, None, None, batched)
     if S.device.type != "cuda":
         raise ValueError(f"fastmix runs on cuda or cpu tensors, got "
                          f"{S.device}")
-    _check_cuda(L, S, err)
-    return _launch_ef(S, None, None, err, L, eta, K, track=False)
+    _check_cuda(L, S, err, batched=batched)
+    return _launch_ef(S, None, None, err, L, eta, K, False, batched, coef)
 
 
 def fastmix_track_ef_fused(S: torch.Tensor, G: torch.Tensor,
                            G_prev: torch.Tensor, err: torch.Tensor,
                            L: torch.Tensor, eta, K: int, *,
-                           wire: str = "fp8"):
+                           wire: str = "fp8", batched: bool = False,
+                           coef: Optional[torch.Tensor] = None):
     """Fused subspace tracking + K fp8 error-feedback FastMix rounds.
 
     Semantically ``fastmix_ef_fused(tracking_update(S, G, G_prev), err,
     L, eta, K)``, with the tracked iterate formed on the kernel's tile.
-    Returns ``(S_out, err_out)``.
+    Returns ``(S_out, err_out)``.  ``batched``, ``coef`` and a per-problem
+    ``L`` / ``eta`` as in :func:`fastmix_fused`.
     """
     _check_fp8("fastmix_track_ef_fused", wire)
     if not (S.shape == G.shape == G_prev.shape == err.shape):
         raise ValueError("S/G/G_prev/err shapes must match; got "
                          f"{tuple(S.shape)}, {tuple(G.shape)}, "
                          f"{tuple(G_prev.shape)}, {tuple(err.shape)}")
+    batched = _is_batched(batched, L)
     if S.device.type == "cpu":
-        m = S.shape[0]
-        if tuple(L.shape) != (m, m):
-            raise ValueError(f"L must be ({m}, {m}); got {tuple(L.shape)}")
-        x = tracking_update(S.to(torch.float32), G.to(torch.float32),
-                            G_prev.to(torch.float32))
-        out, h = fastmix_ef_plain(_flat(x), _flat(err), L, eta, K)
-        return out.reshape(S.shape), h.reshape(S.shape)
+        return _ef_cpu(S, err, L, eta, K, G, G_prev, batched)
     if S.device.type != "cuda":
         raise ValueError(f"fastmix runs on cuda or cpu tensors, got "
                          f"{S.device}")
-    _check_cuda(L, S, G, G_prev, err)
-    return _launch_ef(S, G, G_prev, err, L, eta, K, track=True)
+    _check_cuda(L, S, G, G_prev, err, batched=batched)
+    return _launch_ef(S, G, G_prev, err, L, eta, K, True, batched, coef)
 
 
 # ------------------------------------------------------------------------
@@ -690,7 +934,8 @@ def _apply_track_entry():
     fn = _build.load("apply_track").apply_track
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [
-        ctypes.c_float, ctypes.c_float] + [ctypes.c_int] * 7 + [
+        ctypes.c_float, ctypes.c_float] + [ctypes.c_int] * 8 + [
+        ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
         ctypes.c_void_p]
     return fn
 
@@ -698,7 +943,9 @@ def _apply_track_entry():
 def apply_track_fused(A: torch.Tensor, W: torch.Tensor, S: torch.Tensor,
                       G_prev: torch.Tensor, L: torch.Tensor, eta, K: int, *,
                       wire_bf16: bool = False,
-                      P: Optional[torch.Tensor] = None):
+                      P: Optional[torch.Tensor] = None,
+                      batched: bool = False,
+                      coef: Optional[torch.Tensor] = None):
     """Local apply + subspace tracking + K FastMix rounds in one call.
 
     Semantically::
@@ -717,49 +964,97 @@ def apply_track_fused(A: torch.Tensor, W: torch.Tensor, S: torch.Tensor,
     combine.  Past the resident gossip kernels' agent limit
     (:func:`kernel_fits`) the gossip runs on FastMix's panel kernels, from
     the same C entry.
+
+    A leading problem axis (``batched``, implied by an ``L`` or ``P``
+    stack: ``A`` ``(B, m, d, d)``, the rest ``(B, m, d, k)``) runs all B
+    problems in the same two launches: the product over ``B m`` agents,
+    the gossip over B slices, ``L``/``P``/``eta``/``coef`` as in
+    :func:`fastmix_fused`.  Past the resident limit it runs problem by
+    problem.
     """
-    m, d, k = W.shape
-    if tuple(A.shape) != (m, d, d):
-        raise ValueError(f"A must be ({m}, {d}, {d}) for W {tuple(W.shape)}; "
-                         f"got {tuple(A.shape)}")
-    if not (tuple(S.shape) == tuple(G_prev.shape) == (m, d, k)):
-        raise ValueError(f"S/G_prev must be ({m}, {d}, {k}); got "
+    batched = _is_batched(batched, L, P)
+    lead = 1 if batched else 0
+    m, d, k = W.shape[lead:]
+    B = W.shape[0] if batched else 1
+    pre = (B,) if batched else ()
+    if tuple(A.shape) != pre + (m, d, d):
+        raise ValueError(f"A must be {pre + (m, d, d)} for W "
+                         f"{tuple(W.shape)}; got {tuple(A.shape)}")
+    if not (tuple(S.shape) == tuple(G_prev.shape) == pre + (m, d, k)):
+        raise ValueError(f"S/G_prev must be {pre + (m, d, k)}; got "
                          f"{tuple(S.shape)}, {tuple(G_prev.shape)}")
-    if tuple(L.shape) != (m, m):
-        raise ValueError(f"L must be ({m}, {m}); got {tuple(L.shape)}")
+    _check_L_cpu(L, m)
     _check_P(P, m, wire_bf16)
     if A.device.type == "cpu":
-        return apply_track_plain(A, W, S, G_prev, L, eta, K,
-                                 wire_bf16=wire_bf16, P=P)
+        if not batched:
+            return apply_track_plain(A, W, S, G_prev, L, eta, K,
+                                     wire_bf16=wire_bf16, P=P)
+        etas = _host_etas(eta, B)
+        outs = [apply_track_plain(A[b], W[b], S[b], G_prev[b],
+                                  _per_slice(L, b),
+                                  eta if etas is None else etas[b], K,
+                                  wire_bf16=wire_bf16, P=_per_slice(P, b))
+                for b in range(B)]
+        return (torch.stack([o for o, _ in outs]),
+                torch.stack([g for _, g in outs]))
     if A.device.type != "cuda":
         raise ValueError(f"apply_track runs on cuda or cpu tensors, got "
                          f"{A.device}")
-    _check_cuda(L, S, G_prev, W)
-    _check_cuda(L, A)
+    _check_cuda(L, S, G_prev, W, batched=batched)
+    _check_cuda(L, A, batched=batched)
     S_new, G = torch.empty_like(S), torch.empty_like(S)
     if S.numel() == 0:
         return S_new, G
+    etas = _host_etas(eta, B) if batched else None
+    rounds_path = wire_bf16 or K <= 0
+    if not rounds_path and P is None:
+        P = poly_matrix(L, eta if etas is None else etas, K)
+    M = L if rounds_path else P
+    if batched and not kernel_fits(m, None):   # panels: problem by problem
+        for b in range(B):
+            S_new[b], G[b] = _apply_track_launch(
+                A[b], W[b], S[b], G_prev[b], _per_slice(M, b),
+                eta if etas is None else etas[b], K, wire_bf16, 1, None,
+                None)
+    else:
+        _apply_track_launch(A, W, S, G_prev, M, eta, K, wire_bf16, B, etas,
+                            coef, S_new, G)
+    LAUNCHES["apply_track"] += 1
+    return S_new, G
+
+
+def _apply_track_launch(A, W, S, G_prev, M, eta, K, wire_bf16, B, etas,
+                        coef, S_new=None, G=None):
+    """One call of the C entry over B problems (M is L on the round path,
+    else P) -> ``(S_new, G)``."""
+    m, d, k = W.shape[-3:]
+    if S_new is None:
+        S_new, G = torch.empty_like(S), torch.empty_like(S)
+    dev = A.device
     n = d * k
-    sms = sm_count(A.device.index)
+    sms = sm_count(dev.index)
+    rounds_path = wire_bf16 or K <= 0
+    name = "L" if rounds_path else "P"
+    ms = _matrix_stride(name, M, m, B, dev)
     work = None
-    if wire_bf16 or K <= 0:
-        M = L
+    if rounds_path:
         rows, bn = rounds_tile(m, n, sms)
         stages = 0
         work = _work(m, n, K, rows == 0, S)
     else:
-        M = poly_matrix(L, eta, K) if P is None else P
-        _check_matrix("P", M, m, A.device)
         rows, bn, stages = apply_tile(m, n, True, sms)
-    bm, kp, _ = product_tile(m, d, k, sms)
-    stream = torch.cuda.current_stream(A.device).cuda_stream
+    # each output of the product is one FMA chain whatever the tile: the
+    # tile follows all B m agents
+    bm, kp, _ = product_tile(B * m, d, k, sms)
+    cp, cs, _keep = _coef_arg(etas, coef, B, dev)
+    e = float(eta) if etas is None else 0.0
+    stream = torch.cuda.current_stream(dev).cuda_stream
     code = _apply_track_entry()(
         M.data_ptr(), A.data_ptr(), W.data_ptr(), S.data_ptr(),
         G_prev.data_ptr(), S_new.data_ptr(), G.data_ptr(), _ptr(work), m,
-        d, k, 1.0 + float(eta), float(eta), int(K), bm, kp, rows, bn, stages,
-        int(wire_bf16), stream)
+        d, k, 1.0 + e, e, int(K), bm, kp, rows, bn, stages, int(wire_bf16),
+        B, ms, cp, cs, stream)
     _build.check("apply_track", code)
-    LAUNCHES["apply_track"] += 1
     return S_new, G
 
 

@@ -102,6 +102,28 @@ def test_rescue_applies_pass3_to_whole_batch():
                                atol=1e-13)
 
 
+def test_rescue_is_gated_per_problem():
+    """A batch of problems ``(B, m, d, k)`` gates pass 3 per problem (the
+    last leading axis is one problem's agents), as the reference's vmap
+    over problems does: a clean problem beside a rescued one keeps its own
+    result, and each equals the reference's per-problem call."""
+    rng = np.random.default_rng(5)
+    good = rng.standard_normal((2, 40, 3))
+    bad = np.linalg.qr(rng.standard_normal((40, 3)))[0] * [1, 1e-4, 1e-9]
+    X = np.stack([np.stack([good[0], bad]), good])          # (2, 2, 40, 3)
+    Q = port.cholqr2(torch.from_numpy(X))
+    for b in range(2):
+        alone = port.cholqr2(torch.from_numpy(X[b]))
+        assert torch.equal(Q[b], alone), b
+        np.testing.assert_allclose(Q[b].numpy(), _ref(X[b], "float64"),
+                                   rtol=1e-12, atol=1e-13)
+    with jax.enable_x64(True):
+        ref = np.asarray(jax.vmap(ref_cholqr2)(jnp.asarray(X)))
+    np.testing.assert_allclose(Q[1].numpy(), ref[1], rtol=1e-12, atol=1e-13)
+    flat = port.cholqr2_plain(torch.from_numpy(X.reshape(4, 40, 3)), group=2)
+    assert torch.equal(flat.reshape(Q.shape), Q)
+
+
 def test_householder_fallbacks(monkeypatch):
     rng = np.random.default_rng(3)
     X = torch.from_numpy(rng.standard_normal((4, 24, 3)))

@@ -230,7 +230,7 @@ def test_metrics_match_reference(dtype):
 def test_engine_caches_P_per_rounds(monkeypatch):
     """The cuda backend builds ``P_K(L)`` once per (dtype, device, rounds)
     and reuses it; f64 and the bf16 wire build none; DePCA's increasing
-    rounds build one per round count.  Results match the stacked backend
+    rounds build every round count of the window in one call.  Results match the stacked backend
     (1e-5)."""
     from repro_torch.kernels import fastmix as fm
     built = []
@@ -268,7 +268,8 @@ def test_engine_caches_P_per_rounds(monkeypatch):
                           .astype(np.float32))
     res = P.depca(ops, topo, W0, k=3, T=4, K=2, backend="cuda",
                   increasing_consensus=True)
-    assert built == [2, 3, 4, 5]
+    # the increasing rounds' window: all four round counts in one build
+    assert built == [[2, 3, 4, 5]]
     want = P.depca(ops, topo, W0, k=3, T=4, K=2, backend="stacked",
                    increasing_consensus=True)
     torch.testing.assert_close(res.W, want.W, rtol=1e-5, atol=1e-5)

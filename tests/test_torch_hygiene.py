@@ -48,7 +48,9 @@ def test_import_leaves_jax_and_reference_out():
 
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(ROOT)) for p in [*PORT.rglob("*.py"),
-                                       ROOT / "chip_smoke.py"]))
+                                       ROOT / "chip_smoke.py",
+                                       ROOT / "scripts" /
+                                       "bench_torch_deepca.py"]))
 def test_no_jax_or_reference_import(path):
     tree = ast.parse((ROOT / path).read_text())
     for node in ast.walk(tree):
@@ -132,6 +134,14 @@ def test_build_rules_without_nvcc(monkeypatch):
 ENTRIES = ("apply_track", "cholqr2", "fastmix", "fastmix_apply",
            "fastmix_ef", "fastmix_poly", "flash_attention", "gram",
            "power_matmul")
+#: The argument count of each C entry.  The gossip entries take the slice
+#: axis (a slice count, the iterate's and the matrix's slice strides, the
+#: per-slice coefficient table and its stride; ``fastmix_poly`` also the
+#: per-slice round counts; ``apply_track`` the problem count); ``cholqr2``
+#: takes the group of elements that shares a rescue flag (one problem).
+ARITY = {"apply_track": 25, "cholqr2": 11, "fastmix": 21,
+         "fastmix_apply": 15, "fastmix_ef": 22, "fastmix_poly": 15,
+         "flash_attention": 26, "gram": 7, "power_matmul": 9}
 
 
 def _entries():
@@ -169,7 +179,8 @@ def test_ctypes_signature_matches_the_c_entry_point(source, monkeypatch):
     entries = _entries()
     assert sorted(entries) == list(ENTRIES)
     assert {src for src, _ in entries.values()} == set(_build.SOURCES)
-    source, bind = entries[source]
+    entry = source
+    source, bind = entries[entry]
     bind()
     assert loaded == [source] and len(seen) == 1
     fn = seen[0]
@@ -179,3 +190,4 @@ def test_ctypes_signature_matches_the_c_entry_point(source, monkeypatch):
     assert sig is not None, fn.name
     n_params = len([p for p in sig.group(1).split(",") if p.strip()])
     assert len(fn.argtypes) == n_params, (fn.name, fn.argtypes)
+    assert n_params == ARITY[entry], (fn.name, n_params)

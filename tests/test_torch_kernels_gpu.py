@@ -816,3 +816,258 @@ def test_lm_kernel_and_plain_attention_agree_on_card(sm90, dtype):
         else 1e-4
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(), rtol=0, atol=tol)
+
+
+# ------------------------------------------------------------ the slice axis
+def _slice_operands(B, m, seed):
+    """B graphs (one per slice: a rewired ER schedule), their momenta and
+    fp32 mixing matrices on the card."""
+    sched = P.TopologySchedule.periodic_rewiring(m, p=0.5, seed=seed)
+    topos = sched.topologies(0, B)
+    L = torch.from_numpy(np.stack([tp.mixing for tp in topos])
+                         .astype(np.float32)).cuda()
+    etas = [P.fastmix_eta(tp.lambda2) for tp in topos]
+    return L, etas
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("track", [False, True])
+@pytest.mark.parametrize("mode", ["fp32", "k0", "bf16", "fp8"])
+@pytest.mark.parametrize("B,m,n,K", [(8, 50, 1500, 8), (3, 7, 33, 3),
+                                     (2, 240, 64, 3)])
+def test_sliced_gossip_equals_single_launches_on_card(sm90, B, m, n, K, mode,
+                                                      track, shared):
+    """A batched launch (a leading problem axis, ``L``/``P`` shared or one
+    per problem, each problem its own momentum) gives each problem the
+    single launch's result bit for bit, in one launch counted once: the
+    no-wire ``P_K(L)`` apply, the K = 0 and bf16 round loops, the fp8-EF
+    rounds.  m = 240 runs the panel kernels problem by problem."""
+    rng = np.random.default_rng(B + m + n + K)
+    Ls, etas = _slice_operands(B, m, 3)
+    if shared:
+        Ls, etas = Ls[0], etas[0]
+    K = 0 if mode == "k0" else K
+    S, G, Gp, E = (torch.from_numpy(rng.standard_normal((B, m, n))
+                                    .astype(np.float32)).cuda()
+                   for _ in range(4))
+    wire = mode == "bf16"
+    P_ = None
+    if mode == "fp32":
+        P_ = fm.poly_matrix(Ls, etas, K)
+
+    def one(b):
+        L_b = Ls if shared else Ls[b]
+        e_b = etas if shared else etas[b]
+        P_b = None if P_ is None else (P_ if shared else P_[b])
+        if mode == "fp8":
+            return (fm.fastmix_track_ef_fused(S[b], G[b], Gp[b], E[b], L_b,
+                                              e_b, K) if track
+                    else fm.fastmix_ef_fused(S[b], E[b], L_b, e_b, K))
+        if track:
+            return (fm.fastmix_track_fused(S[b], G[b], Gp[b], L_b, e_b, K,
+                                           wire_bf16=wire, P=P_b),)
+        return (fm.fastmix_fused(S[b], L_b, e_b, K, wire_bf16=wire, P=P_b),)
+
+    kernels.reset_launch_counts()
+    if mode == "fp8":
+        got = (fm.fastmix_track_ef_fused(S, G, Gp, E, Ls, etas, K,
+                                         batched=True) if track
+               else fm.fastmix_ef_fused(S, E, Ls, etas, K, batched=True))
+        name = "fastmix_track_ef" if track else "fastmix_ef"
+    else:
+        got = ((fm.fastmix_track_fused(S, G, Gp, Ls, etas, K, wire_bf16=wire,
+                                       P=P_, batched=True),) if track
+               else (fm.fastmix_fused(S, Ls, etas, K, wire_bf16=wire, P=P_,
+                                      batched=True),))
+        name = "fastmix_track" if track else "fastmix"
+    assert kernels.launch_counts()[name] == 1
+    want = [one(b) for b in range(B)]
+    torch.cuda.synchronize()
+    for b in range(B):
+        for a, w in zip(got, want[b]):
+            assert torch.equal(a[b], w), b
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [50, 7, 240])
+def test_window_build_equals_single_builds_on_card(sm90, m):
+    """A window of T polynomials in one launch -- per-slice ``L`` and
+    momentum, mixed K (0 to 12), and the shared-``L`` increasing-rounds
+    window -- equals T single builds bit for bit.  m = 240 runs the panel
+    rounds slice by slice."""
+    T = 100 if m <= 50 else 6
+    Ls, etas = _slice_operands(T, m, 5)
+    ks = [(t * 7) % 13 for t in range(T)]
+    kernels.reset_launch_counts()
+    got = fm.poly_matrix(Ls, etas, ks)
+    inc = fm.poly_matrix(Ls[0], etas[0], [8 + t for t in range(T)])
+    assert kernels.launch_counts()["fastmix_poly"] == 2
+    torch.cuda.synchronize()
+    assert got.shape == (T, m, m) and inc.shape == (T, m, m)
+    for t in range(T):
+        assert torch.equal(got[t], fm.poly_matrix(Ls[t], etas[t], ks[t])), t
+        assert torch.equal(inc[t], fm.poly_matrix(Ls[0], etas[0], 8 + t)), t
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("wire", [False, True])
+@pytest.mark.parametrize("B,m,d,k,K", [(8, 50, 300, 5, 8), (3, 8, 40, 3, 4),
+                                       (2, 240, 64, 3, 2)])
+def test_sliced_apply_track_equals_single_calls_on_card(sm90, B, m, d, k, K,
+                                                        wire, shared):
+    """apply-track over a problem axis: the product on ``B m`` agents and
+    the gossip over B slices give each problem's single call bit for bit
+    (``P`` or ``L`` shared or per problem)."""
+    rng = np.random.default_rng(B + m + d + K)
+    A = torch.from_numpy((rng.standard_normal((B, m, d, d)) / d ** 0.5)
+                         .astype(np.float32)).cuda()
+    W, S, Gp = (torch.from_numpy(rng.standard_normal((B, m, d, k))
+                                 .astype(np.float32)).cuda()
+                for _ in range(3))
+    Ls, etas = _slice_operands(B, m, 7)
+    if shared:
+        Ls, etas = Ls[0], etas[0]
+    P_ = None if wire else fm.poly_matrix(Ls, etas, K)
+    kernels.reset_launch_counts()
+    S_new, G = fm.apply_track_fused(A, W, S, Gp, Ls, etas, K,
+                                    wire_bf16=wire, P=P_, batched=True)
+    assert kernels.launch_counts()["apply_track"] == 1
+    for b in range(B):
+        L_b = Ls if shared else Ls[b]
+        P_b = None if P_ is None else (P_ if shared else P_[b])
+        s_b, g_b = fm.apply_track_fused(A[b], W[b], S[b], Gp[b], L_b,
+                                        etas if shared else etas[b], K,
+                                        wire_bf16=wire, P=P_b)
+        torch.cuda.synchronize()
+        assert torch.equal(S_new[b], s_b) and torch.equal(G[b], g_b), b
+
+
+def _batch_problems(B, m, n, d, k, dense):
+    probs = [P.libsvm_like(m, n, d, seed=s) for s in range(B)]
+    if dense:
+        probs = [P.StackedOperators(dense=(p.data.mT @ p.data).contiguous())
+                 for p in probs]
+    rng = np.random.default_rng(0)
+    W0 = torch.stack([torch.from_numpy(np.linalg.qr(
+        rng.standard_normal((d, k)))[0].astype(np.float32))
+        for _ in range(B)]).cuda()
+    return probs, W0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dense,wire", [(False, None), (True, None),
+                                        (False, "fp8")])
+@pytest.mark.parametrize("dynamic", [False, True])
+def test_run_batch_equals_separate_runs_on_card(sm90, dynamic, dense, wire):
+    """``run_batch`` on the card equals B ``run`` calls bit for bit, static
+    and dynamic (offsets 0 to 3), with T gossip launches and one window
+    build for the whole batch (the EF wire composes ``ops.apply`` with its
+    kernel, so the data form covers it)."""
+    B, m, n, d, k, K, T = 4, 16, 40, 60, 3, 6, 5
+    probs, W0 = _batch_problems(B, m, n, d, k, dense)
+    step = P.PowerStep.for_algorithm("deepca", K, ef_wire=wire is not None)
+    if dynamic:
+        eng = P.DynamicConsensusEngine.for_algorithm(
+            "deepca", P.TopologySchedule.periodic_rewiring(m, p=0.5, seed=0),
+            K=K, backend="cuda", wire_dtype=wire)
+        drv = P.IterationDriver(step=step, dynamic=eng)
+    else:
+        eng = P.ConsensusEngine.for_algorithm(
+            "deepca", P.erdos_renyi(m, p=0.5, seed=0), K=K, backend="cuda",
+            wire_dtype=wire)
+        drv = P.IterationDriver(step=step, engine=eng)
+    offs = list(range(B))
+    drv.run_batch(probs, W0, T=1, t0=offs)          # warm the caches
+    kernels.reset_launch_counts()
+    out = drv.run_batch(probs, W0, T=T, t0=offs, with_history=True)
+    counts = kernels.launch_counts()
+    gossip = ("apply_track" if dense else
+              "fastmix_track_ef" if wire else "fastmix_track")
+    assert counts[gossip] == T
+    assert counts["fastmix_poly"] == (1 if dynamic and not wire else 0)
+    for b in range(B):
+        ref = drv.run(probs[b], W0[b], T=T, t0=offs[b])
+        torch.cuda.synchronize()
+        assert torch.equal(out.W[b], ref.carry[1]), b
+        assert torch.equal(out.S[b], ref.carry[0]), b
+        assert torch.equal(out.W_hist[b], ref.W_hist), b
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wire", [None, "fp8"])
+def test_schedule_deepca_builds_once_per_window_on_card(sm90, wire):
+    """A schedule window: one ``fastmix_poly`` launch (none on a wire), T
+    gossip launches, and the result within 1e-4 of ``stacked``; DePCA's
+    increasing rounds build once per run."""
+    m, n, d, k, K, T = 50, 40, 60, 4, 8, 12
+    ops = P.libsvm_like(m, n, d, seed=0)
+    W0 = torch.linalg.qr(torch.from_numpy(np.random.default_rng(1)
+                                          .standard_normal((d, k))
+                                          .astype(np.float32)).cuda()).Q
+    sched = P.TopologySchedule.edge_dropout(P.erdos_renyi(m, 0.5, seed=0),
+                                            p_drop=0.1, seed=0)
+    kw = dict(k=k, T=T, K=K, schedule=sched, wire_dtype=wire,
+              accelerated=wire is not None)
+    kernels.reset_launch_counts()
+    got = P.deepca(ops, None, W0, backend="cuda", **kw)
+    counts = kernels.launch_counts()
+    gossip = "fastmix_track_ef" if wire else "fastmix_track"
+    assert counts[gossip] == T
+    assert counts["fastmix_poly"] == (0 if wire else 1)
+    want = P.deepca(ops, None, W0, backend="stacked", **kw)
+    Qa, Qb = (P.qr_orth(W.double()) for W in (want.W, got.W))
+    assert float(torch.linalg.matrix_norm(Qb - Qa @ (Qa.mT @ Qb)).max()) \
+        < 1e-4
+    kernels.reset_launch_counts()
+    P.depca(ops, P.erdos_renyi(m, 0.5, seed=0), W0, k=k, T=T, K=K,
+            backend="cuda", increasing_consensus=True)
+    counts = kernels.launch_counts()
+    assert counts["fastmix_poly"] == 1 and counts["fastmix"] == T
+
+
+@pytest.mark.gpu
+def test_schedule_deepca_past_the_kernel_limit_on_card(sm90):
+    """m = 256 under a schedule: the panel kernels (T gossip launches, the
+    window's builds slice by slice, counted once), within 1e-4 of
+    ``stacked``."""
+    m, n, d, k, T = 256, 40, 60, 4, 6
+    ops = P.libsvm_like(m, n, d, seed=0)
+    W0 = torch.linalg.qr(torch.from_numpy(np.random.default_rng(1)
+                                          .standard_normal((d, k))
+                                          .astype(np.float32)).cuda()).Q
+    sched = P.TopologySchedule.periodic_rewiring(m, p=0.5, seed=0, period=2)
+    kernels.reset_launch_counts()
+    got = P.deepca(ops, None, W0, k=k, T=T, K=8, backend="cuda",
+                   schedule=sched)
+    counts = kernels.launch_counts()
+    assert not fm.kernel_fits(m, None)
+    assert counts["fastmix_track"] == T and counts["fastmix_poly"] == 1
+    want = P.deepca(ops, None, W0, k=k, T=T, K=8, backend="stacked",
+                    schedule=sched)
+    Qa, Qb = (P.qr_orth(W.double()) for W in (want.W, got.W))
+    assert float(torch.linalg.matrix_norm(Qb - Qa @ (Qa.mT @ Qb)).max()) \
+        < 1e-4
+
+
+@pytest.mark.gpu
+def test_cholqr2_gates_the_rescue_per_problem_on_card(sm90):
+    """A batch of problems ``(B, m, d, k)`` through one launch: each problem
+    gates its third pass on its own flag, so a rescued problem and a clean
+    one each equal their own call bit for bit, and the stream's flags are
+    zero again after."""
+    batch, clean = (torch.from_numpy(a).cuda() for a in _rescue_inputs())
+    X = torch.stack([batch, clean, clean])
+    kernels.reset_launch_counts()
+    Q = cq.cholqr2(X)
+    assert kernels.launch_counts()["cholqr2"] == 1
+    for b in range(3):
+        assert torch.equal(Q[b], cq.cholqr2(X[b])), b
+    torch.cuda.synchronize()
+    flags = cq._FLAGS[(0, torch.cuda.current_stream().cuda_stream, 3)]
+    assert flags.tolist() == [0] * 6
+    mine = torch.zeros(3, dtype=torch.int32, device="cuda")
+    assert torch.equal(Q.reshape(-1, *Q.shape[2:]), cq.cholqr2_fused(
+        X.reshape(-1, *X.shape[2:]), flag=mine, group=X.shape[1]))
+    assert mine.tolist()[0] != 0 and mine.tolist()[1:] == [0, 0]

@@ -146,15 +146,21 @@ def test_increasing_consensus_rounds_and_resume():
 
 
 def test_unported_features_raise():
+    """What an earlier slice left unported now runs: time-varying graphs
+    (``schedule=`` and a dynamic ``engine=``, ported with the schedules)
+    and the error-feedback wires."""
     ops = P.synthetic_spiked(4, 8, 2, n_per_agent=6, device="cpu")
     topo = P.ring(4)
     W0 = np.linalg.qr(np.random.default_rng(0).standard_normal((8, 2)))[0]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        P.deepca(ops, topo, W0.astype(np.float32), k=2, T=1, K=2,
-                 schedule=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        P.deepca(ops, topo, W0.astype(np.float32), k=2, T=1, K=2,
-                 engine=object())
+    static = P.deepca(ops, topo, W0.astype(np.float32), k=2, T=2, K=2,
+                      device="cpu")
+    sched = P.TopologySchedule.constant(topo)
+    for kw in (dict(schedule=sched),
+               dict(engine=P.DynamicConsensusEngine(sched, K=2,
+                                                    device="cpu"))):
+        res = P.deepca(ops, None, W0.astype(np.float32), k=2, T=2, K=2,
+                       device="cpu", **kw)
+        torch.testing.assert_close(res.W, static.W, rtol=1e-6, atol=1e-6)
     # the error-feedback wires are ported: int8 runs and carries its slot
     res = P.deepca(ops, topo, W0.astype(np.float32), k=2, T=1, K=2,
                    wire_dtype="int8", device="cpu")
