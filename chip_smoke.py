@@ -46,7 +46,20 @@ What it does, in order; any failure raises and the exit code is non-zero:
    ``run`` calls bit for bit with T gossip launches for the whole batch;
    step 3 also holds the slice axis's kernels (a window of T builds in
    one launch, the tracked apply over a problem axis) against their single
-   launches and plain versions;
+   launches and plain versions; 4g. ``repro_torch.launch.serve --workload
+   pca`` in-process at the batched cell's shapes (B=8, m=50, d=300, k=5,
+   995 rows per agent, T=100, K=8) with a JSONL sink, diagnostics, a
+   Chrome trace and ``--profile-stages``: the events the runtime layer
+   promises (one ``config``, a cold ``launch`` then warm ones, T
+   ``iteration`` and T ``diag`` events per run, three ``stage`` events,
+   the spans), the health monitor's diagnoses equal to a replay of the
+   request's own events, the trace's nesting, every problem's tan theta
+   under 1e-4; then the batch driver with diagnostics off and on (exactly
+   T gossip and T ``cholqr2`` launches per run, W bit-equal), µs and
+   device ops per batch iteration off, on, and on with a sink and a
+   tracer, the w8a driver's device ops unchanged by a sink and a tracer,
+   and a cached non-default FastMix width launched, bit-equal to the
+   default's;
 5. runs the f64 bench grid on the card (f64 never enters a kernel) and
    holds it to ``BENCH_deepca.json``; 5b. runs
    ``scripts/bench_torch_deepca.py --quick`` and ``benchmarks/bench_diff.py``
@@ -73,6 +86,7 @@ It imports nothing of JAX and nothing of the JAX package ``repro``.
 from __future__ import annotations
 
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -838,7 +852,7 @@ def breakdown(P, ops, topo, W0, U, K: int, T: int) -> None:
 
 
 def profile_window(label: str, unit: str, fn, units: int,
-                   calls: int = 1, focus: str = "") -> None:
+                   calls: int = 1, focus: str = "") -> dict:
     """Device busy share, device ops and top kernels per ``unit`` over
     ``calls`` calls of ``fn`` (``units`` units in all) under the profiler
     (the host is slower there: the idle share is an upper bound).  With
@@ -877,6 +891,259 @@ def profile_window(label: str, unit: str, fn, units: int,
     for dev_us, count, key in sorted(rows, reverse=True)[:8]:
         print(f"profile   {dev_us / units:10.1f} us/{unit}  "
               f"{count / units:6.1f} calls/{unit}  {key[:90]}")
+    return {"wall_ms": wall * 1e3, "device_busy_ms": busy * 1e3,
+            "idle_share": 1 - busy / wall, "device_ops": launches / units}
+
+
+#: The serve phase's request: ``serve --workload pca`` at the batched w8a
+#: cell's shapes (8 problems of m=50 agents, n=995 rows each, d=300, k=5;
+#: 477 MB of data), T=100, K=8.
+SERVE_ARGS = ("--workload pca --batch 8 --m 50 --d 300 --k-top 5 "
+              "--n-per-agent 995 --iters 100 --rounds 8 --reps 5").split()
+#: The serve phase's accuracy bound: every problem's tan theta after T=100.
+SERVE_TAN_TOL = 1e-4
+#: The health rules that fire on this request in both packages (the
+#: reference's own serve, run on the CPU at one of these problems, raises
+#: the same two): movement decaying slower than 2x in 6 iterations, and the
+#: consensus residual at the fp32 floor of data this large (PERF.md).
+SERVE_RULES = {"stalled-movement", "contraction-collapse"}
+
+
+def per_iteration_us(fn, T: int, reps: int = 3) -> float:
+    """Best host-clock µs per iteration of ``fn`` (T iterations, ending
+    in a synchronize), after one warm call."""
+    fn()
+    best = float("inf")
+    for _ in range(reps):
+        _, sec = run_timed(fn)
+        best = min(best, sec)
+    return best / T * 1e6
+
+
+def check_serve_events(events, T: int, B: int, reps: int) -> None:
+    """The serve request's JSONL: the events the runtime layer promises."""
+    by = {}
+    for ev in events:
+        by.setdefault(ev["event"], []).append(ev)
+    runs = reps + 1                              # the warm run and the timed
+    if len(by.get("config", [])) != 1:
+        fail(f"serve: want one config event, got {len(by.get('config', []))}")
+    warm = [ev["warm"] for ev in by.get("launch", [])]
+    if warm != [False] + [True] * reps:
+        fail(f"serve: launch events' warm flags {warm}, want one cold "
+             f"launch then {reps} warm ones")
+    for name in ("iteration", "diag"):
+        evs = by.get(name, [])
+        ts = [ev["t"] for ev in evs]
+        if len(evs) != T * runs or ts != list(range(T)) * runs or \
+                any(ev["batch"] != B or ev["source"] != "driver.run_batch"
+                    for ev in evs):
+            fail(f"serve: want {T} {name} events per run ({runs} runs) with "
+                 f"batch {B} from driver.run_batch; got {len(evs)}")
+    if [ev["stage"] for ev in by.get("stage", [])] != ["apply", "mix",
+                                                       "orth"]:
+        fail(f"serve: want three stage events, got {by.get('stage')}")
+    spans = {ev["name"] for ev in by.get("span", [])}
+    want = {"serve.request", "driver.launch", "profile.apply",
+            "profile.mix", "profile.orth"}
+    if not want <= spans:
+        fail(f"serve: span events {sorted(spans)} lack {sorted(want - spans)}")
+
+
+def check_serve_health(events, diagnostics, telemetry) -> list:
+    """The live health monitor against a replay of the same rule engine
+    over the request's own events: the same diagnoses, in order, and the
+    summary's count.  Returns the diagnoses."""
+    live = [ev for ev in events if ev["event"] == "health"]
+    summary = [ev for ev in live if ev.get("rule") == "summary"]
+    live = [ev for ev in live if ev.get("rule") != "summary"]
+    replay = diagnostics.HealthMonitor(telemetry.RecordingSink())
+    for ev in events:
+        if ev["event"] != "health":
+            fields = {k: v for k, v in ev.items()
+                      if k not in ("event", "seq", "ts")}
+            replay.emit(ev["event"], fields)
+    strip = [{k: v for k, v in ev.items() if k not in ("event", "seq", "ts")}
+             for ev in live]
+    if len(summary) != 1 or summary[0]["diagnoses"] != len(live) or \
+            json.loads(json.dumps(replay.diagnoses)) != strip:
+        fail(f"serve: the live monitor's diagnoses ({len(live)}) differ "
+             f"from a replay of its events ({len(replay.diagnoses)})")
+    rules = {ev["rule"] for ev in live}
+    if not rules <= SERVE_RULES:
+        fail(f"serve: unexpected health diagnoses {sorted(rules - SERVE_RULES)}")
+    return live
+
+
+def serve_phase(P, kernels, fm, ops, W0, peaks) -> dict:
+    """``repro_torch.launch.serve --workload pca`` in-process at full width
+    with the runtime layer on, then its batch driver with diagnostics off
+    and on, a sink and a tracer on the w8a driver, and an autotuned
+    FastMix width.  Fails on any broken promise; returns the numbers."""
+    import dataclasses
+    import tempfile
+    from repro_torch.kernels import autotune
+    from repro_torch.launch import serve
+    from repro_torch.runtime import config, diagnostics, telemetry, tracing
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_serve_"))
+    jsonl, trace = tmp / "serve.jsonl", tmp / "serve_trace.json"
+    dev = W0.device                 # the card (a CPU rehearsal passes cpu)
+    argv = SERVE_ARGS + ["--telemetry", f"jsonl:{jsonl}", "--diag",
+                         "--trace", f"chrome:{trace}", "--profile-stages"]
+    if dev.type != "cuda":
+        argv += ["--device", str(dev)]
+    args = serve.parse_args(argv)
+    T, B, reps = args.iters, args.batch, args.reps
+    kernels.reset_launch_counts()
+    res, sec = run_timed(serve.main, argv)
+    counts = kernels.launch_counts()
+    gossip, builds = counts["fastmix_track"], counts["fastmix_poly"]
+    print(f"serve pca {' '.join(SERVE_ARGS)} (data "
+          f"{sum(p.data.numel() for p in res['problems']) * 4 / 1e9:.3f} GB)"
+          f": request s={sec:.3f} ms_per_launch={res['ms_per_launch']:.3f} "
+          f"stages_us={ {k: round(v, 1) for k, v in res['stages'].items()} } "
+          f"tan_theta max={max(res['tans']):.6e} "
+          f"mean={float(np.mean(res['tans'])):.6e} launches={counts}",
+          flush=True)
+    if gossip <= 0 or builds <= 0 or counts["cholqr2"] <= 0:
+        fail(f"serve: the request did not go through the kernels: {counts}")
+    tans = res["tans"]
+    if not (len(tans) == B and all(np.isfinite(tans))
+            and max(tans) < SERVE_TAN_TOL):
+        fail(f"serve: tan theta {tans} not all finite and under "
+             f"{SERVE_TAN_TOL:g}")
+    events = [json.loads(line) for line in jsonl.read_text().splitlines()]
+    check_serve_events(events, T, B, reps)
+    found = check_serve_health(events, diagnostics, telemetry)
+    print(f"serve health: {len(found)} diagnoses, rules "
+          f"{sorted({d['rule'] for d in found})}, each equal to a replay of "
+          f"the request's events", flush=True)
+    doc = json.loads(trace.read_text())
+    evs = doc["traceEvents"]
+    outer = [e for e in evs if e["name"] == "serve.request"]
+    inner = [e for e in evs if e["name"] == "driver.launch"]
+    if len(outer) != 1 or len(inner) != reps + 1 or not all(
+            outer[0]["ts"] <= e["ts"] and e["ts"] + e["dur"] <=
+            outer[0]["ts"] + outer[0]["dur"] for e in inner):
+        fail("serve: the Chrome trace does not nest driver.launch in "
+             "serve.request")
+
+    # the batch driver, diagnostics off and on: launches and bits
+    on = res["driver"]
+    off = dataclasses.replace(on, diagnostics=None)
+    probs, W0b = res["problems"], res["W0"]
+    outs = {}
+    for label, drv in (("off", off), ("on", on)):
+        out, _, c = counted(kernels, drv.run_batch, probs, W0b, T=T)
+        outs[label] = out
+        if c["fastmix_track"] != T or c["cholqr2"] != T or \
+                c["fastmix_poly"] != 0:
+            fail(f"serve: diagnostics {label}: want {T} gossip and {T} "
+                 f"cholqr2 launches per batch run, no build: {c}")
+    if not (torch.equal(outs["off"].W, outs["on"].W) and
+            torch.equal(outs["off"].S, outs["on"].S)):
+        fail("serve: W differs with diagnostics on and off")
+    rec = telemetry.RecordingSink()
+    tracer = tracing.ChromeTracer(str(tmp / "t.json"))
+
+    def observed(fn):
+        """``fn()`` with a recording sink and a tracer installed."""
+        prev = telemetry.set_sink(rec)
+        tracing.set_tracer(tracer)
+        try:
+            return fn()
+        finally:
+            tracing.set_tracer(None)
+            telemetry.set_sink(prev)
+
+    def batch(drv, T):
+        return lambda: drv.run_batch(probs, W0b, T=T)
+
+    us = {"off": per_iteration_us(batch(off, T), T),
+          "on": per_iteration_us(batch(on, T), T),
+          "on+sink+tracer": per_iteration_us(
+              lambda: observed(batch(on, T)), T)}
+    win = 10
+    label = f"serve batch B={B}, {win} iterations, diagnostics"
+    ops_per = {
+        "off": profile_window(f"{label} off", "iteration", batch(off, win),
+                              win),
+        "on": profile_window(f"{label} on", "iteration", batch(on, win),
+                             win),
+        "on+sink+tracer": profile_window(
+            f"{label} on, sink and tracer", "iteration",
+            lambda: observed(batch(on, win)), win)}
+    print(f"serve batch B={B} w8a T={T}: us_per_batch_iteration "
+          f"{ {k: round(v, 1) for k, v in us.items()} }; device ops per "
+          f"batch iteration "
+          f"{ {k: round(v['device_ops'], 2) for k, v in ops_per.items()} }",
+          flush=True)
+
+    # the w8a driver with a sink and a tracer, diagnostics off: the same
+    # device ops per iteration as with neither
+    eng = P.ConsensusEngine.for_algorithm(
+        "deepca", P.erdos_renyi(ops.m, p=0.5, seed=0), K=args.rounds,
+        backend="cuda")
+    drv = P.IterationDriver(step=P.PowerStep.for_algorithm("deepca",
+                                                           args.rounds),
+                            engine=eng)
+    drv.run(ops, W0, T=2)
+    base = profile_window("driver w8a 10 iterations, no sink or tracer",
+                          "iteration", lambda: drv.run(ops, W0, T=win), win)
+    seen = profile_window("driver w8a 10 iterations, sink and tracer on",
+                          "iteration",
+                          lambda: observed(lambda: drv.run(ops, W0, T=win)),
+                          win)
+    if seen["device_ops"] != base["device_ops"]:
+        fail(f"a sink and a tracer changed the w8a driver's device ops per "
+             f"iteration: {base['device_ops']} -> {seen['device_ops']}")
+
+    # an autotuned FastMix width at the w8a shape (m=50, n=d k=1500)
+    m, n = ops.m, 1500
+    rows, bn0, stages = fm.apply_tile(m, n, True, fm.sm_count(dev.index))
+    legal = fm._legal_widths(m, rows, 6 if stages == 2 else 1)
+    tuned_bn = next(w for w in legal if w != bn0)
+    g = torch.Generator(device=dev).manual_seed(30)
+    S, G, Gp = (torch.randn(m, n, generator=g, device=dev)
+                for _ in range(3))
+    L = torch.as_tensor(P.erdos_renyi(m, p=0.5, seed=0).mixing,
+                        dtype=torch.float32, device=dev)
+    Pm = fm.poly_matrix(L, 0.3, 8)
+
+    def gossip_call():
+        return fm.fastmix_track_fused(S, G, Gp, L, 0.3, 8, P=Pm)
+
+    with config.override(autotune_cache=str(tmp / "autotune.json")):
+        default = gossip_call()
+        got_default = fm.LAST_TILE["fastmix_track"][1]
+        ms_default, _ = time_ms(gossip_call)
+        key = autotune.record("fastmix", (m, n), torch.float32,
+                              {"block_n": tuned_bn})
+        tuned = gossip_call()
+        got_tuned = fm.LAST_TILE["fastmix_track"][1]
+        ms_tuned, _ = time_ms(gossip_call)
+    torch.cuda.synchronize()
+    print(f"autotune fastmix_track w8a (m={m}, n={n}) cache key {key}: "
+          f"default BN={got_default} kernel_ms={ms_default:.6f}, cached "
+          f"BN={got_tuned} kernel_ms={ms_tuned:.6f}; bit-equal "
+          f"{bool(torch.equal(tuned, default))}", flush=True)
+    if got_default != bn0 or got_tuned != tuned_bn or \
+            not torch.equal(tuned, default):
+        fail(f"autotune: the cached width {tuned_bn} was not launched "
+             f"(launched {got_tuned}) or its result differs")
+    shutil.rmtree(tmp, ignore_errors=True)
+    return {"us_per_batch_iteration": us,
+            "device_ops_per_batch_iteration":
+                {k: v["device_ops"] for k, v in ops_per.items()},
+            "idle_share": {k: v["idle_share"] for k, v in ops_per.items()},
+            "w8a_driver_device_ops": {"off": base["device_ops"],
+                                      "sink+tracer": seen["device_ops"]},
+            "stages_us": res["stages"], "ms_per_launch": res["ms_per_launch"],
+            "tan_theta_max": max(tans), "health_rules": sorted(
+                {d["rule"] for d in found}), "health_diagnoses": len(found),
+            "autotune_bn": {"default": bn0, "cached": tuned_bn,
+                            "default_ms": ms_default,
+                            "cached_ms": ms_tuned}}
 
 
 def main() -> int:
@@ -1257,6 +1524,14 @@ def main() -> int:
                    lambda: drivers["dynamic"][0].run_batch(
                        probs, W0, T=10, t0=list(range(B))), units=10)
     del probs, out, drivers, drv, dyn
+
+    # ---- 4g. serve --workload pca at full width through the runtime layer
+    # (config, telemetry, tracing, diagnostics with the health monitor,
+    # profile_stages), the batch driver with diagnostics off and on, and an
+    # autotuned FastMix width
+    torch.cuda.empty_cache()
+    serve_numbers = serve_phase(P, kernels, fm, ops, W0, peaks)
+    print(f"serve summary {json.dumps(serve_numbers)}", flush=True)
 
     # ---- 5. f64 bench grid on the card (no kernel takes f64)
     bench = json.loads((ROOT / "BENCH_deepca.json").read_text())

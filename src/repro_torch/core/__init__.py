@@ -7,7 +7,8 @@ from .mixing import (agent_mean, consensus_error, fastmix, fastmix_eta,
 from .consensus import (BACKENDS, VARIANTS, ConsensusEngine,
                         DynamicConsensusEngine, Window, resolve_backend)
 from .schedule import TopologySchedule, adjacency_of
-from .operators import (StackedOperators, libsvm_like, synthetic_spiked,
+from .operators import (StackedOperators, libsvm_like,
+                        synthetic_problem_batch, synthetic_spiked,
                         top_k_eigvecs)
 from .step import (PowerStep, qr_orth, rebase_carry, sign_adjust,
                    split_state)
@@ -27,7 +28,8 @@ __all__ = [
     "ConsensusEngine", "DynamicConsensusEngine", "Window",
     "resolve_backend", "BACKENDS", "VARIANTS",
     "TopologySchedule", "adjacency_of",
-    "StackedOperators", "synthetic_spiked", "libsvm_like", "top_k_eigvecs",
+    "StackedOperators", "synthetic_spiked", "synthetic_problem_batch",
+    "libsvm_like", "top_k_eigvecs",
     "PowerStep", "qr_orth", "rebase_carry", "sign_adjust", "split_state",
     "IterationDriver", "DriverRun", "BatchRun", "local_apply",
     "deepca", "depca", "centralized_power_method", "collect_trace",

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ..kernels.cholqr import qr_orth
+from ..runtime.diagnostics import diag_vector
 
 #: ``(S, W, G_prev)`` plus the optional ``W_prev`` (``accelerated``) and
 #: ``ef`` (error-feedback wire) slots, in that order.
@@ -171,6 +172,17 @@ class PowerStep:
         new_extras = ((W,) if self.accelerated else ()) \
             + ((ef,) if self.ef_wire else ())
         return (S_new, W_new, G) + new_extras, (S_new, W_new)
+
+    def measure(self, spec, new_carry: Carry, old_carry: Carry, *,
+                batched: bool = False) -> torch.Tensor:
+        """The diagnostics of one application of this step: the fp32
+        vector of :func:`~repro_torch.runtime.diagnostics.diag_vector`
+        (ordered as ``spec.names(self)``; ``(B, n)`` with ``batched``),
+        on the carry's device.  The step owns what ``carry[1]`` /
+        ``carry[3]`` / ``carry[-1]`` mean, so the driver never
+        hard-codes the slot layout."""
+        return diag_vector(spec, self, new_carry, old_carry,
+                           batched=batched)
 
     def make_mix(self, engine, rounds: Optional[int] = None, *,
                  batched: bool = False):

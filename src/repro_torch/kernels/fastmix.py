@@ -48,7 +48,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from . import _build
+from . import _build, autotune
 
 #: Wire payload bytes per element for each wire mode (``None`` = fp32).
 #: int8 also ships one fp32 scale per agent per round, which the engine's
@@ -60,6 +60,10 @@ WIRE_ITEMSIZE = {None: 4, "bf16": 2, "int8": 1, "fp8": 1}
 #: one per call.
 LAUNCHES = {"fastmix": 0, "fastmix_track": 0, "fastmix_poly": 0,
             "fastmix_ef": 0, "fastmix_track_ef": 0, "apply_track": 0}
+#: The tile of each wrapper's last kernel launch (``rows, BN[, stages]``;
+#: apply-track also its product's ``BM, KP``): what was launched, for the
+#: callers that check a tuned choice.
+LAST_TILE: dict = {}
 #: Shared memory one block may use on sm_90 (232,448 bytes).
 SMEM_LIMIT = 232448
 #: Column-tile widths of the FastMix kernels, widest first; their blocks
@@ -256,6 +260,46 @@ def apply_tile(m: int, n: int, track: bool, sms: int) -> tuple:
     if _fitting_widths(m, rows, two):
         return rows, tile_width(m, n, rows, two, sms), 2
     return rows, tile_width(m, n, rows, 1, sms), 1
+
+
+# the chooser's tile and the legal widths per (m, n, apply, track, device)
+_GOSSIP_TILES: dict = {}
+
+
+@functools.lru_cache(maxsize=1024)
+def _legal_widths(m: int, rows: int, bufs: int) -> tuple:
+    return tuple(_fitting_widths(m, rows, bufs)) if rows else ()
+
+
+def gossip_tile(m: int, n: int, dev: torch.device, *, apply: bool = False,
+                track: bool = False, block_n: Optional[int] = None) -> tuple:
+    """The tile a gossip wrapper launches over an ``(m, n)`` iterate on
+    ``dev``: :func:`rounds_tile`'s ``(rows, BN)`` (``apply=False``: the
+    round loop) or :func:`apply_tile`'s ``(rows, BN, stages)`` (the
+    ``P_K(L)`` apply), with BN through :func:`autotune.choose` (key
+    ``fastmix/block_n`` at ``(m, n)``): ``block_n``, else
+    ``REPRO_FASTMIX_BLOCK_N``, else a cache entry, else the chooser's.  A
+    width is legal where its block fits (:func:`_fitting_widths` for the
+    tile's rows and buffers); the panel kernels take none.  The column
+    tile decides which columns a block owns, never a sum's order, so
+    every legal width gives the same bits.
+    """
+    key = (m, n, apply, track, dev)
+    base = _GOSSIP_TILES.get(key)
+    if base is None:
+        sms = sm_count(dev.index)
+        if apply:
+            rows, bn, stages = apply_tile(m, n, track, sms)
+            bufs = (6 if track else 2) if stages == 2 else 1
+        else:
+            (rows, bn), stages, bufs = rounds_tile(m, n, sms), None, 2
+        base = _GOSSIP_TILES[key] = (rows, bn, stages,
+                                     _legal_widths(m, rows, bufs))
+    rows, bn, stages, legal = base
+    bn = autotune.choose("fastmix", "block_n", (m, n), torch.float32,
+                         default=bn, legal=legal, explicit=block_n,
+                         config_field="fastmix_block_n", device=dev)
+    return (rows, bn) if stages is None else (rows, bn, stages)
 
 
 def kernel_fits(m: int, mode) -> bool:
@@ -593,8 +637,8 @@ def _poly_entry():
 
 
 def _launch(S, G, G_prev, L, eta, K: int, wire_bf16: bool, track: bool,
-            P, batched: bool = False, coef=None,
-            count: bool = True) -> torch.Tensor:
+            P, batched: bool = False, coef=None, count: bool = True,
+            block_n: Optional[int] = None) -> torch.Tensor:
     B = S.shape[0] if batched else 1
     m = S.shape[1] if batched else S.shape[0]
     n = S.numel() // max(B * m, 1)
@@ -613,15 +657,16 @@ def _launch(S, G, G_prev, L, eta, K: int, wire_bf16: bool, track: bool,
             out[b] = _launch(S[b], G[b] if track else None,
                              G_prev[b] if track else None, _per_slice(L, b),
                              eta if etas is None else etas[b], K, wire_bf16,
-                             track, _per_slice(P, b), count=False)
+                             track, _per_slice(P, b), count=False,
+                             block_n=block_n)
         LAUNCHES["fastmix_track" if track else "fastmix"] += 1
         return out
-    sms = sm_count(dev.index)
     stream = torch.cuda.current_stream(dev).cuda_stream
     g = G.data_ptr() if track else None
     gp = G_prev.data_ptr() if track else None
+    name = "fastmix_track" if track else "fastmix"
     if rounds_path:
-        rows, bn = rounds_tile(m, n, sms)
+        rows, bn = LAST_TILE[name] = gossip_tile(m, n, dev, block_n=block_n)
         work = _work(m, n, K, rows == 0, S)
         cp, cs, _keep = _coef_arg(etas, coef, B, dev)
         e = float(eta) if etas is None else 0.0
@@ -630,13 +675,14 @@ def _launch(S, G, G_prev, L, eta, K: int, wire_bf16: bool, track: bool,
                        int(track), int(wire_bf16), B, m * n, ms, cp, cs,
                        stream)
     else:
-        rows, bn, stages = apply_tile(m, n, track, sms)
+        rows, bn, stages = LAST_TILE[name] = gossip_tile(
+            m, n, dev, apply=True, track=track, block_n=block_n)
         err = _apply_entry()(M.data_ptr(), S.data_ptr(), g, gp,
                              out.data_ptr(), m, n, bn, rows, stages,
                              int(track), B, m * n, ms, stream)
     _build.check("fastmix", err)
     if count:
-        LAUNCHES["fastmix_track" if track else "fastmix"] += 1
+        LAUNCHES[name] += 1
     return out
 
 
@@ -670,7 +716,8 @@ def _check_L_cpu(L: torch.Tensor, m: int) -> None:
 def fastmix_fused(S: torch.Tensor, L: torch.Tensor, eta, K: int, *,
                   wire_bf16: bool = False,
                   P: Optional[torch.Tensor] = None, batched: bool = False,
-                  coef: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  coef: Optional[torch.Tensor] = None,
+                  block_n: Optional[int] = None) -> torch.Tensor:
     """All K FastMix rounds; ``(m, ...)`` in, fp32 out.
 
     Without a wire one launch applies ``P_K(L)``: ``P`` is
@@ -687,6 +734,12 @@ def fastmix_fused(S: torch.Tensor, L: torch.Tensor, eta, K: int, *,
     are fine), ``eta`` a number or B momenta (``coef`` their
     :func:`coef_table`, made once per window).  Slice b equals the call on
     problem b alone.
+
+    ``block_n``: the kernel's column-tile width (one of
+    :data:`FASTMIX_WIDTHS` that fits; see :func:`gossip_tile`); ``None``
+    takes the config override, the autotune cache, then the chooser.  It
+    changes which block owns a column, not the result.  The plain version
+    (CPU tensors) has no tile.
     """
     batched = _is_batched(batched, L, P)
     m = S.shape[1 if batched else 0]
@@ -706,7 +759,7 @@ def fastmix_fused(S: torch.Tensor, L: torch.Tensor, eta, K: int, *,
                          f"{S.device}")
     _check_cuda(L, S, batched=batched)
     return _launch(S, None, None, L, eta, K, wire_bf16, False, P, batched,
-                   coef)
+                   coef, block_n=block_n)
 
 
 def fastmix_track_fused(S: torch.Tensor, G: torch.Tensor,
@@ -714,14 +767,16 @@ def fastmix_track_fused(S: torch.Tensor, G: torch.Tensor,
                         *, wire_bf16: bool = False,
                         P: Optional[torch.Tensor] = None,
                         batched: bool = False,
-                        coef: Optional[torch.Tensor] = None) -> torch.Tensor:
+                        coef: Optional[torch.Tensor] = None,
+                        block_n: Optional[int] = None) -> torch.Tensor:
     """Fused subspace tracking + all K FastMix rounds.
 
     Semantically ``fastmix_fused(tracking_update(S, G, G_prev), L, eta,
     K, P=P)``, with the tracked iterate formed on chip (in the kernel's
     registers or shared-memory tile) instead of in device memory.  ``K <=
-    0`` returns the tracked iterate in fp32.  ``batched``, ``coef`` and
-    the per-problem ``L``/``P``/``eta`` as in :func:`fastmix_fused`.
+    0`` returns the tracked iterate in fp32.  ``batched``, ``coef``,
+    ``block_n`` and the per-problem ``L``/``P``/``eta`` as in
+    :func:`fastmix_fused`.
     """
     batched = _is_batched(batched, L, P)
     m = S.shape[1 if batched else 0]
@@ -745,7 +800,7 @@ def fastmix_track_fused(S: torch.Tensor, G: torch.Tensor,
                          f"{S.device}")
     _check_cuda(L, S, G, G_prev, batched=batched)
     return _launch(S, G, G_prev, L, eta, K, wire_bf16, True, P, batched,
-                   coef)
+                   coef, block_n=block_n)
 
 
 def _check_fp8(name: str, wire) -> None:
@@ -784,7 +839,8 @@ def _ef_entry():
 
 
 def _launch_ef(S, G, G_prev, err, L, eta, K: int, track: bool,
-               batched: bool = False, coef=None, count: bool = True):
+               batched: bool = False, coef=None, count: bool = True,
+               block_n: Optional[int] = None):
     B = S.shape[0] if batched else 1
     m = S.shape[1] if batched else S.shape[0]
     n = S.numel() // max(B * m, 1)
@@ -794,8 +850,8 @@ def _launch_ef(S, G, G_prev, err, L, eta, K: int, track: bool,
     dev = S.device
     etas = _host_etas(eta, B) if batched else None
     ls = _matrix_stride("L", L, m, B, dev)
-    rows, bn = rounds_tile(m, n, sm_count(dev.index))
     name = "fastmix_track_ef" if track else "fastmix_ef"
+    rows, bn = LAST_TILE[name] = gossip_tile(m, n, dev, block_n=block_n)
     if batched and rows == 0:       # panels: slice by slice
         for b in range(B):
             out[b], err_out[b] = _launch_ef(
@@ -847,14 +903,15 @@ def _ef_cpu(S, err, L, eta, K, G, G_prev, batched):
 def fastmix_ef_fused(S: torch.Tensor, err: torch.Tensor, L: torch.Tensor,
                      eta, K: int, *, wire: str = "fp8",
                      batched: bool = False,
-                     coef: Optional[torch.Tensor] = None):
+                     coef: Optional[torch.Tensor] = None,
+                     block_n: Optional[int] = None):
     """All K fp8 error-feedback FastMix rounds in one launch.
 
     ``err`` is the per-agent wire replica (zeros on the first call).
     Returns ``(S_out, err_out)``, both fp32 with ``S``'s shape.  Only the
     fp8 wire has a kernel: int8's per-agent scale is a reduction over
-    every column tile.  ``batched``, ``coef`` and a per-problem ``L`` /
-    ``eta`` as in :func:`fastmix_fused`.
+    every column tile.  ``batched``, ``coef``, ``block_n`` and a
+    per-problem ``L`` / ``eta`` as in :func:`fastmix_fused`.
     """
     _check_fp8("fastmix_ef_fused", wire)
     if S.shape != err.shape:
@@ -867,20 +924,22 @@ def fastmix_ef_fused(S: torch.Tensor, err: torch.Tensor, L: torch.Tensor,
         raise ValueError(f"fastmix runs on cuda or cpu tensors, got "
                          f"{S.device}")
     _check_cuda(L, S, err, batched=batched)
-    return _launch_ef(S, None, None, err, L, eta, K, False, batched, coef)
+    return _launch_ef(S, None, None, err, L, eta, K, False, batched, coef,
+                      block_n=block_n)
 
 
 def fastmix_track_ef_fused(S: torch.Tensor, G: torch.Tensor,
                            G_prev: torch.Tensor, err: torch.Tensor,
                            L: torch.Tensor, eta, K: int, *,
                            wire: str = "fp8", batched: bool = False,
-                           coef: Optional[torch.Tensor] = None):
+                           coef: Optional[torch.Tensor] = None,
+                           block_n: Optional[int] = None):
     """Fused subspace tracking + K fp8 error-feedback FastMix rounds.
 
     Semantically ``fastmix_ef_fused(tracking_update(S, G, G_prev), err,
     L, eta, K)``, with the tracked iterate formed on the kernel's tile.
-    Returns ``(S_out, err_out)``.  ``batched``, ``coef`` and a per-problem
-    ``L`` / ``eta`` as in :func:`fastmix_fused`.
+    Returns ``(S_out, err_out)``.  ``batched``, ``coef``, ``block_n`` and
+    a per-problem ``L`` / ``eta`` as in :func:`fastmix_fused`.
     """
     _check_fp8("fastmix_track_ef_fused", wire)
     if not (S.shape == G.shape == G_prev.shape == err.shape):
@@ -894,7 +953,8 @@ def fastmix_track_ef_fused(S: torch.Tensor, G: torch.Tensor,
         raise ValueError(f"fastmix runs on cuda or cpu tensors, got "
                          f"{S.device}")
     _check_cuda(L, S, G, G_prev, err, batched=batched)
-    return _launch_ef(S, G, G_prev, err, L, eta, K, True, batched, coef)
+    return _launch_ef(S, G, G_prev, err, L, eta, K, True, batched, coef,
+                      block_n=block_n)
 
 
 # ------------------------------------------------------------------------
@@ -913,6 +973,20 @@ def product_tile(m: int, d: int, k: int, sms: int) -> tuple:
     bm = next((r for r in PRODUCT_ROWS if m * _cdiv(d, r) >= sms),
               PRODUCT_ROWS[-1])
     return bm, kp, (_cdiv(d, bm), m)
+
+
+def product_launch_tile(m: int, d: int, k: int, dev: torch.device, *,
+                        block_m: Optional[int] = None) -> tuple:
+    """``(BM, KP)`` of apply-track's product over ``m`` agents on ``dev``:
+    :func:`product_tile`'s KP, and BM through :func:`autotune.choose`
+    (key ``apply_track/block_d`` at ``(m, d, k)``): ``block_m``, else a
+    cache entry, else :func:`product_tile`'s.  Each output of the product
+    is one FMA chain whatever the tile, so BM never changes its bits."""
+    bm, kp, _ = product_tile(m, d, k, sm_count(dev.index))
+    bm = autotune.choose("apply_track", "block_d", (m, d, k), torch.float32,
+                         default=bm, legal=PRODUCT_ROWS, explicit=block_m,
+                         device=dev)
+    return bm, kp
 
 
 def apply_track_plain(A: torch.Tensor, W: torch.Tensor, S: torch.Tensor,
@@ -945,7 +1019,9 @@ def apply_track_fused(A: torch.Tensor, W: torch.Tensor, S: torch.Tensor,
                       wire_bf16: bool = False,
                       P: Optional[torch.Tensor] = None,
                       batched: bool = False,
-                      coef: Optional[torch.Tensor] = None):
+                      coef: Optional[torch.Tensor] = None,
+                      block_n: Optional[int] = None,
+                      block_m: Optional[int] = None):
     """Local apply + subspace tracking + K FastMix rounds in one call.
 
     Semantically::
@@ -971,6 +1047,12 @@ def apply_track_fused(A: torch.Tensor, W: torch.Tensor, S: torch.Tensor,
     the gossip over B slices, ``L``/``P``/``eta``/``coef`` as in
     :func:`fastmix_fused`.  Past the resident limit it runs problem by
     problem.
+
+    ``block_n`` is the gossip kernel's column-tile width (as in
+    :func:`fastmix_fused`) and ``block_m`` the product's rows BM (one of
+    :data:`PRODUCT_ROWS`; ``None`` takes the autotune cache's
+    ``apply_track/block_d`` at ``(B m, d, k)``, then
+    :func:`product_tile`'s).  Neither changes the result.
     """
     batched = _is_batched(batched, L, P)
     lead = 1 if batched else 0
@@ -1015,16 +1097,17 @@ def apply_track_fused(A: torch.Tensor, W: torch.Tensor, S: torch.Tensor,
             S_new[b], G[b] = _apply_track_launch(
                 A[b], W[b], S[b], G_prev[b], _per_slice(M, b),
                 eta if etas is None else etas[b], K, wire_bf16, 1, None,
-                None)
+                None, block_n=block_n, block_m=block_m)
     else:
         _apply_track_launch(A, W, S, G_prev, M, eta, K, wire_bf16, B, etas,
-                            coef, S_new, G)
+                            coef, S_new, G, block_n=block_n, block_m=block_m)
     LAUNCHES["apply_track"] += 1
     return S_new, G
 
 
 def _apply_track_launch(A, W, S, G_prev, M, eta, K, wire_bf16, B, etas,
-                        coef, S_new=None, G=None):
+                        coef, S_new=None, G=None, block_n=None,
+                        block_m=None):
     """One call of the C entry over B problems (M is L on the round path,
     else P) -> ``(S_new, G)``."""
     m, d, k = W.shape[-3:]
@@ -1032,20 +1115,20 @@ def _apply_track_launch(A, W, S, G_prev, M, eta, K, wire_bf16, B, etas,
         S_new, G = torch.empty_like(S), torch.empty_like(S)
     dev = A.device
     n = d * k
-    sms = sm_count(dev.index)
     rounds_path = wire_bf16 or K <= 0
     name = "L" if rounds_path else "P"
     ms = _matrix_stride(name, M, m, B, dev)
     work = None
     if rounds_path:
-        rows, bn = rounds_tile(m, n, sms)
+        rows, bn = gossip_tile(m, n, dev, block_n=block_n)
         stages = 0
         work = _work(m, n, K, rows == 0, S)
     else:
-        rows, bn, stages = apply_tile(m, n, True, sms)
-    # each output of the product is one FMA chain whatever the tile: the
-    # tile follows all B m agents
-    bm, kp, _ = product_tile(B * m, d, k, sms)
+        rows, bn, stages = gossip_tile(m, n, dev, apply=True, track=True,
+                                       block_n=block_n)
+    # the tile follows all B m agents
+    bm, kp = product_launch_tile(B * m, d, k, dev, block_m=block_m)
+    LAST_TILE["apply_track"] = (bm, kp, rows, bn, stages)
     cp, cs, _keep = _coef_arg(etas, coef, B, dev)
     e = float(eta) if etas is None else 0.0
     stream = torch.cuda.current_stream(dev).cuda_stream

@@ -15,14 +15,17 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
-from . import _build
+from . import _build, autotune
 from .fastmix import PRODUCT_ROWS, _cdiv, product_tile, sm_count
 
 #: Kernel launches by this module's wrapper (reset by the caller).
 LAUNCHES = {"power_matmul": 0}
+#: ``(BM, KP, S)`` of the last launch.
+LAST_TILE: dict = {}
 
 #: Cluster sizes the contraction may be split over (portable: at most 8),
 #: and the contraction chunk the split counts in.
@@ -54,6 +57,20 @@ def power_tile(d: int, k: int, sms: int) -> tuple:
     bm, s = next(((bm, s) for bm, s in pairs if _cdiv(d, bm) * s >= sms),
                  max(pairs, key=lambda p: _cdiv(d, p[0]) * p[1]))
     return bm, kp, s, (_cdiv(d, bm) * s, 1)
+
+
+def launch_tile(d: int, k: int, dev: torch.device, *,
+                block_m: Optional[int] = None) -> tuple:
+    """``(BM, KP, S)`` the wrapper launches on ``dev``: :func:`power_tile`'s
+    KP and split S, and BM through :func:`autotune.choose` (key
+    ``power_matmul/block_m`` at ``(d, k)``): ``block_m``, else a cache
+    entry, else :func:`power_tile`'s.  S stays the chooser's: it decides
+    the partial sums, BM only which block owns a row."""
+    bm, kp, split, _ = power_tile(d, k, sm_count(dev.index))
+    bm = autotune.choose("power_matmul", "block_m", (d, k), torch.float32,
+                         default=bm, legal=PRODUCT_ROWS, explicit=block_m,
+                         device=dev)
+    return bm, kp, split
 
 
 def split_ranges(d: int, split: int) -> list:
@@ -91,11 +108,18 @@ def _check_shapes(a: torch.Tensor, w: torch.Tensor) -> None:
                          f"{tuple(a.shape)}, w {tuple(w.shape)}")
 
 
-def power_matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def power_matmul(a: torch.Tensor, w: torch.Tensor, *,
+                 block_m: Optional[int] = None) -> torch.Tensor:
     """``a`` (d, d) @ ``w`` (d, k) -> (d, k) fp32, fp32 accumulation.
 
     CUDA operands must be contiguous fp32 on one device (f64 raises:
     it never enters a kernel); CPU operands take the plain version.
+    ``block_m``: the rows BM a block owns (one of :data:`PRODUCT_ROWS`);
+    ``None`` takes the autotune cache's ``power_matmul/block_m`` at ``(d,
+    k)``, then :func:`power_tile`'s.  The cluster split stays
+    :func:`power_tile`'s whatever BM is: it decides which partial sums
+    are added, BM only which block owns a row, so the result's bits do
+    not depend on BM.
     """
     _check_shapes(a, w)
     if a.device.type == "cpu" and w.device.type == "cpu":
@@ -115,7 +139,8 @@ def power_matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     out = torch.empty((d, k), device=a.device, dtype=torch.float32)
     if out.numel() == 0:
         return out
-    bm, kp, split, _ = power_tile(d, k, sm_count(a.device.index))
+    bm, kp, split = LAST_TILE["power_matmul"] = launch_tile(
+        d, k, a.device, block_m=block_m)
     stream = torch.cuda.current_stream(a.device).cuda_stream
     err = _entry()(a.data_ptr(), w.data_ptr(), out.data_ptr(), d, k, bm, kp,
                    split, stream)

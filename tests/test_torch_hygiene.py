@@ -32,6 +32,9 @@ def test_import_leaves_jax_and_reference_out():
     code = (
         "import sys, repro_torch, repro_torch.core, repro_torch.convert, "
         "repro_torch.kernels.cholqr, repro_torch.runtime, "
+        "repro_torch.runtime.telemetry, repro_torch.runtime.tracing, "
+        "repro_torch.runtime.diagnostics, repro_torch.runtime.config, "
+        "repro_torch.kernels.autotune, "
         "repro_torch.models, repro_torch.configs, "
         "repro_torch.configs.smollm_135m, repro_torch.launch.serve, "
         "repro_torch.launch.steps\n"
@@ -94,6 +97,44 @@ def test_lm_entry_points_default_to_the_card():
         with pytest.raises((RuntimeError, AssertionError)):
             serve.main(["--reduced", "--batch", "1", "--prompt-len", "2",
                         "--gen", "1"])
+
+
+def test_pca_serving_defaults_to_the_card():
+    """``serve --workload pca`` and its set-up take the card unless asked
+    for the CPU, and so do the problems they make; on a host without
+    CUDA torch's own error surfaces, and the runtime layer it set up is
+    torn down again."""
+    from repro_torch.launch import serve
+    from repro_torch.runtime import telemetry, tracing
+    assert serve.serve_pca.__defaults__ == (None,)        # device
+    assert P.synthetic_problem_batch.__kwdefaults__["device"] is None
+    assert serve.parse_args(["--workload", "pca"]).device is None
+    _, W0 = P.synthetic_problem_batch(1, 3, 4, 2, device="cpu")
+    assert W0.device.type == "cpu"
+    if not torch.cuda.is_available():
+        sink = telemetry.get_sink()
+        with pytest.raises((RuntimeError, AssertionError)):
+            serve.main(["--workload", "pca", "--batch", "1", "--m", "3",
+                        "--d", "4", "--k-top", "2", "--iters", "1",
+                        "--reps", "1", "--diag"])
+        with pytest.raises((RuntimeError, AssertionError)):
+            P.synthetic_problem_batch(1, 3, 4, 2)
+        assert telemetry.get_sink() is sink and tracing.get_tracer() is None
+
+
+def test_runtime_modules_read_no_repro_variable_directly():
+    """Only ``runtime/config.py`` names a ``REPRO_*`` variable when it
+    reads the environment; the rest of the port asks ``get_config()``."""
+    for path in PORT.rglob("*.py"):
+        if path.name == "config.py" and path.parent.name == "runtime":
+            continue
+        tree = ast.parse(path.read_text())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Constant) and \
+                    isinstance(node.value, str) and \
+                    node.value.startswith("REPRO_") and \
+                    node.value.strip() == node.value and " " not in node.value:
+                raise AssertionError(f"{path}: names {node.value}")
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):

@@ -1071,3 +1071,156 @@ def test_cholqr2_gates_the_rescue_per_problem_on_card(sm90):
     assert torch.equal(Q.reshape(-1, *Q.shape[2:]), cq.cholqr2_fused(
         X.reshape(-1, *X.shape[2:]), flag=mine, group=X.shape[1]))
     assert mine.tolist()[0] != 0 and mine.tolist()[1:] == [0, 0]
+
+
+# ------------------------------------------------------ the runtime layer
+@pytest.fixture
+def tune_cache(tmp_path, monkeypatch):
+    """A temporary autotune cache for one test (re-read on every call)."""
+    from repro_torch.kernels import autotune
+    path = tmp_path / "autotune.json"
+    monkeypatch.setenv(autotune.CACHE_ENV, str(path))
+    monkeypatch.delenv("REPRO_FASTMIX_BLOCK_N", raising=False)
+    monkeypatch.setattr(autotune, "_STAT_TTL", 0.0)
+    autotune._CHOICES.clear()
+    yield autotune
+    autotune._CHOICES.clear()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["apply", "bf16", "fp8"])
+@pytest.mark.parametrize("m,n", [(50, 1500), (64, 4096 * 32), (150, 4000),
+                                 (20, 333)])
+def test_cached_width_is_launched_and_bit_equal_on_card(sm90, tune_cache,
+                                                        mode, m, n):
+    """A cached non-default legal BN (``fastmix/block_n`` at ``(m, n)``) is
+    the width the wrapper launches, and its result equals the default
+    width's bit for bit: a column tile decides which block owns a column,
+    never a sum's order.  An illegal cached width (outside
+    ``FASTMIX_WIDTHS``) is skipped: the default runs."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(m + n)
+    L = torch.from_numpy(P.erdos_renyi(m, p=0.5, seed=0).mixing
+                         .astype(np.float32)).cuda()
+    S, G, Gp, E = (torch.from_numpy(rng.standard_normal((m, n))
+                                    .astype(np.float32)).cuda()
+                   for _ in range(4))
+    Pm = fm.poly_matrix(L, 0.3, 8)
+
+    def call():
+        if mode == "apply":
+            return fm.fastmix_track_fused(S, G, Gp, L, 0.3, 8, P=Pm), \
+                "fastmix_track"
+        if mode == "bf16":
+            return fm.fastmix_track_fused(S, G, Gp, L, 0.3, 8,
+                                          wire_bf16=True), "fastmix_track"
+        return fm.fastmix_track_ef_fused(S, G, Gp, E, L, 0.3, 8)[0], \
+            "fastmix_track_ef"
+
+    default, name = call()
+    tile = fm.LAST_TILE[name]
+    rows, bn = tile[0], tile[1]
+    bufs = 2 if mode != "apply" else ((6 if tile[2] == 2 else 1))
+    legal = fm._legal_widths(m, rows, bufs)
+    other = [w for w in legal if w != bn]
+    assert other, (m, n, legal)          # each case has two legal widths
+    tune_cache.record("fastmix", (m, n), torch.float32,
+                      {"block_n": other[0]},
+                      device=tune_cache.device_kind(dev))
+    tuned, _ = call()
+    torch.cuda.synchronize()
+    assert fm.LAST_TILE[name][1] == other[0]
+    assert torch.equal(tuned, default)
+    tune_cache.record("fastmix", (m, n), torch.float32, {"block_n": 256},
+                      device=tune_cache.device_kind(dev))
+    skipped, _ = call()
+    assert fm.LAST_TILE[name][1] == bn and torch.equal(skipped, default)
+    with pytest.raises(ValueError, match="not a legal choice"):
+        fm.fastmix_track_fused(S, G, Gp, L, 0.3, 8, P=Pm, block_n=100)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,d,k", [(50, 300, 5), (8, 4096, 32)])
+def test_cached_product_rows_are_launched_and_bit_equal_on_card(
+        sm90, tune_cache, m, d, k):
+    """apply-track's product rows BM and the power matmul's, each from the
+    cache and explicit, give the default's bits."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(d + k)
+    A = torch.from_numpy(rng.standard_normal((m, d, d))
+                         .astype(np.float32)).cuda()
+    W, S, Gp = (torch.from_numpy(rng.standard_normal((m, d, k))
+                                 .astype(np.float32)).cuda()
+                for _ in range(3))
+    L = torch.from_numpy(P.erdos_renyi(m, p=0.5, seed=0).mixing
+                         .astype(np.float32)).cuda()
+    Pm = fm.poly_matrix(L, 0.3, 8)
+    base = fm.apply_track_fused(A, W, S, Gp, L, 0.3, 8, P=Pm)
+    bm = fm.LAST_TILE["apply_track"][0]
+    other = next(r for r in fm.PRODUCT_ROWS if r != bm)
+    tune_cache.record("apply_track", (m, d, k), torch.float32,
+                      {"block_d": other}, device=tune_cache.device_kind(dev))
+    tuned = fm.apply_track_fused(A, W, S, Gp, L, 0.3, 8, P=Pm)
+    assert fm.LAST_TILE["apply_track"][0] == other
+    assert all(torch.equal(a, b) for a, b in zip(tuned, base))
+    a0, w0 = A[0].contiguous(), W[0].contiguous()
+    g = pm.power_matmul(a0, w0)
+    pbm, _, split = pm.LAST_TILE["power_matmul"]
+    pother = next(r for r in fm.PRODUCT_ROWS if r != pbm)
+    g2 = pm.power_matmul(a0, w0, block_m=pother)
+    assert pm.LAST_TILE["power_matmul"] == (pother, pm.LAST_TILE[
+        "power_matmul"][1], split)
+    assert torch.equal(g, g2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", [False, True])
+def test_diagnostics_add_no_kernel_launch_on_card(sm90, batch):
+    """Diagnostics on measure with torch reductions only: the same kernel
+    launches as off, and the same bits (W, S), one problem or a batch."""
+    from repro_torch.runtime import telemetry
+    m, d, k, K, T = 50, 300, 5, 8, 20
+    problems, W0 = P.synthetic_problem_batch(3 if batch else 1, m, d, k,
+                                             n_per_agent=200, seed=0)
+    eng = P.ConsensusEngine.for_algorithm(
+        "deepca", P.erdos_renyi(m, p=0.5, seed=0), K=K, backend="cuda")
+    step = P.PowerStep.for_algorithm("deepca", K)
+    out = {}
+    for diag in (None, "on"):
+        drv = P.IterationDriver(step=step, engine=eng, diagnostics=diag)
+        drv.run(problems[0], W0[0], T=2)                      # warm
+        kernels.reset_launch_counts()
+        with telemetry.capture() as rec:
+            if batch:
+                res = drv.run_batch(problems, W0, T=T)
+                W, S = res.W, res.S
+            else:
+                res = drv.run(problems[0], W0[0], T=T)
+                W, S = res.carry[1], res.carry[0]
+        torch.cuda.synchronize()
+        out[diag] = (kernels.launch_counts(), W, S, res.diag, rec)
+    (c_off, W_off, S_off, d_off, _), (c_on, W_on, S_on, d_on, rec) = \
+        out[None], out["on"]
+    assert c_off == c_on and c_on["fastmix_track"] == T
+    assert c_on["cholqr2"] == T
+    assert torch.equal(W_off, W_on) and torch.equal(S_off, S_on)
+    assert d_off is None and d_on.is_cuda and torch.isfinite(d_on).all()
+    assert len(rec.of("diag")) == T
+
+
+@pytest.mark.gpu
+def test_ground_truth_eigenvectors_are_orthonormal_on_card(sm90):
+    """``top_k_eigvecs`` on the card decomposes an fp32 matrix in f64:
+    cuSOLVER's fp32 eigenvectors are off orthonormality by about 5e-5 at
+    d=300, which every tan theta against them would carry."""
+    probs, _ = P.synthetic_problem_batch(1, 50, 300, 5, n_per_agent=995,
+                                         seed=0)
+    A = probs[0].mean_matrix()
+    U, evals = P.top_k_eigvecs(A, 5)
+    assert U.dtype == torch.float32 and U.is_cuda
+    eye = torch.eye(5, device="cuda")
+    assert float((U.mT @ U - eye).abs().max()) < 1e-6
+    U_cpu, _ = P.top_k_eigvecs(A.double().cpu(), 5)
+    gap = torch.linalg.matrix_norm(U.double().cpu() - U_cpu @ (
+        U_cpu.mT @ U.double().cpu()))
+    assert float(gap) < 1e-5

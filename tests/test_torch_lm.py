@@ -260,10 +260,15 @@ def test_serve_cli_on_cpu_reduced():
         env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "generated (2, 4)" in out.stdout and "tok/s" in out.stdout
-    for workload in ("pca", "pca-stream", "pca-fleet"):
+    from repro_torch.launch import serve
+    for workload in ("pca-stream", "pca-fleet"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            from repro_torch.launch import serve
             serve.main(["--workload", workload])
+    # the pca workload is served: a tiny request on the CPU
+    res = serve.main(["--workload", "pca", "--device", "cpu", "--batch", "1",
+                      "--m", "4", "--d", "8", "--k-top", "2", "--iters", "2",
+                      "--rounds", "2", "--reps", "1"])
+    assert len(res["tans"]) == 1 and res["out"].W.shape == (1, 4, 8, 2)
 
 
 def test_serve_function_matches_manual_loop():
