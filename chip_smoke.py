@@ -59,7 +59,26 @@ What it does, in order; any failure raises and the exit code is non-zero:
    device ops per batch iteration off, on, and on with a sink and a
    tracer, the w8a driver's device ops unchanged by a sink and a tracer,
    and a cached non-default FastMix width launched, bit-equal to the
-   default's;
+   default's; 4h. streaming and serving at the w8a cells' shapes (m=50,
+   d=300, k=5, about 995 rows per agent, K=8, 3 iterations per tick):
+   ``serve --workload pca-stream`` in-process (8 ticks of a drifting
+   stream, then 24 ragged requests through the queue at T=100): per tick
+   T gossip and T + 2 ``cholqr2`` launches per window plus one, no
+   ``P_K(L)`` build or library load after the first tick, the estimates
+   within 1e-4 of the same tracker on ``stacked`` with equal decisions,
+   a replay on the memoized ticks bit-equal and timed, every queue answer
+   within 2e-4 of a direct run of its request, the requests served again
+   without a cold launch; an ``EigengapShiftStream(shift_every=4)``
+   tracker in fp32 and on the fp8 wire (a restart and an escalation,
+   decisions equal to ``stacked``, estimates within 1e-4, fp8 within
+   max(1e-4, 2x the stacked fp32-vs-f64 spread) of the f64 run, ``ef``
+   zeroed at the restart); ``serve --workload pca-fleet`` in-process (12
+   tenants in two buckets of 8 slots, 6 ticks, a leave and a join at tick
+   3): two programs, no cold launch, build or library load after the
+   warm-up tick, windows x T gossip launches per tick, every tenant bit
+   for bit equal to a solo tracker on every tick, fleet ticks against
+   the solo trackers one after another with the data ready, a profiled
+   fleet tick and the peak memory;
 5. runs the f64 bench grid on the card (f64 never enters a kernel) and
    holds it to ``BENCH_deepca.json``; 5b. runs
    ``scripts/bench_torch_deepca.py --quick`` and ``benchmarks/bench_diff.py``
@@ -1146,6 +1165,393 @@ def serve_phase(P, kernels, fm, ops, W0, peaks) -> dict:
                             "cached_ms": ms_tuned}}
 
 
+#: Phase 4h's stream request: ``serve --workload pca-stream`` at the w8a
+#: cells' shapes (m=50, d=300, k=5, 995 rows per agent), 8 ticks of 3
+#: warm-started iterations, K=8, then 24 ragged requests (T=100) through
+#: the queue.
+STREAM_ARGS = ("--workload pca-stream --m 50 --d 300 --k-top 5 "
+               "--n-per-agent 995 --ticks 8 --tick-iters 3 --rounds 8 "
+               "--drift-rate 0.03 --iters 100 --requests 24 "
+               "--max-batch 8").split()
+#: Phase 4h's fleet request: 12 tenants of ten sample counts (987-1005,
+#: two buckets of n_pad 992 and 1008, 8 slots each), 6 ticks.
+FLEET_ARGS = ("--workload pca-fleet --m 50 --d 300 --k-top 5 "
+              "--n-per-agent 995 --tenants 12 --ticks 6 --tick-iters 3 "
+              "--rounds 8 --drift-rate 0.03 --target 1e-3").split()
+#: A queue answer against a direct unpadded run of its request: rtol =
+#: atol (the reference's padded-request bound).
+QUEUE_TOL = 2e-4
+#: Tenants the bit-identity check is stated for (both buckets and the
+#: joiner); every tenant is checked.
+SAMPLED = ("joiner", "tenant001", "tenant003", "tenant009")
+#: Timed fleet ticks (and solo-tracker ticks) with the data ready.
+REPLAYS = 5
+
+
+def _serve_argv(args, tmp: Path, dev) -> list:
+    argv = args + ["--telemetry", f"jsonl:{tmp}", "--diag"]
+    return argv + (["--device", str(dev)] if dev.type != "cuda" else [])
+
+
+def _decisions(r) -> tuple:
+    return (r.iterations, r.drift, r.restarted, r.escalations)
+
+
+def _tracker_twin(S, tracker, backend: str, **kw):
+    """A tracker with ``tracker``'s settings on another backend."""
+    step = tracker.driver.step
+    return S.StreamingDeEPCA(
+        k=tracker.k, T_tick=tracker.T_tick, K=tracker.K,
+        topology=tracker.topology, backend=backend, policy=tracker.policy,
+        W0=kw.pop("W0", tracker.W0), wire_dtype=kw.pop("wire_dtype", None),
+        accelerated=step.accelerated, device=tracker.device, **kw)
+
+
+def _tick_launches(res, T: int, on_card: bool, label: str) -> None:
+    """Per tick: T gossip launches and T + 2 ``cholqr2`` per window (the
+    step's, and the trace's two tan theta reductions), 1 more per tick
+    (the mean basis); no ``P_K(L)`` build and no library load after the
+    first tick."""
+    for i, (rep, marks) in enumerate(zip(res["reports"],
+                                         res["tick_marks"])):
+        windows = rep.iterations // T
+        c = marks["launches"]
+        want = {"fastmix_track": windows * T,
+                "cholqr2": windows * (T + 2) + 1}
+        if on_card and any(c[k] != v for k, v in want.items()):
+            fail(f"{label} tick {i}: launches {c}, want {want} for "
+                 f"{windows} windows of {T}")
+        if i and (marks["P_builds"] or marks["lib_loads"]):
+            fail(f"{label} tick {i} built {marks['P_builds']} P_K(L) and "
+                 f"loaded {marks['lib_loads']} libraries")
+
+
+def stream_phase(kernels, dev, args=STREAM_ARGS) -> dict:
+    """(a) ``serve --workload pca-stream`` in-process with a JSONL sink and
+    diagnostics: the tracker's launches per tick and warm ticks, its
+    estimates and decisions against the same tracker on ``stacked``, the
+    queue's answers against direct runs, and a second serving of the same
+    requests without a cold launch.  Returns the numbers."""
+    import tempfile
+    from repro_torch import streaming as S
+    from repro_torch.launch import serve
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_stream_"))
+    argv = _serve_argv(args, tmp / "stream.jsonl", dev)
+    a = serve.parse_args(argv)
+    on_card = dev.type == "cuda"
+    kernels.reset_launch_counts()
+    res, sec = run_timed(serve.main, argv)
+    counts = kernels.launch_counts()
+    tr, stream = res["tracker"], res["stream"]
+    print(f"stream serve {' '.join(args)}: request s={sec:.3f} "
+          f"(stream data drawn on the prefetch thread {stream.draw_s:.3f} s) "
+          f"launches={counts}", flush=True)
+    if on_card and (counts["fastmix_track"] <= 0 or counts["cholqr2"] <= 0):
+        fail(f"stream: the request did not go through the kernels: {counts}")
+    _tick_launches(res, a.tick_iters, on_card, "stream")
+    # the same ticks again, their data memoized: on stacked (estimates and
+    # decisions), and on the card with nothing drawn beside it (bits, and
+    # the tracker's own time per tick)
+    twin = _tracker_twin(S, tr, "stacked")
+    again = _tracker_twin(S, tr, "auto")
+    run, driver_s = again.driver.run, []
+
+    def timed_run(*args, **kw):          # the driver's share of a tick
+        out, sec = run_timed(run, *args, **kw)
+        driver_s.append(sec)
+        return out
+    again.driver.run = timed_run
+    gaps, replay_ms, replay_driver_s = [], [], []
+    for t, (rep, W) in enumerate(zip(res["reports"], res["W_ticks"])):
+        ref = twin.tick(stream.ops_at(t), stream.truth_at(t)[0])
+        gaps.append(subspace_gap(W, twin.W))
+        if _decisions(rep) != _decisions(ref):
+            fail(f"stream tick {t}: cuda decisions {_decisions(rep)} != "
+                 f"stacked {_decisions(ref)}")
+        driver_s.clear()
+        r2, sec2 = run_timed(again.tick, stream.ops_at(t),
+                             stream.truth_at(t)[0])
+        replay_ms.append(sec2 * 1e3)
+        replay_driver_s.append(sum(driver_s))
+        if _decisions(r2) != _decisions(rep) or not torch.equal(again.W, W):
+            fail(f"stream tick {t}: a replay on the card differs")
+    if not max(gaps) <= SUBSPACE_TOL:
+        fail(f"stream: per-tick estimates {max(gaps)} from stacked")
+    ms, quiet = res["tick_ms"][1:], replay_ms[1:]
+    us_iter = [sec * 1e6 / r.iterations
+               for sec, r in zip(replay_driver_s[1:], res["reports"][1:])]
+    print(f"stream tracker: ms per tick in the serve loop (ticks 1-"
+          f"{len(ms)}, beside the prefetch thread's draws) "
+          f"{[round(m, 3) for m in ms]} median {statistics.median(ms):.3f}; "
+          f"replayed on the memoized ticks (bit-equal) "
+          f"{[round(m, 3) for m in quiet]} median "
+          f"{statistics.median(quiet):.3f}, of which the driver's windows "
+          f"(synchronised) {statistics.median(us_iter):.1f} us per "
+          f"iteration (median); decisions "
+          f"{[_decisions(r) for r in res['reports']]} equal to stacked; "
+          f"per-tick subspace distance from stacked max {max(gaps):.3e} "
+          f"(tol {SUBSPACE_TOL:g}); tan_theta per tick "
+          f"{[f'{r.stat:.3e}' for r in res['reports']]}", flush=True)
+
+    svc = res["service"]
+    worst = 0.0
+    for (ops, W0), resp in zip(res["requests"], res["responses"]):
+        direct = svc.driver.run_batch([ops], W0[None], T=a.iters).W[0]
+        err = float(((resp.W - direct).abs()
+                     - QUEUE_TOL * direct.abs()).max())
+        worst = max(worst, err)
+    if not worst <= QUEUE_TOL:
+        fail(f"queue: an answer is {worst} past rtol = atol = {QUEUE_TOL} "
+             "of its direct run")
+    st = dict(svc.stats)
+    kernels.reset_launch_counts()
+    tic = time.perf_counter()
+    ids = [svc.submit(ops, W0) for ops, W0 in res["requests"]]
+    svc.flush()
+    if on_card:
+        torch.cuda.synchronize()
+    again_s = time.perf_counter() - tic
+    again = kernels.launch_counts()
+    served = [svc.result(i) for i in ids]
+    if svc.stats["cold_launches"] != st["cold_launches"] or \
+            again["fastmix_poly"] or any(r is None for r in served):
+        fail(f"queue: serving the requests again made a cold launch "
+             f"({st} -> {svc.stats}) or a P_K(L) build ({again})")
+    print(f"stream queue: {st['served']} requests in {res['queue_s']:.3f} s "
+          f"({st['served'] / res['queue_s']:.1f} req/s) over "
+          f"{st['batches']} batches, cold={st['cold_launches']} "
+          f"warm={st['warm_launches']} padded={st['padded_requests']}; "
+          f"every answer within rtol = atol = {QUEUE_TOL:g} of its direct "
+          f"run (worst excess {worst:.3e}); tan_theta "
+          f"{[f'{x:.2e}' for x in res['tans']]}; again: "
+          f"{len(ids) / again_s:.1f} req/s, cold="
+          f"{svc.stats['cold_launches'] - st['cold_launches']} warm="
+          f"{svc.stats['warm_launches'] - st['warm_launches']}, "
+          f"launches={again}", flush=True)
+    events = [json.loads(x) for x in
+              (tmp / "stream.jsonl").read_text().splitlines()]
+    names = [e["event"] for e in events]
+    if names.count("stream.tick") != a.ticks or \
+            names.count("service.launch") != st["batches"]:
+        fail("stream: the JSONL lacks its stream.tick / service.launch "
+             "events")
+    shutil.rmtree(tmp, ignore_errors=True)
+    return {"serve_tick_ms": statistics.median(ms),
+            "tick_ms": statistics.median(quiet),
+            "us_per_iteration": statistics.median(us_iter),
+            "subspace_gap": max(gaps), "queue_req_s":
+                st["served"] / res["queue_s"],
+            "queue_again_req_s": len(ids) / again_s,
+            "cold": st["cold_launches"], "warm": st["warm_launches"],
+            "draw_s": stream.draw_s}
+
+
+def abrupt_phase(P, kernels, dev, m=50, n=995, d=300, k=5, K=8, T=3,
+                 ticks=8, wire=None, stream=None, policy=None) -> tuple:
+    """(b) / (c): an ``EigengapShiftStream(shift_every=4)`` tracker (the
+    default policy, ground truth supplied) on the card against the same
+    tracker on ``stacked``: equal decisions every tick, at least one
+    restart and one escalation, estimates within 1e-4 (fp8: within
+    max(1e-4, 2x the stacked fp32-vs-f64 spread) of the f64 run), and on
+    the EF wire every restart's ``ef`` zeroed.  Returns the numbers and
+    the stream (reused by the next call)."""
+    from repro_torch import streaming as S
+    label = f"abrupt {'fp8' if wire else 'fp32'}"
+    if stream is None:
+        stream = S.EigengapShiftStream(m=m, d=d, k=k, n_per_agent=n,
+                                       shift_every=4, seed=0, device=dev)
+    topo = P.erdos_renyi(m, p=0.5, seed=0)
+    tr = S.StreamingDeEPCA(k=k, T_tick=T, K=K, topology=topo,
+                           W0=stream.init_W0(), wire_dtype=wire, device=dev,
+                           policy=policy or S.DriftPolicy())
+    zeroed = []
+    restart = tr._restart
+
+    def spy(ops):
+        restart(ops)
+        zeroed.append(bool((tr._carry[-1] == 0).all()))
+    if wire:
+        tr._restart = spy
+    twin = _tracker_twin(S, tr, "stacked", wire_dtype=wire)
+    wide = _tracker_twin(S, tr, "stacked", wire_dtype=wire,
+                         W0=tr.W0.double()) if wire else None
+    kernels.reset_launch_counts()
+    reps, gaps, tol_t, ms = [], [], [], []
+    for t in range(ticks):
+        tick = stream.tick(t)
+        r, sec = run_timed(tr.tick, tick.ops, tick.U)
+        ms.append(sec * 1e3)
+        reps.append(r)
+        ref = twin.tick(tick.ops, tick.U)
+        if _decisions(r) != _decisions(ref):
+            fail(f"{label} tick {t}: cuda decisions {_decisions(r)} != "
+                 f"stacked {_decisions(ref)}")
+        if wire:
+            wide.tick(P.StackedOperators(data=tick.ops.data.double()),
+                      tick.U.double())
+            spread = subspace_gap(wide.W, twin.W)
+            tol_t.append(max(2 * spread, SUBSPACE_TOL))
+            gaps.append(subspace_gap(wide.W, tr.W))
+        else:
+            tol_t.append(SUBSPACE_TOL)
+            gaps.append(subspace_gap(twin.W, tr.W))
+    counts = kernels.launch_counts()
+    gossip = "fastmix_track_ef" if wire else "fastmix_track"
+    restarts = sum(r.restarted for r in reps)
+    escalations = sum(r.escalations for r in reps)
+    print(f"{label} EigengapShiftStream(shift_every=4) m={m} n={n} d={d} "
+          f"k={k} K={K} T_tick={T}: decisions "
+          f"{[_decisions(r) for r in reps]} equal to stacked; restarts "
+          f"{restarts} escalations {escalations}; tan_theta per tick "
+          f"{[f'{r.stat:.3e}' for r in reps]}; subspace distance per tick "
+          f"{[f'{g:.2e}' for g in gaps]} (tol "
+          f"{[f'{x:.2e}' for x in tol_t]}"
+          f"{', from the f64 run' if wire else ', from stacked'}); ms per "
+          f"tick {[round(x, 2) for x in ms]}; launches={counts}"
+          + (f"; ef zeroed at every restart {zeroed}" if wire else ""),
+          flush=True)
+    if restarts < 1 or escalations < 1:
+        fail(f"{label}: want a restart and an escalation, got {restarts} "
+             f"and {escalations}")
+    if any(g > x for g, x in zip(gaps, tol_t)):
+        fail(f"{label}: estimates {gaps} past {tol_t}")
+    if dev.type == "cuda" and counts[gossip] != sum(r.iterations
+                                                    for r in reps):
+        fail(f"{label}: want one {gossip} launch per iteration: {counts}")
+    if wire and not (zeroed and all(zeroed)):
+        fail(f"{label}: a restart left ef non-zero: {zeroed}")
+    return {"restarts": restarts, "escalations": escalations,
+            "gap": max(gaps), "tol": min(tol_t),
+            "tick_ms": statistics.median(ms[1:])}, stream
+
+
+def fleet_phase(P, kernels, dev, args=FLEET_ARGS) -> dict:
+    """(d) ``serve --workload pca-fleet`` in-process: two programs, no cold
+    launch after the warm-up tick (the churn included), no ``P_K(L)``
+    build and no library load after it, ``windows x tick_iters`` gossip
+    launches per tick, every tenant bit for bit equal on every tick to a
+    solo tracker on the card fed the same padded operators; then, with the
+    data ready, fleet ticks timed against the same ticks of the solo
+    trackers one after another (the sequential yardstick), a profiled
+    fleet tick, and the phase's peak memory."""
+    import tempfile
+    from repro_torch import streaming as S
+    from repro_torch.launch import serve
+    from repro_torch.streaming.service import pad_rows
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_fleet_"))
+    argv = _serve_argv(args, tmp / "fleet.jsonl", dev)
+    a = serve.parse_args(argv)
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    res, sec = run_timed(serve.main, argv)
+    fleet, streams, ticks = res["fleet"], res["streams"], res["ticks"]
+    draw = sum(s.draw_s for s in streams.values())
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    buckets = {key: sum(t is not None for t in b.slots)
+               for key, b in fleet._buckets.items()}
+    print(f"fleet serve {' '.join(args)}: request s={sec:.3f} (stream data "
+          f"drawn on the prefetch threads {draw:.3f} s in all) buckets "
+          f"{ {k[3]: (v, fleet._buckets[k].capacity) for k, v in buckets.items()} } "
+          f"programs={fleet.program_count} steady cold launches="
+          f"{res['steady_cold']} launches={kernels.launch_counts()} "
+          f"max_memory_allocated={peak / 2 ** 30:.3f} GiB", flush=True)
+    if fleet.program_count != 2 or res["steady_cold"] != 0:
+        fail(f"fleet: programs={fleet.program_count} steady cold "
+             f"launches={res['steady_cold']}, want 2 and 0")
+    for i, t in enumerate(ticks):
+        rep = t["report"]
+        gossip = t["launches"]["fastmix_track"]
+        if on_card and gossip != rep.windows * a.tick_iters:
+            fail(f"fleet tick {i}: {gossip} gossip launches for "
+                 f"{rep.windows} windows of {a.tick_iters}")
+        if i and (t["P_builds"] or t["lib_loads"] or rep.cold_launches):
+            fail(f"fleet tick {i}: {t['P_builds']} P_K(L) builds, "
+                 f"{t['lib_loads']} library loads, {rep.cold_launches} cold")
+
+    # every tenant against a solo tracker on the card, fed the same padded
+    # operators (the solo trackers are the yardstick below too)
+    churn_t, _, joiner = res["churn"]
+    topo = P.erdos_renyi(a.m, p=0.5, seed=a.seed)
+    solos = {tid: S.StreamingDeEPCA(
+        k=a.k_top, T_tick=a.tick_iters, K=a.rounds, topology=topo,
+        W0=s.init_W0(), policy=fleet.policy, device=dev)
+        for tid, s in streams.items()}
+    unequal = []
+    for i, t in enumerate(ticks):
+        for tid in sorted(t["states"]):
+            local = i - churn_t if tid == joiner else i
+            key = fleet._tenants[tid].bucket if tid in fleet._tenants \
+                else fleet.bucket_of(a.d, a.k_top,
+                                     streams[tid].n_per_agent)
+            item = streams[tid].tick(local)
+            r = solos[tid].tick(P.StackedOperators(
+                data=pad_rows(item.ops.data, key[3])), item.U)
+            f = t["report"].tenants[tid]
+            same = _decisions(r) == _decisions(f) and all(
+                torch.equal(x, y) for x, y in zip(t["states"][tid],
+                                                  solos[tid].state))
+            if not same:
+                unequal.append((i, tid))
+    serve_ms = [t["ms"] for t in ticks[1:]]
+    if unequal:
+        fail(f"fleet: tenants differ from their solo trackers: {unequal}")
+
+    # throughput with the data ready: the last tick's operators again,
+    # REPLAYS fleet ticks against the same ticks of the solo trackers one
+    # after another (both stay bit-equal); then one profiled fleet tick
+    live = fleet.tenants
+    last = len(ticks) - 1
+    items = {tid: streams[tid].tick(last - (churn_t if tid == joiner
+                                           else 0)) for tid in live}
+    padded = {tid: (P.StackedOperators(data=pad_rows(
+        it.ops.data, fleet._tenants[tid].bucket[3])), it.U)
+        for tid, it in items.items()}
+    fleet_ms, solo_ms = [], []
+    for _ in range(REPLAYS):
+        _, sec = run_timed(fleet.tick, items)
+        fleet_ms.append(sec * 1e3)
+        tic = time.perf_counter()
+        for tid in live:
+            solos[tid].tick(*padded[tid])
+        if on_card:
+            torch.cuda.synchronize()
+        solo_ms.append((time.perf_counter() - tic) * 1e3)
+    if not all(torch.equal(x, y) for tid in live for x, y in
+               zip(fleet.tenant_state(tid), solos[tid].state)):
+        fail("fleet: a replayed tick differs from the solo trackers")
+    n = len(live)
+    print(f"fleet vs solo trackers on the card: unequal (tick, tenant) "
+          f"{unequal} of {sum(len(t['states']) for t in ticks)} (sampled "
+          f"{SAMPLED} among them); fleet tick ms in the serve loop (beside "
+          f"the prefetch threads' draws) {[round(x, 2) for x in serve_ms]}; "
+          f"serve banner {res['n_steady'] / res['steady_s']:.3f} fleet "
+          f"ticks/s; with the data ready ({REPLAYS} replays of the last "
+          f"tick, {n} tenants): fleet tick ms "
+          f"{[round(x, 2) for x in fleet_ms]} -> "
+          f"{len(fleet_ms) / sum(fleet_ms) * 1e3:.2f} fleet ticks/s, "
+          f"{n * len(fleet_ms) / sum(fleet_ms) * 1e3:.1f} tenant-ticks/s; "
+          f"{n} solo trackers one after another ms "
+          f"{[round(x, 2) for x in solo_ms]} -> "
+          f"{n * len(solo_ms) / sum(solo_ms) * 1e3:.1f} tenant-ticks/s",
+          flush=True)
+    prof = profile_window(f"fleet tick, {n} tenants", "tick",
+                          lambda: fleet.tick(items), units=1) \
+        if on_card else {"device_ops": 0.0, "idle_share": 0.0}
+    shutil.rmtree(tmp, ignore_errors=True)
+    return {"fleet_ticks_s": len(fleet_ms) / sum(fleet_ms) * 1e3,
+            "tenant_ticks_s": n * len(fleet_ms) / sum(fleet_ms) * 1e3,
+            "solo_tenant_ticks_s": n * len(solo_ms) / sum(solo_ms) * 1e3,
+            "fleet_tick_ms": statistics.median(fleet_ms),
+            "serve_fleet_tick_ms": statistics.median(serve_ms),
+            "banner_fleet_ticks_s": res["n_steady"] / res["steady_s"],
+            "device_ops_per_tick": prof["device_ops"],
+            "idle_share": prof["idle_share"], "draw_s": draw,
+            "peak_gib": peak / 2 ** 30}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card "
@@ -1532,6 +1938,21 @@ def main() -> int:
     torch.cuda.empty_cache()
     serve_numbers = serve_phase(P, kernels, fm, ops, W0, peaks)
     print(f"serve summary {json.dumps(serve_numbers)}", flush=True)
+
+    # ---- 4h. streaming and serving at the w8a cells' shapes: the stream
+    # request (tracker + queue), an abrupt change in fp32 and on the fp8
+    # wire, and the fleet request
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    streaming = {"stream": stream_phase(kernels, dev)}
+    streaming["abrupt"], shift = abrupt_phase(P, kernels, dev)
+    streaming["abrupt_fp8"], _ = abrupt_phase(P, kernels, dev, wire="fp8",
+                                              stream=shift)
+    del shift
+    torch.cuda.empty_cache()
+    streaming["fleet"] = fleet_phase(P, kernels, dev)
+    print(f"streaming summary {json.dumps(streaming)}", flush=True)
+    torch.cuda.empty_cache()
 
     # ---- 5. f64 bench grid on the card (no kernel takes f64)
     bench = json.loads((ROOT / "BENCH_deepca.json").read_text())

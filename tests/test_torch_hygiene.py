@@ -37,7 +37,10 @@ def test_import_leaves_jax_and_reference_out():
         "repro_torch.kernels.autotune, "
         "repro_torch.models, repro_torch.configs, "
         "repro_torch.configs.smollm_135m, repro_torch.launch.serve, "
-        "repro_torch.launch.steps\n"
+        "repro_torch.launch.steps, repro_torch.data, "
+        "repro_torch.data.synthetic, repro_torch.streaming, "
+        "repro_torch.streaming.stream, repro_torch.streaming.tracker, "
+        "repro_torch.streaming.service, repro_torch.streaming.fleet\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "from repro_torch.kernels import _build\n"
@@ -121,6 +124,39 @@ def test_pca_serving_defaults_to_the_card():
             P.synthetic_problem_batch(1, 3, 4, 2)
         assert telemetry.get_sink() is sink and tracing.get_tracer() is None
 
+
+
+def test_streaming_entry_points_default_to_the_card():
+    """The streams, the tracker, the service, the fleet and the
+    ``pca-stream`` / ``pca-fleet`` workloads take the card unless asked
+    for the CPU; on a host without CUDA torch's own error surfaces."""
+    import inspect
+
+    from repro_torch import streaming as PS
+    from repro_torch.launch import serve
+    from repro_torch.runtime import telemetry, tracing
+    assert serve.serve_pca_stream.__defaults__ == (None,)
+    assert serve.serve_pca_fleet.__defaults__ == (None,)
+    assert PS.SlowRotationStream(m=2, d=4, k=1).device is None
+    assert PS.ragged_requests.__kwdefaults__["device"] is None
+    assert PS.StreamingDeEPCA(k=1, T_tick=1, K=1,
+                              topology=P.ring(2)).device is None
+    for cls in (PS.PCAService, PS.TrackerFleet):
+        assert inspect.signature(cls).parameters["device"].default is None
+    assert PS.TrackerFleet(k=1, T_tick=1, K=1, topology=P.ring(2)) \
+        .device == torch.device("cuda")
+    s = PS.SlowRotationStream(m=2, d=4, k=1, n_per_agent=3, device="cpu")
+    assert s.ops_at(0).device.type == "cpu"
+    if not torch.cuda.is_available():
+        with pytest.raises((RuntimeError, AssertionError)):
+            PS.SlowRotationStream(m=2, d=4, k=1, n_per_agent=3).ops_at(0)
+        sink = telemetry.get_sink()
+        for workload in ("pca-stream", "pca-fleet"):
+            with pytest.raises((RuntimeError, AssertionError)):
+                serve.main(["--workload", workload, "--m", "2", "--d", "4",
+                            "--k-top", "1", "--n-per-agent", "3",
+                            "--ticks", "1", "--tenants", "1"])
+        assert telemetry.get_sink() is sink and tracing.get_tracer() is None
 
 def test_runtime_modules_read_no_repro_variable_directly():
     """Only ``runtime/config.py`` names a ``REPRO_*`` variable when it

@@ -1224,3 +1224,92 @@ def test_ground_truth_eigenvectors_are_orthonormal_on_card(sm90):
     gap = torch.linalg.matrix_norm(U.double().cpu() - U_cpu @ (
         U_cpu.mT @ U.double().cpu()))
     assert float(gap) < 1e-5
+
+
+def _fleet_case(policy, n_list, seed=0):
+    """Tenants at the w8a cells' shapes (m=50, d=300, k=5) whose sample
+    counts pad to one bucket of n_pad 1008 with 8 slots, their solo
+    trackers on the card, and the fleet."""
+    from repro_torch import streaming as S
+    topo = P.erdos_renyi(50, p=0.5, seed=0)
+    streams = {f"t{i}": S.SlowRotationStream(m=50, d=300, k=5,
+                                             n_per_agent=n, rate=0.05,
+                                             seed=seed + i)
+               for i, n in enumerate(n_list)}
+    fleet = S.TrackerFleet(k=5, T_tick=3, K=8, topology=topo, policy=policy,
+                           slots=8)
+    solos = {}
+    for tid, s in streams.items():
+        fleet.join(tid, s.init_W0(), n=s.n_per_agent)
+        solos[tid] = S.StreamingDeEPCA(k=5, T_tick=3, K=8, topology=topo,
+                                       W0=s.init_W0(), policy=policy)
+    assert {fleet.bucket_of(300, 5, n)[3] for n in n_list} == {1008}
+    return streams, fleet, solos
+
+
+def _solo_tick(solo, item, U=True):
+    from repro_torch.streaming.service import pad_rows
+    ops = P.StackedOperators(data=pad_rows(item.ops.data, 1008))
+    return solo.tick(ops, item.U if U else None)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["restart", "escalation"])
+def test_fleet_masks_bit_equal_to_solo_on_card(sm90, case):
+    """The fleet's masked restart and escalation passes at n_pad 1008 and
+    C = 8 slots, on the card: every tenant's state equals its solo
+    tracker's bit for bit on every tick (``run_batch`` over the slot axis
+    against ``run``, the batched ``rebase_carry`` against the solo one),
+    with the same decisions."""
+    from repro_torch.streaming import DriftPolicy
+    if case == "restart":
+        pol = DriftPolicy(jump=1e-9, restart=1e-9, max_escalations=1)
+    else:
+        pol = DriftPolicy(jump=float("inf"), restart=float("inf"),
+                          target=1e-12, max_escalations=2)
+    streams, fleet, solos = _fleet_case(pol, [1001, 1005, 1008])
+    seen = set()
+    for t in range(3):
+        items = {tid: s.tick(t) for tid, s in streams.items()}
+        # the escalation case gives t2 no truth: a partial mask
+        truth = {tid: case == "restart" or tid != "t2" for tid in items}
+        rep = fleet.tick({tid: (it.ops, it.U) if truth[tid] else it.ops
+                          for tid, it in items.items()})
+        for tid, item in items.items():
+            r = _solo_tick(solos[tid], item, truth[tid])
+            f = rep.tenants[tid]
+            assert (f.iterations, f.drift, f.restarted, f.escalations) == \
+                (r.iterations, r.drift, r.restarted, r.escalations)
+            seen.add((f.restarted, f.escalations > 0))
+            for a, b in zip(fleet.tenant_state(tid), solos[tid].state):
+                assert torch.equal(a.cpu(), b.cpu()), (t, tid)
+    assert (True, True) in seen if case == "restart" else \
+        {(False, True), (False, False)} <= seen
+
+
+@pytest.mark.gpu
+def test_warm_fleet_ticks_build_nothing_on_card(sm90):
+    """After the warm-up tick no ``P_K(L)`` is built and no library loaded,
+    across ticks and a leave/join into the vacated slot, and each tick
+    launches the gossip kernel ``windows x T`` times for all tenants."""
+    from repro_torch import streaming as S
+    from repro_torch.streaming import DriftPolicy
+    streams, fleet, _ = _fleet_case(DriftPolicy(target=1e-3),
+                                    [1001, 1003, 1006])
+    fleet.tick({tid: s.tick(0) for tid, s in streams.items()})
+    marks = (len(fleet.driver.engine._P_cache), len(_build._libs))
+    for t in range(1, 4):
+        if t == 2:
+            fleet.leave("t1")
+            streams["t1"] = S.SlowRotationStream(m=50, d=300, k=5,
+                                                 n_per_agent=1003,
+                                                 rate=0.05, seed=99)
+            fleet.join("t1", streams["t1"].init_W0(), n=1003)
+        kernels.reset_launch_counts()
+        rep = fleet.tick({tid: s.tick(t if tid != "t1" or t < 2 else t - 2)
+                          for tid, s in streams.items()})
+        counts = kernels.launch_counts()
+        assert rep.cold_launches == 0 and counts["fastmix_poly"] == 0
+        assert counts["fastmix_track"] == rep.windows * 3
+        assert (len(fleet.driver.engine._P_cache), len(_build._libs)) == \
+            marks

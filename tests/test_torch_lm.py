@@ -261,10 +261,15 @@ def test_serve_cli_on_cpu_reduced():
     assert out.returncode == 0, out.stderr
     assert "generated (2, 4)" in out.stdout and "tok/s" in out.stdout
     from repro_torch.launch import serve
+    # the pca workloads are served: tiny requests on the CPU
     for workload in ("pca-stream", "pca-fleet"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            serve.main(["--workload", workload])
-    # the pca workload is served: a tiny request on the CPU
+        res = serve.main(["--workload", workload, "--device", "cpu",
+                          "--m", "4", "--d", "8", "--k-top", "2",
+                          "--n-per-agent", "12", "--ticks", "2",
+                          "--tick-iters", "1", "--rounds", "2",
+                          "--iters", "2", "--requests", "1",
+                          "--tenants", "2"])
+        assert res["fleet" if workload == "pca-fleet" else "tracker"]
     res = serve.main(["--workload", "pca", "--device", "cpu", "--batch", "1",
                       "--m", "4", "--d", "8", "--k-top", "2", "--iters", "2",
                       "--rounds", "2", "--reps", "1"])

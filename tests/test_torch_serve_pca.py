@@ -183,9 +183,17 @@ def test_synthetic_problem_batch_is_the_reference_s():
 
 
 def test_stream_and_fleet_workloads_name_item_8():
-    for workload in ("pca-stream", "pca-fleet"):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            Pserve.main(["--workload", workload, "--device", "cpu"])
+    """ROADMAP queue 1 item 8 is ported: both workloads serve a tiny
+    request on the CPU (their parity with the reference is
+    tests/test_torch_serve_stream.py)."""
+    small = ["--device", "cpu", "--m", "4", "--d", "8", "--k-top", "2",
+             "--n-per-agent", "12", "--ticks", "2", "--tick-iters", "2",
+             "--rounds", "2", "--iters", "3"]
+    res = Pserve.main(["--workload", "pca-stream", "--requests", "2"]
+                      + small)
+    assert len(res["reports"]) == 2 and len(res["responses"]) == 2
+    res = Pserve.main(["--workload", "pca-fleet", "--tenants", "3"] + small)
+    assert res["fleet"].program_count >= 1 and len(res["ticks"]) == 2
 
 
 def test_main_restores_the_sink_and_tracer(tmp_path):
