@@ -78,11 +78,30 @@ What it does, in order; any failure raises and the exit code is non-zero:
    warm-up tick, windows x T gossip launches per tick, every tenant bit
    for bit equal to a solo tracker on every tick, fleet ticks against
    the solo trackers one after another with the data ready, a profiled
-   fleet tick and the peak memory;
+   fleet tick and the peak memory; 4i. fault tolerance at w8a scale:
+   ``deepca_with_failures`` with agents dying before iterations 30 and 60
+   (m = 50 -> 48 -> 45), on the data form, the dense form and the data
+   form under the fp8 wire, with segment checkpoints: exactly T gossip
+   launches over the three segments, one ``P_K(L)`` build per segment at
+   its m (none on the wire), ``cholqr2`` at least T times and ``gram``
+   never, the final W within 1e-4 of ``stacked`` (fp8: of the f64 run,
+   as 4c), the final tan theta under twice ``stacked``'s, the round
+   count continued, the fp8 ``ef`` slot zeroed at each failure, the two
+   kept checkpoints restorable onto the card and the last segment resumed
+   from the restored segment-2 checkpoint bit-equal; a ``ResilientLoop``
+   of ``deepca(T=20, state=)`` blocks with a crash at block 3, resumed
+   bit-equal to the uninterrupted loop; the ``fault`` line (µs per
+   iteration against one ``deepca``, each ``P_K(L)`` build's ms, the
+   checkpointer's snapshot and write ms, ``restore`` ms, straggler
+   events);
 5. runs the f64 bench grid on the card (f64 never enters a kernel) and
    holds it to ``BENCH_deepca.json``; 5b. runs
    ``scripts/bench_torch_deepca.py --quick`` and ``benchmarks/bench_diff.py``
    on its rows against ``BENCH_deepca.json`` (the card's ``us`` left out);
+   5c. runs ``scripts/bench_torch_streaming.py`` and
+   ``scripts/bench_torch_kernels.py`` in full and ``bench_diff`` against
+   ``BENCH_streaming.json`` / ``BENCH_kernels.json`` on the accuracy, exact
+   and ``ok`` columns (the times and rates printed, not diffed);
 6. runs a large configuration (m=64, n=4096, d=4096, k=32) with data made
    on the card from a seed; 6b. the same size with dense operators;
 7. slice 3: holds the power-matmul (the cluster-split product, also
@@ -729,23 +748,25 @@ def check_flash(fa, peaks, b: int, h: int, hkv: int, s: int, hd: int,
     return row
 
 
+def load_script(path: Path):
+    """A script of the checkout as a module (``main`` not run)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def bench_rows(root: Path) -> None:
     """``scripts/bench_torch_deepca.py --quick`` (the w8a_like grid at K=8,
     f64) on the card, then ``benchmarks/bench_diff.py``'s verdict against
     the committed ``BENCH_deepca.json`` on the accuracy, round and byte
     columns: the card's ``us`` are left out of the diff, as they are
     never compared with the committed CPU-host times."""
-    import importlib.util
     import tempfile
 
-    def load(path: Path):
-        spec = importlib.util.spec_from_file_location(path.stem, path)
-        mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
-        return mod
-
-    bench = load(root / "scripts" / "bench_torch_deepca.py")
-    bdiff = load(root / "benchmarks" / "bench_diff.py")
+    bench = load_script(root / "scripts" / "bench_torch_deepca.py")
+    bdiff = load_script(root / "benchmarks" / "bench_diff.py")
     with tempfile.TemporaryDirectory() as tmp:
         out = Path(tmp) / "bench_torch_deepca.json"
         tic = time.perf_counter()
@@ -770,6 +791,51 @@ def bench_rows(root: Path) -> None:
     if not report["ok"]:
         fail("bench_diff: the port's quick rows regressed against "
              "BENCH_deepca.json")
+
+
+#: Columns of the ported benches that are host or card times, or rates
+#: from them: the committed ``BENCH_*.json`` took theirs on a CPU host, so
+#: phase 5c prints them and leaves them out of ``bench_diff``.
+TIMED_KEYS = ("us", "req_per_sec", "ticks_per_sec", "tenant_ticks_per_sec")
+
+
+def ported_benches(root: Path) -> dict:
+    """``scripts/bench_torch_streaming.py`` and
+    ``scripts/bench_torch_kernels.py`` in full on the card, each diffed by
+    ``benchmarks/bench_diff.py`` against its committed ``BENCH_*.json`` on
+    the accuracy, exact and ``ok`` columns (``TIMED_KEYS`` printed, not
+    diffed).  Returns the seconds each bench took."""
+    import tempfile
+
+    bdiff = load_script(root / "benchmarks" / "bench_diff.py")
+    secs = {}
+    for name in ("streaming", "kernels"):
+        bench = load_script(root / "scripts" / f"bench_torch_{name}.py")
+        with tempfile.TemporaryDirectory() as tmp:
+            out = Path(tmp) / f"bench_torch_{name}.json"
+            tic = time.perf_counter()
+            if bench.main(["--json", str(out)]) != 0:
+                fail(f"scripts/bench_torch_{name}.py failed")
+            secs[name] = time.perf_counter() - tic
+            payload = json.loads(out.read_text())
+        for row in payload["rows"]:
+            print(f"bench {name} " + " ".join(f"{k}={v}"
+                                              for k, v in row.items()))
+            for key in TIMED_KEYS:
+                row.pop(key, None)
+        report = bdiff.diff(bdiff.load(str(root / f"BENCH_{name}.json")),
+                            payload)
+        print(f"bench_torch_{name} (full grid): {len(payload['rows'])} rows "
+              f"in {secs[name]:.1f} s on {payload['device']}; bench_diff vs "
+              f"BENCH_{name}.json ({', '.join(TIMED_KEYS)} left out): "
+              f"compared {report['compared']} shared rows, regressions "
+              f"{report['regressions']}, improvements "
+              f"{report['improvements']}, warnings {report['warnings']}; "
+              f"RESULT {'OK' if report['ok'] else 'REGRESSED'}", flush=True)
+        if not report["ok"]:
+            fail(f"bench_diff: the port's {name} rows regressed against "
+                 f"BENCH_{name}.json")
+    return secs
 
 
 def print_row(row: dict) -> None:
@@ -1552,6 +1618,270 @@ def fleet_phase(P, kernels, dev, args=FLEET_ARGS) -> dict:
             "peak_gib": peak / 2 ** 30}
 
 
+#: Phase 4i's failures at w8a scale: m = 50 -> 48 -> 45 before iterations
+#: 30 and 60 of T = 100 (indices in the numbering current at the failure).
+FAULTS = ((30, (3, 17)), (60, (0, 9, 41)))
+
+
+class FaultProbe:
+    """Records, during one ``deepca_with_failures`` call, each ``P_K(L)``
+    build's agent count and device time (CUDA events around the call: no
+    synchronization) and each state :func:`kill_agents` hands on."""
+
+    def __init__(self, fm, ft, on_card: bool):
+        self.fm, self.ft, self.on_card = fm, ft, on_card
+        self.builds, self.killed = [], []
+
+    def __enter__(self):
+        self._poly, self._kill = self.fm.poly_matrix, self.ft.kill_agents
+
+        def poly(L, *a, **kw):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)] \
+                if self.on_card else None
+            if ev:
+                ev[0].record()
+            out = self._poly(L, *a, **kw)
+            if ev:
+                ev[1].record()
+            self.builds.append((L.shape[-1], ev))
+            return out
+
+        def kill(ops, state, dead):
+            out = self._kill(ops, state, dead)
+            self.killed.append(out[1])
+            return out
+
+        self.fm.poly_matrix, self.ft.kill_agents = poly, kill
+        return self
+
+    def __exit__(self, *exc):
+        self.fm.poly_matrix, self.ft.kill_agents = self._poly, self._kill
+
+    def build_ms(self) -> list:
+        if self.on_card:
+            torch.cuda.synchronize()
+        return [ev[0].elapsed_time(ev[1]) if ev else None
+                for _, ev in self.builds]
+
+
+def _median_s(fn, reps: int = 3) -> float:
+    return statistics.median(run_timed(fn)[1] for _ in range(reps))
+
+
+def fault_phase(P, kernels, fm, ops, W0, U, dev, K: int = 8,
+                T: int = 100) -> dict:
+    """Phase 4i: ``deepca_with_failures`` at w8a scale on the data form,
+    the dense form and the data form under the fp8 wire, with segment
+    checkpoints; a resumed last segment; a ``ResilientLoop`` restart; the
+    checkpointer's costs.  Returns the numbers of the ``fault`` line."""
+    import tempfile
+
+    from repro_torch import checkpoint as C
+    from repro_torch.runtime import config as rconfig
+    from repro_torch.runtime import fault_tolerance as F
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    m, k = ops.m, W0.shape[1]
+    topo = P.erdos_renyi(m, p=0.5, seed=0)
+    fails = [F.AgentFailure(at, list(dead)) for at, dead in FAULTS]
+    sizes = [m]
+    for _, dead in FAULTS:
+        sizes.append(sizes[-1] - len(dead))
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_fault_"))
+    dense = P.StackedOperators(dense=(ops.data.mT @ ops.data).contiguous())
+    forms = (("data", ops, None, "fastmix_track"),
+             ("dense", dense, None, "apply_track"),
+             ("fp8", ops, "fp8", "fastmix_track_ef"))
+    gossip_kernels = {"fastmix_track", "apply_track", "fastmix_track_ef",
+                      "fastmix", "fastmix_ef"}
+    numbers = {}
+    for form, o, wire, gossip in forms:
+        def scenario(backend, o=o, W=W0, ckpt=None):
+            return F.deepca_with_failures(o, topo, W, k=k, T=T, K=K,
+                                          failures=fails,
+                                          U=U.to(W.dtype),
+                                          backend=backend, ckpt_dir=ckpt,
+                                          device=dev)
+        with rconfig.override(wire_dtype=wire):
+            ckdir = tmp / form
+            kernels.reset_launch_counts()
+            with FaultProbe(fm, F, on_card) as probe:
+                out, sec = run_timed(scenario, "cuda", ckpt=str(ckdir))
+            counts = kernels.launch_counts()
+            build_ms = probe.build_ms()
+            sec_fail = _median_s(lambda: scenario(
+                "cuda", ckpt=tempfile.mkdtemp(dir=tmp)))
+            sec_plain = _median_s(lambda: P.deepca(
+                o, topo, W0, k=k, T=T, K=K, U=U, backend="cuda"))
+            ref = scenario("stacked")
+            tol, rule = SUBSPACE_TOL, "stacked"
+            gap = subspace_gap(ref["result"].W, out["result"].W)
+            if wire:      # the fp8 rule of 4c: against the f64 run
+                ref64 = scenario("stacked", P.StackedOperators(
+                    data=o.data.double()), W0.double())
+                spread = subspace_gap(ref64["result"].W, ref["result"].W)
+                tol = max(2 * spread, SUBSPACE_TOL)
+                gap = subspace_gap(ref64["result"].W, out["result"].W)
+                rule = (f"the f64 stacked run (stacked fp32 {spread:.3e} "
+                        f"from it)")
+            # the last segment again, from the restored segment-2
+            # checkpoint: the second failure applied, then deepca(state=)
+            keep = [i for i in range(m) if i not in FAULTS[0][1]]
+            part = P.StackedOperators(
+                dense=None if o.dense is None else o.dense[keep],
+                data=None if o.data is None else o.data[keep])
+            z = torch.zeros(sizes[1], *W0.shape, device=dev)
+            template = {"S": z, "W": z, "G_prev": z,
+                        "offset": torch.zeros(2, dtype=torch.int32)}
+            if wire:
+                template["extra0"] = z
+            sync()
+            tic = time.perf_counter()
+            saved, step = C.restore(str(ckdir), template, step=2,
+                                    device=dev)
+            sync()
+            restore_ms = (time.perf_counter() - tic) * 1e3
+            state = (saved["S"], saved["W"], saved["G_prev"],
+                     *([saved["extra0"]] if wire else []), saved["offset"])
+            last, state = F.kill_agents(part, state, list(FAULTS[1][1]))
+            topo_last = F.degrade_topology(F.degrade_topology(
+                topo, list(FAULTS[0][1])), list(FAULTS[1][1]))
+            U_last, _ = P.top_k_eigvecs(last.mean_matrix(), k)
+            resumed = P.deepca(last, topo_last, W0, k=k, T=T - FAULTS[-1][0],
+                               K=K, U=U_last, backend="cuda", state=state)
+        res = out["result"]
+        tan, tan_ref = (float(r["result"].trace.mean_tan_theta[-1])
+                        for r in (out, ref))
+        kept = sorted(p.name for p in ckdir.iterdir())
+        restorable = []
+        for name, mm in zip(kept, sizes[1:]):
+            shape = torch.zeros(mm, *W0.shape)
+            got, _ = C.restore(str(ckdir), {**template, "S": shape,
+                                            "W": shape, "G_prev": shape,
+                                            **({"extra0": shape} if wire
+                                               else {})},
+                               step=int(name.split("_")[1]), device=dev)
+            restorable.append(all(v.device.type == dev.type for v in
+                                  got.values()))
+        ef_zeroed = [not s[3].any() for s in probe.killed] if wire else []
+        built_at = [mm for mm, _ in probe.builds]
+        bit_equal = bool(torch.equal(resumed.W, res.W))
+        print(f"fault {form} w8a m={'->'.join(map(str, sizes))} K={K} "
+              f"T={T} fp32 cuda{' fp8 wire' if wire else ''}: "
+              f"us_per_iter={sec_fail / T * 1e6:.1f} (median of 3, segment "
+              f"checkpoints included) against one deepca T={T} "
+              f"us_per_iter={sec_plain / T * 1e6:.1f}; first call "
+              f"{sec / T * 1e6:.1f}; final_mean_tan_theta={tan:.6e} (stacked "
+              f"{tan_ref:.6e}); launches={counts}; P_K(L) builds at m="
+              f"{built_at} ms={[round(x, 4) for x in build_ms if x]}; "
+              f"per-agent subspace distance from {rule} {gap:.3e} (tol "
+              f"{tol:.3e}); checkpoints kept {kept}, restorable onto the "
+              f"card {restorable}, segment 2 restored in {restore_ms:.3f} "
+              f"ms; last segment resumed from it bit-equal: {bit_equal}"
+              + (f"; ef zeroed at each failure {ef_zeroed}" if wire else ""),
+              flush=True)
+        want_rounds = torch.arange(FAULTS[-1][0] + 1, T + 1,
+                                   dtype=torch.float32) * K
+        if not (out["survivors"] == out["topology"].m == sizes[-1]
+                and torch.equal(res.trace.comm_rounds.cpu(), want_rounds)):
+            fail(f"fault {form}: survivors {out['survivors']}, rounds "
+                 f"{res.trace.comm_rounds[:3].tolist()}...")
+        if on_card:
+            others = {n: counts[n] for n in gossip_kernels - {gossip}}
+            if counts[gossip] != T or any(others.values()) or \
+                    counts["cholqr2"] < T or counts["gram"] != 0:
+                fail(f"fault {form}: want exactly {T} {gossip} launches, no "
+                     f"other gossip kernel, cholqr2 at least {T}, gram "
+                     f"never: {counts}")
+            if counts["fastmix_poly"] != (0 if wire else len(sizes)) or \
+                    (not wire and built_at != sizes):
+                fail(f"fault {form}: want one P_K(L) build per segment at "
+                     f"m={sizes}: {counts['fastmix_poly']} at {built_at}")
+        if not (gap <= tol and torch.isfinite(res.W).all()):
+            fail(f"fault {form}: subspace distance {gap} (tol {tol})")
+        if not tan < 2 * tan_ref:
+            fail(f"fault {form}: final tan theta {tan} not under 2 x the "
+                 f"stacked run's {tan_ref}")
+        if kept != ["step_00000002", "step_00000003"] or \
+                not all(restorable) or (on_card and not bit_equal):
+            fail(f"fault {form}: checkpoints {kept}, restorable "
+                 f"{restorable}, resumed bit-equal {bit_equal}")
+        if wire and not (len(ef_zeroed) == len(FAULTS) and all(ef_zeroed)):
+            fail(f"fault {form}: ef not zeroed at each failure {ef_zeroed}")
+        numbers[form] = {"us_per_iter": sec_fail / T * 1e6,
+                         "deepca_us_per_iter": sec_plain / T * 1e6,
+                         "build_ms": build_ms, "restore_ms": restore_ms}
+    del dense
+
+    # the checkpointer alone: a w8a state (S, W, G_prev of (50, 300, 5)
+    # fp32 and the offset), three times
+    payload = dict(zip(("S", "W", "G_prev"), out["segments"][0].state[:3]))
+    payload["offset"] = out["segments"][0].state[-1]
+    nbytes = sum(v.numel() * v.element_size() for v in payload.values())
+    ck = C.AsyncCheckpointer(str(tmp / "timing"), keep=1)
+    snap, write = [], []
+    for step in range(3):
+        sync()
+        tic = time.perf_counter()
+        ck.save_async(step, payload)
+        mid = time.perf_counter()
+        ck.wait()
+        snap.append((mid - tic) * 1e3)
+        write.append((time.perf_counter() - mid) * 1e3)
+
+    # ResilientLoop on the card: blocks of deepca(T=20, state=) as the e2e
+    # example runs them, a checkpoint every 2 blocks, a crash at block 3
+    def block(state, step):
+        W_run = W0 if step == 0 else torch.linalg.qr(state[1].mean(0)).Q
+        return P.deepca(ops, topo, W_run, k=k, T=20, K=K, U=U,
+                        backend="cuda", state=state).state
+
+    def init():
+        Ws = W0.expand(m, *W0.shape).contiguous()
+        return (Ws, Ws.clone(), Ws.clone(),
+                torch.zeros(2, dtype=torch.int32))
+
+    def crashing(state, step):
+        if step == 3:
+            raise RuntimeError("injected crash at block 3")
+        return block(state, step)
+
+    blocks = T // 20
+    whole_loop = F.ResilientLoop(str(tmp / "whole"), ckpt_every=2)
+    whole = whole_loop.run(init(), 0, blocks, block)
+    crashed = F.ResilientLoop(str(tmp / "crash"), ckpt_every=2)
+    try:
+        crashed.run(init(), 0, blocks, crashing)
+        fail("the injected crash did not surface")
+    except RuntimeError:
+        pass
+    again = F.ResilientLoop(str(tmp / "crash"), ckpt_every=2)
+    state, start = again.resume_or_init(init, device=dev)
+    state = again.run(state, start, blocks, block)
+    same = all(torch.equal(a.to(b.device), b) for a, b in zip(state, whole))
+    events = [ev for lp in (whole_loop, crashed, again)
+              for ev in lp.monitor.events]
+    print(f"fault resilient loop: {blocks} blocks of deepca T=20 on the "
+          f"card, checkpoint every 2, crash at block 3, resumed at block "
+          f"{start}: final state bit-equal to the uninterrupted loop "
+          f"{same}; straggler events {events}", flush=True)
+    if start != 2 or not same:
+        fail(f"resilient loop: resumed at {start}, bit-equal {same}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    summary = {
+        "us_per_iter": {f: v["us_per_iter"] for f, v in numbers.items()},
+        "deepca_us_per_iter": {f: v["deepca_us_per_iter"]
+                               for f, v in numbers.items()},
+        "build_ms": {f: v["build_ms"] for f, v in numbers.items()
+                     if f != "fp8"},
+        "snapshot_ms": statistics.median(snap),
+        "write_ms": statistics.median(write), "bytes": nbytes,
+        "restore_ms": {f: v["restore_ms"] for f, v in numbers.items()},
+        "straggler_events": events}
+    print(f"fault {json.dumps(summary)}", flush=True)
+    return summary
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card "
@@ -1954,6 +2284,12 @@ def main() -> int:
     print(f"streaming summary {json.dumps(streaming)}", flush=True)
     torch.cuda.empty_cache()
 
+    # ---- 4i. fault tolerance and checkpoints at w8a scale: agents die
+    # mid-run (m = 50 -> 48 -> 45), data form, dense and fp8; a resumed
+    # segment and a ResilientLoop restart
+    fault_phase(P, kernels, fm, ops, W0, U, dev, K=K, T=T)
+    torch.cuda.empty_cache()
+
     # ---- 5. f64 bench grid on the card (no kernel takes f64)
     bench = json.loads((ROOT / "BENCH_deepca.json").read_text())
     want = next(r["final_tan"] for r in bench["rows"]
@@ -1973,6 +2309,9 @@ def main() -> int:
 
     # ---- 5b. the port's bench script (quick grid) and bench_diff's verdict
     bench_rows(ROOT)
+
+    # ---- 5c. the ported streaming and kernel benches, full grids
+    ported_benches(ROOT)
 
     # ---- 6. a large configuration, data made on the card
     m, n, d, k, K, T = 64, 4096, 4096, 32, 8, 20

@@ -40,7 +40,9 @@ def test_import_leaves_jax_and_reference_out():
         "repro_torch.launch.steps, repro_torch.data, "
         "repro_torch.data.synthetic, repro_torch.streaming, "
         "repro_torch.streaming.stream, repro_torch.streaming.tracker, "
-        "repro_torch.streaming.service, repro_torch.streaming.fleet\n"
+        "repro_torch.streaming.service, repro_torch.streaming.fleet, "
+        "repro_torch.checkpoint, repro_torch.checkpoint.checkpoint, "
+        "repro_torch.runtime.fault_tolerance\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "from repro_torch.kernels import _build\n"
@@ -53,10 +55,10 @@ def test_import_leaves_jax_and_reference_out():
 
 
 @pytest.mark.parametrize("path", sorted(
-    str(p.relative_to(ROOT)) for p in [*PORT.rglob("*.py"),
-                                       ROOT / "chip_smoke.py",
-                                       ROOT / "scripts" /
-                                       "bench_torch_deepca.py"]))
+    str(p.relative_to(ROOT)) for p in [
+        *PORT.rglob("*.py"), ROOT / "chip_smoke.py",
+        *(ROOT / "scripts").glob("bench_torch_*.py"),
+        *(ROOT / "examples").glob("*_torch.py")]))
 def test_no_jax_or_reference_import(path):
     tree = ast.parse((ROOT / path).read_text())
     for node in ast.walk(tree):
@@ -157,6 +159,47 @@ def test_streaming_entry_points_default_to_the_card():
                             "--k-top", "1", "--n-per-agent", "3",
                             "--ticks", "1", "--tenants", "1"])
         assert telemetry.get_sink() is sink and tracing.get_tracer() is None
+
+def test_checkpoints_failures_and_examples_default_to_the_card(tmp_path):
+    """``restore``, ``ResilientLoop.resume_or_init``,
+    ``deepca_with_failures`` and the examples take the card unless asked
+    for the CPU; on a host without CUDA torch's own error surfaces."""
+    import importlib.util
+    import inspect
+
+    from repro_torch import checkpoint as C
+    from repro_torch.runtime import fault_tolerance as F
+    for fn in (C.restore, F.ResilientLoop.resume_or_init,
+               F.deepca_with_failures):
+        assert inspect.signature(fn).parameters["device"].default is None
+    tree = {"x": torch.ones(2)}
+    C.save(str(tmp_path), 1, tree)
+    assert C.restore(str(tmp_path), tree, device="cpu")[0]["x"].device == \
+        torch.device("cpu")
+    examples = sorted((ROOT / "examples").glob("*_torch.py"))
+    assert [p.name for p in examples] == [
+        "decentralized_pca_e2e_torch.py", "quickstart_torch.py",
+        "serve_lm_torch.py", "streaming_pca_torch.py"]
+    if torch.cuda.is_available():
+        return
+    with pytest.raises((RuntimeError, AssertionError)):
+        C.restore(str(tmp_path), tree)
+    ops = P.synthetic_spiked(4, 6, 1, n_per_agent=8, device="cpu")
+    with pytest.raises((RuntimeError, AssertionError)):
+        F.deepca_with_failures(ops, P.ring(4), torch.ones(6, 1), k=1, T=4,
+                               K=1, failures=[F.AgentFailure(2, [1])])
+    for path in examples:
+        if path.name == "serve_lm_torch.py":      # a launcher: runs a child
+            out = subprocess.run([sys.executable, str(path)], env=_env(),
+                                 capture_output=True, text=True, timeout=120)
+            assert out.returncode != 0 and "generated" not in out.stdout
+            continue
+        spec = importlib.util.spec_from_file_location(path.stem, path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        with pytest.raises((RuntimeError, AssertionError)):
+            mod.main([])
+
 
 def test_runtime_modules_read_no_repro_variable_directly():
     """Only ``runtime/config.py`` names a ``REPRO_*`` variable when it

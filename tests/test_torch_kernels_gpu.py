@@ -1313,3 +1313,105 @@ def test_warm_fleet_ticks_build_nothing_on_card(sm90):
         assert counts["fastmix_track"] == rep.windows * 3
         assert (len(fleet.driver.engine._P_cache), len(_build._libs)) == \
             marks
+
+
+def _agent_gap(Wa, Wb) -> float:
+    """Largest per-agent ``||(I - Qa Qa^T) Qb||_F`` in f64."""
+    from repro_torch.core.step import qr_orth
+    Qa, Qb = (qr_orth(W.double()) for W in (Wa, Wb))
+    return float(torch.linalg.matrix_norm(Qb - Qa @ (Qa.mT @ Qb)).max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", ["data", "dense", "fp8"])
+def test_deepca_with_failures_on_card(sm90, form, tmp_path):
+    """Two failures (m = 20 -> 18 -> 15) on the card: the gossip kernel
+    exactly T times over the three segments (apply-track on the dense
+    form, the fp8-EF kernel under fp8), one ``P_K(L)`` build per segment
+    without a wire (none on it), ``cholqr2`` at least T times, ``gram``
+    never; the final W within 1e-4 of ``stacked`` (fp8: of the f64 run,
+    within max(1e-4, 2x the stacked fp32 spread)); every segment's ``ef``
+    zeroed by the failure that follows it."""
+    from repro_torch.runtime import config
+    from repro_torch.runtime import fault_tolerance as F
+    T, K, k = 40, 6, 4
+    ops = P.libsvm_like(20, 200, 100, seed=0)
+    if form == "dense":
+        ops = P.StackedOperators(dense=(ops.data.mT @ ops.data).contiguous())
+    topo = P.erdos_renyi(20, p=0.5, seed=0)
+    W0 = torch.as_tensor(np.linalg.qr(np.random.default_rng(1)
+                                      .standard_normal((100, k)))[0],
+                         dtype=torch.float32, device="cuda")
+    fails = [F.AgentFailure(10, [3, 17]), F.AgentFailure(25, [0, 9, 11])]
+    wire = "fp8" if form == "fp8" else None
+    killed = []
+    real_kill = F.kill_agents
+
+    def recording_kill(ops_, state, dead):
+        out = real_kill(ops_, state, dead)
+        killed.append(out[1])
+        return out
+
+    def run(o, W, backend, ckpt=None):
+        return F.deepca_with_failures(o, topo, W, k=k, T=T, K=K,
+                                      failures=fails, backend=backend,
+                                      ckpt_dir=ckpt)
+
+    with config.override(wire_dtype=wire):
+        kernels.reset_launch_counts()
+        F.kill_agents = recording_kill
+        try:
+            out = run(ops, W0, "cuda", str(tmp_path))
+        finally:
+            F.kill_agents = real_kill
+        counts = kernels.launch_counts()
+        ref = run(ops, W0, "stacked")
+        spread = 0.0
+        if wire:
+            ref64 = run(P.StackedOperators(data=ops.data.double()),
+                        W0.double(), "stacked")
+            spread = _agent_gap(ref64["result"].W, ref["result"].W)
+            ref = ref64
+    gossip = {"data": "fastmix_track", "dense": "apply_track",
+              "fp8": "fastmix_track_ef"}[form]
+    assert counts[gossip] == T, counts
+    assert counts["fastmix_poly"] == (0 if wire else 3), counts
+    assert counts["cholqr2"] >= T and counts["gram"] == 0, counts
+    assert out["survivors"] == out["topology"].m == 15
+    assert out["result"].W.device.type == "cuda"
+    gap = _agent_gap(ref["result"].W, out["result"].W)
+    assert gap <= max(1e-4, 2 * spread), (gap, spread)
+    assert len(killed) == 2
+    for state in killed:
+        assert len(state) == (5 if wire else 4)
+        if wire:
+            assert not state[3].any()
+    rounds = out["result"].trace.comm_rounds
+    assert torch.equal(rounds, torch.arange(26, 41, dtype=torch.float32) * K)
+    assert sorted(p.name for p in tmp_path.iterdir()) == [
+        "step_00000002", "step_00000003"]
+
+
+@pytest.mark.gpu
+def test_checkpoint_round_trip_on_card(sm90, tmp_path):
+    """Card tensors saved and restored: bit-equal, on the card, of the
+    stored dtypes; a snapshot taken by ``save_async`` does not see an
+    in-place update made on the card after it returns."""
+    from repro_torch import checkpoint as C
+    g = torch.Generator(device="cuda").manual_seed(0)
+    tree = {"S": torch.randn(50, 300, 5, generator=g, device="cuda"),
+            "W": torch.randn(50, 300, 5, generator=g, device="cuda").double(),
+            "offset": torch.tensor([240, 30], dtype=torch.int32,
+                                   device="cuda")}
+    want = {k: v.clone() for k, v in tree.items()}
+    ck = C.AsyncCheckpointer(str(tmp_path), keep=1)
+    ck.save_async(1, tree)
+    tree["S"].add_(1.0)
+    tree["offset"].zero_()
+    ck.wait()
+    got, step = C.restore(str(tmp_path), tree)
+    assert step == 1
+    for key in tree:
+        assert got[key].device.type == "cuda"
+        assert got[key].dtype == want[key].dtype
+        assert torch.equal(got[key], want[key]), key
