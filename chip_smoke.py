@@ -93,7 +93,24 @@ What it does, in order; any failure raises and the exit code is non-zero:
    bit-equal to the uninterrupted loop; the ``fault`` line (µs per
    iteration against one ``deepca``, each ``P_K(L)`` build's ms, the
    checkpointer's snapshot and write ms, ``restore`` ms, straggler
-   events);
+   events); 4j. the distributed substrate, one process per agent on the
+   one card (``spawn_agents``: gloo, staged through pinned host memory,
+   as the transport rule picks with fewer cards than ranks; every kernel
+   built before the spawn): ``DistributedDeEPCA`` with 50 ranks at w8a
+   scale (each rank memory-maps its slice of the parent's data) on the
+   ER data form (the dense all-gather round), the ring data form (point
+   to point) and the ER dense form, then with 16 ranks on
+   ``hypercube(16)`` and an edge-dropout ring schedule (both step kinds
+   used), each gathered W within 1e-4 of the one-process ``stacked``
+   run, every rank's ``cholqr2`` at least T times and no gossip kernel,
+   the transport's sends, all-gathers and bytes per round exactly the
+   rounds' own; ``compress_local`` on 16 ranks (one (1024, 768) gradient
+   each, 20 steps) and the stacked ``DeEPCACompressor`` at (16, 1024,
+   768), each against its own run on the CPU within 1e-4 relative; the
+   ``distributed`` lines (µs per iteration with the compute by CUDA
+   events and the transport by the host clock, the single-process
+   ``deepca`` beside it, device memory of all ranks, host RSS per rank)
+   and the compression bench's rows on the card;
 5. runs the f64 bench grid on the card (f64 never enters a kernel) and
    holds it to ``BENCH_deepca.json``; 5b. runs
    ``scripts/bench_torch_deepca.py --quick`` and ``benchmarks/bench_diff.py``
@@ -862,10 +879,12 @@ def subspace_gap(W_a, W_b) -> float:
 
 
 def run_timed(fn, *args, **kw):
-    torch.cuda.synchronize()
+    sync = torch.cuda.synchronize if torch.cuda.is_available() else \
+        (lambda: None)
+    sync()
     tic = time.perf_counter()
     out = fn(*args, **kw)
-    torch.cuda.synchronize()
+    sync()
     return out, time.perf_counter() - tic
 
 
@@ -877,10 +896,10 @@ def counted(kernels, fn, *args, **kw):
     return out, sec, kernels.launch_counts()
 
 
-def w0_for(d: int, k: int, dtype):
+def w0_for(d: int, k: int, dtype, device="cuda"):
     rng = np.random.default_rng(1)
     return torch.as_tensor(np.linalg.qr(rng.standard_normal((d, k)))[0],
-                           dtype=dtype, device="cuda")
+                           dtype=dtype, device=device)
 
 
 def large_operators(m: int, n: int, d: int, k: int, seed: int):
@@ -1882,6 +1901,310 @@ def fault_phase(P, kernels, fm, ops, W0, U, dev, K: int = 8,
     return summary
 
 
+#: Phase 4j: agents as processes on the one card.  The paper cell at
+#: DIST_M ranks (w8a scale); hypercube, dropout and the compressors at
+#: DIST_M_SMALL ranks with the same per-agent width.
+DIST_M, DIST_M_SMALL = 50, 16
+#: The paper cell's depth at DIST_M ranks, cut from its T=100 by the time
+#: limit (PERF.md §4: an iteration of the staged gloo wire at 50 ranks
+#: costs seconds); the 16-rank runs keep T=100.
+DIST_T = 10
+#: compressed gradients, the card's run against the same run on the CPU:
+#: max |card - cpu| within COMPRESS_TOL of max |cpu| after the steps (fp32;
+#: sound runs read about 7e-7; TF32's 2^-11 rounding in the Gram would
+#: give about 1e-3)
+COMPRESS_TOL = 1e-4
+COMPRESS_STEPS = 20
+#: the per-rank gossip kernels that must stay idle: the gossip is collectives
+GOSSIP_KERNELS = ("fastmix", "fastmix_track", "fastmix_poly", "apply_track",
+                  "fastmix_ef", "fastmix_track_ef", "gram")
+
+
+def _check_ranks(label, ranks, T, on_card, wire) -> dict:
+    """Every rank's launches (``cholqr2`` at least T times on the card, no
+    gossip kernel) and wire counters (``wire``: the expected ``sends``,
+    ``all_gathers`` and ``bytes_sent``); returns the run's numbers."""
+    print(f"distributed {label} rank 0 stats {json.dumps(ranks[0]['stats'])}",
+          flush=True)
+    for r, res in enumerate(ranks):
+        st, ln = res["stats"], res["launches"]
+        if on_card and ln["cholqr2"] < T:
+            fail(f"{label}: rank {r} launched cholqr2 {ln['cholqr2']} times "
+                 f"(< T={T})")
+        busy = {k: ln[k] for k in GOSSIP_KERNELS if ln[k]}
+        if busy:
+            fail(f"{label}: rank {r} launched gossip kernels {busy}: the "
+                 "gossip must be collectives")
+        got = {key: st[key] for key in wire}
+        if got != wire:
+            fail(f"{label}: rank {r} wire counters {got} != expected {wire}")
+    stats = [res["stats"] for res in ranks]
+
+    def per_iter(key):
+        vals = sorted(s[key] / s["iters"] * 1e6 for s in stats)
+        return vals[len(vals) // 2], vals[-1]
+
+    wall, wall_max = per_iter("wall_s")
+    return {"us_per_iter": wall, "us_per_iter_max": wall_max,
+            "compute_us": per_iter("compute_s")[0],
+            "transport_us": per_iter("transport_s")[0],
+            "transport": stats[0]["transport"], "staged": stats[0]["staged"],
+            "compute_clock": "CUDA events" if on_card else "host clock",
+            "cholqr2_min": min(res["launches"]["cholqr2"] for res in ranks),
+            "start_s_max": max(s.get("start_s", 0.0) for s in stats),
+            "join_s_max": max(s.get("join_s", 0.0) for s in stats),
+            "peak_device_bytes_all_ranks": sum(
+                s.get("peak_device_bytes", 0) for s in stats),
+            "card_used_bytes": max(s.get("card_used_bytes", 0)
+                                   for s in stats),
+            "host_rss_bytes_median": sorted(
+                s.get("host_rss_bytes", 0) for s in stats)[len(stats) // 2],
+            # some kernels leave RssAnon out of /proc or write 0 (a rank
+            # holds pinned buffers, so 0 is no reading): None then
+            "host_rss_anon_bytes_all_ranks": sum(
+                s["host_rss_anon_bytes"] for s in stats)
+            if all(s.get("host_rss_anon_bytes") for s in stats) else None,
+            "host_used_bytes": max(s.get("host_total_bytes", 0)
+                                   - s.get("host_available_bytes", 0)
+                                   for s in stats)}
+
+
+def _dist_line(label, m, nums, single_us, gap) -> None:
+    share = nums["transport_us"] / nums["us_per_iter"]
+    anon = nums["host_rss_anon_bytes_all_ranks"]
+    anon = "not reported" if anon is None else f"{anon / 2**30:.3f} GiB"
+    print(f"distributed {label} m={m} T={nums['T']} K={nums['K']}: "
+          f"transport={nums['transport']}"
+          f"{' staged through pinned host memory' if nums['staged'] else ''}"
+          f" us_per_iter={nums['us_per_iter']:.1f} (slowest rank "
+          f"{nums['us_per_iter_max']:.1f}) compute_us="
+          f"{nums['compute_us']:.1f} ({nums['compute_clock']}) "
+          f"transport_us={nums['transport_us']:.1f} (host "
+          f"clock, share {share:.3f}); single-process deepca us_per_iter="
+          f"{single_us:.1f}; gap vs stacked {gap:.3e} (tol {SUBSPACE_TOL:g});"
+          f" cholqr2 per rank >= {nums['cholqr2_min']}; peak device "
+          f"{nums['peak_device_bytes_all_ranks'] / 2**30:.3f} GiB allocated "
+          f"over all ranks, card used {nums['card_used_bytes'] / 2**30:.3f} "
+          f"GiB; host RSS per rank median "
+          f"{nums['host_rss_bytes_median'] / 2**30:.3f} GiB, private "
+          f"(RssAnon) of all ranks {anon}, host memory in use "
+          f"{nums['host_used_bytes'] / 2**30:.3f} GiB; the slowest rank "
+          f"started {nums['start_s_max']:.1f} s after the spawn and joined "
+          f"the group in {nums['join_s_max']:.1f} s", flush=True)
+
+
+def _schedule_wire(P, recipe, T, K, slice_bytes) -> dict:
+    """The wire counters a schedule's run must show: 2 sends a round on
+    its intact-ring steps, one all-gather a round on the others."""
+    from repro_torch.core import agent_jobs as J
+    sched = J.schedule_from(recipe)
+    ring_steps = sum(P.ring_structure(sched.topology_at(t)) is not None
+                     for t in range(T))
+    dense_steps = T - ring_steps
+    return {"sends": 2 * K * ring_steps, "all_gathers": K * dense_steps,
+            "bytes_sent": (2 * ring_steps + dense_steps) * K * slice_bytes}
+
+
+def distributed_phase(P, kernels, dev, m=DIST_M, m_small=DIST_M_SMALL,
+                      n=995, d=300, k=5, K=8, T=DIST_T, T_small=100,
+                      comp_shape=(1024, 768), comp_steps=COMPRESS_STEPS,
+                      timeout_s=900) -> dict:
+    """Phase 4j: the distributed substrate, one process per agent.
+
+    ``DistributedDeEPCA`` on ``m`` ranks (the paper cell: ER data form,
+    ring data form, ER dense form), then on ``m_small`` ranks
+    ``hypercube(m_small)`` and an edge-dropout ring schedule, and
+    ``compress_local`` (one ``comp_shape`` gradient per rank) against its
+    own run on the CPU; the stacked ``DeEPCACompressor`` at
+    ``(m_small,) + comp_shape`` against the CPU.  The parent makes the
+    data once; each rank memory-maps its own slice.  Returns the numbers
+    of the ``distributed`` lines."""
+    import tempfile
+
+    from repro_torch.compression import DeEPCACompressor
+    from repro_torch.core import agent_jobs as J
+    on_card = dev.type == "cuda"
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_dist_"))
+    transport = P.choose_transport(m, dev)
+    cards = torch.cuda.device_count() if on_card else 0
+    staged = " (staged through pinned host memory: gloo moves CPU " \
+        "tensors)" if on_card and transport == "gloo" else ""
+    print(f"distributed: {m} ranks on {cards} card(s) -> transport "
+          f"{transport}{staged}", flush=True)
+    numbers = {}
+    slice_bytes = d * k * 4
+
+    # ---- the paper cell at m ranks
+    ops = P.libsvm_like(m, n, d, seed=0, device=dev)
+    np.save(tmp / "data.npy", ops.data.cpu().numpy())
+    W0 = w0_for(d, k, torch.float32, dev)
+    U, _ = P.top_k_eigvecs(ops.mean_matrix(), k)
+    er, rg = P.erdos_renyi(m, p=0.5, seed=0), P.ring(m)
+    dense = P.StackedOperators(dense=(ops.data.mT @ ops.data).contiguous())
+    # the ring of 50 at K=8 leaves DeEPCA's convergence past T: the same
+    # data in f64 on the one-process stacked path, a record beside the
+    # ring's T-iteration check against stacked
+    tan = P.deepca(P.StackedOperators(data=ops.data.double()), rg,
+                   W0.double(), k=k, T=100, K=K, U=U.double(),
+                   backend="stacked").trace.mean_tan_theta
+    print(f"distributed {rg.name} f64 stacked K={K}: mean tan theta "
+          f"{float(tan[T - 1]):.3e} at T={T}, {float(tan[-1]):.3e} at "
+          f"T=100 (Prop. 1 rate {rg.fastmix_rate(K):.3f})", flush=True)
+    runs = (("er_data", er, "data", ops, K),
+            ("ring_data", rg, "data", ops, K),
+            ("er_dense", er, "dense", dense, K))
+    refs = {}
+    for label, topo, form, o, K_ in runs:
+        ref = P.deepca(o, topo, W0, k=k, T=T, K=K_, U=U, backend="stacked")
+        P.deepca(o, topo, W0, k=k, T=3, K=K_, U=U)               # warm-up
+        _, sec = run_timed(P.deepca, o, topo, W0, k=k, T=T, K=K_, U=U)
+        refs[label] = (ref.W, sec / T * 1e6)
+    del dense
+    cases = [dict(topology=topo, k=k, K=K_, T=T, W0=W0.cpu().numpy(),
+                  form=form, dtype="float32", warmup=2 if i == 0 else 0)
+             for i, (_, topo, form, _, K_) in enumerate(runs)]
+    if on_card:
+        torch.cuda.empty_cache()
+    tic = time.perf_counter()
+    ranks = P.spawn_agents(J.deepca_runs, m, str(tmp / "data.npy"), cases,
+                           device=dev, timeout_s=timeout_s)
+    print(f"distributed: spawned {m} ranks and ran {len(cases)} runs in "
+          f"{time.perf_counter() - tic:.1f} s", flush=True)
+    for i, (label, topo, form, _, K_) in enumerate(runs):
+        per_rank = [r[i] for r in ranks]
+        W = per_rank[0]["W"].to(dev)
+        gap = subspace_gap(refs[label][0], W)
+        rounds = T * K_
+        wire = ({"sends": 2 * rounds, "all_gathers": 0,
+                 "bytes_sent": 2 * rounds * slice_bytes} if topo is rg else
+                {"sends": 0, "all_gathers": rounds,
+                 "bytes_sent": rounds * slice_bytes})
+        nums = _check_ranks(label, per_rank, T, on_card, wire)
+        nums.update(gap=gap, single_us=refs[label][1], m=m, T=T, K=K_)
+        _dist_line(label, m, nums, refs[label][1], gap)
+        if not (gap <= SUBSPACE_TOL and torch.isfinite(W).all()):
+            fail(f"distributed {label}: gathered W {gap} from stacked")
+        numbers[label] = nums
+    del ops, refs
+
+    # ---- m_small ranks: hypercube, the dropout schedule, compress_local
+    ops = P.libsvm_like(m_small, n, d, seed=0, device=dev)
+    np.save(tmp / "data_small.npy", ops.data.cpu().numpy())
+    U, _ = P.top_k_eigvecs(ops.mean_matrix(), k)
+    hc = P.hypercube(m_small)
+    recipe = ("edge_dropout", (P.ring(m_small), 0.25), {"seed": 7})
+    sched = J.schedule_from(recipe)
+    T = T_small
+    rounds = T * K
+    ref_hc = P.deepca(ops, hc, W0, k=k, T=T, K=K, U=U, backend="stacked")
+    ref_dr = P.deepca(ops, None, W0, k=k, T=T, K=K, U=U, backend="stacked",
+                      schedule=sched)
+    singles = {}
+    for label, topo, sch in (("hypercube", hc, None),
+                             ("ring_dropout", None, sched)):
+        P.deepca(ops, topo, W0, k=k, T=3, K=K, U=U, schedule=sch)
+        singles[label] = run_timed(P.deepca, ops, topo, W0, k=k, T=T, K=K,
+                                   U=U, schedule=sch)[1] / T * 1e6
+    grads = load_script(ROOT / "scripts" / "bench_torch_compression.py")
+    g = grads.grads("cpu")["w"][:m_small, :comp_shape[0], :comp_shape[1]]
+    np.save(tmp / "grads.npy", g.numpy())
+    torus = P.torus2d(4, m_small // 4)
+    comp_job = ("compress_runs", ({"w": str(tmp / "grads.npy")}, torus),
+                dict(K=4, steps=comp_steps, rank=8, min_dim=8, warmup=1))
+    cases = [dict(topology=hc, k=k, K=K, T=T, W0=W0.cpu().numpy(),
+                  form="data", dtype="float32", warmup=2),
+             dict(topology=P.ring(m_small), k=k, K=K, T=T,
+                  W0=W0.cpu().numpy(), form="data", dtype="float32",
+                  schedule=recipe)]
+    if on_card:
+        torch.cuda.empty_cache()
+    tic = time.perf_counter()
+    ranks = P.spawn_agents(J.sequence, m_small,
+                           ("deepca_runs", (str(tmp / "data_small.npy"),
+                                            cases), {}),
+                           comp_job, device=dev, timeout_s=timeout_s)
+    cpu_ranks = P.spawn_agents(J.sequence, m_small, comp_job, device="cpu",
+                               timeout_s=timeout_s)
+    print(f"distributed: spawned {m_small} ranks on {dev} and on the cpu in "
+          f"{time.perf_counter() - tic:.1f} s", flush=True)
+    bits = m_small.bit_length() - 1
+    for i, (label, ref, wire) in enumerate((
+            ("hypercube", ref_hc,
+             {"sends": bits * rounds, "all_gathers": 0,
+              "bytes_sent": bits * rounds * slice_bytes}),
+            ("ring_dropout", ref_dr,
+             _schedule_wire(P, recipe, T, K, slice_bytes)))):
+        per_rank = [r[0][i] for r in ranks]
+        W = per_rank[0]["W"].to(dev)
+        gap = subspace_gap(ref.W, W)
+        nums = _check_ranks(label, per_rank, T, on_card, wire)
+        nums.update(gap=gap, single_us=singles[label], m=m_small, T=T, K=K)
+        if label == "ring_dropout":
+            caches = {tuple(r[0][i]["cache"]) for r in ranks}
+            if caches != {("dense", "structured")}:
+                fail(f"ring_dropout: step caches {caches}, both kinds "
+                     "expected")
+        _dist_line(label, m_small, nums, singles[label], gap)
+        if not (gap <= SUBSPACE_TOL and torch.isfinite(W).all()):
+            fail(f"distributed {label}: gathered W {gap} from stacked")
+        numbers[label] = nums
+
+    # compress_local: every rank's card run against its own cpu run
+    d_out, d_in = comp_shape
+    comp = [r[1] for r in ranks]
+    worst = 0.0
+    for card_res, (cpu_res,) in zip(comp, cpu_ranks):
+        want = cpu_res["out"]["w"]
+        got = card_res["out"]["w"].cpu()
+        worst = max(worst, float((got - want).abs().max()
+                                 / want.abs().max()))
+    cwire = {"sends": 0, "all_gathers": 2 * 4 * comp_steps,
+             "bytes_sent": 4 * comp_steps * 8 * (d_out + d_in) * 4}
+    nums = _check_ranks("compress_local", comp, comp_steps, on_card, cwire)
+    nums.update(rel_err_vs_cpu=worst, m=m_small)
+    print(f"distributed compress_local m={m_small} {comp_shape} rank 8 K=4 "
+          f"torus {comp_steps} steps: us_per_step={nums['us_per_iter']:.1f} "
+          f"compute_us={nums['compute_us']:.1f} transport_us="
+          f"{nums['transport_us']:.1f}; card vs cpu max rel err {worst:.3e} "
+          f"(tol {COMPRESS_TOL:g}); cholqr2 per rank >= "
+          f"{nums['cholqr2_min']}", flush=True)
+    if not worst <= COMPRESS_TOL:
+        fail(f"compress_local: card vs cpu {worst}")
+    numbers["compress_local"] = nums
+
+    # the stacked compressor at bench_compression's shape, card vs cpu
+    gd = torch.as_tensor(np.load(tmp / "grads.npy"))
+    sc = DeEPCACompressor(topology=torus, rank=8, K=4, min_dim=8)
+
+    def stacked(dev_):
+        gg = {"w": gd.to(dev_)}
+        st = sc.init(gg)
+        for _ in range(comp_steps):
+            out, st = sc(gg, st)
+        return out["w"]
+
+    stacked(dev)                                          # warm
+    got, sec, counts = counted(kernels, stacked, dev)
+    want = stacked("cpu")
+    rel = float((got.cpu() - want).abs().max() / want.abs().max())
+    busy = {k_: counts[k_] for k_ in GOSSIP_KERNELS if counts[k_]}
+    print(f"distributed stacked DeEPCACompressor ({m_small}, {d_out}, "
+          f"{d_in}) rank 8 K=4 torus {comp_steps} steps: us_per_step="
+          f"{sec / comp_steps * 1e6:.1f}; card vs cpu max rel err {rel:.3e} "
+          f"(tol {COMPRESS_TOL:g}); launches {counts}", flush=True)
+    if not rel <= COMPRESS_TOL or busy or \
+            (on_card and counts["cholqr2"] != comp_steps):
+        fail(f"stacked compressor: rel err {rel}, launches {counts}")
+    rows = grads.run(dev, comp_steps)
+    for row in rows:
+        print(f"distributed bench {json.dumps(row)}", flush=True)
+    numbers["stacked_compressor"] = {"us_per_step": sec / comp_steps * 1e6,
+                                     "rel_err_vs_cpu": rel,
+                                     "bench": rows}
+    shutil.rmtree(tmp, ignore_errors=True)
+    return numbers
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card "
@@ -1951,7 +2274,11 @@ def main() -> int:
           for shape, label in (((64, 4096, 32), "(large)"),
                                ((1, 300, 5), "(centralized w8a)"),
                                ((1, 4096, 32), "(centralized large)"),
-                               ((3, 257, 33), "(ragged)"))),
+                               ((3, 257, 33), "(ragged)"),
+                               # the compressors' P-hat at rank 8:
+                               # stacked, and compress_local on each rank
+                               ((16, 1024, 8), "(DeEPCACompressor)"),
+                               ((1, 1024, 8), "(compress_local)"))),
         check_cholqr2(cq, peaks, rescue_batch(), "(rescue batch)",
                       rescue=True),
         check_fastmix_ef(fm, peaks, 64, 4096, 32, 8, True, 16),
@@ -2290,6 +2617,15 @@ def main() -> int:
     fault_phase(P, kernels, fm, ops, W0, U, dev, K=K, T=T)
     torch.cuda.empty_cache()
 
+    # ---- 4j. the distributed substrate: one process per agent on the one
+    # card (gloo, staged through host memory), the two gradient compressors
+    dist = distributed_phase(P, kernels, dev)
+    print(f"distributed summary {json.dumps(dist)}", flush=True)
+    dist_cholqr2 = {label: {"ranks": nums["m"],
+                            "per_rank_min": nums["cholqr2_min"]}
+                    for label, nums in dist.items() if "cholqr2_min" in nums}
+    torch.cuda.empty_cache()
+
     # ---- 5. f64 bench grid on the card (no kernel takes f64)
     bench = json.loads((ROOT / "BENCH_deepca.json").read_text())
     want = next(r["final_tan"] for r in bench["rows"]
@@ -2555,6 +2891,8 @@ def main() -> int:
          **({"path": "none: on the main path cholqr2 forms CholeskyQR2's Gram"}
             if name in off_path else {}),
          **({"slice_axis": sliced[name]} if name in sliced else {}),
+         **({"launches_distributed": dist_cholqr2}
+            if name == "cholqr2" else {}),
          **{key: row[key] for key in ("per_round_bound_ms", "ms_excludes")
             if key in row}}
         for name, row in main_rows.items()]}

@@ -97,3 +97,25 @@ def lm_params_from_reference(params, cfg, device=None):
     model = LM(cfg, device=dev, dtype=state["embed"].dtype)
     model.load_state_dict(state, strict=True)
     return model
+
+
+def compression_state(st, device=None):
+    """The reference's compressor state as the port's: a
+    ``CompressionState`` (the stacked form's, with ``leaves`` and
+    ``step``) or a ``{keystr: LeafState}`` dict (the sharded form's).  A
+    leaf state may be any object with ``Q``, ``S``, ``P_prev``, ``err``
+    attributes or keys; values stay bit-identical."""
+    from .compression import CompressionState, LeafState
+    dev = resolve_device(device)
+
+    def leaf(ls):
+        get = ls.__getitem__ if isinstance(ls, dict) else \
+            (lambda name: getattr(ls, name))
+        return LeafState(*(as_tensor(np.asarray(get(name)), dev)
+                           for name in LeafState._fields))
+
+    if hasattr(st, "leaves"):
+        return CompressionState(
+            leaves={k: leaf(v) for k, v in st.leaves.items()},
+            step=as_tensor(np.asarray(st.step), dev))
+    return {k: leaf(v) for k, v in st.items()}

@@ -13,6 +13,11 @@ from .operators import (StackedOperators, libsvm_like,
 from .step import (PowerStep, qr_orth, rebase_carry, sign_adjust,
                    split_state)
 from .driver import BatchRun, DriverRun, IterationDriver, local_apply
+from .collectives import (AgentError, Timeline, Transport,
+                          choose_transport, spawn_agents)
+from .gossip_shard import (DistributedDeEPCA, fastmix_local,
+                           hypercube_structure, make_round_fn,
+                           ring_structure)
 from .algorithms import (DecentralizedPCAResult, PowerTrace,
                          centralized_power_method, collect_trace, deepca,
                          depca, resolve_acceleration, resolve_engines,
@@ -32,6 +37,9 @@ __all__ = [
     "libsvm_like", "top_k_eigvecs",
     "PowerStep", "qr_orth", "rebase_carry", "sign_adjust", "split_state",
     "IterationDriver", "DriverRun", "BatchRun", "local_apply",
+    "spawn_agents", "Transport", "Timeline", "AgentError",
+    "choose_transport", "DistributedDeEPCA", "make_round_fn",
+    "fastmix_local", "ring_structure", "hypercube_structure",
     "deepca", "depca", "centralized_power_method", "collect_trace",
     "resolve_engines", "resolve_acceleration",
     "DecentralizedPCAResult", "PowerTrace", "theory_consensus_rounds",

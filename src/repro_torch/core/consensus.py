@@ -14,8 +14,21 @@
     iterates never enter a kernel: they take the ``P_K(L)`` collapse (or
     the per-round bf16 wire loop) in f64.
 
+``distributed``
+    Agents are the ranks of a ``torch.distributed`` group (the port's
+    name for the reference's ``shard_map``): each rank mixes its own slice
+    through its :class:`~repro_torch.core.collectives.Transport`, point to
+    point for ring and hypercube graphs and one ``all_gather`` per round
+    otherwise (:mod:`.gossip_shard`).  :meth:`ConsensusEngine.mix` on a
+    stacked ``(m, ...)`` tensor is called the same way on every rank
+    (SPMD, as ``shard_map`` takes the global array): each rank mixes its
+    row and the rows are all-gathered back.  ``local_mix`` /
+    ``local_mix_track`` take the rank's ``(1, d, k)`` slice.  No wire
+    modes: the collectives move the iterate's own dtype.
+
 ``backend="auto"`` resolves to ``cuda`` when the operators live on a CUDA
-device (``device=None`` means the card) and to ``stacked`` otherwise.
+device (``device=None`` means the card) and to ``stacked`` otherwise; it
+never picks ``distributed``.
 
 Variants: ``fastmix`` (Chebyshev momentum) and ``naive`` (``eta = 0``).
 Wire modes: ``None``, ``"bf16"``, and the error-feedback wires ``"int8"``
@@ -44,7 +57,7 @@ from .mixing import (fastmix, fastmix_eta, fastmix_wire, fastmix_wire_ef,
                      naive_mix)
 from .topology import Topology
 
-BACKENDS = ("auto", "stacked", "cuda")
+BACKENDS = ("auto", "stacked", "cuda", "distributed")
 VARIANTS = ("fastmix", "naive")
 WIRE_DTYPES = (None, "bf16", "int8", "fp8")
 #: Wire modes that carry an error-feedback replica (the ``PowerStep``
@@ -67,6 +80,30 @@ def resolve_backend(backend: str, device=None) -> str:
     if backend != "auto":
         return backend
     return "cuda" if resolve_device(device).type == "cuda" else "stacked"
+
+
+def _check_wire(backend: str, wire_dtype) -> None:
+    if wire_dtype not in WIRE_DTYPES:
+        raise ValueError(
+            f"wire_dtype must be one of {WIRE_DTYPES}, got {wire_dtype!r}")
+    if wire_dtype is not None and backend == "distributed":
+        raise ValueError(
+            "wire_dtype is not supported on the distributed backend "
+            "(collective rounds move the iterate's own dtype); use "
+            "stacked or cuda")
+
+
+def _transport(engine):
+    """The engine's rank transport: its ``group``, else one over the
+    default process group on its device (made once per engine)."""
+    if engine.group is not None:
+        return engine.group
+    tr = engine._transports.get("default")
+    if tr is None:
+        from .collectives import Transport
+        tr = engine._transports["default"] = Transport.from_process_group(
+            engine.device)
+    return tr
 
 
 def _variant_eta(variant: str, lambda2: float) -> float:
@@ -212,7 +249,11 @@ class ConsensusEngine:
         On the EF wires :meth:`mix` / :meth:`mix_track` take the replica
         as ``ef=`` and return ``(S, ef)``; ``PowerStep(ef_wire=True)``
         carries it in the ``ef`` slot of the iteration state.
-      device: where the operators live; only ``backend="auto"`` reads it.
+      device: where the operators live; ``backend="auto"`` reads it, and
+        the ``distributed`` backend's default transport.
+      group: the ``distributed`` backend's rank
+        :class:`~repro_torch.core.collectives.Transport` (``None``: one
+        over the default process group).
     """
 
     topology: Topology
@@ -221,6 +262,13 @@ class ConsensusEngine:
     variant: str = "fastmix"
     wire_dtype: Optional[str] = None
     device: Optional[object] = None
+    group: Optional[object] = dataclasses.field(default=None, compare=False)
+    _transports: dict = dataclasses.field(
+        default_factory=dict, init=False, repr=False, compare=False)
+    # per-transport cache of the local round function (its structural
+    # matching is numpy work on the (m, m) matrix)
+    _round_cache: dict = dataclasses.field(
+        default_factory=dict, init=False, repr=False, compare=False)
     # per-(dtype, device) cache of the mixing matrix, so hot loops don't
     # re-upload the (m, m) matrix on every call
     _L_cache: dict = dataclasses.field(
@@ -236,10 +284,7 @@ class ConsensusEngine:
                 f"variant must be one of {VARIANTS}, got {self.variant!r}")
         object.__setattr__(self, "backend",
                            resolve_backend(self.backend, self.device))
-        if self.wire_dtype not in WIRE_DTYPES:
-            raise ValueError(
-                f"wire_dtype must be one of {WIRE_DTYPES}, got "
-                f"{self.wire_dtype!r}")
+        _check_wire(self.backend, self.wire_dtype)
 
     # ------------------------------------------------------------- scalars
     @property
@@ -332,6 +377,10 @@ class ConsensusEngine:
                     s, rounds=r, ef=h), (S, ef), None, 0.0)
             return _problems(lambda s, _l, _e: self.mix(s, rounds=r), (S,),
                              None, 0.0)
+        if self.backend == "distributed":
+            tr = _transport(self)
+            return tr.all_gather(self.local_mix(
+                S[tr.rank:tr.rank + 1], transport=tr, rounds=r))
         wire = self.wire_dtype is not None
         if self.backend == "stacked":
             L = self._L(S.dtype, S.device)
@@ -416,6 +465,33 @@ class ConsensusEngine:
         return self.mix_track(S, G, G_prev, rounds=rounds,
                               batched=batched), G
 
+    # --------------------------------------- one rank's slice (distributed)
+    def local_round_fn(self, transport=None):
+        """One gossip round for this rank's ``(1, d, k)`` slice
+        (:func:`~.gossip_shard.make_round_fn` over ``transport``, default
+        the engine's)."""
+        from .gossip_shard import make_round_fn
+        tr = _transport(self) if transport is None else transport
+        fn = self._round_cache.get(id(tr))
+        if fn is None:
+            fn = self._round_cache[id(tr)] = make_round_fn(self.topology, tr)
+        return fn
+
+    def local_mix(self, x: torch.Tensor, transport=None,
+                  rounds: Optional[int] = None) -> torch.Tensor:
+        """K gossip rounds on this rank's slice (every rank calls it)."""
+        from .gossip_shard import fastmix_local
+        r = self.K if rounds is None else int(rounds)
+        return fastmix_local(x, self.local_round_fn(transport), self.eta, r)
+
+    def local_mix_track(self, S: torch.Tensor, G: torch.Tensor,
+                        G_prev: torch.Tensor, transport=None,
+                        rounds: Optional[int] = None) -> torch.Tensor:
+        """Tracked :meth:`local_mix`: the distributed DeEPCA step's
+        gossip, the combine on the shared tracking compute site."""
+        return self.local_mix(_fm.tracking_update(S, G, G_prev),
+                              transport=transport, rounds=rounds)
+
     # -------------------------------------------------------- construction
     @classmethod
     def for_algorithm(cls, algorithm: str, topology: Topology, K: int, *,
@@ -491,7 +567,10 @@ class DynamicConsensusEngine:
     variant: str = "fastmix"
     wire_dtype: Optional[str] = None
     device: Optional[object] = None
+    group: Optional[object] = dataclasses.field(default=None, compare=False)
     _engines: dict = dataclasses.field(
+        default_factory=dict, init=False, repr=False, compare=False)
+    _transports: dict = dataclasses.field(
         default_factory=dict, init=False, repr=False, compare=False)
 
     def __post_init__(self):
@@ -500,10 +579,7 @@ class DynamicConsensusEngine:
                 f"variant must be one of {VARIANTS}, got {self.variant!r}")
         object.__setattr__(self, "backend",
                            resolve_backend(self.backend, self.device))
-        if self.wire_dtype not in WIRE_DTYPES:
-            raise ValueError(
-                f"wire_dtype must be one of {WIRE_DTYPES}, got "
-                f"{self.wire_dtype!r}")
+        _check_wire(self.backend, self.wire_dtype)
 
     # ---------------------------------------------------------- per-step
     def topology_at(self, t: int) -> Topology:
@@ -520,7 +596,8 @@ class DynamicConsensusEngine:
             eng = ConsensusEngine(
                 topology=topo, K=self.K, backend=self.backend,
                 variant=self.variant, wire_dtype=self.wire_dtype,
-                device=self.device)
+                device=self.device, group=_transport(self)
+                if self.backend == "distributed" else None)
             self._engines[key] = eng
         return eng
 
@@ -644,6 +721,8 @@ class DynamicConsensusEngine:
                 return _problems(lambda s, l, e: self.mix_traced(s, l, e, r),
                                  (S,), L, eta)
             L = L.to(device=S.device, dtype=S.dtype)
+            if self.backend == "distributed":
+                return self._mix_distributed_traced(S, L, eta, r)
             if ef_mode:
                 return fastmix_wire_ef(S, ef, L, eta, r,
                                        wire_dtype=self.wire_dtype)
@@ -714,6 +793,16 @@ class DynamicConsensusEngine:
         G = ops.apply(W)
         return self.mix_track_traced(S, G, G_prev, L, eta, rounds=rounds,
                                      P=P, coef=coef), G
+
+    def _mix_distributed_traced(self, S, L, eta, rounds: int):
+        """The dense round is the one valid for every graph of a
+        schedule, so the operand path always takes it: each rank mixes its
+        row with ``(L, eta)`` and the rows are all-gathered back."""
+        from .gossip_shard import _dense_round, fastmix_local
+        tr = _transport(self)
+        out = fastmix_local(S[tr.rank:tr.rank + 1],
+                            lambda y: _dense_round(y, L, tr), eta, rounds)
+        return tr.all_gather(out)
 
     # -------------------------------------------------------- construction
     @classmethod

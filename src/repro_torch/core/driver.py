@@ -19,6 +19,12 @@ Three substrates, all plain Python loops (PyTorch runs eagerly):
     (:meth:`~.consensus.ConsensusEngine.prebuild`, each slice its own K);
     with a dynamic one it runs over a window whose steps have their own K.
 
+:meth:`IterationDriver.sharded_step_fn` /
+:meth:`~IterationDriver.sharded_dense_step_fn` build one rank's step for
+the distributed substrate (:class:`~.gossip_shard.DistributedDeEPCA`):
+the same :class:`PowerStep` on the rank's ``(1, d, k)`` slices, gossip
+through its transport.
+
 ``substrate="auto"``: increasing rounds -> ``unrolled``; a static engine
 -> ``scan``; a dynamic engine -> ``traced_scan`` for a tracking step, else
 ``unrolled``.  Every iteration hands the step the engine's
@@ -408,6 +414,71 @@ class IterationDriver:
             telemetry.emit("stage", source="driver.profile_stages",
                            stage=stage, us=us, iters=int(iters))
         return out
+
+    # ------------------------------------------- distributed step builders
+    def _sharded_step(self) -> PowerStep:
+        step = self.step
+        if step.ef_wire:
+            raise ValueError(
+                "EF wire modes are not supported on the distributed "
+                "substrate (the engine rejects wire_dtype there)")
+        if self.diagnostics is not None:
+            raise ValueError(
+                "diagnostics are not supported on the distributed "
+                "substrate (observables are max-over-agents reductions; "
+                "agents are processes there)")
+        return step
+
+    def sharded_step_fn(self, transport, engine: ConsensusEngine,
+                        operator_kind: str = "auto"):
+        """One rank's step for a graph with structural rounds:
+        ``step(A, *carry, W0) -> new carry`` on the rank's ``(1, ...)``
+        slices.  The local apply is :func:`local_apply` and the gossip
+        ``engine.local_mix_track`` / ``local_mix`` over ``transport``
+        (point to point for ring / hypercube, else the dense round); the
+        body is the shared :class:`PowerStep`.  EF wires and diagnostics
+        raise, as in the reference."""
+        step = self._sharded_step()
+
+        def _step(A, *rest):
+            carry, W0 = rest[:-1], rest[-1]
+
+            def mix(S_, G_, Gp_):
+                if step.track:
+                    return engine.local_mix_track(S_, G_, Gp_,
+                                                  transport=transport)
+                return engine.local_mix(G_, transport=transport)
+
+            new_carry, _ = step(
+                carry, mix, W0,
+                lambda V: local_apply(A, V, kind=operator_kind))
+            return new_carry
+
+        return _step
+
+    def sharded_dense_step_fn(self, transport, operator_kind: str = "auto"):
+        """One rank's step shared by every dense-round graph:
+        ``step(A, *carry, W0, L, eta)``, the mixing matrix and momentum as
+        operands, so a change of graph builds nothing."""
+        from ..kernels.fastmix import tracking_update
+        from .gossip_shard import _dense_round, fastmix_local
+        step = self._sharded_step()
+        K = step.rounds
+
+        def _step(A, *rest):
+            carry, (W0, L, eta) = rest[:-3], rest[-3:]
+
+            def mix(S_, G_, Gp_):
+                x = tracking_update(S_, G_, Gp_) if step.track else G_
+                return fastmix_local(
+                    x, lambda y: _dense_round(y, L, transport), eta, K)
+
+            new_carry, _ = step(
+                carry, mix, W0,
+                lambda V: local_apply(A, V, kind=operator_kind))
+            return new_carry
+
+        return _step
 
     # ----------------------------------------------- batched multi-problem
     def run_batch(self, ops_batch, W0, *, T: int,

@@ -42,7 +42,11 @@ def test_import_leaves_jax_and_reference_out():
         "repro_torch.streaming.stream, repro_torch.streaming.tracker, "
         "repro_torch.streaming.service, repro_torch.streaming.fleet, "
         "repro_torch.checkpoint, repro_torch.checkpoint.checkpoint, "
-        "repro_torch.runtime.fault_tolerance\n"
+        "repro_torch.runtime.fault_tolerance, repro_torch.core.collectives, "
+        "repro_torch.core.gossip_shard, repro_torch.core.agent_jobs, "
+        "repro_torch.compression, repro_torch.compression.ef, "
+        "repro_torch.compression.deepca_powersgd, "
+        "repro_torch.compression.sharded\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "from repro_torch.kernels import _build\n"
@@ -199,6 +203,46 @@ def test_checkpoints_failures_and_examples_default_to_the_card(tmp_path):
         spec.loader.exec_module(mod)
         with pytest.raises((RuntimeError, AssertionError)):
             mod.main([])
+
+
+def test_bench_scripts_leave_jax_and_reference_out():
+    """The mixing and compression benches import (and parse their
+    arguments) without loading jax or ``repro``."""
+    code = (
+        "import importlib.util, sys\n"
+        "for name in ('bench_torch_mixing', 'bench_torch_compression'):\n"
+        f"    path = {str(ROOT / 'scripts')!r} + '/' + name + '.py'\n"
+        "    spec = importlib.util.spec_from_file_location(name, path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    out = subprocess.run([sys.executable, "-c", code], env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_distributed_entry_points_default_to_the_card():
+    """``spawn_agents``, ``DistributedDeEPCA``, ``Transport`` and the two
+    benches take the card unless asked for the CPU; on a host without
+    CUDA the ranks' own torch error surfaces in the parent."""
+    import inspect
+
+    from repro_torch.compression import sharded
+    from repro_torch.core import agent_jobs
+    assert P.spawn_agents.__kwdefaults__["device"] is None
+    for fn in (P.DistributedDeEPCA, P.Transport.from_process_group,
+               sharded.init_state, sharded.leaf_state_init):
+        assert inspect.signature(fn).parameters["device"].default is None
+    for script in ("bench_torch_mixing", "bench_torch_compression"):
+        text = (ROOT / "scripts" / f"{script}.py").read_text()
+        assert 'ap.add_argument("--device", default=None' in text
+    if torch.cuda.is_available():
+        return
+    # a CPU-only torch has no CUDA bindings: its set_device raises there
+    with pytest.raises((RuntimeError, AssertionError, AttributeError)):
+        P.spawn_agents(agent_jobs.dead_rank, 2, 5, timeout_s=60)
 
 
 def test_runtime_modules_read_no_repro_variable_directly():

@@ -1415,3 +1415,36 @@ def test_checkpoint_round_trip_on_card(sm90, tmp_path):
         assert got[key].device.type == "cuda"
         assert got[key].dtype == want[key].dtype
         assert torch.equal(got[key], want[key]), key
+
+
+@pytest.mark.gpu
+def test_distributed_ranks_share_the_card(sm90):
+    """Four ranks on the one card: gloo, staged through pinned host
+    memory; ``DistributedDeEPCA`` on a ring and an ER graph within 1e-4
+    (per-agent subspace distance) of the one-process ``stacked`` run;
+    every rank runs ``cholqr2`` T times and no gossip kernel."""
+    from repro_torch.core import agent_jobs
+    m, n, d, k, K, T = 4, 64, 40, 3, 4, 12
+    assert P.choose_transport(m, "cuda") == (
+        "nccl" if torch.cuda.device_count() >= m else "gloo")
+    ops = P.libsvm_like(m, n, d, seed=0)
+    W0 = torch.as_tensor(np.linalg.qr(np.random.default_rng(1)
+                                      .standard_normal((d, k)))[0],
+                         dtype=torch.float32, device="cuda")
+    topos = (P.ring(m), P.erdos_renyi(m, p=0.6, seed=0))
+    cases = [dict(topology=t, k=k, K=K, T=T, W0=W0.cpu().numpy(),
+                  form="data") for t in topos]
+    ranks = P.spawn_agents(agent_jobs.deepca_runs, m,
+                           ops.data.cpu().numpy(), cases, timeout_s=300)
+    for i, topo in enumerate(topos):
+        ref = P.deepca(ops, topo, W0, k=k, T=T, K=K, backend="stacked")
+        Qa = cq.cholqr2_plain(ref.W.double())
+        Qb = cq.cholqr2_plain(ranks[0][i]["W"].double().cuda())
+        gap = float(torch.linalg.matrix_norm(Qb - Qa @ (Qa.mT @ Qb)).max())
+        assert gap <= 1e-4, (topo.name, gap)
+        for r in ranks:
+            st, ln = r[i]["stats"], r[i]["launches"]
+            assert ln["cholqr2"] == T, ln
+            assert not any(ln[key] for key in (
+                "fastmix", "fastmix_track", "fastmix_poly", "apply_track"))
+            assert st["staged"] == (st["transport"] == "gloo")
