@@ -132,7 +132,27 @@ What it does, in order; any failure raises and the exit code is non-zero:
    ``repro_torch.launch.serve.serve_lm`` with the flash kernel on the
    prefill (exactly 30 launches per prefill, 0 per decode step; the
    prefill's profile window gives flash's device time and share), and
-   again with the plain attention to compare;
+   again with the plain attention to compare; the flash backward kernel
+   (dq, dk, dv) against its plain version at the training shape (B=8,
+   H=9, Hkv=3, S=512, hd 64, bf16), in fp32, at hd 128 and at lengths
+   that are not multiples of its tiles, bit-equal across calls, timed
+   beside SDPA's backward, and the forward re-timed writing its lse;
+   7d. full-width SmolLM-135M training (bf16 compute, fp32 master state):
+   one step through the flash kernels against the plain attention (loss
+   and every gradient leaf), 20 steps of ``make_train_step`` at batch 8,
+   seq 512 (exactly 60 forward and 30 backward flash launches per step,
+   the loss decreasing, ms per step, tokens/s, peak memory, a profile
+   window with the flash kernels' device shares), then ``python -m
+   repro_torch.launch.train`` in subprocesses, an uninterrupted run and
+   one crashing at step 25 then resumed (``[resume] step 20``, equal
+   final lines, the step-40 checkpoints bit-equal); 7e.
+   ``make_train_step_compressed`` on 4 ranks of the one card
+   (``erdos_renyi(4, 0.7)``, rank 16, K=6, batch 8 per rank, seq 64, 10
+   steps after one untimed): every rank's ``cholqr2`` launched, exact
+   flash launches, all-gathers only the gossip rounds' and the loss's,
+   the wire against an all-reduce of the gradient, the parameter copies'
+   spread; and ``examples/train_lm_compressed_torch.py --steps 10`` at
+   the published widths, 6 of 30 layers (cut for time), in-process;
 8. prints the ``{"kernels": [...]}`` line and, last, the ``{"ok": ...}``
    line.
 
@@ -140,7 +160,9 @@ It imports nothing of JAX and nothing of the JAX package ``repro``.
 """
 from __future__ import annotations
 
+import copy
 import json
+import os
 import shutil
 import statistics
 import subprocess
@@ -190,6 +212,20 @@ CHOLQR_ORTH_TOL, CHOLQR_Q_TOL = 5e-6, 2e-4
 #: element against the twin's (the on-card test's bound)
 CHOLQR_PROJ_TOL = 1e-4
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # rtol = atol
+#: The flash backward (dq, dk, dv) against its plain version, relative to
+#: max|ref|: fp32 1e-5 (the sums run in other orders), bf16 1e-2 (the two
+#: round the same fp32 sums to bf16 once, either side; one bf16 ulp is
+#: 2^-7 of the top binade)
+FLASH_BWD_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+#: The forward kernel's fp32 row lse (what the backward reads) against the
+#: plain version's, absolute, either dtype (the on-card test's bound)
+FLASH_LSE_TOL = 1e-5
+#: One full-width train step (bf16 compute), the flash kernels against the
+#: plain attention: the loss within TRAIN_LOSS_RTOL relative and every
+#: gradient leaf within TRAIN_GRAD_TOL relative Frobenius error (the bf16
+#: forward kernel rounds P to bf16 before P V, the plain version does
+#: not; LM_BF16_TOL is the logits' bound for the same difference)
+TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL = 5e-3, 5e-2
 #: LM last-token logits, kernel vs plain attention, bf16: within
 #: LM_BF16_TOL * max|logits| (tests/test_torch_lm.py states the same bound
 #: for the port against the reference)
@@ -750,6 +786,10 @@ def check_flash(fa, peaks, b: int, h: int, hkv: int, s: int, hd: int,
                     f"(strided, the LM's layout)",
            "max_abs_err": err, "tol": tol, "ok": ok}
     row["ms"], row["host_us"] = time_ms(lambda: fa.flash_attention(q, k, v))
+    # the same kernel writing the fp32 lse the backward reads (training)
+    row["ms_with_lse"] = time_ms(
+        lambda: fa._forward(q, k, v, True, with_lse=True))[0]
+    row["note"] = f"with lse (training's forward) {row['ms_with_lse']:.6f} ms"
     row["plain_ms"] = time_ms(lambda: fa.flash_attention_plain(q, k, v),
                               reps=3, trials=3)[0]
     kr, vr = (x.repeat_interleave(h // hkv, dim=1) for x in (k, v))
@@ -760,6 +800,66 @@ def check_flash(fa, peaks, b: int, h: int, hkv: int, s: int, hd: int,
                       "is_causal=True)")
     nbytes = q.element_size() * (2 * b * h * s * hd + 2 * b * hkv * s * hd)
     flops = 2.0 * b * h * s * s * hd       # the unmasked half, QK^T and PV
+    row["bound_ms"], row["bound_by"] = bound(
+        nbytes, flops, peaks, "bf16" if dtype == torch.bfloat16 else "fp32")
+    return row
+
+
+def check_flash_bwd(fa, peaks, b: int, h: int, hkv: int, s: int, hd: int,
+                    dtype, seed: int) -> dict:
+    """The forward kernel's lse against the plain version's, then the
+    backward kernel (dq, dk, dv) against
+    ``flash_attention_backward_plain`` from the forward kernel's own
+    output and lse, operands in the LM's layout; two calls bit-equal.
+    Timed beside the plain version and SDPA's backward (kv heads
+    repeated), the yardstick the port never calls."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, do = (torch.randn(b, s, h, hd, generator=g, device="cuda").to(dtype)
+             .transpose(1, 2) for _ in range(2))
+    k, v = (torch.randn(b, s, hkv, hd, generator=g, device="cuda").to(dtype)
+            .transpose(1, 2) for _ in range(2))
+    out, lse = fa._forward(q, k, v, True, with_lse=True)
+    _, lse_plain = fa.flash_attention_plain(q, k, v, return_lse=True)
+    lse_err = float((lse - lse_plain).abs().max())
+    del lse_plain
+    got = fa.flash_attention_backward(q, k, v, out, lse, do)
+    again = fa.flash_attention_backward(q, k, v, out, lse, do)
+    want = fa.flash_attention_backward_plain(q, k, v, out, lse, do)
+    torch.cuda.synchronize()
+    name = str(dtype).split(".")[-1]
+    tol = FLASH_BWD_TOL[name]
+    diffs = [float((a.float() - w.float()).abs().max()) for a, w in
+             zip(got, want)]
+    rels = [d / float(w.float().abs().max()) for d, w in zip(diffs, want)]
+    same = all(torch.equal(a, c) for a, c in zip(got, again))
+    ok = max(rels) <= tol and same and lse_err <= FLASH_LSE_TOL
+    del got, again, want
+    row = {"name": "flash_attention_bwd",
+           "shape": f"B={b} H={h} Hkv={hkv} S={s} hd={hd} causal {name} "
+                    f"(dq dk dv; strided, the LM's layout)",
+           "max_abs_err": max(diffs), "tol": tol, "ok": ok,
+           "note": f"max error / max|ref| dq {rels[0]:.2e} dk {rels[1]:.2e} "
+                   f"dv {rels[2]:.2e}; two calls bit-equal: {same}; "
+                   f"forward lse max abs error {lse_err:.2e} (tol "
+                   f"{FLASH_LSE_TOL:g})"}
+    row["ms"], row["host_us"] = time_ms(
+        lambda: fa.flash_attention_backward(q, k, v, out, lse, do))
+    row["plain_ms"] = time_ms(
+        lambda: fa.flash_attention_backward_plain(q, k, v, out, lse, do),
+        reps=3, trials=3)[0]
+    qr = q.detach().clone().requires_grad_()
+    kr, vr = (x.repeat_interleave(h // hkv, dim=1).requires_grad_()
+              for x in (k, v))
+    sd = torch.nn.functional.scaled_dot_product_attention(qr, kr, vr,
+                                                          is_causal=True)
+    row["library_ms"] = time_ms(lambda: torch.autograd.grad(
+        sd, (qr, kr, vr), do, retain_graph=True))[0]
+    row["library"] = ("backward of F.scaled_dot_product_attention(q, k, v "
+                      "repeated, is_causal=True) by torch.autograd.grad")
+    elt = q.element_size()
+    # q, o, dO, k, v and the fp32 lse read once; dq, dk, dv written once
+    nbytes = elt * (4 * b * h * s * hd + 4 * b * hkv * s * hd) + 4 * b * h * s
+    flops = 5.0 * b * h * s * s * hd      # S, dP, dV, dQ, dK, causal half
     row["bound_ms"], row["bound_by"] = bound(
         nbytes, flops, peaks, "bf16" if dtype == torch.bfloat16 else "fp32")
     return row
@@ -955,38 +1055,96 @@ def breakdown(P, ops, topo, W0, U, K: int, T: int) -> None:
                    lambda: drv.run(ops, W0, T=iters), units=iters)
 
 
+#: Tiny kernels launched at the start of every profile window, before its
+#: measured part.  The profiler drops the device records of the first
+#: launches of a session, the more the longer the process has run, while
+#: their host-side launch calls all stay; idle time at the window's start
+#: does not help (``scripts/probe_profiler_drops.py`` counts them).  So the
+#: measured launches come after these.
+PROFILE_PAD_LAUNCHES = 1000
+#: The record_function range around a profile window's measured part.
+PROFILE_RANGE = "chip_smoke.window"
+#: Host-side runtime calls that put work on the device.
+DEVICE_WORK_CALLS = ("cudaLaunch", "cuLaunch", "cudaMemcpy", "cudaMemset",
+                     "cuMemcpy", "cuMemset")
+
+
+def window_device_ops(events):
+    """The device records of the launches made inside the
+    ``PROFILE_RANGE`` range of a profiled session's ``events``, matched
+    by correlation id to their host-side runtime calls (on any thread).
+    Returns ``(rows, lost, orphans)``: ``(device us, count, name)`` per
+    kernel or copy name; the launches whose device record the profiler
+    dropped; the session's device records with no runtime call to match
+    (left out of ``rows``)."""
+    cuda = torch.autograd.DeviceType.CUDA
+    # the host's range: the profiler also draws it on the device's clock
+    win = next(e for e in events
+               if e.name == PROFILE_RANGE and e.device_type != cuda)
+    lo, hi = win.time_range.start, win.time_range.end
+    calls = [e for e in events if e.device_type != cuda
+             and e.name.startswith("cu") and lo <= e.time_range.start <= hi]
+    ids = {e.id for e in calls}
+    events = [e for e in events if not (
+        e.device_type == cuda and (getattr(e, "is_user_annotation", False)
+                                   or e.name == PROFILE_RANGE))]
+    by_name = {}
+    for e in events:
+        if e.device_type == cuda and e.id in ids:
+            us, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (us + e.time_range.end - e.time_range.start,
+                               n + 1)
+    seen = {e.id for e in events if e.device_type == cuda}
+    lost = sum(1 for e in calls
+               if e.name.startswith(DEVICE_WORK_CALLS) and e.id not in seen)
+    every_call = {e.id for e in events
+                  if e.device_type != cuda and e.name.startswith("cu")}
+    orphans = sum(1 for e in events
+                  if e.device_type == cuda and e.id not in every_call)
+    rows = [(us, n, name) for name, (us, n) in by_name.items()]
+    return rows, lost, orphans
+
+
 def profile_window(label: str, unit: str, fn, units: int,
                    calls: int = 1, focus: str = "") -> dict:
     """Device busy share, device ops and top kernels per ``unit`` over
     ``calls`` calls of ``fn`` (``units`` units in all) under the profiler
     (the host is slower there: the idle share is an upper bound).  With
-    ``focus``, also the device time per ``unit`` of the kernels whose name
-    holds it, and their share of the busy time."""
-    from torch.profiler import ProfilerActivity, profile
+    ``focus`` (a name or several), also the device time per ``unit`` of
+    the kernels whose name holds it, and their share of the busy time.
+    A device op is a kernel, copy or memset launched by the measured
+    calls; one whose device record the profiler dropped is counted from
+    its launch and reported (its time is then missing from the busy
+    share)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    pad = torch.zeros(1, device="cuda")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        tic = time.perf_counter()
-        for _ in range(calls):
-            fn()
+        for _ in range(PROFILE_PAD_LAUNCHES):
+            pad.add_(1)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - tic
-    rows = []                 # device-side events only (kernels, copies)
-    for ev in prof.key_averages():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = ev.self_cuda_time_total
-        rows.append((dev_us, ev.count, ev.key))
+        with record_function(PROFILE_RANGE):
+            tic = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - tic
+    rows, lost, orphans = window_device_ops(prof.events())
     busy = sum(r[0] for r in rows) / 1e6
-    launches = sum(r[1] for r in rows)
+    launches = sum(r[1] for r in rows) + lost
     print(f"profile {label} (under the profiler): wall_ms="
           f"{wall * 1e3:.3f} device_busy_ms={busy * 1e3:.3f} idle_share="
           f"{1 - busy / wall:.3f} device_ops_per_{unit}="
-          f"{launches / units:.1f}", flush=True)
-    if focus:
-        mine = sum(r[0] for r in rows if focus in r[2]) / 1e6
-        print(f"profile   {focus}: device_ms_per_{unit}="
+          f"{launches / units:.1f} (device records dropped by the "
+          f"profiler: {lost}; unmatched: {orphans})", flush=True)
+    shares = {}
+    for name in ((focus,) if isinstance(focus, str) else focus):
+        if not name:
+            continue
+        mine = sum(r[0] for r in rows if name in r[2]) / 1e6
+        shares[name] = {"device_ms": mine * 1e3 / units,
+                        "share": mine / max(busy, 1e-12)}
+        print(f"profile   {name}: device_ms_per_{unit}="
               f"{mine * 1e3 / units:.3f} of device_busy_ms_per_{unit}="
               f"{busy * 1e3 / units:.3f} (share {mine / max(busy, 1e-12):.3f})",
               flush=True)
@@ -996,7 +1154,8 @@ def profile_window(label: str, unit: str, fn, units: int,
         print(f"profile   {dev_us / units:10.1f} us/{unit}  "
               f"{count / units:6.1f} calls/{unit}  {key[:90]}")
     return {"wall_ms": wall * 1e3, "device_busy_ms": busy * 1e3,
-            "idle_share": 1 - busy / wall, "device_ops": launches / units}
+            "idle_share": 1 - busy / wall, "device_ops": launches / units,
+            "dropped": lost, "focus": shares}
 
 
 #: The serve phase's request: ``serve --workload pca`` at the batched w8a
@@ -2205,6 +2364,323 @@ def distributed_phase(P, kernels, dev, m=DIST_M, m_small=DIST_M_SMALL,
     return numbers
 
 
+#: Phase 7d: full-width SmolLM-135M training as ``make_train_step`` runs
+#: it (bf16 compute, fp32 master state, per-layer remat).
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 20
+#: The trainer CLI's crash-resume check: the arguments of both runs.
+#: (one logged loss, at step 40: the final lines, ``final loss X (start
+#: Y)``, are then equal in full, as the reference's test reads them)
+TRAIN_CLI = ("--steps", "40", "--batch", "4", "--seq", "128",
+             "--ckpt-every", "10", "--log-every", "40")
+
+
+def _token_batches(cfg, n: int, batch: int, seq: int) -> list:
+    """The trainer's stream (seed 0) from step 0, ``n`` batches on the
+    card, made before any timed loop."""
+    from repro_torch.data import SyntheticTokenStream, TokenStreamConfig
+    it = iter(SyntheticTokenStream(TokenStreamConfig(
+        vocab=cfg.vocab, seq_len=seq, global_batch=batch, seed=0)))
+    return [{k: torch.as_tensor(v, device="cuda")
+             for k, v in next(it).items()} for _ in range(n)]
+
+
+def train_phase(kernels) -> dict:
+    """Phase 7d: one step's loss and gradients through the flash kernels
+    against the plain attention (and the launch counts of that step),
+    then ``TRAIN_STEPS`` steps of ``make_train_step`` with the launches of
+    every step, ms per step and tokens/s with the data on the card, the
+    peak memory, and a profile window of 2 steps.  Returns the numbers and
+    the launches of the timed steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model as PM
+    from repro_torch.optim import AdamW, cosine_schedule
+    cfg = get_config("smollm_135m")
+    steps, batch, seq = TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ
+
+    def loss_and_grads(model, attention: str) -> float:
+        model.zero_grad(set_to_none=True)
+        loss = PM.loss_fn(cfg, model, batches[0], attention=attention)
+        loss.backward()
+        return float(loss)
+
+    n = cfg.n_layers
+    torch.cuda.empty_cache()
+    lm = PM.init_params(cfg, 0, device="cuda")
+    batches = _token_batches(cfg, steps + 2, batch, seq)
+
+    # one step, kernels against the plain attention (the first is the
+    # warm-up: every kernel of the step loads here)
+    twin = copy.deepcopy(lm)
+    kernels.reset_launch_counts()
+    loss_k = loss_and_grads(lm, "kernel")
+    one = kernels.launch_counts()
+    loss_p = loss_and_grads(twin, "plain")
+    plain = dict(twin.named_parameters())
+    errs = {}
+    for name, p in lm.named_parameters():
+        ref = plain[name].grad.double()
+        errs[name] = float((p.grad.double() - ref).norm() /
+                           ref.norm().clamp_min(1e-30))
+    worst = max(errs, key=errs.get)
+    del twin, plain
+    lm.zero_grad(set_to_none=True)
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    print(f"lm train step {cfg.name} batch={batch} seq={seq} "
+          f"bf16, flash kernels vs plain attention: loss {loss_k:.6f} vs "
+          f"{loss_p:.6f} (rel {loss_rel:.3e}, tol {TRAIN_LOSS_RTOL:g}); "
+          f"gradient leaves' relative Frobenius error max {errs[worst]:.3e} "
+          f"({worst}), median {statistics.median(errs.values()):.3e} (tol "
+          f"{TRAIN_GRAD_TOL:g}); launches in the step: flash_attention "
+          f"{one['flash_attention']} flash_attention_bwd "
+          f"{one['flash_attention_bwd']}", flush=True)
+    if one["flash_attention"] != 2 * n or one["flash_attention_bwd"] != n:
+        fail(f"train step launches: {one} (want flash_attention {2 * n}, "
+             f"flash_attention_bwd {n})")
+    if not (np.isfinite(loss_k) and loss_rel <= TRAIN_LOSS_RTOL and
+            errs[worst] <= TRAIN_GRAD_TOL):
+        fail("train step: the flash kernels' loss or gradients leave the "
+             "plain attention's bound")
+
+    # steps of make_train_step (the CLI's schedule)
+    opt = AdamW(lr=cosine_schedule(3e-3, warmup=max(steps // 20, 5),
+                                   total=steps))
+    state = opt.init({k: p.detach() for k, p in lm.named_parameters()})
+    step = make_train_step(cfg, opt)
+    per_step, losses = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    tic = time.perf_counter()
+    for data in batches[:steps]:
+        before = kernels.launch_counts()
+        state, loss = step(lm, state, data)
+        after = kernels.launch_counts()
+        per_step.append((after["flash_attention"] - before["flash_attention"],
+                         after["flash_attention_bwd"] -
+                         before["flash_attention_bwd"]))
+        losses.append(loss)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - tic
+    total = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    ms = sec / steps * 1e3
+    tok_s = batch * seq * steps / sec
+    print(f"lm train {cfg.name} make_train_step batch={batch} "
+          f"seq={seq} steps={steps} {cfg.dtype} compute, fp32 master "
+          f"state, data on the card: ms_per_step={ms:.3f} tok_s={tok_s:.1f} "
+          f"max_memory_allocated={peak / 2 ** 30:.3f} GiB; loss first "
+          f"{losses[0]:.4f} last {losses[-1]:.4f}; flash launches per step "
+          f"(fwd, bwd) {sorted(set(per_step))}", flush=True)
+    if set(per_step) != {(2 * n, n)}:
+        fail(f"train steps' flash launches {per_step}: want ({2 * n}, {n}) "
+             "every step")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        fail(f"train losses not finite and decreasing: {losses}")
+    extra = iter(batches[steps:])
+
+    def one_step():
+        nonlocal state
+        state, _ = step(lm, state, next(extra))
+
+    prof = profile_window(f"lm train step batch {batch} seq {seq}, 2 "
+                          "steps", "step", one_step, units=2, calls=2,
+                          focus=("flash_fwd", "flash_bwd"))
+    del lm, state, batches
+    torch.cuda.empty_cache()
+    return {"ms_per_step": ms, "tok_s": tok_s, "peak_bytes": peak,
+            "losses": losses, "loss_rel": loss_rel,
+            "grad_err": errs[worst], "profile": prof,
+            "launches": {k: total[k] for k in ("flash_attention",
+                                               "flash_attention_bwd")}}
+
+
+def train_cli_phase() -> dict:
+    """Phase 7d, the CLI: ``python -m repro_torch.launch.train`` with
+    ``TRAIN_CLI`` (full width, on the card) in subprocesses: run A
+    uninterrupted and run B crashing at step 25 (started together), then
+    B resumed as soon as it crashed.  ``[resume] step 20``, equal final lines, and the two
+    step-40 checkpoints (params, both moments, the step) bit-equal."""
+    import tempfile
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(SRC)] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+
+    def start(*extra):
+        return subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.train", *TRAIN_CLI,
+             *extra], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+
+    def finish(proc):
+        try:
+            out, err = proc.communicate(timeout=300)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        return proc.returncode, out, err
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        tic = time.perf_counter()
+        a = start("--ckpt-dir", f"{tmp}/A")
+        b = start("--ckpt-dir", f"{tmp}/B", "--crash-at", "25")
+        rc_b, _, err_b = finish(b)
+        c = start("--ckpt-dir", f"{tmp}/B", "--resume")   # beside A's tail
+        (rc_a, out_a, err_a), (rc_c, out_c, err_c) = finish(a), finish(c)
+        sec = time.perf_counter() - tic
+        if rc_a != 0 or rc_c != 0:
+            fail(f"train CLI failed: A rc={rc_a} {err_a[-1500:]} resumed "
+                 f"rc={rc_c} {err_c[-1500:]}")
+        if rc_b == 0 or "injected crash at step 25" not in err_b:
+            fail(f"train CLI: run B did not crash at 25: rc={rc_b}")
+        for line in out_a.splitlines():
+            print(f"train cli A: {line}")
+        for line in out_c.splitlines():
+            print(f"train cli B resumed: {line}")
+
+        def final(out):
+            lines = [x for x in out.splitlines() if x.startswith("final")]
+            return lines[0] if lines else None
+
+        with np.load(f"{tmp}/A/step_00000040/arrays.npz") as fa, \
+                np.load(f"{tmp}/B/step_00000040/arrays.npz") as fb:
+            keys = fa.files
+            same = keys == fb.files and all(
+                np.array_equal(fa[key], fb[key]) for key in keys)
+    resumed = "[resume] step 20" in out_c
+    print(f"train cli crash-resume ({' '.join(TRAIN_CLI)}): {sec:.1f} s for "
+          f"3 runs; resumed at 20: {resumed}; final lines equal: "
+          f"{final(out_a) == final(out_c) is not None}; step-40 "
+          f"checkpoints bit-equal over {len(keys)} leaves: {same}",
+          flush=True)
+    if not (resumed and final(out_a) is not None and
+            final(out_a) == final(out_c) and same):
+        fail("train CLI crash-resume: not bit-equal to the uninterrupted "
+             "run")
+    return {"seconds": sec}
+
+
+#: Phase 7e: the compressed trainer on the card in the example's layout
+#: (4 ranks on erdos_renyi(4, 0.7, seed=0), rank 16, K=6, batch 8 per
+#: rank, seq 64), full-width SmolLM-135M.
+COMP_RANKS, COMP_RANK, COMP_K, COMP_BATCH, COMP_SEQ, COMP_STEPS = \
+    4, 16, 6, 8, 64, 10
+#: The stacked example beside it, at the published widths with its depth
+#: cut to EXAMPLE_LAYERS of 30 (the time limit: at full depth its 2 x 10
+#: steps of 4 per-worker backwards took 25.3 s on an H100).
+EXAMPLE_LAYERS = 6
+
+
+def compressed_phase(P, kernels) -> dict:
+    """Phase 7e: ``make_train_step_compressed`` on ``COMP_RANKS`` ranks
+    (``spawn_agents`` on the one card: gloo, staged through host memory),
+    one untimed step first, then ``COMP_STEPS``; then the stacked example
+    (``examples/train_lm_compressed_torch.py``) in-process for as many
+    steps."""
+    from repro_torch.compression.deepca_powersgd import (compressible,
+                                                         tree_leaves)
+    from repro_torch.configs import get_config
+    from repro_torch.convert import lm_params_to_reference
+    from repro_torch.core import agent_jobs as J
+    from repro_torch.core.gossip_shard import (hypercube_structure,
+                                               ring_structure)
+    from repro_torch.models import model as PM
+    cfg = get_config("smollm_135m")
+    n = cfg.n_layers
+    topo = P.erdos_renyi(COMP_RANKS, p=0.7, seed=0)
+    stride = 1009
+    common = dict(batch=COMP_BATCH, seq=COMP_SEQ, rank=COMP_RANK, K=COMP_K,
+                  sample_stride=stride)
+    torch.cuda.empty_cache()
+    tic = time.perf_counter()
+    runs = [r[0] for r in P.spawn_agents(
+        J.sequence, COMP_RANKS,
+        ("compressed_train_runs", (cfg, topo),
+         dict(steps=COMP_STEPS, warmup=1, **common)), device="cuda",
+        timeout_s=600)]
+    sec = time.perf_counter() - tic
+
+    # what the gossip must put on the wire, from the reference's layout
+    tree = lm_params_to_reference(PM.LM(cfg, device="meta"), cfg)
+    leaves = [x for _, x in tree_leaves(tree)]
+    big = [x for x in leaves if compressible(x)]
+    small = [x for x in leaves if not compressible(x)]
+    rounds = COMP_K * (2 * len(big) + len(small))
+    dense = ring_structure(topo) is None and not hypercube_structure(topo)
+    n_params = sum(x.numel() for x in leaves)
+    losses = runs[0]["losses"]
+    p = np.stack([r["params"].numpy() for r in runs]).astype(np.float64)
+    p0 = runs[0]["params_init"].numpy().astype(np.float64)
+    moved = float(np.linalg.norm(p[0] - p0))
+    spread = max(float(np.linalg.norm(p[r] - p[0]))
+                 for r in range(COMP_RANKS)) / max(moved, 1e-30)
+    st = runs[0]["stats"]
+    per_step_bytes = st["bytes_sent"] / COMP_STEPS
+    allreduce_bytes = 2 * 4 * n_params       # a ring all-reduce of fp32
+    print(f"lm compressed train {cfg.name} on {COMP_RANKS} ranks "
+          f"({st['transport']}{', staged' if st['staged'] else ''}), "
+          f"{topo.name} rank={COMP_RANK} K={COMP_K} batch {COMP_BATCH} per "
+          f"rank seq {COMP_SEQ}: spawn and run {sec:.1f} s; "
+          f"ms_per_step={st['wall_s'] / COMP_STEPS * 1e3:.1f} (compute "
+          f"{st['compute_s'] / COMP_STEPS * 1e3:.1f}, transport "
+          f"{st['transport_s'] / COMP_STEPS * 1e3:.1f}); mean loss first "
+          f"{losses[0]:.4f} last {losses[-1]:.4f}; wire per rank per step "
+          f"{per_step_bytes / 1e6:.3f} MB in {st['all_gathers'] / COMP_STEPS:g}"
+          f" all-gathers and {st['sends'] / COMP_STEPS:g} sends, a ring "
+          f"all-reduce of the gradient {allreduce_bytes / 1e6:.1f} MB (ratio "
+          f"{allreduce_bytes / per_step_bytes:.1f}); parameter copies' "
+          f"spread max_r ||p_r - p_0|| / ||p_0 - p_init|| = {spread:.3f} "
+          f"(moved {moved:.3f}, every {stride}th entry); launches rank 0 "
+          f"{ {k: v for k, v in runs[0]['launches'].items() if v} }",
+          flush=True)
+    want_gathers = (rounds + 1) * COMP_STEPS if dense else COMP_STEPS
+    for r, run in enumerate(runs):
+        c, s_ = run["launches"], run["stats"]
+        if c["cholqr2"] <= 0 or \
+                c["flash_attention"] != 2 * n * COMP_STEPS \
+                or c["flash_attention_bwd"] != n * COMP_STEPS:
+            fail(f"compressed train rank {r} launches {c}")
+        if s_["all_gathers"] != want_gathers or \
+                (dense and s_["sends"] != 0):
+            fail(f"compressed train rank {r}: {s_['all_gathers']} "
+                 f"all-gathers and {s_['sends']} sends, want "
+                 f"{want_gathers} and the rounds' own sends")
+        if run["losses"] != losses:
+            fail(f"compressed train rank {r}: another mean loss")
+    if not (np.isfinite(losses).all() and np.isfinite(p).all() and
+            per_step_bytes < allreduce_bytes):
+        fail("compressed train: non-finite, or the wire carried as much as "
+             "an all-reduce of the gradient")
+
+    ex = load_script(ROOT / "examples" / "train_lm_compressed_torch.py")
+    kernels.reset_launch_counts()
+    example_args = ["--steps", str(COMP_STEPS), "--layers",
+                    str(EXAMPLE_LAYERS)]
+    out, ex_sec = run_timed(ex.main, example_args)
+    c = kernels.launch_counts()
+    workers = 4
+    logged = COMP_STEPS // 10
+    want_bwd = 2 * COMP_STEPS * workers * EXAMPLE_LAYERS
+    want_fwd = 2 * want_bwd + 2 * logged * EXAMPLE_LAYERS
+    print(f"example train_lm_compressed_torch.py "
+          f"{' '.join(example_args)} ({workers} workers, in-process): "
+          f"{ex_sec:.1f} s; "
+          f"baseline {out['baseline']} compressed {out['compressed']}; "
+          f"launches {({k: v for k, v in c.items() if v})}", flush=True)
+    if c["flash_attention_bwd"] != want_bwd or \
+            c["flash_attention"] != want_fwd or \
+            c["cholqr2"] <= 0 or \
+            not np.isfinite(out["baseline"] + out["compressed"]).all():
+        fail(f"example: launches {c} (want flash_attention {want_fwd}, "
+             f"flash_attention_bwd {want_bwd}, cholqr2 > 0) or a "
+             "non-finite loss")
+    return {"seconds": sec, "example_seconds": ex_sec, "spread": spread,
+            "bytes_per_step": per_step_bytes,
+            "cholqr2": [r["launches"]["cholqr2"] for r in runs]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card "
@@ -2724,18 +3200,25 @@ def main() -> int:
                                                    w8a[1], "(w8a mean)")
     main_rows["flash_attention"] = check_flash(fa, peaks, 8, 9, 3, 512, 64,
                                                torch.bfloat16, 21)
+    # the backward at the training shape (the main row), and at lengths
+    # that are not multiples of the 64-row tiles in bf16 and, at hd 128,
+    # in fp32 (fp32 at the training shape and bf16 at S=4096, hd 128 are
+    # recorded in PERF.md §6 and left out here for the time limit)
+    main_rows["flash_attention_bwd"] = check_flash_bwd(
+        fa, peaks, 8, 9, 3, 512, 64, torch.bfloat16, 31)
     new_rows = [
         check_power_matmul(pm, peaks, large[0], large[1], "(large mean)"),
         check_flash(fa, peaks, 8, 9, 3, 512, 64, torch.float32, 22),
         check_flash(fa, peaks, 1, 9, 3, 4096, 64, torch.bfloat16, 23),
         check_flash(fa, peaks, 1, 9, 3, 4096, 128, torch.bfloat16, 24),
+        check_flash_bwd(fa, peaks, 1, 9, 3, 1000, 64, torch.bfloat16, 34),
+        check_flash_bwd(fa, peaks, 2, 9, 3, 333, 128, torch.float32, 35),
     ]
-    for row in (main_rows["power_matmul"], main_rows["flash_attention"],
-                *new_rows):
+    slice3 = (main_rows["power_matmul"], main_rows["flash_attention"],
+              main_rows["flash_attention_bwd"], *new_rows)
+    for row in slice3:
         print_row(row)
-    bad = [r["name"] + " " + r["shape"]
-           for r in (main_rows["power_matmul"], main_rows["flash_attention"],
-                     *new_rows) if not r["ok"]]
+    bad = [r["name"] + " " + r["shape"] for r in slice3 if not r["ok"]]
     if bad:
         fail(f"kernel disagrees with its plain version: {bad}")
 
@@ -2838,6 +3321,16 @@ def main() -> int:
         fail("lm serve: kernel and plain attention disagree")
     del lm, res, plain
 
+    # ---- 7d. LM training at full width: make_train_step (the flash
+    # kernels forward and backward), then the trainer CLI's crash-resume
+    train = train_phase(kernels)
+    launches["flash_attention_bwd"] = train["launches"]["flash_attention_bwd"]
+    train["cli"] = train_cli_phase()
+
+    # ---- 7e. DeEPCA-compressed training: 4 ranks on the card, and the
+    # stacked example
+    train["compressed"] = compressed_phase(P, kernels)
+
     # ---- 8. the kernels line, then the contract line
     csrc = "src/repro_torch/kernels/csrc/"
     sources = {"fastmix_track": csrc + "fastmix.cu",
@@ -2851,7 +3344,8 @@ def main() -> int:
                "fastmix_track_ef": csrc + "fastmix_ef.cu",
                "fastmix_ef": csrc + "fastmix_ef.cu",
                "power_matmul": csrc + "power_matmul.cu",
-               "flash_attention": csrc + "flash_attention.cu"}
+               "flash_attention": csrc + "flash_attention.cu",
+               "flash_attention_bwd": csrc + "flash_attention_bwd.cu"}
     # the P_K(L) build is the first half of both no-wire FastMix kernels
     replaces = {"fastmix_track": "src/repro/kernels/fastmix.py:484",
                 "fastmix": "src/repro/kernels/fastmix.py:331",
@@ -2867,7 +3361,14 @@ def main() -> int:
                 "fastmix_track_ef": "src/repro/kernels/fastmix.py:565",
                 "fastmix_ef": "src/repro/kernels/fastmix.py:401",
                 "power_matmul": "src/repro/kernels/power_matmul.py:71",
-                "flash_attention": "src/repro/kernels/flash_attention.py:96"}
+                "flash_attention": "src/repro/kernels/flash_attention.py:96",
+                # no Pallas backward exists: the reference differentiates
+                # its training attention (models/attention.py:77, :90) by
+                # XLA; this is the gradient of row :96's function
+                "flash_attention_bwd": "src/repro/kernels/flash_attention."
+                                       "py:96 (its gradient; the reference "
+                                       "differentiates src/repro/models/"
+                                       "attention.py:77 and :90 by XLA)"}
     # the standalone Gram (the reference's ops.gram) left the main path:
     # cholqr2 forms CholeskyQR2's Gram there
     off_path = {"gram"}
@@ -2891,8 +3392,14 @@ def main() -> int:
          **({"path": "none: on the main path cholqr2 forms CholeskyQR2's Gram"}
             if name in off_path else {}),
          **({"slice_axis": sliced[name]} if name in sliced else {}),
-         **({"launches_distributed": dist_cholqr2}
+         **({"launches_distributed": dist_cholqr2,
+             "launches_compressed_train": train["compressed"]["cholqr2"]}
             if name == "cholqr2" else {}),
+         **({"launches_train": train["launches"]["flash_attention"],
+             "ms_with_lse": row["ms_with_lse"]}
+            if name == "flash_attention" else {}),
+         **({"launches_per": f"{TRAIN_STEPS} train steps of 7d"}
+            if name == "flash_attention_bwd" else {}),
          **{key: row[key] for key in ("per_round_bound_ms", "ms_excludes")
             if key in row}}
         for name, row in main_rows.items()]}

@@ -62,38 +62,86 @@ def state(st, device=None) -> tuple:
     return out
 
 
-def lm_params_from_reference(params, cfg, device=None):
-    """The reference's LM parameter pytree (``repro.models.init_params``,
-    leaves as numpy arrays) as the port's :class:`~.models.model.LM`.
+def lm_named_from_reference(tree, cfg, device=None) -> dict:
+    """The reference's LM tree layout (``params``, or a gradient or moment
+    tree of the same structure) as the port's flat ``{parameter name:
+    tensor}``.
 
-    ``params["groups"][i]`` stacks the ``cfg.n_groups`` repeats of pattern
+    ``tree["groups"][i]`` stacks the ``cfg.n_groups`` repeats of pattern
     slot ``i`` on a leading axis; group ``g`` of slot ``i`` becomes layer
-    ``g * len(cfg.pattern) + i``.  Weights keep the reference's
-    ``(d_in, d_out)`` layout (no transpose) and their dtype, values
-    bit-identical.
+    ``g * len(cfg.pattern) + i`` (``layers.<l>.mixer.wq``, ...).  Numpy
+    leaves become tensors on ``device`` (``None``: the card), values
+    bit-identical; tensor leaves stay where they are and each layer's
+    entry is a view of its stack.
     """
-    from .models.model import LM
     dev = resolve_device(device)
 
     def leaf(x) -> torch.Tensor:
-        return as_tensor(np.asarray(x), dev)
+        return x if isinstance(x, torch.Tensor) else as_tensor(
+            np.asarray(x), dev)
 
-    state = {"embed": leaf(params["embed"]),
-             "final_norm": leaf(params["final_norm"])}
-    if "lm_head" in params:
-        state["lm_head"] = leaf(params["lm_head"])
+    out = {key: leaf(tree[key])
+           for key in ("embed", "final_norm", "lm_head") if key in tree}
     width = len(cfg.pattern)
 
-    def walk(prefix: str, node, g: int) -> None:
+    def walk(path: str, node, i: int) -> None:
         if isinstance(node, dict):
             for key, child in node.items():
-                walk(f"{prefix}.{key}", child, g)
-        else:
-            state[prefix] = leaf(np.asarray(node)[g])
-
-    for i, slot in enumerate(params["groups"]):
+                walk(f"{path}.{key}", child, i)
+            return
+        stack = leaf(node)
         for g in range(cfg.n_groups):
-            walk(f"layers.{g * width + i}", slot, g)
+            out[f"layers.{g * width + i}{path}"] = stack[g]
+
+    for i, slot in enumerate(tree["groups"]):
+        walk("", slot, i)
+    return out
+
+
+def lm_params_to_reference(params, cfg) -> dict:
+    """The inverse of :func:`lm_named_from_reference`: an :class:`LM` (or
+    a ``{parameter name: tensor}`` dict such as its gradients or AdamW
+    moments) in the reference's tree layout, ``{"embed", "final_norm"[,
+    "lm_head"], "groups": (slot 0, ...)}`` with every layer weight stacked
+    over ``cfg.n_groups`` (``torch.stack``: a copy, detached).  A
+    checkpoint of this tree is one the reference's ``restore`` reads, and
+    its leaf keys and shapes are the ones the reference's compressors
+    see."""
+    named = dict(params.named_parameters()) \
+        if isinstance(params, torch.nn.Module) else dict(params)
+    out = {key: named[key].detach()
+           for key in ("embed", "final_norm", "lm_head") if key in named}
+    width = len(cfg.pattern)
+    groups = []
+    for i in range(width):
+        slot: dict = {}
+        prefix = f"layers.{i}."
+        for name in named:
+            if not name.startswith(prefix):
+                continue
+            rest = name[len(prefix):]
+            node = slot
+            *path, last = rest.split(".")
+            for key in path:
+                node = node.setdefault(key, {})
+            node[last] = torch.stack([
+                named[f"layers.{g * width + i}.{rest}"].detach()
+                for g in range(cfg.n_groups)])
+        groups.append(slot)
+    out["groups"] = tuple(groups)
+    return out
+
+
+def lm_params_from_reference(params, cfg, device=None):
+    """The reference's LM parameter pytree (``repro.models.init_params``,
+    leaves as numpy arrays) as the port's :class:`~.models.model.LM`
+    (the layout of :func:`lm_named_from_reference`).  Weights keep the
+    reference's ``(d_in, d_out)`` layout (no transpose) and their dtype,
+    values bit-identical.
+    """
+    from .models.model import LM
+    dev = resolve_device(device)
+    state = lm_named_from_reference(params, cfg, device=dev)
     model = LM(cfg, device=dev, dtype=state["embed"].dtype)
     model.load_state_dict(state, strict=True)
     return model

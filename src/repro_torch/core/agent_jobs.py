@@ -217,6 +217,72 @@ def compress_runs(tr: Transport, grads, topology, *, K: int, steps: int,
             "stats": rank_stats(tr, tl, steps)}
 
 
+def compressed_train_runs(tr: Transport, cfg, topology, *, steps: int,
+                          batch: int, seq: int, rank: int, K: int,
+                          params=None, comp_state=None, warmup: int = 0,
+                          sample_stride: int = 1) -> dict:
+    """``make_train_step_compressed`` on this rank, AdamW at lr 3e-3 (the
+    reference's test and example): ``steps`` steps of decentralized
+    training on the global batch ``world * batch`` of the token stream
+    (seed 0), each rank on its contiguous shard.
+
+    ``params``: the reference's parameter tree as numpy (carried over by
+    ``convert.lm_params_from_reference``) or ``None`` for the seeded
+    ``init_params(cfg, 0)``; ``comp_state``: a stacked reference state
+    ``{keystr: {Q, S, P_prev, err}}`` (this rank takes its row) or
+    ``None`` for ``init_comp_state``.  ``warmup`` steps run first,
+    uncounted (on the card they load the kernels).  Returns the mean
+    losses of the counted steps, their kernel launches and
+    :func:`rank_stats` (the transport's sends, all-gathers and bytes), and
+    this rank's parameters before the first step and after the last,
+    flattened in name order and taken every ``sample_stride`` elements.
+    """
+    from ..convert import compression_state, lm_params_from_reference
+    from ..data import SyntheticTokenStream, TokenStreamConfig
+    from ..launch.steps import make_train_step_compressed
+    from ..models import init_params
+    from ..optim import AdamW
+    if params is None:
+        lm = init_params(cfg, 0, device=tr.device)
+    else:
+        lm = lm_params_from_reference(params, cfg, device=tr.device)
+    opt = AdamW(lr=3e-3)
+    step, init_comp_state = make_train_step_compressed(
+        cfg, opt, tr, topology, rank=rank, K=K)
+    ostate = opt.init({k: p.detach() for k, p in lm.named_parameters()})
+    if comp_state is None:
+        cstate = init_comp_state(lm)
+    else:
+        cstate = compression_state(
+            {key: {name: np.asarray(v[name])[tr.rank] for name in v}
+             for key, v in comp_state.items()}, device=tr.device)
+    stream = iter(SyntheticTokenStream(TokenStreamConfig(
+        vocab=cfg.vocab, seq_len=seq, global_batch=tr.world * batch)))
+
+    def batch_on_device():
+        return {k: torch.as_tensor(v, device=tr.device)
+                for k, v in next(stream).items()}
+
+    def sample():
+        return torch.cat([p.detach().reshape(-1)[::sample_stride]
+                          for _, p in sorted(lm.named_parameters())])
+
+    params_init = sample()
+    for _ in range(warmup):
+        ostate, cstate, _ = step(lm, ostate, cstate, batch_on_device())
+    losses = []
+    kernels.reset_launch_counts()
+    with tr.timeline() as tl:
+        for _ in range(steps):
+            ostate, cstate, loss = step(lm, ostate, cstate,
+                                        batch_on_device())
+            losses.append(loss)
+    return {"losses": [float(x) for x in losses],
+            "launches": kernels.launch_counts(),
+            "stats": rank_stats(tr, tl, steps), "params_init": params_init,
+            "params": sample()}
+
+
 def time_mix(tr: Transport, topology, S, K: int, reps: int
              ) -> Optional[dict]:
     """One ``"distributed"`` ``mix`` of the stacked ``S``, timed: every

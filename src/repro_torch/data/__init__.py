@@ -1,4 +1,7 @@
-"""Data pipelines of the port: the streaming ingest helpers."""
-from .synthetic import MultiStreamPrefetcher, PrefetchIterator
+"""Data pipelines of the port: the LM token stream and the prefetch
+helpers."""
+from .synthetic import (MultiStreamPrefetcher, PrefetchIterator,
+                        SyntheticTokenStream, TokenStreamConfig)
 
-__all__ = ["PrefetchIterator", "MultiStreamPrefetcher"]
+__all__ = ["PrefetchIterator", "MultiStreamPrefetcher",
+           "SyntheticTokenStream", "TokenStreamConfig"]

@@ -1,9 +1,9 @@
-"""Prefetch iterators for the port's streaming ingest path.
+"""Deterministic synthetic data: the LM token stream and the prefetch
+iterators (the reference's ``repro.data.synthetic``, copied).
 
-The reference package's ``repro.data.synthetic`` keeps two threading
-helpers beside its LM token stream; the port copies the helpers as they
-are (the token stream is training data and comes with the trainer):
-
+* :class:`SyntheticTokenStream` — the trainer's Markov token stream,
+  numpy on the host, seekable and host-sharded; its batches are the
+  reference's bit for bit (the same ``default_rng`` draws and recurrence);
 * :class:`PrefetchIterator` — one background thread prefetching any
   iterator into a bounded queue (the tracker's ingest in ``serve
   --workload pca-stream``);
@@ -19,9 +19,66 @@ the work that reads them, so nothing here synchronizes the device.
 """
 from __future__ import annotations
 
+import dataclasses
 import queue
 import threading
 from typing import Dict, Iterator, Optional
+
+import numpy as np
+
+
+@dataclasses.dataclass
+class TokenStreamConfig:
+    vocab: int
+    seq_len: int
+    global_batch: int
+    seed: int = 0
+    n_hosts: int = 1
+    host_id: int = 0
+    order: int = 2          # markov order of the synthetic process
+
+
+class SyntheticTokenStream:
+    """Markov token stream: deterministic, seekable, host-sharded.
+
+    The next token is a fixed permutation of the previous one, ``(31 t +
+    7) mod vocab``, 75% of the time and uniform noise otherwise, which
+    gives a few bits per token of learnable structure.  Batch ``step`` is
+    drawn from ``default_rng((seed * 1_000_003 + step) * 131 + host_id)``
+    alone, so :meth:`seek` makes a restart reproduce the data order.
+    """
+
+    def __init__(self, cfg: TokenStreamConfig):
+        if cfg.global_batch % cfg.n_hosts:
+            raise ValueError(
+                f"global_batch={cfg.global_batch} must divide evenly "
+                f"across n_hosts={cfg.n_hosts}")
+        self.cfg = cfg
+        self.local_batch = cfg.global_batch // cfg.n_hosts
+        self._step = 0
+
+    def seek(self, step: int) -> None:
+        self._step = step
+
+    def _batch_at(self, step: int) -> Dict[str, np.ndarray]:
+        cfg = self.cfg
+        rng = np.random.default_rng(
+            (cfg.seed * 1_000_003 + step) * 131 + cfg.host_id)
+        b, s, v = self.local_batch, cfg.seq_len, cfg.vocab
+        toks = np.empty((b, s + 1), dtype=np.int32)
+        toks[:, 0] = rng.integers(0, v, b)
+        noise = rng.integers(0, v, (b, s))
+        pick = rng.random((b, s))
+        for t in range(1, s + 1):
+            nxt = (toks[:, t - 1] * 31 + 7) % v
+            toks[:, t] = np.where(pick[:, t - 1] < 0.75, nxt, noise[:, t - 1])
+        return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        while True:
+            out = self._batch_at(self._step)
+            self._step += 1
+            yield out
 
 
 class PrefetchIterator:

@@ -28,7 +28,7 @@ BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 SOURCES = ("fastmix", "gram", "fastmix_ef", "apply_track", "power_matmul",
-           "flash_attention", "cholqr2")
+           "flash_attention", "flash_attention_bwd", "cholqr2")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

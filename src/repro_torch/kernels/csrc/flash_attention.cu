@@ -16,7 +16,10 @@
 //          causal, row >= col on absolute indices (aligned top-left)
 //   per kv tile, ascending:  m' = max(m, rowmax s);  a = exp(m - m');
 //          p = exp(s - m');  l = a l + rowsum p;  acc = a acc + p v
-//   o    = acc / (l == 0 ? 1 : l), cast to q's type.
+//   o    = acc / (l == 0 ? 1 : l), cast to q's type;
+//   lse  = m + log l (of the scaled scores), fp32, when asked for: the
+//          training path saves it for the backward, the prefill does not
+//          ask and writes nothing more.
 //
 // What bounds it on an H100: the work, 2 * B * H * Sq * Skv * HD flops for
 // the unmasked half of a causal score matrix, against reading q, k, v and
@@ -105,9 +108,9 @@ constexpr size_t smem_floats() {
 template <int HD>
 __global__ void __launch_bounds__(kThreadsF32)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, float* __restrict__ o, int H,
-              int Hkv, int Sq, int Skv, int causal, float scale,
-              Strides st) {
+              const float* __restrict__ v, float* __restrict__ o,
+              float* __restrict__ lse, int H, int Hkv, int Sq, int Skv,
+              int causal, float scale, Strides st) {
   constexpr int kOut = HD / kLanesPerRow;           // output columns a thread
   extern __shared__ float smem[];
   float* qs = smem;                                 // [kBQ][HD + 1]
@@ -245,6 +248,9 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < kOut; ++j)
       ob[row * st.o[2] + tc + j * kLanesPerRow] = acc[i][j] / denom;
+    // m is the max of the scaled scores (q was scaled on staging)
+    if (lse != nullptr && tc == 0)
+      lse[(long long)bh * Sq + row] = m[i] + logf(l[i]);
   }
 }
 
@@ -352,9 +358,9 @@ constexpr size_t smem_bytes_bf16() {
 template <int HD>
 __global__ void __launch_bounds__(kThreadsBf16, HD == 64 ? 3 : 1)
 flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-               const bf16* __restrict__ v, bf16* __restrict__ o, int H,
-               int Hkv, int Sq, int Skv, int causal, float scale,
-               Strides st) {
+               const bf16* __restrict__ v, bf16* __restrict__ o,
+               float* __restrict__ lse, int H, int Hkv, int Sq, int Skv,
+               int causal, float scale, Strides st) {
   constexpr int kTile = kBKV * HD;
   constexpr int kKB = HD / 16;          // k-steps of QK^T, n-pairs of PV
   constexpr int kON = HD / 8;           // output n-tiles of 8 columns
@@ -511,6 +517,9 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     sum += __shfl_xor_sync(0xffffffffu, sum, 2);
     const float denom = sum == 0.0f ? 1.0f : sum;
     const int r = wr + g + hh * 8;
+    // m is the max of the unscaled scores: lse = m scale + log l
+    if (lse != nullptr && t4 == 0 && q0 + r < Sq)
+      lse[(long long)bh * Sq + q0 + r] = m[hh] * scale + logf(sum);
 #pragma unroll
     for (int n = 0; n < kON; ++n)
       *reinterpret_cast<__nv_bfloat162*>(sq + swz<HD>(r, n * 8) + 2 * t4) =
@@ -531,7 +540,8 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 template <int HD>
 cudaError_t launch_hd(int is_bf16, const void* q, const void* k,
-                      const void* v, void* o, int B, int H, int Hkv, int Sq,
+                      const void* v, void* o, float* lse, int B, int H,
+                      int Hkv, int Sq,
                       int Skv, int causal, float scale, const Strides& st,
                       cudaStream_t stream) {
   const dim3 grid((Sq + kBQ - 1) / kBQ, B * H);
@@ -542,8 +552,8 @@ cudaError_t launch_hd(int is_bf16, const void* q, const void* k,
         (int)smem);
     if (err != cudaSuccess) return err;
     flash_fwd_bf16<HD><<<grid, kThreadsBf16, smem, stream>>>(
-        (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, H, Hkv, Sq,
-        Skv, causal, scale, st);
+        (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, lse, H, Hkv,
+        Sq, Skv, causal, scale, st);
   } else {
     const size_t smem = smem_floats<HD>() * sizeof(float);
     cudaError_t err = cudaFuncSetAttribute(
@@ -551,8 +561,8 @@ cudaError_t launch_hd(int is_bf16, const void* q, const void* k,
         (int)smem);
     if (err != cudaSuccess) return err;
     flash_fwd_f32<HD><<<grid, kThreadsF32, smem, stream>>>(
-        (const float*)q, (const float*)k, (const float*)v, (float*)o, H, Hkv,
-        Sq, Skv, causal, scale, st);
+        (const float*)q, (const float*)k, (const float*)v, (float*)o, lse, H,
+        Hkv, Sq, Skv, causal, scale, st);
   }
   return cudaGetLastError();
 }
@@ -565,9 +575,12 @@ extern "C" {
 // all of one type (is_bf16 selects bf16, else fp32); hd is 64 or 128 and H
 // a multiple of Hkv.  Each operand comes with its batch, head and sequence
 // strides in elements (hd at stride 1); every pointer and every stride of
-// a dimension larger than 1 must be 16-byte aligned.  Returns cudaError_t.
+// a dimension larger than 1 must be 16-byte aligned.  lse, when not null,
+// receives the fp32 log-sum-exp of each row's scaled scores, contiguous
+// (B, H, Sq): what the backward (flash_attention_bwd.cu) recomputes P
+// from.  Returns cudaError_t.
 int flash_attention(const void* q, const void* k, const void* v, void* o,
-                    int B, int H, int Hkv, int Sq, int Skv, int hd,
+                    float* lse, int B, int H, int Hkv, int Sq, int Skv, int hd,
                     int causal, int is_bf16, float scale, long long q_sb,
                     long long q_sh, long long q_ss, long long k_sb,
                     long long k_sh, long long k_ss, long long v_sb,
@@ -580,11 +593,11 @@ int flash_attention(const void* q, const void* k, const void* v, void* o,
                       {v_sb, v_sh, v_ss}, {o_sb, o_sh, o_ss}};
   cudaStream_t s = (cudaStream_t)stream;
   if (hd == 64)
-    return launch_hd<64>(is_bf16, q, k, v, o, B, H, Hkv, Sq, Skv, causal,
-                         scale, st, s);
+    return launch_hd<64>(is_bf16, q, k, v, o, lse, B, H, Hkv, Sq, Skv,
+                         causal, scale, st, s);
   if (hd == 128)
-    return launch_hd<128>(is_bf16, q, k, v, o, B, H, Hkv, Sq, Skv, causal,
-                          scale, st, s);
+    return launch_hd<128>(is_bf16, q, k, v, o, lse, B, H, Hkv, Sq, Skv,
+                          causal, scale, st, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,19 +1,33 @@
-"""Causal flash attention (forward) with grouped-query heads.
+"""Causal flash attention with grouped-query heads: the forward kernel and
+its gradient.
 
 :func:`flash_attention` is the wrapper of the hand-written CUDA kernel
 ``csrc/flash_attention.cu``, the port of the reference's Pallas
 ``flash_attention_single`` and of the head broadcast and vmaps of its
 batched wrapper ``ops.flash_attention``.  On a CUDA tensor it launches the
 kernel, one launch for the whole ``(B, H)`` grid; on a CPU tensor it runs
-:func:`flash_attention_plain`, the kernel's plain-torch version.  Any other
-device raises.  bf16 operands take the tensor-core kernel, fp32 operands
-the CUDA-core one (IEEE fp32 dots).
+:func:`flash_attention_plain`, the kernel's plain-torch version, which
+autograd differentiates directly.  Any other device raises.  bf16
+operands take the tensor-core kernel, fp32 operands the CUDA-core one
+(IEEE fp32 dots).
+
+The gradient: when grad mode is on and an operand requires grad, CUDA
+operands go through :class:`FlashAttention`, whose forward launches the
+kernel with the fp32 row log-sum-exp ``lse`` saved and whose backward
+launches ``csrc/flash_attention_bwd.cu`` (dQ, dK, dV; deterministic, no
+atomics; one count of ``flash_attention_bwd`` per call, two grids).  The
+reference differentiates the same function with XLA (its training
+attention is ``_einsum_attention`` / ``_chunked_attention``, not its
+Pallas kernel).  :func:`flash_attention_backward_plain` is the backward's
+formulas in plain torch, the kernel's oracle; nothing on the card's path
+calls it.  Nothing falls back: an operand the kernels do not take raises,
+with or without grad.
 
 Layout: the operands may be strided views (the LM passes its ``(B, S, H,
-hd)`` projections transposed to ``(B, H, S, hd)``); the kernel reads them
-through their strides, with hd at stride 1.  Both versions write the
-result into a ``(B, Sq, H, hd)``-contiguous buffer and return its ``(B, H,
-Sq, hd)`` view, so that merging the heads afterwards is free.
+hd)`` projections transposed to ``(B, H, S, hd)``); the kernels read them
+through their strides, with hd at stride 1.  The output and the gradients
+are ``(B, S, heads, hd)``-contiguous buffers returned as their ``(B,
+heads, S, hd)`` views, so that merging the heads afterwards is free.
 
 Semantics (both versions): the scores are ``(fp32(q) / sqrt(hd)) k^T``,
 masked to ``-1e30`` unless ``col < Skv`` and, when causal, ``row >= col``
@@ -22,7 +36,9 @@ causal mask bottom-right; the two agree only when ``Sq == Skv``).  Softmax
 and the product with ``v`` run in fp32; the result is cast to q's dtype.
 Query head ``h`` reads kv head ``h // (H // Hkv)``: ``jnp.repeat(k, rep,
 axis=1)`` in the reference, ``repeat_interleave`` here (not
-``Tensor.repeat``, which tiles the heads in another order).
+``Tensor.repeat``, which tiles the heads in another order).  The backward
+recomputes ``P = exp(s - lse)`` in fp32, sums dK and dV over a kv head's
+query heads in fp32 and casts each gradient to its operand's dtype.
 """
 from __future__ import annotations
 
@@ -33,7 +49,7 @@ import torch
 from . import _build
 
 #: Kernel launches by this module's wrapper (reset by the caller).
-LAUNCHES = {"flash_attention": 0}
+LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0}
 
 _NEG_INF = -1e30
 KERNEL_HEAD_DIMS = (64, 128)
@@ -87,14 +103,16 @@ def _strides(x: torch.Tensor):
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          *, causal: bool = True,
-                          q_offset: int = 0) -> torch.Tensor:
+                          *, causal: bool = True, q_offset: int = 0,
+                          return_lse: bool = False):
     """The kernel's plain version: exact masked softmax attention in fp32,
     cast to q's dtype.  Rows are independent, so the query axis is taken
     in chunks (memory stays O(chunk x Skv) per head); within a chunk it is
     one full softmax, not an online one.  ``q_offset`` shifts the query
     rows' absolute indices for the causal mask (the kernel takes 0).  The
-    result is laid out as the kernel's is."""
+    result is laid out as the kernel's is.  With ``return_lse`` also the
+    fp32 ``(B, H, Sq)`` row log-sum-exp of the scaled scores, ``m + log
+    l``, as the kernel saves it for the backward."""
     rep = _check_shapes(q, k, v)
     hd = q.shape[-1]
     sq, skv = q.shape[2], k.shape[2]
@@ -104,6 +122,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     v32 = v.float().repeat_interleave(rep, dim=1)
     cols = torch.arange(skv, device=q.device)
     out = _heads_last_out(q)
+    lse = []
     for r0 in range(0, sq, _Q_CHUNK):
         qs = q[:, :, r0:r0 + _Q_CHUNK].float() * scale
         s = qs @ k32.mT
@@ -116,15 +135,180 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         l = p.sum(dim=-1, keepdim=True)
         o = (p @ v32) / torch.where(l == 0, torch.ones_like(l), l)
         out[:, :, r0:r0 + _Q_CHUNK] = o.to(q.dtype)
+        if return_lse:
+            lse.append((m + torch.log(l))[..., 0])
+    if return_lse:
+        return out, torch.cat(lse, dim=2) if lse else q.new_empty(
+            q.shape[:3], dtype=torch.float32)
     return out
+
+
+@torch.no_grad()
+def flash_attention_backward_plain(q: torch.Tensor, k: torch.Tensor,
+                                   v: torch.Tensor, o: torch.Tensor,
+                                   lse: torch.Tensor, do: torch.Tensor, *,
+                                   causal: bool = True):
+    """The backward kernel's formulas in plain torch (no autograd): ``D =
+    rowsum(dO o)``, ``P = exp(s - lse)`` on the unmasked entries, ``dV =
+    P^T dO``, ``dP = dO V^T``, ``dS = P (dP - D)``, ``dQ = dS K /
+    sqrt(hd)``, ``dK = dS^T q / sqrt(hd)``, in fp32 over chunks of query
+    rows; dK and dV summed over each kv head's query heads, then every
+    gradient cast to its operand's dtype.  Returns ``(dq, dk, dv)`` laid
+    out as the kernel's are.  The kernel's oracle on the card; the CPU path
+    never needs it (autograd differentiates :func:`flash_attention_plain`
+    there)."""
+    rep = _check_shapes(q, k, v)
+    b, h, sq, hd = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    scale = torch.tensor(1.0 / hd ** 0.5, dtype=torch.float32,
+                         device=q.device)
+    k32 = k.float().repeat_interleave(rep, dim=1)
+    v32 = v.float().repeat_interleave(rep, dim=1)
+    delta = (do.float() * o.float()).sum(dim=-1)
+    cols = torch.arange(skv, device=q.device)
+    dq = _heads_last_out(q)
+    dk32 = torch.zeros(b, h, skv, hd, dtype=torch.float32, device=q.device)
+    dv32 = torch.zeros_like(dk32)
+    for r0 in range(0, sq, _Q_CHUNK):
+        r1 = min(r0 + _Q_CHUNK, sq)
+        qs = q[:, :, r0:r1].float() * scale
+        p = torch.exp(qs @ k32.mT - lse[:, :, r0:r1, None])
+        if causal:
+            rows = torch.arange(r0, r1, device=q.device)
+            p = p.masked_fill(rows[:, None] < cols[None, :], 0.0)
+        dor = do[:, :, r0:r1].float()
+        dv32 += p.mT @ dor
+        ds = p * (dor @ v32.mT - delta[:, :, r0:r1, None])
+        dq[:, :, r0:r1] = ((ds @ k32) * scale).to(q.dtype)
+        dk32 += ds.mT @ qs
+
+    def grouped(x32, like):
+        out = _heads_last_out(like)
+        out.copy_(x32.view(b, hkv, rep, skv, hd).sum(dim=2))
+        return out
+
+    return dq, grouped(dk32, k), grouped(dv32, v)
 
 
 def _entry():
     fn = _build.load("flash_attention").flash_attention
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [
         ctypes.c_float] + [ctypes.c_longlong] * 12 + [ctypes.c_void_p]
     return fn
+
+
+def _bwd_entry():
+    fn = _build.load("flash_attention_bwd").flash_attention_bwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [
+        ctypes.c_float, ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
+    return fn
+
+
+def _check_kernel_operands(*xs: torch.Tensor) -> None:
+    """Raise unless the tensors are what the kernels take: CUDA, one
+    device, all fp32 or all bf16, hd 64 or 128, B * H within the grid."""
+    q = xs[0]
+    if len({x.device for x in xs}) != 1 or q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cuda or cpu tensors on "
+                         f"one device, got "
+                         f"{sorted({str(x.device) for x in xs})}")
+    if q.dtype not in (torch.float32, torch.bfloat16) or \
+            any(x.dtype != q.dtype for x in xs):
+        raise TypeError(f"flash_attention kernel takes q, k, v all fp32 or "
+                        f"all bf16; got {[x.dtype for x in xs]}")
+    b, h, _, hd = q.shape
+    if hd not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"flash_attention kernel supports head_dim "
+                         f"{KERNEL_HEAD_DIMS}, got {hd}")
+    if b * h > _MAX_BH:
+        raise ValueError(f"flash_attention kernel takes B * H <= {_MAX_BH}, "
+                         f"got {b * h}")
+
+
+def _kernel_view(x: torch.Tensor) -> torch.Tensor:
+    """``x`` if the kernels can read it through its strides (hd at stride
+    1, 16-byte aligned), else a contiguous copy: an incoming gradient may
+    be any view (an expanded one has stride 0 everywhere)."""
+    try:
+        _strides(x)
+        return x
+    except ValueError:
+        return x.contiguous()
+
+
+def _forward(q, k, v, causal: bool, with_lse: bool):
+    """One launch of the forward kernel; ``(out, lse or None)``."""
+    b, h, sq, hd = q.shape
+    out = _heads_last_out(q)
+    lse = torch.empty(b, h, sq, dtype=torch.float32, device=q.device) \
+        if with_lse else None
+    if out.numel() == 0:
+        return out, lse
+    strides = [s for x in (q, k, v, out) for s in _strides(x)]
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                   lse.data_ptr() if with_lse else None,
+                   b, h, k.shape[1], sq, k.shape[2], hd, int(bool(causal)),
+                   int(q.dtype == torch.bfloat16), 1.0 / hd ** 0.5, *strides,
+                   stream)
+    _build.check("flash_attention", err)
+    LAUNCHES["flash_attention"] += 1
+    return out, lse
+
+
+def flash_attention_backward(q, k, v, o, lse, do, *, causal: bool = True):
+    """``(dq, dk, dv)`` by the backward kernel (CUDA operands): the
+    wrapper of ``csrc/flash_attention_bwd.cu``, one count per call (the C
+    entry launches its dQ grid, then its dK/dV grid).  ``lse`` is the
+    forward's fp32 ``(B, H, Sq)``; ``do`` may be any view of a ``(B, H,
+    Sq, hd)`` gradient."""
+    _check_shapes(q, k, v)
+    _check_kernel_operands(q, k, v, o, do)
+    do = _kernel_view(do)
+    b, h, sq, hd = q.shape
+    if lse.shape != (b, h, sq) or lse.dtype != torch.float32 or \
+            not lse.is_contiguous() or lse.device != q.device:
+        raise ValueError(f"lse must be a contiguous fp32 (B, H, Sq) tensor "
+                         f"on {q.device}; got {tuple(lse.shape)} "
+                         f"{lse.dtype} on {lse.device}")
+    dq, dk, dv = _heads_last_out(q), _heads_last_out(k), _heads_last_out(v)
+    if sq == 0:
+        return dq, dk.zero_(), dv.zero_()
+    delta = torch.empty(b, h, sq, dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 24)(*(
+        s for x in (q, k, v, o, do, dq, dk, dv) for s in _strides(x)))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _bwd_entry()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), b, h, k.shape[1], sq, k.shape[2], hd,
+        int(bool(causal)), int(q.dtype == torch.bfloat16), 1.0 / hd ** 0.5,
+        strides, stream)
+    _build.check("flash_attention_bwd", err)
+    LAUNCHES["flash_attention_bwd"] += 1
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """The kernel with its gradient: forward launches
+    ``csrc/flash_attention.cu`` and saves ``(q, k, v, out, lse)``; backward
+    launches ``csrc/flash_attention_bwd.cu``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool):
+        out, lse = _forward(q, k, v, causal, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, out, lse, do,
+                                              causal=ctx.causal)
+        return dq, dk, dv, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -134,38 +318,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``(B, Sq, H, hd)``-contiguous buffer.
 
     CUDA operands must be all fp32 or all bf16, on one device, with hd 64
-    or 128 at stride 1 and 16-byte aligned pointers and strides.
+    or 128 at stride 1 and 16-byte aligned pointers and strides.  With grad
+    mode on and an operand requiring grad they go through
+    :class:`FlashAttention` (the result has its ``grad_fn``); otherwise one
+    forward launch, without ``lse``.
     """
-    rep = _check_shapes(q, k, v)
+    _check_shapes(q, k, v)
     devs = {x.device for x in (q, k, v)}
     if devs == {torch.device("cpu")}:
         return flash_attention_plain(q, k, v, causal=causal)
-    if len(devs) != 1 or q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda or cpu tensors on "
-                         f"one device, got {sorted(map(str, devs))}")
-    if q.dtype not in (torch.float32, torch.bfloat16) or \
-            k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_attention kernel takes q, k, v all fp32 or "
-                        f"all bf16; got {q.dtype}, {k.dtype}, {v.dtype}")
-    b, h, sq, hd = q.shape
-    if hd not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"flash_attention kernel supports head_dim "
-                         f"{KERNEL_HEAD_DIMS}, got {hd}")
-    if b * h > _MAX_BH:
-        raise ValueError(f"flash_attention kernel takes B * H <= {_MAX_BH}, "
-                         f"got {b * h}")
-    out = _heads_last_out(q)
-    if out.numel() == 0:
-        return out
-    strides = [s for x in (q, k, v, out) for s in _strides(x)]
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                   b, h, h // rep, sq, k.shape[2], hd, int(bool(causal)),
-                   int(q.dtype == torch.bfloat16), 1.0 / hd ** 0.5, *strides,
-                   stream)
-    _build.check("flash_attention", err)
-    LAUNCHES["flash_attention"] += 1
-    return out
+    _check_kernel_operands(q, k, v)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return FlashAttention.apply(q, k, v, bool(causal))
+    return _forward(q, k, v, causal, with_lse=False)[0]
 
 
 def flash_attention_single(q: torch.Tensor, k: torch.Tensor,

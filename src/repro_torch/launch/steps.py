@@ -1,10 +1,108 @@
-"""The LM serve step functions (the reference's ``launch/steps.py``,
-prefill and decode; the train steps are not ported yet, ROADMAP queue 1
-item 13c)."""
+"""The step functions that the trainer and the LM server run (the
+reference's ``launch/steps.py``): the train step, the DeEPCA-compressed
+decentralized train step, and the serve steps (prefill and decode)."""
 from __future__ import annotations
 
-from ..models import decode_step, prefill
+from typing import Dict, Tuple
+
+import torch
+
+from ..models import decode_step, loss_fn, prefill
 from ..models.config import ArchConfig
+from ..optim import AdamW, AdamWState
+
+
+def _named(params) -> Dict[str, torch.Tensor]:
+    return {k: p.detach() for k, p in params.named_parameters()}
+
+
+def _grads(params) -> Dict[str, torch.Tensor]:
+    return {k: p.grad for k, p in params.named_parameters()}
+
+
+def _loss_and_grads(cfg: ArchConfig, params, batch) -> torch.Tensor:
+    """The loss of ``batch``; the gradients land in ``p.grad``."""
+    params.zero_grad(set_to_none=True)
+    loss = loss_fn(cfg, params, batch)
+    loss.backward()
+    return loss.detach()
+
+
+def make_train_step(cfg: ArchConfig, opt: AdamW):
+    """``train_step(params, opt_state, batch) -> (opt_state, loss)``.
+
+    ``params`` is an :class:`~repro_torch.models.LM`, updated in place (the
+    reference donates its params and returns them); ``opt_state`` an
+    :class:`~repro_torch.optim.AdamWState` keyed by parameter name, its
+    moments updated in place; ``batch`` a dict of int ``tokens`` and
+    ``labels`` (B, S) on the params' device.
+    """
+    def train_step(params, opt_state: AdamWState,
+                   batch: Dict[str, torch.Tensor]
+                   ) -> Tuple[AdamWState, torch.Tensor]:
+        loss = _loss_and_grads(cfg, params, batch)
+        with torch.no_grad():
+            _, opt_state = opt.update(_grads(params), opt_state,
+                                      _named(params))
+        return opt_state, loss
+    return train_step
+
+
+def make_train_step_compressed(cfg: ArchConfig, opt: AdamW, transport, topo,
+                               *, rank: int = 32, K: int = 4):
+    """Decentralized data-parallel training: every rank of ``transport``'s
+    group is a DeEPCA agent (the reference's ``shard_map`` step; each rank
+    calls this and its step).
+
+    Params are replicated; each rank computes the loss and gradients on
+    its contiguous shard of the global batch, and the only communication
+    of gradients is the subspace-tracked FastMix gossip of rank-``rank``
+    PowerSGD factors (``compression.sharded.compress_local`` with the
+    ``"distributed"`` engine's round function): no all-reduce anywhere.
+    The compressor sees the gradients in the reference's tree layout
+    (``convert.lm_params_to_reference``: layer weights stacked over the
+    groups), so its leaves, keys and low-rank factors are the
+    reference's.  The returned loss is the ranks' mean (the reference's
+    ``pmean``), through one all-gather of one number.
+
+    Returns ``(step, init_comp_state)``: ``step(params, opt_state,
+    comp_state, batch) -> (opt_state, comp_state, loss)`` with ``batch``
+    the global batch, and ``init_comp_state(params)`` (the same state on
+    every rank, as the reference's broadcast gives).
+    """
+    from ..compression import sharded
+    from ..convert import lm_named_from_reference, lm_params_to_reference
+    from ..core.consensus import ConsensusEngine
+
+    m, me = transport.world, transport.rank
+    engine = ConsensusEngine.for_algorithm(
+        "deepca", topo, K=K, backend="distributed", group=transport)
+    round_fn = engine.local_round_fn(transport)
+    eta = engine.eta
+
+    def init_comp_state(params):
+        return sharded.init_state(lm_params_to_reference(params, cfg), rank,
+                                  device=transport.device)
+
+    def step(params, opt_state: AdamWState, comp_state,
+             batch: Dict[str, torch.Tensor]):
+        n = batch["tokens"].shape[0]
+        if n % m:
+            raise ValueError(f"global batch {n} does not split over {m} "
+                             "ranks")
+        b = n // m
+        local = {key: x[me * b:(me + 1) * b] for key, x in batch.items()}
+        loss = _loss_and_grads(cfg, params, local)
+        with torch.no_grad():
+            ghat, comp_state = sharded.compress_local(
+                lm_params_to_reference(_grads(params), cfg), comp_state,
+                round_fn=round_fn, eta=eta, K=K)
+            _, opt_state = opt.update(lm_named_from_reference(ghat, cfg),
+                                      opt_state, _named(params))
+            loss = transport.all_gather(loss.reshape(1)).mean()
+        return opt_state, comp_state, loss
+
+    return step, init_comp_state
 
 
 def make_prefill_step(cfg: ArchConfig, max_seq: int, *,

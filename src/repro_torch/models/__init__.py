@@ -1,10 +1,13 @@
 """LM scaffold of the port: dense GQA decoder-only models (SmolLM-135M)
-with the hand-written flash-attention kernel on the prefill."""
+with the hand-written flash-attention kernel on the prefill and, with
+its backward kernel, on the training loss."""
 from .config import (SHAPES, ArchConfig, BlockSpec, ShapeSpec,
                      model_flops_per_token)
+from .layers import cross_entropy
 from .model import (LM, decode_step, forward, init_cache, init_params,
-                    make_positions, prefill)
+                    loss_fn, make_positions, prefill)
 
 __all__ = ["SHAPES", "ArchConfig", "BlockSpec", "ShapeSpec",
-           "model_flops_per_token", "LM", "decode_step", "forward",
-           "init_cache", "init_params", "make_positions", "prefill"]
+           "model_flops_per_token", "LM", "cross_entropy", "decode_step",
+           "forward", "init_cache", "init_params", "loss_fn",
+           "make_positions", "prefill"]

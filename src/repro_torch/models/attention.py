@@ -2,13 +2,15 @@
 
 The reference's ``repro/models/attention.py``, GQA only.  Score paths:
 
-* the **causal prefill** (``q_offset == 0``, Sq == Skv, any length) goes
-  through :func:`repro_torch.kernels.flash_attention.flash_attention`: the
-  hand-written CUDA kernel on the card, its plain version on the CPU.  On
-  one device the reference's reason to keep its Pallas flash kernel off the
-  LM path (``pallas_call`` does not compose with GSPMD) does not apply, so
-  this one path takes the place of both the reference's ``_einsum_attention``
-  and ``_chunked_attention``;
+* the **causal prefill** and the training forward (``q_offset == 0``,
+  Sq == Skv, any length) go through
+  :func:`repro_torch.kernels.flash_attention.flash_attention`: the
+  hand-written CUDA kernels on the card (with grad, the backward kernel
+  too), its plain version on the CPU.  On one device the reference's
+  reason to keep its Pallas flash kernel off the LM path (``pallas_call``
+  does not compose with GSPMD) does not apply, so this one path takes the
+  place of both the reference's ``_einsum_attention`` and
+  ``_chunked_attention``, forward and backward;
 * a non-causal or offset query takes the kernel's plain version;
 * a single decode token attends the whole (B, Hkv, S_max, hd) cache in
   :func:`_decode_attention`, torch ops (the reference's

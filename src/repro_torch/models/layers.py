@@ -71,3 +71,13 @@ def ffn_forward(p, x: torch.Tensor) -> torch.Tensor:
     u = x @ p["wi_up"].to(x.dtype)
     h = torch.nn.functional.silu(g.float()).to(x.dtype) * u
     return h @ p["wo"].to(x.dtype)
+
+
+# ------------------------------------------------------------ loss / logits
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean token CE; logits (B, S, V) any dtype, reduced in fp32 as
+    ``mean(logsumexp(logits) - logits[label])``."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, labels[..., None].long())[..., 0]
+    return (lse - ll).mean()

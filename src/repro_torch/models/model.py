@@ -1,9 +1,12 @@
-"""LM assembly: init / cache / forward / prefill / decode (the reference's
-``repro/models/model.py`` for decoder-only dense GQA models).
+"""LM assembly: init / cache / forward / loss / prefill / decode (the
+reference's ``repro/models/model.py`` for decoder-only dense GQA models).
 
 The reference scans over stacked pattern groups; here a Python loop runs
 the layers in order (layer ``g * len(pattern) + i`` is group ``g`` of
-pattern slot ``i``).  With ``CAST_PARAMS_ONCE`` every fp32 parameter of two
+pattern slot ``i``).  Training (:func:`loss_fn`) recomputes each layer in
+the backward (``torch.utils.checkpoint``, the reference's ``REMAT_POLICY =
+"full"`` on its scanned group body), so each layer's attention runs
+forward twice per step and backward once.  With ``CAST_PARAMS_ONCE`` every fp32 parameter of two
 or more dimensions is cast to the bf16 compute dtype once per call, before
 the layers, while the norm scales stay fp32 (the reference's knob of the
 same name).  ``first_dense_ff`` (DeepSeek), encoder–decoder (whisper) and
@@ -11,15 +14,16 @@ same name).  ``first_dense_ff`` (DeepSeek), encoder–decoder (whisper) and
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from .._device import resolve_device
 from .blocks import Block, block_forward
 from .config import ArchConfig
-from .layers import rms_norm, truncated_normal
+from .layers import cross_entropy, rms_norm, truncated_normal
 
 CAST_PARAMS_ONCE = True
 
@@ -128,25 +132,34 @@ def _param_tree(model: LM, compute: torch.dtype) -> dict:
 
 def forward(cfg: ArchConfig, params: LM, tokens: torch.Tensor, *,
             cache: Optional[dict] = None, last_only: bool = False,
+            remat: bool = False,
             attention: str = "kernel") -> Tuple[torch.Tensor, Optional[dict]]:
     """Returns ``(logits, new_cache)``; tokens (B, S) int.  ``attention``
-    picks the prefill's attention path (``"kernel"`` or ``"plain"``).  The
-    reference's third output, the MoE auxiliary loss, is always zero here
-    and is left out."""
+    picks the prefill's attention path (``"kernel"`` or ``"plain"``).
+    ``remat`` (training, no cache) recomputes each layer in the backward
+    instead of keeping its activations.  The reference's third output, the
+    MoE auxiliary loss, is always zero here and is left out."""
     check_config(cfg)
+    if remat and cache is not None:
+        raise ValueError("remat is for training: no cache")
     compute = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
     tree = _param_tree(params, compute)
     b, s = tokens.shape
-    x = tree["embed"][tokens].to(compute)
+    x = torch.nn.functional.embedding(tokens, tree["embed"]).to(compute)
     pos = cache["pos"] if cache is not None else 0
     positions = make_positions(cfg, b, s, offset=pos, device=tokens.device)
 
     new_layers = []
     for i in range(cfg.n_layers):
+        p = tree["layers"][str(i)]
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(
+                _train_block, cfg, p, x, positions, attention,
+                use_reentrant=False)
+            continue
         c = cache["layers"][i] if cache is not None else None
-        x, nc = block_forward(cfg, tree["layers"][str(i)], x,
-                              positions=positions, pos=pos, cache=c,
-                              attention=attention)
+        x, nc = block_forward(cfg, p, x, positions=positions, pos=pos,
+                              cache=c, attention=attention)
         new_layers.append(nc)
 
     x = rms_norm(x, tree["final_norm"], cfg.norm_eps)
@@ -158,6 +171,25 @@ def forward(cfg: ArchConfig, params: LM, tokens: torch.Tensor, *,
     if cache is not None:
         new_cache = {"pos": pos + s, "layers": new_layers}
     return logits, new_cache
+
+
+def _train_block(cfg: ArchConfig, p: dict, x: torch.Tensor,
+                 positions: torch.Tensor, attention: str) -> torch.Tensor:
+    return block_forward(cfg, p, x, positions=positions,
+                         attention=attention)[0]
+
+
+def loss_fn(cfg: ArchConfig, params: LM, batch: Dict[str, torch.Tensor], *,
+            attention: str = "kernel") -> torch.Tensor:
+    """Causal-LM loss (the reference's ``loss_fn``): the mean token cross
+    entropy, in fp32, of :func:`forward` with ``remat`` on.  batch:
+    ``tokens`` and ``labels`` (B, S) int.  The logits are in the compute
+    dtype (bf16 when ``cfg.dtype`` is, after the ``CAST_PARAMS_ONCE``
+    cast).  The reference adds ``AUX_LOSS_WEIGHT`` times the MoE auxiliary
+    loss, which is zero for the dense blocks ported here."""
+    logits, _ = forward(cfg, params, batch["tokens"], remat=True,
+                        attention=attention)
+    return cross_entropy(logits, batch["labels"])
 
 
 @torch.no_grad()

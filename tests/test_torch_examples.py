@@ -19,6 +19,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
+
 ROOT = Path(__file__).resolve().parents[1]
 NUMBER = re.compile(r"[-+]?\d+(?:\.\d*)?(?:e[-+]?\d+)?")
 WALL = re.compile(r"\(\d+\.\ds\)")
@@ -93,6 +95,30 @@ def test_serve_lm_example_serves_the_reduced_model():
     grid = [NUMBER.findall(line) for line in got[1:]]
     assert [len(row) for row in grid] == \
         [len(NUMBER.findall(line)) for line in want[1:]] == [12] * 4
+
+
+def test_train_lm_compressed_example_prints_the_reference_lines():
+    """Ten steps of the baseline and of the compressed run on 4 workers.
+    Each package draws its own initial weights, so the losses differ a
+    little: the lines' text and step numbers are equal, every loss is
+    below ``log(vocab)``, a uniform guess's (the model learned), and each
+    is within 0.2 of the reference's (readings 0.04 and 0.07; an AdamW
+    whose step stayed at 1 read 0.74 and 0.43)."""
+    got, want = _finish(
+        _start("train_lm_compressed_torch.py", "--device", "cpu",
+               "--reduced", "--steps", "10"),
+        _start("train_lm_compressed.py", "--steps", "10"))
+    assert got[0] == "== exact all-reduce baseline ==" == want[0]
+    assert len(got) == len(want) == 6
+    for g, w in zip(got, want):
+        assert NUMBER.sub("#", g) == NUMBER.sub("#", w), (g, w)
+    losses = []
+    for lines in (got, want):
+        losses.append([float(line.split()[3]) for line in lines
+                       if line.startswith("  step")])
+        assert len(losses[-1]) == 2 and lines[1].split()[1] == "10"
+        assert all(0 < x < np.log(256) for x in losses[-1]), lines
+    np.testing.assert_allclose(losses[0], losses[1], rtol=0, atol=0.2)
 
 
 E2E = ("--m", "8", "--d", "30", "--n", "40", "--k", "3")

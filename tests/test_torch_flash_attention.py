@@ -293,3 +293,84 @@ def test_sdpa_passes_its_operands_without_copies(monkeypatch):
         assert not x.is_contiguous() and x.transpose(1, 2).is_contiguous()
     want, _ = PM.prefill(cfg, lm, toks, max_seq=24, attention="plain")
     assert torch.equal(got, want)
+
+
+# ---------------------------------------------------------------- backward
+#: the backward's formulas against autograd through the plain forward, in
+#: fp32: both sum in fp32 in other orders (readings below 1e-6)
+BWD_TOL = 1e-5
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,h,hkv,sq,skv", [
+    (2, 4, 2, 40, 40), (1, 9, 3, 70, 70), (2, 6, 6, 33, 33),
+    (1, 4, 1, 24, 57), (1, 4, 2, 57, 24), (1, 2, 1, fa._Q_CHUNK + 9,
+                                           fa._Q_CHUNK + 9)])
+def test_backward_plain_matches_autograd_through_the_plain_forward(
+        b, h, hkv, sq, skv, causal):
+    """GQA (rep 1, 2, 3, 4), causal and not, ragged lengths (not
+    multiples of the kernel's 64-row tiles, Sq != Skv, a chunk boundary
+    of the plain version); the incoming gradient is a strided view."""
+    rng = np.random.default_rng(b * 1000 + h * 100 + sq + skv + causal)
+    hd = 16
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).transpose(1, 2).requires_grad_()
+        for shape in ((b, sq, h, hd), (b, skv, hkv, hd), (b, skv, hkv, hd)))
+    out, lse = fa.flash_attention_plain(q, k, v, causal=causal,
+                                        return_lse=True)
+    assert lse.shape == (b, h, sq) and lse.dtype == torch.float32
+    do = torch.from_numpy(rng.standard_normal((b, sq, h, hd)).astype(
+        np.float32)).transpose(1, 2)
+    out.backward(do)
+    got = fa.flash_attention_backward_plain(
+        q.detach(), k.detach(), v.detach(), out.detach(), lse, do,
+        causal=causal)
+    for name, mine, x in zip("qkv", got, (q, k, v)):
+        assert mine.shape == x.shape and mine.dtype == x.dtype
+        assert mine.transpose(1, 2).is_contiguous(), name
+        want = x.grad
+        np.testing.assert_allclose(mine.numpy(), want.numpy(), rtol=0,
+                                   atol=BWD_TOL * float(want.abs().max()),
+                                   err_msg=f"d{name}")
+
+
+def test_lse_is_the_row_logsumexp_of_the_scaled_scores():
+    rng = np.random.default_rng(21)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 4, 30, 16)).astype(
+        np.float32)) for _ in range(3))
+    out, lse = fa.flash_attention_plain(q, k[:, :2], v[:, :2],
+                                        return_lse=True)
+    assert torch.equal(out, fa.flash_attention_plain(q, k[:, :2], v[:, :2]))
+    s = (q * 0.25) @ k[:, :2].repeat_interleave(2, 1).mT
+    s = s.masked_fill(torch.ones(30, 30, dtype=torch.bool).triu(1), -1e30)
+    torch.testing.assert_close(lse, torch.logsumexp(s, dim=-1), rtol=1e-6,
+                               atol=1e-6)
+
+
+def test_cpu_operands_train_through_the_plain_version():
+    """On the CPU the wrapper runs the plain version under autograd (no
+    kernel, no launch count), so its gradient is autograd's."""
+    from repro_torch import kernels
+    rng = np.random.default_rng(23)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 2, 20, 16)).astype(
+        np.float32)).requires_grad_() for _ in range(3))
+    kernels.reset_launch_counts()
+    out = fa.flash_attention(q, k, v)
+    assert out.grad_fn is not None
+    assert not isinstance(out.grad_fn, fa.FlashAttention._backward_cls)
+    out.sum().backward()
+    assert all(x.grad is not None for x in (q, k, v))
+    counts = kernels.launch_counts()
+    assert counts["flash_attention"] == counts["flash_attention_bwd"] == 0
+
+
+def test_kernel_backward_wrapper_refuses_what_the_kernel_does_not_take():
+    """The backward's wrapper checks its operands before any build: CPU
+    tensors, an hd the kernel lacks and a bad lse raise."""
+    z = torch.zeros(1, 2, 8, 64)
+    lse = torch.zeros(1, 2, 8)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        fa.flash_attention_backward(z, z, z, z, lse, z)
+    m = torch.zeros(1, 2, 8, 16, device="meta")
+    with pytest.raises(ValueError):
+        fa.flash_attention_backward(m, m, m, m, lse, m)

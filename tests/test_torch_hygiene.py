@@ -46,7 +46,9 @@ def test_import_leaves_jax_and_reference_out():
         "repro_torch.core.gossip_shard, repro_torch.core.agent_jobs, "
         "repro_torch.compression, repro_torch.compression.ef, "
         "repro_torch.compression.deepca_powersgd, "
-        "repro_torch.compression.sharded\n"
+        "repro_torch.compression.sharded, repro_torch.optim, "
+        "repro_torch.optim.adamw, repro_torch.launch.train, "
+        "repro_torch.models.model\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "from repro_torch.kernels import _build\n"
@@ -62,6 +64,7 @@ def test_import_leaves_jax_and_reference_out():
     str(p.relative_to(ROOT)) for p in [
         *PORT.rglob("*.py"), ROOT / "chip_smoke.py",
         *(ROOT / "scripts").glob("bench_torch_*.py"),
+        ROOT / "scripts" / "probe_profiler_drops.py",
         *(ROOT / "examples").glob("*_torch.py")]))
 def test_no_jax_or_reference_import(path):
     tree = ast.parse((ROOT / path).read_text())
@@ -183,7 +186,8 @@ def test_checkpoints_failures_and_examples_default_to_the_card(tmp_path):
     examples = sorted((ROOT / "examples").glob("*_torch.py"))
     assert [p.name for p in examples] == [
         "decentralized_pca_e2e_torch.py", "quickstart_torch.py",
-        "serve_lm_torch.py", "streaming_pca_torch.py"]
+        "serve_lm_torch.py", "streaming_pca_torch.py",
+        "train_lm_compressed_torch.py"]
     if torch.cuda.is_available():
         return
     with pytest.raises((RuntimeError, AssertionError)):
@@ -245,6 +249,30 @@ def test_distributed_entry_points_default_to_the_card():
         P.spawn_agents(agent_jobs.dead_rank, 2, 5, timeout_s=60)
 
 
+def test_training_entry_points_default_to_the_card():
+    """The trainer CLI, the train steps' model and the compressed-training
+    job take the card unless asked for the CPU; on a host without CUDA
+    torch's own error surfaces (no CPU fallback), and a CUDA operand that
+    requires grad goes through the backward kernel's Function, never the
+    plain version."""
+    import inspect
+
+    from repro_torch.core import agent_jobs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import train
+    assert train.parse_args([]).device is None
+    assert inspect.signature(agent_jobs.compressed_train_runs) \
+        .parameters["params"].default is None
+    text = (ROOT / "examples" / "train_lm_compressed_torch.py").read_text()
+    assert 'ap.add_argument("--device", default=None' in text
+    src = inspect.getsource(fa.flash_attention)
+    assert "FlashAttention.apply" in src and "_forward(" in src
+    if torch.cuda.is_available():
+        return
+    with pytest.raises((RuntimeError, AssertionError)):
+        train.main(["--reduced", "--steps", "1"])
+
+
 def test_runtime_modules_read_no_repro_variable_directly():
     """Only ``runtime/config.py`` names a ``REPRO_*`` variable when it
     reads the environment; the rest of the port asks ``get_config()``."""
@@ -281,7 +309,8 @@ def test_build_rules_without_nvcc(monkeypatch):
     assert sorted(_build.SOURCES) == sorted(
         p.stem for p in _build.CSRC.glob("*.cu"))
     assert {"fastmix", "gram", "fastmix_ef", "apply_track", "power_matmul",
-            "flash_attention", "cholqr2"} <= set(_build.SOURCES)
+            "flash_attention", "flash_attention_bwd",
+            "cholqr2"} <= set(_build.SOURCES)
     paths = [_build._lib_path(name) for name in _build.SOURCES]
     assert len(set(paths)) == len(paths)
     for name, path in zip(_build.SOURCES, paths):
@@ -296,16 +325,19 @@ def test_build_rules_without_nvcc(monkeypatch):
 
 #: Every C entry point a wrapper binds: its id, source and binder.
 ENTRIES = ("apply_track", "cholqr2", "fastmix", "fastmix_apply",
-           "fastmix_ef", "fastmix_poly", "flash_attention", "gram",
-           "power_matmul")
+           "fastmix_ef", "fastmix_poly", "flash_attention",
+           "flash_attention_bwd", "gram", "power_matmul")
 #: The argument count of each C entry.  The gossip entries take the slice
 #: axis (a slice count, the iterate's and the matrix's slice strides, the
 #: per-slice coefficient table and its stride; ``fastmix_poly`` also the
 #: per-slice round counts; ``apply_track`` the problem count); ``cholqr2``
 #: takes the group of elements that shares a rescue flag (one problem).
+#: ``flash_attention`` takes the optional lse output; its backward takes
+#: its 24 strides as one host array.
 ARITY = {"apply_track": 25, "cholqr2": 11, "fastmix": 21,
          "fastmix_apply": 15, "fastmix_ef": 22, "fastmix_poly": 15,
-         "flash_attention": 26, "gram": 7, "power_matmul": 9}
+         "flash_attention": 27, "flash_attention_bwd": 21, "gram": 7,
+         "power_matmul": 9}
 
 
 def _entries():
@@ -319,7 +351,9 @@ def _entries():
             "fastmix_ef": ("fastmix_ef", fastmix._ef_entry),
             "apply_track": ("apply_track", fastmix._apply_track_entry),
             "power_matmul": ("power_matmul", power_matmul._entry),
-            "flash_attention": ("flash_attention", flash_attention._entry)}
+            "flash_attention": ("flash_attention", flash_attention._entry),
+            "flash_attention_bwd": ("flash_attention_bwd",
+                                    flash_attention._bwd_entry)}
 
 
 @pytest.mark.parametrize("source", ENTRIES)

@@ -30,7 +30,12 @@ against its twin in the kernel's order (the cluster split) and across
 calls; flash attention rtol = atol = 2e-5 (fp32) and 2e-2
 (bf16: one bf16 rounding of the output may fall either side); the LM's
 last-token logits, kernel vs plain attention, within 5e-2 * max|logits|
-in bf16 (LM_BF16_TOL of test_torch_lm.py) and 1e-4 in fp32.
+in bf16 (LM_BF16_TOL of test_torch_lm.py) and 1e-4 in fp32; the flash
+backward's dq, dk, dv within 1e-5 * max(max|ref|, 1) (fp32) and 1e-2 *
+max(max|ref|, 1) (bf16: one bf16 rounding either side) of its plain
+version, its lse
+within 1e-5, bit-equal across calls, and a fp32 directional derivative
+within 1e-2 relative of a central difference.
 """
 import ctypes
 import subprocess
@@ -816,6 +821,173 @@ def test_lm_kernel_and_plain_attention_agree_on_card(sm90, dtype):
         else 1e-4
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(), rtol=0, atol=tol)
+
+
+# ------------------------------------------------ the flash kernel's backward
+def _bwd_operands(b, h, hkv, sq, skv, hd, dtype, seed, layout="lm"):
+    """q, k, v, dO in the LM's layout ((B, S, heads, hd) transposed), or
+    contiguous; from numpy draws."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for shape in ((b, sq, h, hd), (b, skv, hkv, hd), (b, skv, hkv, hd),
+                  (b, sq, h, hd)):
+        x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                             ).to(dtype).cuda().transpose(1, 2)
+        out.append(x.contiguous() if layout == "contiguous" else x)
+    return out
+
+
+def _bwd_tol(dtype, want: torch.Tensor) -> float:
+    """fp32 1e-5 * max(max|ref|, 1) (the sums run in other orders); bf16
+    1e-2 * max(max|ref|, 1): the kernel and the plain version round the
+    same fp32 sums to bf16, and one rounding may fall either side (one
+    bf16 ulp is 2^-7 of the top binade; readings on an H100 up to
+    1.8e-3).  The floor 1 is the operands' scale (unit normal draws):
+    where the exact gradient is 0 (S = 1: dS = dP - D vanishes) the two
+    still differ by the fp32 rounding of O(1) terms (2.9e-7 read)."""
+    scale = max(float(want.float().abs().max()), 1.0)
+    return (1e-5 if dtype == torch.float32 else 1e-2) * scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["contiguous", "lm"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,hkv,sq,skv,hd", [
+    (8, 9, 3, 512, 512, 64), (2, 4, 2, 40, 40, 64), (2, 4, 1, 100, 100, 128),
+    (1, 2, 2, 70, 130, 64), (1, 3, 1, 130, 70, 128), (1, 1, 1, 1, 1, 64),
+    (1, 9, 3, 1000, 1000, 128)])
+def test_flash_attention_backward_kernel_on_card(sm90, b, h, hkv, sq, skv,
+                                                 hd, dtype, causal, layout):
+    """dq, dk, dv of the backward kernel against its plain version from
+    the same forward (its ``lse``), GQA, ragged and Sq != Skv."""
+    q, k, v, do = _bwd_operands(b, h, hkv, sq, skv, hd, dtype,
+                                b + h + sq + skv + hd, layout)
+    out, lse = fa._forward(q, k, v, causal, with_lse=True)
+    _, lse_plain = fa.flash_attention_plain(q, k, v, causal=causal,
+                                            return_lse=True)
+    before = fa.LAUNCHES["flash_attention_bwd"]
+    got = fa.flash_attention_backward(q, k, v, out, lse, do, causal=causal)
+    want = fa.flash_attention_backward_plain(q, k, v, out, lse, do,
+                                             causal=causal)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention_bwd"] == before + 1
+    torch.testing.assert_close(lse, lse_plain, rtol=0, atol=1e-5)
+    for name, g, w, x in zip("qkv", got, want, (q, k, v)):
+        assert g.dtype == dtype and g.shape == x.shape
+        assert g.transpose(1, 2).is_contiguous()
+        np.testing.assert_allclose(g.float().cpu().numpy(),
+                                   w.float().cpu().numpy(), rtol=0,
+                                   atol=_bwd_tol(dtype, w), err_msg=name)
+
+
+@pytest.mark.gpu
+def test_flash_attention_backward_is_a_directional_derivative(sm90):
+    """gradcheck in fp32 (the kernels take no f64): for random directions
+    u of q, k and v, the kernel's <grad, u> against the central difference
+    of <dO, out> with step 1e-2, within 1e-2 relative (the difference's
+    truncation error is O(step^2), its fp32 rounding about 1e-4)."""
+    q, k, v, do = _bwd_operands(1, 4, 2, 70, 70, 64, torch.float32, 3)
+    q, k, v = (x.detach().requires_grad_() for x in (q, k, v))
+    out = fa.flash_attention(q, k, v)
+    out.backward(do)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    for x in (q, k, v):
+        u = torch.randn(x.shape, generator=g, device="cuda")
+        eps = 1e-2
+
+        def f(sign):
+            with torch.no_grad():
+                xs = [y.detach() for y in (q, k, v)]
+                i = [id(y) for y in (q, k, v)].index(id(x))
+                xs[i] = xs[i] + sign * eps * u
+                return float((fa.flash_attention(*xs).double() *
+                              do.double()).sum())
+
+        fd = (f(1) - f(-1)) / (2 * eps)
+        an = float((x.grad.double() * u.double()).sum())
+        assert abs(fd - an) <= 1e-2 * abs(an), (fd, an)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_on_card_keeps_the_graph(sm90, dtype):
+    """With operands that require grad the result has the kernel's
+    ``grad_fn`` (it once came back detached, so a loss built on the card
+    got no gradient for the projections); the backward launches the
+    backward kernel once and gives the plain version's gradients; without
+    grad (a prefill) one forward launch and no graph."""
+    q, k, v, do = _bwd_operands(2, 9, 3, 128, 128, 64, dtype, 5)
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    kernels.reset_launch_counts()
+    out = fa.flash_attention(*leaves)
+    assert out.requires_grad
+    assert isinstance(out.grad_fn, fa.FlashAttention._backward_cls)
+    out.backward(do)
+    counts = kernels.launch_counts()
+    assert counts["flash_attention"] == 1 and \
+        counts["flash_attention_bwd"] == 1
+    out2, lse = fa.flash_attention_plain(q, k, v, return_lse=True)
+    want = fa.flash_attention_backward_plain(q, k, v, out.detach(), lse, do)
+    for x, w in zip(leaves, want):
+        np.testing.assert_allclose(x.grad.float().cpu().numpy(),
+                                   w.float().cpu().numpy(), rtol=0,
+                                   atol=_bwd_tol(dtype, w))
+    with torch.no_grad():
+        plain_out = fa.flash_attention(*leaves)
+    assert plain_out.grad_fn is None
+    # an expanded incoming gradient (out.sum()) is copied, then taken
+    out = fa.flash_attention(*leaves)
+    out.float().sum().backward()
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(x.grad).all() for x in leaves)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_backward_is_deterministic(sm90, dtype):
+    q, k, v, do = _bwd_operands(8, 9, 3, 512, 512, 64, dtype, 7)
+    out, lse = fa._forward(q, k, v, True, with_lse=True)
+    a = fa.flash_attention_backward(q, k, v, out, lse, do)
+    b = fa.flash_attention_backward(q, k, v, out, lse, do)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.gpu
+def test_flash_attention_forward_lse_changes_no_output(sm90):
+    q, k, v, _ = _bwd_operands(8, 9, 3, 512, 512, 64, torch.bfloat16, 9)
+    with_lse, lse = fa._forward(q, k, v, True, with_lse=True)
+    without, none = fa._forward(q, k, v, True, with_lse=False)
+    torch.cuda.synchronize()
+    assert none is None and torch.equal(with_lse, without)
+    assert torch.isfinite(lse).all()
+
+
+@pytest.mark.gpu
+def test_full_width_train_step_launch_counts(sm90):
+    """One SmolLM-135M train step (batch 1, seq 128, bf16 compute): per
+    layer the forward kernel runs twice (the forward, then its recompute
+    under remat) and the backward kernel once; loss finite."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model as PM
+    from repro_torch.optim import AdamW
+    cfg = get_config("smollm_135m")
+    lm = PM.init_params(cfg, 0)
+    opt = AdamW(lr=1e-3)
+    state = opt.init({k: p.detach() for k, p in lm.named_parameters()})
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (1, 129)).astype(np.int32)).cuda()
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    step = make_train_step(cfg, opt)
+    kernels.reset_launch_counts()
+    state, loss = step(lm, state, batch)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["flash_attention"] == 2 * cfg.n_layers
+    assert counts["flash_attention_bwd"] == cfg.n_layers
+    assert torch.isfinite(loss) and int(state.step) == 1
 
 
 # ------------------------------------------------------------ the slice axis
