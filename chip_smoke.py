@@ -134,9 +134,11 @@ What it does, in order; any failure raises and the exit code is non-zero:
    prefill's profile window gives flash's device time and share), and
    again with the plain attention to compare; the flash backward kernel
    (dq, dk, dv) against its plain version at the training shape (B=8,
-   H=9, Hkv=3, S=512, hd 64, bf16), in fp32, at hd 128 and at lengths
-   that are not multiples of its tiles, bit-equal across calls, timed
-   beside SDPA's backward, and the forward re-timed writing its lse;
+   H=9, Hkv=3, S=512, hd 64, bf16), at B=1, S=4096, hd 128 in bf16, and
+   at lengths that are not multiples of its tiles (bf16; fp32 at hd 128),
+   bit-equal across calls, timed beside SDPA's backward, after a line per
+   bf16 backward kernel with its registers, spills and blocks an SM, and
+   the forward re-timed writing its lse;
    7d. full-width SmolLM-135M training (bf16 compute, fp32 master state):
    one step through the flash kernels against the plain attention (loss
    and every gradient leaf), 20 steps of ``make_train_step`` at batch 8,
@@ -863,6 +865,30 @@ def check_flash_bwd(fa, peaks, b: int, h: int, hkv: int, s: int, hd: int,
     row["bound_ms"], row["bound_by"] = bound(
         nbytes, flops, peaks, "bf16" if dtype == torch.bfloat16 else "fp32")
     return row
+
+
+def flash_bwd_resources(fa, build) -> dict:
+    """Registers a thread, stack-frame (spill) bytes, dynamic shared
+    bytes and blocks an SM of the bf16 backward kernels at each head dim,
+    one line each (``cuobjdump -res-usage`` of the built library and the
+    runtime's occupancy query)."""
+    usage = build.resource_usage("flash_attention_bwd")
+    out = {}
+    for hd in fa.KERNEL_HEAD_DIMS:
+        occupancy = fa.backward_occupancy(hd)
+        for grid, n_blocks, smem in zip(("dq", "dkdv"), occupancy[:2],
+                                        occupancy[2:]):
+            name = f"flash_bwd_{grid}_bf16<{hd}>"
+            mangled = f"flash_bwd_{grid}_bf16ILi{hd}E"
+            res = next(v for k, v in usage.items()
+                       if name + "(" in k or mangled in k)
+            out[name] = {**res, "dynamic_shared": smem,
+                         "blocks_per_sm": n_blocks}
+            print(f"flash backward kernel {name}: {res['registers']} "
+                  f"registers a thread, {res['stack']} stack-frame (spill) "
+                  f"bytes, {res['local']} local bytes, {smem} dynamic shared "
+                  f"bytes, {n_blocks} blocks an SM", flush=True)
+    return out
 
 
 def load_script(path: Path):
@@ -3200,10 +3226,12 @@ def main() -> int:
                                                    w8a[1], "(w8a mean)")
     main_rows["flash_attention"] = check_flash(fa, peaks, 8, 9, 3, 512, 64,
                                                torch.bfloat16, 21)
-    # the backward at the training shape (the main row), and at lengths
-    # that are not multiples of the 64-row tiles in bf16 and, at hd 128,
-    # in fp32 (fp32 at the training shape and bf16 at S=4096, hd 128 are
-    # recorded in PERF.md §6 and left out here for the time limit)
+    # the backward: its bf16 kernels' registers, spills and blocks an SM;
+    # the training shape (the main row), a long prompt at hd 128, and
+    # lengths that are not multiples of the 64-row tiles in bf16 and, at
+    # hd 128, in fp32 (fp32 at the training shape is timed by
+    # scripts/time_flash_bwd.py and left out here for the time limit)
+    flash_bwd_resources(fa, _build)
     main_rows["flash_attention_bwd"] = check_flash_bwd(
         fa, peaks, 8, 9, 3, 512, 64, torch.bfloat16, 31)
     new_rows = [
@@ -3211,6 +3239,7 @@ def main() -> int:
         check_flash(fa, peaks, 8, 9, 3, 512, 64, torch.float32, 22),
         check_flash(fa, peaks, 1, 9, 3, 4096, 64, torch.bfloat16, 23),
         check_flash(fa, peaks, 1, 9, 3, 4096, 128, torch.bfloat16, 24),
+        check_flash_bwd(fa, peaks, 1, 9, 3, 4096, 128, torch.bfloat16, 36),
         check_flash_bwd(fa, peaks, 1, 9, 3, 1000, 64, torch.bfloat16, 34),
         check_flash_bwd(fa, peaks, 2, 9, 3, 333, 128, torch.float32, 35),
     ]

@@ -16,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -98,6 +99,29 @@ def load(name: str) -> ctypes.CDLL:
             _finish(name, _start(name))
             lib = _libs[name] = ctypes.CDLL(str(_lib_path(name)))
     return lib
+
+
+def resource_usage(name: str) -> Dict[str, Dict[str, int]]:
+    """Registers a thread and the stack-frame, static shared and local
+    bytes of every kernel in ``lib<name>.so`` (built on first use), by
+    demangled name, as ``cuobjdump -res-usage`` reads them from the
+    library.  The kernels make no calls, so a stack frame holds spilled
+    registers: 0 means no spills."""
+    load(name)
+    tool = Path(_nvcc()).parent / "cuobjdump"
+    out = subprocess.run([str(tool), "-res-usage", str(_lib_path(name))],
+                         capture_output=True, text=True, check=True).stdout
+    found = re.findall(r"Function (\S+):\s*REG:(\d+) STACK:(\d+) "
+                       r"SHARED:(\d+) LOCAL:(\d+)", out)
+    names = [f[0] for f in found]
+    filt = shutil.which("c++filt")
+    if filt and names:
+        names = subprocess.run([filt], input="\n".join(names),
+                               capture_output=True, text=True,
+                               check=True).stdout.split("\n")
+    return {n: {"registers": int(r), "stack": int(s), "shared": int(sh),
+                "local": int(lo)}
+            for n, (_, r, s, sh, lo) in zip(names, found)}
 
 
 def check(name: str, err: int) -> None:

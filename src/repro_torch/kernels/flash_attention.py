@@ -38,7 +38,11 @@ Query head ``h`` reads kv head ``h // (H // Hkv)``: ``jnp.repeat(k, rep,
 axis=1)`` in the reference, ``repeat_interleave`` here (not
 ``Tensor.repeat``, which tiles the heads in another order).  The backward
 recomputes ``P = exp(s - lse)`` in fp32, sums dK and dV over a kv head's
-query heads in fp32 and casts each gradient to its operand's dtype.
+query heads in fp32 and casts each gradient to its operand's dtype.  The
+bf16 kernels run their products on the tensor cores: the forward rounds P
+to bf16 before ``P V``, the backward P before ``P^T dO`` and dS before
+``dS K`` and ``dS^T q`` (``tests/test_torch_flash_attention.py`` emulates
+both against the plain versions).
 """
 from __future__ import annotations
 
@@ -204,6 +208,19 @@ def _bwd_entry():
     fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [
         ctypes.c_float, ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
     return fn
+
+
+def backward_occupancy(hd: int):
+    """``(dq_blocks, dkdv_blocks, dq_smem, dkdv_smem)``: how many blocks of
+    the bf16 backward's dQ and dK/dV kernels one SM of the current card
+    holds at once at head dim ``hd``, as their registers and shared memory
+    allow, and the dynamic shared bytes of a block of each."""
+    fn = _build.load("flash_attention_bwd").flash_attention_bwd_occupancy
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    out = (ctypes.c_int * 4)()
+    _build.check("flash_attention_bwd", fn(hd, out))
+    return tuple(out)
 
 
 def _check_kernel_operands(*xs: torch.Tensor) -> None:

@@ -334,6 +334,66 @@ def test_backward_plain_matches_autograd_through_the_plain_forward(
                                    err_msg=f"d{name}")
 
 
+#: The bf16 backward kernel against its plain version (fp32 P and dS),
+#: relative to max|ref|: the kernel's on-card tolerance
+#: (tests/test_torch_kernels_gpu.py::_bwd_tol, chip_smoke.FLASH_BWD_TOL)
+BWD_BF16_TOL = 1e-2
+LOG2E = np.float32(1.4426950408889634)
+
+
+def _emulate_bf16_backward(q, k, v, o, lse, do):
+    """The causal bf16 backward kernel's arithmetic in torch, batch by
+    batch: fp32 dots of the bf16 operands (s on the unscaled q), ``P =
+    2^(s c - lse log2 e)`` with ``c = fp32(fp32(1/sqrt(hd)) * fp32(log2
+    e))`` and one rounding for the FFMA, ``D = rowsum(dO o)`` and ``dS = P
+    (dP - D)`` in fp32; P rounded to bf16 before ``P^T dO``, dS before ``dS
+    K`` and ``dS^T q``; every sum in fp32, dQ and dK scaled at the end,
+    dK and dV summed over each kv head's query heads, each gradient
+    rounded to bf16 once."""
+    b, h, sq, hd = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    rep = h // hkv
+    scale = np.float32(1.0 / hd ** 0.5)
+    c = float(np.float32(scale * LOG2E))
+    above = torch.arange(sq)[:, None] < torch.arange(skv)[None, :]
+    grads = [torch.empty(x.shape, dtype=torch.bfloat16) for x in (q, k, v)]
+    for i in range(b):
+        qf, of, dof = q[i].float(), o[i].float(), do[i].float()
+        kf, vf = (x[i].float().repeat_interleave(rep, dim=0) for x in (k, v))
+        lse2 = (lse[i] * LOG2E).double()[..., None]
+        p = torch.exp2(((qf @ kf.mT).double() * c - lse2).float())
+        p = p.masked_fill(above, 0.0)
+        ds = p * (dof @ vf.mT - (dof * of).sum(dim=-1, keepdim=True))
+        pb, dsb = p.bfloat16().float(), ds.bfloat16().float()
+        grads[0][i] = ((dsb @ kf) * scale).bfloat16()
+        for j, g32 in ((1, (dsb.mT @ qf) * scale), (2, pb.mT @ dof)):
+            grads[j][i] = g32.view(hkv, rep, skv, hd).sum(dim=1).bfloat16()
+    return grads
+
+
+def test_bf16_backward_rounding_within_budget_of_plain():
+    """The bf16 backward kernel rounds P to bf16 before ``P^T dO`` and dS
+    before the dQ and dK products (where FlashAttention-2 rounds); its
+    oracle on the card, :func:`flash_attention_backward_plain`, keeps both
+    in fp32.  At the training shape (B=8, H=9, Hkv=3, S=512, hd 64) with
+    unit-normal draws the emulated kernel's dq, dk, dv stay within
+    BWD_BF16_TOL * max|ref| of the plain version's: the margin a later
+    change to where the kernel rounds has to face."""
+    rng = np.random.default_rng(24)
+    b, h, hkv, s, hd = 8, 9, 3, 512, 64
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).bfloat16().transpose(1, 2).contiguous()
+        for shape in ((b, s, h, hd), (b, s, hkv, hd), (b, s, hkv, hd),
+                      (b, s, h, hd)))
+    o, lse = fa.flash_attention_plain(q, k, v, return_lse=True)
+    want = fa.flash_attention_backward_plain(q, k, v, o, lse, do)
+    got = _emulate_bf16_backward(q, k, v, o, lse, do)
+    for name, g, w in zip("qkv", got, want):
+        ref = float(w.float().abs().max())
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= BWD_BF16_TOL * ref, (f"d{name}", err / ref)
+
+
 def test_lse_is_the_row_logsumexp_of_the_scaled_scores():
     rng = np.random.default_rng(21)
     q, k, v = (torch.from_numpy(rng.standard_normal((1, 4, 30, 16)).astype(

@@ -856,7 +856,7 @@ def _bwd_tol(dtype, want: torch.Tensor) -> float:
 @pytest.mark.parametrize("b,h,hkv,sq,skv,hd", [
     (8, 9, 3, 512, 512, 64), (2, 4, 2, 40, 40, 64), (2, 4, 1, 100, 100, 128),
     (1, 2, 2, 70, 130, 64), (1, 3, 1, 130, 70, 128), (1, 1, 1, 1, 1, 64),
-    (1, 9, 3, 1000, 1000, 128)])
+    (1, 9, 3, 1000, 1000, 128), (1, 9, 3, 4096, 4096, 128)])
 def test_flash_attention_backward_kernel_on_card(sm90, b, h, hkv, sq, skv,
                                                  hd, dtype, causal, layout):
     """dq, dk, dv of the backward kernel against its plain version from
@@ -944,9 +944,10 @@ def test_flash_attention_on_card_keeps_the_graph(sm90, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("b,s,hd", [(8, 512, 64), (1, 4096, 128)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_attention_backward_is_deterministic(sm90, dtype):
-    q, k, v, do = _bwd_operands(8, 9, 3, 512, 512, 64, dtype, 7)
+def test_flash_attention_backward_is_deterministic(sm90, dtype, b, s, hd):
+    q, k, v, do = _bwd_operands(b, 9, 3, s, s, hd, dtype, 7)
     out, lse = fa._forward(q, k, v, True, with_lse=True)
     a = fa.flash_attention_backward(q, k, v, out, lse, do)
     b = fa.flash_attention_backward(q, k, v, out, lse, do)
