@@ -26,7 +26,9 @@ What it does, in order; any failure raises and the exit code is non-zero:
    large and single-element shapes and on a batch that needs the rescue),
    and past the resident gossip kernels' 230 agents the panel kernels
    (m=256, 512, 768; on the quantized wires against twins that sum in
-   the kernels' order);
+   the kernels' order; each row also prints its panel tile, grid, blocks
+   an SM, registers and spill bytes), with the tracked apply over a B=8
+   problem axis at m=256 against its 8 single launches, bit for bit;
 4. drives the data-form main path through the user entry points at the
    paper's w8a scale (``deepca`` fp32 on ``backend="cuda"``, checked
    against the same run on ``backend="stacked"``), then DePCA (also with
@@ -310,6 +312,51 @@ def layout(fm, m: int, mode) -> str:
     return "" if fm.kernel_fits(m, mode) else " (panel kernels)"
 
 
+def panel_grid(fm, kind: str, m: int, n: int, *, track: bool = False,
+               wire: bool = False, lib: str = "fastmix",
+               slices: int = 1) -> dict:
+    """The launch of a panel kernel over ``slices`` ``(m, n)`` iterates:
+    the tile ``fm.panel_tile`` picks, the grid's blocks, how many blocks
+    one SM holds (``fm.panel_occupancy``: registers and shared memory),
+    and the kernel's registers a thread and stack-frame (spill) bytes in
+    ``lib<lib>.so`` (``_build.resource_usage``).  ``kind``: ``"apply"``,
+    ``"round"`` (``wire``: the bf16 wire) or ``"ef_recv"``; ``track``:
+    the iterate read is the tracking combine."""
+    from repro_torch.kernels import _build
+    bm, bn = fm.panel_tile(m, n, fm.sm_count(0))
+    cols = fm.panel_cols(bn)
+    per_sm, smem = fm.panel_occupancy(kind, bm, bn, track=track,
+                                      wire_bf16=wire)
+    w = "true" if wire else "false"
+    names = ((f"panel_round_kernel<{w}, {bm}, {bn}>",
+              f"panel_round_kernelILb{int(wire)}ELi{bm}ELi{bn}E")
+             if kind == "round" else
+             (f"panel_kernel<{2 * (kind == 'ef_recv')}, {w}, {bm}, {bn}>",
+              f"panel_kernelILi{2 * (kind == 'ef_recv')}ELb{int(wire)}"
+              f"ELi{bm}ELi{bn}E"))
+    res = next(v for key, v in _build.resource_usage(lib).items()
+               if any(name in key for name in names))
+    blocks = -(-m // bm) * -(-n // bn) * slices
+    return {"tile": f"{bm}x{bn}", "thread_tile": f"4x{cols}",
+            "blocks": blocks, "blocks_per_sm": per_sm,
+            "waves": blocks / (per_sm * fm.sm_count(0)),
+            "dynamic_shared": smem, "registers": res["registers"],
+            "stack": res["stack"]}
+
+
+def add_panel_grid(row: dict, fm, *args, **kw) -> dict:
+    """``row`` with its panel kernel's launch (:func:`panel_grid`) in
+    ``panel`` and in its note."""
+    g = row["panel"] = panel_grid(fm, *args, **kw)
+    row["note"] = (row["note"] + "; " if row.get("note") else "") + (
+        f"panel tile {g['tile']} (thread tile {g['thread_tile']}): grid "
+        f"{g['blocks']} blocks, {g['blocks_per_sm']} blocks an SM "
+        f"({g['waves']:.2f} of the card's resident blocks), "
+        f"{g['dynamic_shared']} shared bytes, {g['registers']} registers a "
+        f"thread, {g['stack']} stack-frame (spill) bytes")
+    return row
+
+
 def check_fastmix(fm, peaks, m: int, d: int, k: int, K: int, track: bool,
                   wire: bool, seed: int) -> dict:
     """FastMix at the main path's shape.  Without a wire the kernel applies
@@ -391,6 +438,9 @@ def check_fastmix(fm, peaks, m: int, d: int, k: int, K: int, track: bool,
     if not wire:
         row["ms_excludes"] = "the P_K(L) build (P= passed; see fastmix_poly)"
         row["note"] += f"; ms {row['ms_excludes']}"
+    if not fm.kernel_fits(m, None):
+        add_panel_grid(row, fm, "round" if wire else "apply", m, n,
+                       track=track, wire=wire)
     return row
 
 
@@ -415,6 +465,8 @@ def check_fastmix_poly(fm, peaks, m: int, K: int) -> dict:
     row["library"] = "none"
     row["bound_ms"], row["bound_by"] = bound(4 * 2 * m * m,
                                              (2 * m + 3) * m * m * K, peaks)
+    if not fm.kernel_fits(m, None):
+        add_panel_grid(row, fm, "round", m, m)
     return row
 
 
@@ -513,6 +565,8 @@ def check_batched_apply(fm, peaks, B: int, m: int, d: int, k: int,
     row["note"] = (f"equal to {B} single launches bit for bit: {bit}; the "
                    f"{B} single launches take {singles_ms:.6f} ms; ms "
                    f"{row['ms_excludes']}")
+    if not fm.kernel_fits(m, None):
+        add_panel_grid(row, fm, "apply", m, n, track=True, slices=B)
     return row
 
 
@@ -608,6 +662,9 @@ def check_apply_track(fm, peaks, m: int, d: int, k: int, K: int,
     if not wire:
         row["ms_excludes"] = "the P_K(L) build (P= passed; see fastmix_poly)"
         row["note"] += f"; ms {row['ms_excludes']}"
+    if not fm.kernel_fits(m, None):
+        add_panel_grid(row, fm, "round" if wire else "apply", m, d * k,
+                       track=True, wire=wire, lib="apply_track")
     return row
 
 
@@ -733,6 +790,8 @@ def check_fastmix_ef(fm, peaks, m: int, d: int, k: int, K: int,
     # muls, sub): 2m + 10
     flops = (2 * m + 10) * m * n * K + (2 * m * n if track else 0)
     row["bound_ms"], row["bound_by"] = bound(nbytes, flops, peaks)
+    if not resident:
+        add_panel_grid(row, fm, "ef_recv", m, n, lib="fastmix_ef")
     return row
 
 
@@ -2804,6 +2863,8 @@ def main() -> int:
         check_fastmix_ef(fm, peaks, 512, 300, 5, 8, False, 27),
         check_apply_track(fm, peaks, 256, 300, 5, 8, 28),
         check_apply_track(fm, peaks, 256, 300, 5, 8, 29, wire=True),
+        # the panel kernels' slice axis: B=8 problems in one launch
+        check_batched_apply(fm, peaks, 8, 256, 300, 5, 8),
         check_gram(gm, peaks, (64, 4096, 32), torch.float32, 8),
         check_gram(gm, peaks, (5000, 300, 5), torch.float32, 9),
         check_gram(gm, peaks, (257, 100), torch.float32, 10),

@@ -36,7 +36,8 @@
 //      without a wire the one-pass apply of the cached P_K(L), forming the
 //      tracked iterate from S, G, G_prev on its tile; with the bf16 wire, or
 //      K = 0, the register-tiled round loop over L.  Past their resident
-//      limit (m > 230) FastMix's panel kernels, which take any m.
+//      limit (m > 230) FastMix's panel kernels, which take any m, over the
+//      same problem slices.
 // The wrapper (kernels/fastmix.py) picks BM, KP and FastMix's tile; this
 // entry refuses what does not fit.  L, P and eta are runtime operands.
 #include "fastmix_tiles.cuh"
@@ -49,22 +50,23 @@ extern "C" {
 // applies it (no wire, K > 0: stages 1 or 2, FastMix's apply tile rows x
 // bn), else L (the bf16 wire or K = 0: FastMix's round tile); one_eta is
 // 1 + eta rounded once to fp32.  rows 0 takes FastMix's panel kernels
-// instead (m past their resident limit; `work` holds 2 m d k floats for the
-// rounds when K >= 2, else it may be null).
+// instead, on a panel_bm x bn output tile (m past their resident limit;
+// `work` holds 2 problems m d k floats for the rounds when K >= 2, else it
+// may be null).
 // bm (64 or 128) and kp (8, 16, 32 or 64, at least min(k, 64)) shape the
 // product.  `problems` problems run in one call: A is (problems, m, d, d),
 // W, S, Gp, S_new and G (problems, m, d, k); the product runs over all
 // problems * m agents, the gossip kernel over `problems` slices (problem z
 // mixes with M + z m_stride: 0 for one shared M), each problem's
 // (1 + eta, eta) from coef when it is not null (pairs coef_stride floats
-// apart; see fastmix.cu).  The panel kernels take one problem per call.
-// Every kernel goes on `stream`.  Returns cudaError_t.
+// apart; see fastmix.cu).  Every kernel goes on `stream`.  Returns
+// cudaError_t.
 int apply_track(const void* M, const void* A, const void* W, const void* S,
                 const void* Gp, void* S_new, void* G, void* work, int m,
                 int d, int k, float one_eta, float eta, int K, int bm,
-                int kp, int rows, int bn, int stages, int wire_bf16,
-                int problems, long long m_stride, const void* coef,
-                long long coef_stride, void* stream) {
+                int kp, int rows, int bn, int panel_bm, int stages,
+                int wire_bf16, int problems, long long m_stride,
+                const void* coef, long long coef_stride, void* stream) {
   const bool rounds_path = wire_bf16 || K <= 0;
   const bool panel = rows == 0;
   const long long n = (long long)d * k;
@@ -75,7 +77,7 @@ int apply_track(const void* M, const void* A, const void* W, const void* S,
       !product_shape_ok(d, k, bm, kp, 1) ||
       (!panel && !valid_tile(m, bn, rows)) ||
       (!panel && !rounds_path && stages != 1 && stages != 2) ||
-      (panel && (problems != 1 || coef != nullptr)) ||
+      (panel && !valid_panel(m, n, panel_bm, bn, sl)) ||
       (panel && rounds_path && K >= 2 && work == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
@@ -89,19 +91,20 @@ int apply_track(const void* M, const void* A, const void* W, const void* S,
   cudaError_t err =
       agent_product<false>(bm, kp, 1, a, w, g, problems * m, d, k, st);
   if (err != cudaSuccess) return (int)err;
+  const bool vec = vectorizable(s, g, gp, sn, n, 1, sl.x);
   if (panel) {
     const Src x = source(s, g, gp, true);
     float* wk = (float*)work;
+    const Panel p = make_panel(panel_bm, bn, mm, m, vec && aligned16(wk), sl);
     if (!rounds_path)
       return (int)launch_panel<kApply, false>(mm, x, x, x, sn, m, n, 1.0f,
-                                              0.0f, st);
+                                              0.0f, p, st);
     return wire_bf16
-        ? (int)panel_rounds<true>(mm, x, sn, wk, m, n, one_eta, eta, K,
-                                    st)
-        : (int)panel_rounds<false>(mm, x, sn, wk, m, n, one_eta, eta,
-                                     K, st);
+        ? (int)panel_rounds<true>(mm, x, sn, wk, m, n, one_eta, eta, K, p,
+                                  st)
+        : (int)panel_rounds<false>(mm, x, sn, wk, m, n, one_eta, eta, K, p,
+                                   st);
   }
-  const bool vec = vectorizable(s, g, gp, sn, n, 1, sl.x);
   if (rounds_path)
     return wire_bf16
         ? (int)rounds<true, kWireBf16>(mm, s, g, gp, nullptr, sn, nullptr, m,

@@ -52,9 +52,10 @@
 //   ends in one barrier.  Global memory is read once and written once.
 // Both hold all of M in one block's shared memory, which takes m <= 230.
 // Past that the panel kernels (fastmix_tiles.cuh) take any m: M and the
-// iterate stream through shared memory in panels over a grid of 64 x 64
-// output tiles, one launch per round (and one for the apply), the
-// iterates of the rounds in device memory.
+// iterate stream through shared memory in chunks of 32 agents (a
+// three-stage cp.async ring) over a grid of BM x BN output tiles sized to
+// cover the SMs, one launch per round (and one for the apply), the
+// iterates of the rounds in device memory; they take the slice axis too.
 // The slice axis (the grid's z; Slices in fastmix_tiles.cuh): one launch
 // runs many independent slices -- a batch of problems (the iterate strided
 // by m n, L or P shared or one per problem), or a window of P_K(L_t) builds
@@ -82,19 +83,21 @@ extern "C" {
 // iterate and its outputs and m_stride floats into L (or P; 0 = shared).
 // coef, when not null, holds each slice's (1 + eta, eta) as fp32 pairs
 // coef_stride floats apart, in place of one_eta and eta; ks, when not null
-// (fastmix_poly only), each slice's K.  The panel kernels (rows 0) take one
-// slice per call: the wrapper loops over the slices there.
+// (fastmix_poly only), each slice's K.  rows 0 takes the panel kernels on
+// a panel_bm x bn output tile (the wrapper's panel_tile); they take
+// several slices as contiguous (m, n) iterates (x_stride = m n) and one K
+// for all (ks null).
 //
 // out = FastMix^K(track ? S + G - Gp : S) over the (m, n) fp32 iterate, K
 // rounds in one launch; rows 8 or 4 picks the thread tile, rows 0 the
-// panel kernels (K launches; `work` holds 2 m n floats when K >= 2, else
-// it may be null).  G and Gp are ignored (may be null) when track == 0.
-// Returns cudaError_t.
+// panel kernels (K launches; `work` holds 2 slices m n floats when K >= 2,
+// else it may be null).  G and Gp are ignored (may be null) when
+// track == 0.  Returns cudaError_t.
 int fastmix_rounds(const void* L, const void* S, const void* G,
                    const void* Gp, void* out, void* work, int m, long long n,
                    float one_eta, float eta, int K, int bn, int rows,
-                   int track, int wire_bf16, int slices, long long x_stride,
-                   long long m_stride, const void* coef,
+                   int panel_bm, int track, int wire_bf16, int slices,
+                   long long x_stride, long long m_stride, const void* coef,
                    long long coef_stride, void* stream) {
   const float* l = (const float*)L;
   const float* s = (const float*)S;
@@ -106,14 +109,16 @@ int fastmix_rounds(const void* L, const void* S, const void* G,
                      coef_stride, nullptr};
   if (!valid_slices(sl)) return cudaErrorInvalidValue;
   if (rows == 0) {
-    if (m <= 0 || slices != 1 || coef != nullptr ||
-        (K >= 2 && work == nullptr))
+    if (!valid_panel(m, n, panel_bm, bn, sl) || (K >= 2 && work == nullptr))
       return cudaErrorInvalidValue;
     const Src x = source(s, g, gp, track);
     float* w = (float*)work;
+    const Panel p = make_panel(
+        panel_bm, bn, l, m,
+        vectorizable(S, G, Gp, out, n, track, x_stride) && aligned16(w), sl);
     return wire_bf16
-        ? panel_rounds<true>(l, x, o, w, m, n, one_eta, eta, K, st)
-        : panel_rounds<false>(l, x, o, w, m, n, one_eta, eta, K, st);
+        ? panel_rounds<true>(l, x, o, w, m, n, one_eta, eta, K, p, st)
+        : panel_rounds<false>(l, x, o, w, m, n, one_eta, eta, K, p, st);
   }
   if (!valid_tile(m, bn, rows)) return cudaErrorInvalidValue;
   const bool vec = vectorizable(S, G, Gp, out, n, track, x_stride);
@@ -132,10 +137,11 @@ int fastmix_rounds(const void* L, const void* S, const void* G,
 
 // out = P (track ? S + G - Gp : S) over the (m, n) fp32 iterate in one
 // pass; P is (m, m) fp32, P_K(L) from fastmix_poly; stages 2 (a cp.async
-// ring) or 1; rows 0: the panel kernel.  Returns cudaError_t.
+// ring) or 1; rows 0: the panel kernel on a panel_bm x bn output tile
+// (stages unused).  Returns cudaError_t.
 int fastmix_apply(const void* P, const void* S, const void* G,
                   const void* Gp, void* out, int m, long long n, int bn,
-                  int rows, int stages, int track, int slices,
+                  int rows, int panel_bm, int stages, int track, int slices,
                   long long x_stride, long long m_stride, void* stream) {
   const float* p = (const float*)P;
   const float* s = (const float*)S;
@@ -146,9 +152,13 @@ int fastmix_apply(const void* P, const void* S, const void* G,
   const Slices sl = {slices, x_stride, m_stride, nullptr, 0, nullptr};
   if (!valid_slices(sl)) return cudaErrorInvalidValue;
   if (rows == 0) {
-    if (m <= 0 || slices != 1) return cudaErrorInvalidValue;
+    if (!valid_panel(m, n, panel_bm, bn, sl)) return cudaErrorInvalidValue;
     const Src x = source(s, g, gp, track);
-    return launch_panel<kApply, false>(p, x, x, x, o, m, n, 1.0f, 0.0f, st);
+    return launch_panel<kApply, false>(
+        p, x, x, x, o, m, n, 1.0f, 0.0f,
+        make_panel(panel_bm, bn, p, m,
+                   vectorizable(S, G, Gp, out, n, track, x_stride), sl),
+        st);
   }
   if (!valid_tile(m, bn, rows) || (stages != 1 && stages != 2))
     return cudaErrorInvalidValue;
@@ -162,13 +172,14 @@ int fastmix_apply(const void* P, const void* S, const void* G,
 
 // P = P_K(L), (m, m) fp32 row-major: the round loop applied to I, on the
 // narrow thread tile (rows 4: m columns are little work) where it fits;
-// rows 0: the panel rounds (`work` as in fastmix_rounds, n = m).  With
-// slices, slice z builds P + z m m from L + z m_stride (a window of
-// polynomials: one launch for all of them).
+// rows 0: the panel rounds on a panel_bm x bn tile (`work` as in
+// fastmix_rounds, n = m; one K for every slice).  With slices, slice z
+// builds P + z m m from L + z m_stride (a window of polynomials: one
+// launch for all of them, K on the panel path).
 int fastmix_poly(const void* L, void* P, void* work, int m, float one_eta,
-                 float eta, int K, int bn, int rows, int slices,
-                 long long m_stride, const void* coef, long long coef_stride,
-                 const void* ks, void* stream) {
+                 float eta, int K, int bn, int rows, int panel_bm,
+                 int slices, long long m_stride, const void* coef,
+                 long long coef_stride, const void* ks, void* stream) {
   const float* l = (const float*)L;
   float* p = (float*)P;
   cudaStream_t st = (cudaStream_t)stream;
@@ -176,11 +187,14 @@ int fastmix_poly(const void* L, void* P, void* work, int m, float one_eta,
                      coef_stride, (const int*)ks};
   if (!valid_slices(sl)) return cudaErrorInvalidValue;
   if (rows == 0) {
-    if (m <= 0 || slices != 1 || coef != nullptr || ks != nullptr ||
+    if (!valid_panel(m, m, panel_bm, bn, sl) || ks != nullptr ||
         (K >= 2 && work == nullptr))
       return cudaErrorInvalidValue;
-    return panel_rounds<false>(l, identity(), p, (float*)work, m, m,
-                               one_eta, eta, K, st);
+    return panel_rounds<false>(
+        l, identity(), p, (float*)work, m, m, one_eta, eta, K,
+        make_panel(panel_bm, bn, l, m,
+                   m % 4 == 0 && aligned16(p) && aligned16(work), sl),
+        st);
   }
   if (!valid_tile(m, bn, rows)) return cudaErrorInvalidValue;
   return rows == 4
@@ -190,6 +204,21 @@ int fastmix_poly(const void* L, void* P, void* work, int m, float one_eta,
       : launch_rounds<false, kWireNone, false, true, 8, 4>(
             l, nullptr, nullptr, nullptr, nullptr, p, nullptr, m, m,
             one_eta, eta, K, bn, sl, st);
+}
+
+// The panel kernels' occupancy on a bm x bn tile (fastmix_tiles.cuh's
+// panel_occupancy): kind 0 the apply, 1 a round (wire_bf16: on the bf16
+// wire); out[0] blocks an SM, out[1] a block's dynamic shared bytes.
+// Returns cudaError_t.
+int fastmix_panel_occupancy(int kind, int wire_bf16, int bm, int bn,
+                            int track, int* out) {
+  if (kind == kApply && !wire_bf16)
+    return (int)panel_occupancy<kApply, false>(bm, bn, track, out);
+  if (kind == kRound)
+    return wire_bf16 ? (int)panel_occupancy<kRound, true>(bm, bn, track, out)
+                     : (int)panel_occupancy<kRound, false>(bm, bn, track,
+                                                           out);
+  return (int)cudaErrorInvalidValue;
 }
 
 const char* fastmix_error_string(int err) {

@@ -58,7 +58,8 @@
 // thread per round.  L in one block's shared memory beside the two buffers
 // takes m <= 230 (the round loop's own limit).  Past it each round is two
 // launches: an elementwise send that advances h in err_out, then FastMix's
-// panel kernel (fastmix_tiles.cuh) for the receive, the iterates rotating
+// panel kernel (fastmix_tiles.cuh: the cp.async ring over a grid sized to
+// the SMs, and its slice axis) for the receive, the iterates rotating
 // through device memory.  The launch goes through the Setup cache
 // (launch.cuh): the shared-memory attribute is set once per device and size.
 #include "fastmix_tiles.cuh"
@@ -77,28 +78,31 @@ ef_send_kernel(Src cur, const float* h_in, float* h_out, int m,
 }
 
 // K rounds past the resident limit: per round the send (h in err_out;
-// err is read in the first), then the panel receive.  K <= 0: out = x,
-// err_out = err.
+// err is read in the first), then the panel receive, over every slice
+// (contiguous (m, n) iterates: the send runs over their slices m rows).
+// K <= 0: out = x, err_out = err.
 cudaError_t ef_panel_rounds(const float* L, Src x, const float* err,
                             float* out, float* err_out, float* work, int m,
                             long long n, float one_eta, float eta, int K,
-                            cudaStream_t st) {
+                            const Panel& p, cudaStream_t st) {
+  const int count = p.sl.count;
   if (K <= 0) {
-    const cudaError_t e = copy_source(x, out, m, n, st);
+    const cudaError_t e = copy_source(x, out, m, n, count, st);
     if (e != cudaSuccess) return e;
-    return copy_source(buffer(err), err_out, m, n, st);
+    return copy_source(buffer(err), err_out, m, n, count, st);
   }
+  const int rows = count * m;
+  const long long w = (long long)rows * n;
   for (int t = 0; t < K; ++t) {
-    const Src cur = t == 0 ? x : buffer(round_out(out, work, m, n, t - 1, K));
-    const Src prev =
-        t <= 1 ? x : buffer(round_out(out, work, m, n, t - 2, K));
-    ef_send_kernel<<<elementwise_blocks(m, n), kThreads, 0, st>>>(
-        cur, t == 0 ? err : err_out, err_out, m, n);
+    const Src cur = t == 0 ? x : buffer(round_out(out, work, w, t - 1, K));
+    const Src prev = t <= 1 ? x : buffer(round_out(out, work, w, t - 2, K));
+    ef_send_kernel<<<elementwise_blocks(rows, n), kThreads, 0, st>>>(
+        cur, t == 0 ? err : err_out, err_out, rows, n);
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return e;
     e = launch_panel<kEfRecv, false>(L, buffer(err_out), prev, cur,
-                                     round_out(out, work, m, n, t, K), m, n,
-                                     one_eta, eta, st);
+                                     round_out(out, work, w, t, K), m, n,
+                                     one_eta, eta, p, st);
     if (e != cudaSuccess) return e;
   }
   return cudaSuccess;
@@ -111,17 +115,18 @@ extern "C" {
 // (out, err_out) = fp8-EF FastMix^K(track ? S + G - Gp : S, err) over the
 // (m, n) fp32 iterate.  G and Gp are ignored (may be null) when track == 0.
 // rows 8 or 4 picks the round loop's thread tile and bn its column tile (the
-// wrapper's rounds_tile); rows 0 the panel path (2K launches; `work` holds
-// 2 m n floats when K >= 2, else it may be null).  slices, x_stride,
-// m_stride, coef and coef_stride as in fastmix.cu's fastmix_rounds (one
-// slice per call on the panel path).  Returns cudaError_t.
+// wrapper's rounds_tile); rows 0 the panel path on a panel_bm x bn output
+// tile (2K launches; `work` holds 2 slices m n floats when K >= 2, else it
+// may be null).  slices, x_stride, m_stride, coef and coef_stride as in
+// fastmix.cu's fastmix_rounds.  Returns cudaError_t.
 int fastmix_ef_rounds(const void* L, const void* S, const void* G,
                       const void* Gp, const void* err, void* out,
                       void* err_out, void* work, int m, long long n,
                       float one_eta, float eta, int K, int bn, int rows,
-                      int track, int slices, long long x_stride,
-                      long long m_stride, const void* coef,
-                      long long coef_stride, void* stream) {
+                      int panel_bm, int track, int slices,
+                      long long x_stride, long long m_stride,
+                      const void* coef, long long coef_stride,
+                      void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const float* l = (const float*)L;
   const float* s = (const float*)S;
@@ -133,21 +138,28 @@ int fastmix_ef_rounds(const void* L, const void* S, const void* G,
   const Slices sl = {slices, x_stride, m_stride, (const float*)coef,
                      coef_stride, nullptr};
   if (!valid_slices(sl)) return cudaErrorInvalidValue;
-  if (rows == 0) {
-    if (m <= 0 || slices != 1 || coef != nullptr ||
-        (K >= 2 && work == nullptr))
-      return cudaErrorInvalidValue;
-    return ef_panel_rounds(l, source(s, g, gp, track), e, o, eo,
-                           (float*)work, m, n, one_eta, eta, K, st);
-  }
-  if (!valid_tile(m, bn, rows)) return cudaErrorInvalidValue;
   const bool vec = vectorizable(S, G, Gp, out, n, track, x_stride) &&
                    aligned16(err) && aligned16(err_out);
+  if (rows == 0) {
+    if (!valid_panel(m, n, panel_bm, bn, sl) || (K >= 2 && work == nullptr))
+      return cudaErrorInvalidValue;
+    return ef_panel_rounds(
+        l, source(s, g, gp, track), e, o, eo, (float*)work, m, n, one_eta,
+        eta, K, make_panel(panel_bm, bn, l, m, vec && aligned16(work), sl),
+        st);
+  }
+  if (!valid_tile(m, bn, rows)) return cudaErrorInvalidValue;
   return track
       ? rounds<true, kWireFp8Ef>(l, s, g, gp, e, o, eo, m, n, one_eta, eta,
                                  K, bn, rows, vec, sl, st)
       : rounds<false, kWireFp8Ef>(l, s, g, gp, e, o, eo, m, n, one_eta, eta,
                                   K, bn, rows, vec, sl, st);
+}
+
+// The panel receive's occupancy on a bm x bn tile (fastmix.cu's
+// fastmix_panel_occupancy, kind 2).  Returns cudaError_t.
+int fastmix_ef_panel_occupancy(int bm, int bn, int* out) {
+  return (int)panel_occupancy<kEfRecv, false>(bm, bn, false, out);
 }
 
 const char* fastmix_ef_error_string(int err) {

@@ -6,6 +6,7 @@
 // built this way is set out at the top of fastmix.cu and fastmix_ef.cu,
 // and above the panel kernels at the end of this file.
 #pragma once
+#include <type_traits>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -637,20 +638,46 @@ cudaError_t apply(const float* P, const float* S, const float* G,
 
 // ------------------------------------------------------------------ panels
 // Any agent count.  Where M (m x m) does not fit one block's shared memory
-// beside the iterate's tile (m past 230), the P_K(L)
-// apply, and each round, is one launch of a tiled product over a
-// (ceil(n / 64), ceil(m / 64)) grid.  A block owns 64 rows x 64 columns of
-// the output and walks the agents in chunks of 16, staging M's 64 x 16
-// panel (transposed, rows padded by one word against bank conflicts) and
-// the iterate's 16 x 64 panel in shared memory; each thread holds a 4 x 4
-// register tile (rows ty + 16 r, columns tx + 16 q) and one fp32 FMA chain
-// per output over j ascending, the resident kernels' order.  The K rounds
-// are K launches on the stream (2K on the fp8 wire: the send, then the
-// receive), the iterates rotating through (out, work, work + m n) so that
-// the last round writes out; prev and cur of the first two rounds are read
-// from the source itself, so the tracked iterate is never stored.
+// beside the iterate's tile (m past 230), the P_K(L) apply, and each
+// round, is one launch of a tiled product over a (ceil(n / BN),
+// ceil(m / BM), slices) grid.  The wrapper's panel_tile
+// (kernels/fastmix.py) picks BM x BN per shape so that the grid covers the
+// SMs: no sum is split between blocks (no split-K), so the tile decides
+// which outputs a block owns, never an order of summation.  Each thread
+// holds an R x C register tile, 4 x 4 where BN >= 32 and 4 x 1 on the
+// narrow tiles of small iterates (the P_K(L) build: a chain of FMAs 4x
+// shorter a thread), and one fp32 FMA chain per output over the agents j
+// ascending from 0, the resident kernels' order.
+//
+// The block walks the agents in chunks of kChunk = 32 through a ring of
+// kStages = 3 stages in shared memory, one barrier a chunk: while chunk
+// c's FMAs run, the copies of chunks c + 1 and c + 2 are in flight.  Both
+// panels arrive by cp.async (16-byte copies where the rows are 16-byte
+// aligned, else 4-byte ones, zero-filled past m and n): M's BM x kChunk
+// panel row-major (rows of kChunk + 4 floats) and the iterate's kChunk x
+// BN panel.  M needs no transpose: for each 4 agents j .. j + 3 a thread
+// reads M[i][j .. j + 3] of its 4 rows as float4 and x[j + t][c .. c + C)
+// for t < 4, and runs the FMAs j, j + 1, j + 2, j + 3 in order.  Its rows
+// are 4 apart (a warp's 4 row groups take 4 consecutive rows), so a warp's
+// loads of M touch 4 consecutive rows, which the padded stride puts on
+// distinct banks, and its loads of x 8 consecutive chunks of a row: one
+// shared-memory wavefront each, 64 FMAs per 8 loads on the 4 x 4 tile.
+// Each thread forms the tracking combine and the bf16 rounding of what is
+// sent on the elements it copied, in place once its own copies landed and
+// before the chunk's barrier; the combine thus happens once per element
+// a row block (the rounds' later iterates are buffers).
+//
+// The K rounds are K launches on the stream (2K on the fp8 wire: the
+// send, then the receive), the iterates rotating through (out, work, work
+// + slices m n) so that the last round writes out; prev and cur of the
+// first two rounds are read from the source itself, so the tracked
+// iterate is never stored.  The slice axis (blockIdx.z, Slices) runs the
+// B problems of a batch, or a window of builds that share K, in each
+// launch; each slice runs the tile one slice alone would take.
 
-constexpr int kPanel = 64, kChunk = 16;
+constexpr int kChunk = 32;               // agents a ring stage
+constexpr int kStages = 3;
+constexpr int kMsStride = kChunk + 4;    // floats a row of the M panel
 
 // The iterate a panel kernel reads: a buffer, the tracking combine of
 // three, or the (m, m) identity (the P_K(L) build).
@@ -659,11 +686,35 @@ struct Src {
   const float* b;
   const float* c;
   int kind;                  // 0: a; 1: (a + b) - c; 2: the identity
-  __device__ __forceinline__ float at(int i, long long col,
+  __device__ __forceinline__ float at(long long i, long long col,
                                       long long n) const {
     if (kind == 2) return i == col ? 1.0f : 0.0f;
-    const long long g = (long long)i * n + col;
+    const long long g = i * n + col;
     return kind == 1 ? tracked(a[g], b[g], c[g]) : a[g];
+  }
+  // at(i, col + q) for q < 4 by 16-byte loads (every row 16-byte aligned).
+  __device__ __forceinline__ void at4(long long i, long long col,
+                                      long long n, float (&v)[4]) const {
+    if (kind == 2) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) v[q] = i == col + q ? 1.0f : 0.0f;
+      return;
+    }
+    const long long g = i * n + col;
+    load_n<4>(a + g, v);
+    if (kind == 1) {
+      float s[4], t[4];
+      load_n<4>(b + g, s);
+      load_n<4>(c + g, t);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) v[q] = tracked(v[q], s[q], t[q]);
+    }
+  }
+  // The source off floats further on (a slice; the identity has none).
+  __host__ __device__ __forceinline__ Src shifted(long long off) const {
+    if (kind == 2) return *this;
+    return {a + off, kind == 1 ? b + off : b, kind == 1 ? c + off : c,
+            kind};
   }
 };
 
@@ -676,132 +727,432 @@ inline Src source(const float* S, const float* G, const float* Gp,
 
 inline Src identity() { return {nullptr, nullptr, nullptr, 2}; }
 
+// A panel kernel's output tile (on_panel_tile lists those built).  C of
+// the thread tile: 4 on a tile of 32 or 64 columns, else 1; a warp holds
+// 4 x 8 thread tiles.
+template <int BM, int BN>
+struct PanelTile {
+  static constexpr int R = 4;
+  static constexpr int C = BN >= 32 ? 4 : 1;
+  static constexpr int kThreads = BM / R * (BN / C);
+  static constexpr int kWarpsAcross = BN / C / 8;
+  static_assert(BM % 16 == 0 && (BN / C) % 8 == 0,
+                "a warp holds 4 x 8 thread tiles");
+};
+
+// kStages stages of M's BM x kChunk panel (rows of kChunk + 4) and of the
+// iterate's kChunk x BN panel (S, G and G_prev side by side with tracking).
+inline size_t panel_smem(int bm, int bn, bool track) {
+  return sizeof(float) * kStages *
+         ((size_t)bm * kMsStride + (size_t)(track ? 3 : 1) * kChunk * bn);
+}
+
+// One panel launch: its tile, whether M's rows (m % 4 == 0, base and
+// slice stride) and the iterates' rows (n % 4 == 0, every base) are
+// 16-byte aligned, and its slices.
+struct Panel {
+  int bm, bn;
+  bool vec_m, vec;
+  Slices sl;
+};
+
+// Chunk j0 of M's rows r0 .. r0 + BM into a stage: W floats a copy.
+template <int BM, int BN, int W>
+__device__ __forceinline__ void panel_copy_m(const float* __restrict__ M,
+                                             float* Ms, int m, int r0,
+                                             int j0) {
+  constexpr int kPer = kChunk / W, kN = BM * kPer;
+  constexpr int kThreads = PanelTile<BM, BN>::kThreads;
+  static_assert(kN % kThreads == 0, "whole copies a thread");
+#pragma unroll
+  for (int k = 0; k < kN / kThreads; ++k) {
+    const int e = threadIdx.x + k * kThreads;
+    const int i = e / kPer, jj = e % kPer * W;
+    const bool ok = r0 + i < m && j0 + jj < m;   // W = 4: m % 4 == 0
+    const long long g = ok ? (long long)(r0 + i) * m + j0 + jj : 0;
+    cp_async(Ms + i * kMsStride + jj, M + g, 4 * W, ok);
+  }
+}
+
+// Chunk j0's kChunk x BN panel of x into a stage: W floats a copy (S, G
+// and G_prev side by side with tracking); the identity's written directly.
+template <int BM, int BN, int W>
+__device__ __forceinline__ void panel_copy_x(const Src& x, float* Xs, int m,
+                                             long long n, int j0,
+                                             long long c0) {
+  constexpr int kSize = kChunk * BN, kThreads = PanelTile<BM, BN>::kThreads;
+  if (x.kind == 2) {
+    static_assert(kSize % kThreads == 0, "whole elements a thread");
+#pragma unroll
+    for (int k = 0; k < kSize / kThreads; ++k) {
+      const int e = threadIdx.x + k * kThreads;
+      const int j = j0 + e / BN;
+      Xs[e] = j < m && j == c0 + e % BN ? 1.0f : 0.0f;
+    }
+    return;
+  }
+  constexpr int kPer = BN / W, kN = kSize / W;
+  static_assert(kN % kThreads == 0, "whole copies a thread");
+#pragma unroll
+  for (int k = 0; k < kN / kThreads; ++k) {
+    const int e = threadIdx.x + k * kThreads;
+    const int j = j0 + e / kPer;
+    const long long col = c0 + e % kPer * W;
+    const bool ok = j < m && col < n;      // W = 4: n % 4 == 0, all 4 in
+    const long long g = ok ? (long long)j * n + col : 0;
+    float* d = Xs + e * W;
+    cp_async(d, x.a + g, 4 * W, ok);
+    if (x.kind == 1) {
+      cp_async(d + kSize, x.b + g, 4 * W, ok);
+      cp_async(d + 2 * kSize, x.c + g, 4 * W, ok);
+    }
+  }
+}
+
+// What this thread copied of x, once it landed: (s + g) - gp with
+// tracking, then the bf16 rounding of what is sent on that wire.
+template <int BM, int BN, int W, bool WIRE_BF16>
+__device__ __forceinline__ void panel_finish_x(const Src& x, float* Xs) {
+  constexpr int kSize = kChunk * BN, kThreads = PanelTile<BM, BN>::kThreads;
+  if (x.kind == 2 || (x.kind == 0 && !WIRE_BF16)) return;
+#pragma unroll
+  for (int k = 0; k < kSize / W / kThreads; ++k) {
+    float* d = Xs + (threadIdx.x + k * kThreads) * W;
+    float v[W];
+    load_n<W>(d, v);
+    if (x.kind == 1) {
+      float g[W], gp[W];
+      load_n<W>(d + kSize, g);
+      load_n<W>(d + 2 * kSize, gp);
+#pragma unroll
+      for (int q = 0; q < W; ++q) v[q] = tracked(v[q], g[q], gp[q]);
+    }
+    if (WIRE_BF16) {
+#pragma unroll
+      for (int q = 0; q < W; ++q) v[q] = wire_round(v[q]);
+    }
+    store_n<W>(d, v);
+  }
+}
+
+template <int BM, int BN>
+__device__ __forceinline__ void panel_copy_chunk(
+    const float* __restrict__ M, const Src& x, float* Ms, float* Xs, int m,
+    long long n, int r0, int j0, long long c0, const Panel& p) {
+  if (p.vec_m) panel_copy_m<BM, BN, 4>(M, Ms, m, r0, j0);
+  else panel_copy_m<BM, BN, 1>(M, Ms, m, r0, j0);
+  if (p.vec) panel_copy_x<BM, BN, 4>(x, Xs, m, n, j0, c0);
+  else panel_copy_x<BM, BN, 1>(x, Xs, m, n, j0, c0);
+}
+
 // kApply:  out = M x
 // kRound:  out = one_eta M sent(x) - eta prev   (sent = bf16_rne(x) on the
 //          bf16 wire, else x)
 // kEfRecv: out = one_eta ((cur + M h) - h) - eta prev, with x = h, the
 //          wire replica after this round's send
 // one_eta is 1 + eta rounded once to fp32 by the caller, as the plain
-// versions form it.
+// versions form it; with per-slice coefficients (sl.coef) slice z's.
 enum { kApply, kRound, kEfRecv };
 
-template <int KIND, bool WIRE_BF16>
-__global__ void __launch_bounds__(kThreads)
-panel_kernel(const float* __restrict__ M, Src x, Src prev, Src cur,
-             float* __restrict__ out, int m, long long n, float one_eta,
-             float eta) {
-  __shared__ float Ms[kChunk][kPanel + 1];   // Ms[j][i] = M[r0 + i][j0 + j]
-  __shared__ float Xs[kChunk][kPanel];  // Xs[j][c] = sent(x[j0 + j][c0 + c])
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int r0 = blockIdx.y * kPanel;
-  const long long c0 = (long long)blockIdx.x * kPanel;
-  float acc[4][4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) acc[r][q] = 0.0f;
-  for (int j0 = 0; j0 < m; j0 += kChunk) {
-    for (int e = threadIdx.x; e < kPanel * kChunk; e += kThreads) {
-      const int i = e / kChunk, j = e % kChunk;     // 16 threads per row of M
-      Ms[j][i] = r0 + i < m && j0 + j < m
-                     ? M[(long long)(r0 + i) * m + j0 + j] : 0.0f;
-      const int jj = e / kPanel, cc = e % kPanel;   // 64 per row of x
-      float v = 0.0f;
-      if (j0 + jj < m && c0 + cc < n) {
-        v = x.at(j0 + jj, c0 + cc, n);
-        if (WIRE_BF16) v = wire_round(v);
-      }
-      Xs[jj][cc] = v;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < kChunk; ++j) {
-      float a[4], s[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) a[r] = Ms[j][ty + 16 * r];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) s[q] = Xs[j][tx + 16 * q];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-          acc[r][q] = __fmaf_rn(a[r], s[q], acc[r][q]);
-    }
-    __syncthreads();
+template <int KIND, bool WIRE_BF16, int BM, int BN>
+__device__ __forceinline__ void panel_body(const float* __restrict__ M,
+                                           Src x, Src prev, Src cur,
+                                           float* __restrict__ out, int m,
+                                           long long n, float one_eta,
+                                           float eta, const Panel& p) {
+  using T = PanelTile<BM, BN>;
+  constexpr int R = T::R, C = T::C;
+  const long long z = blockIdx.z;           // the slice
+  M += z * p.sl.l;
+  out += z * p.sl.x;
+  x = x.shifted(z * p.sl.x);
+  prev = prev.shifted(z * p.sl.x);
+  cur = cur.shifted(z * p.sl.x);
+  if (p.sl.coef != nullptr) {
+    one_eta = p.sl.coef[z * p.sl.coef_stride];
+    eta = p.sl.coef[z * p.sl.coef_stride + 1];
   }
+  extern __shared__ float4 smem4[];
+  constexpr int kMs = BM * kMsStride;
+  const int x_stage = (x.kind == 1 ? 3 : 1) * kChunk * BN;
+  float* const Ms = reinterpret_cast<float*>(smem4);   // kStages x kMs
+  float* const Xs = Ms + kStages * kMs;                // kStages x x_stage
+  // the thread's tile: rows i0 + 4 r (r < R), columns c .. c + C
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int i0 = warp / T::kWarpsAcross * 16 + (lane >> 3);
+  const int c = (warp % T::kWarpsAcross * 8 + (lane & 7)) * C;
+  const int r0 = blockIdx.y * BM;
+  const long long c0 = (long long)blockIdx.x * BN;
+  const int chunks = (m + kChunk - 1) / kChunk;
+
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int i = r0 + ty + 16 * r;
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < chunks)
+      panel_copy_chunk<BM, BN>(M, x, Ms + s * kMs, Xs + s * x_stage, m, n,
+                               r0, s * kChunk, c0, p);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+  float acc[R][C];
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const long long col = c0 + tx + 16 * q;
-      if (i >= m || col >= n) continue;
-      float v = acc[r][q];
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int q = 0; q < C; ++q) acc[r][q] = 0.0f;
+  for (int ch = 0; ch < chunks; ++ch) {
+    const int s = ch % kStages;
+    float* const Xc = Xs + s * x_stage;
+    // this thread's copies of chunk ch have landed (one group per chunk)
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(kStages - 2) : "memory");
+    if (p.vec) panel_finish_x<BM, BN, 4, WIRE_BF16>(x, Xc);
+    else panel_finish_x<BM, BN, 1, WIRE_BF16>(x, Xc);
+    // every thread's have, and every thread is done with chunk ch - 1,
+    // whose stage the next chunk's copies refill
+    __syncthreads();
+    const int next = ch + kStages - 1;
+    if (next < chunks)
+      panel_copy_chunk<BM, BN>(M, x, Ms + next % kStages * kMs,
+                               Xs + next % kStages * x_stage, m, n, r0,
+                               next * kChunk, c0, p);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    const float* A = Ms + s * kMs + i0 * kMsStride;
+    const float* B = Xc + c;
+    // not unrolled: the unrolled chunk takes up to 255 registers, two
+    // blocks an SM, which leaves the larger grids more than one wave
+#pragma unroll 1
+    for (int j = 0; j < kChunk; j += 4) {
+      float a[R][4];                      // a[r][t] = M[i0 + 4 r][j + t]
+#pragma unroll
+      for (int r = 0; r < R; ++r) load_n<4>(A + 4 * r * kMsStride + j, a[r]);
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        float b[C];
+        load_n<C>(B + (j + t) * BN, b);
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+#pragma unroll
+          for (int q = 0; q < C; ++q)
+            acc[r][q] = __fmaf_rn(a[r][t], b[q], acc[r][q]);
+      }
+    }
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int i = r0 + i0 + 4 * r;
+    const long long col = c0 + c;
+    if (i >= m || col >= n) continue;
+    if constexpr (C == 4) {
+      if (p.vec) {                    // n % 4 == 0: the 4 columns are in
+        float v[4], h[4], t[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) v[q] = acc[r][q];
+        if (KIND == kEfRecv) {
+          cur.at4(i, col, n, t);
+          x.at4(i, col, n, h);
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            v[q] = __fsub_rn(__fadd_rn(t[q], v[q]), h[q]);
+        }
+        if (KIND != kApply) {
+          prev.at4(i, col, n, t);
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            v[q] = __fsub_rn(__fmul_rn(one_eta, v[q]),
+                             __fmul_rn(eta, t[q]));
+        }
+        store_n<4>(out + (long long)i * n + col, v);
+        continue;
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < C; ++q) {
+      if (col + q >= n) continue;
+      float u = acc[r][q];
       if (KIND == kEfRecv)
-        v = __fsub_rn(__fadd_rn(cur.at(i, col, n), v), x.at(i, col, n));
+        u = __fsub_rn(__fadd_rn(cur.at(i, col + q, n), u),
+                      x.at(i, col + q, n));
       if (KIND != kApply)
-        v = __fsub_rn(__fmul_rn(one_eta, v),
-                      __fmul_rn(eta, prev.at(i, col, n)));
-      out[(long long)i * n + col] = v;
+        u = __fsub_rn(__fmul_rn(one_eta, u),
+                      __fmul_rn(eta, prev.at(i, col + q, n)));
+      out[(long long)i * n + col + q] = u;
     }
   }
 }
 
-// out = x over the (m, n) iterate (K = 0).
+template <int KIND, bool WIRE_BF16, int BM, int BN>
+__global__ void __launch_bounds__(PanelTile<BM, BN>::kThreads)
+panel_kernel(const float* __restrict__ M, Src x, Src prev, Src cur,
+             float* __restrict__ out, int m, long long n, float one_eta,
+             float eta, Panel p) {
+  panel_body<KIND, WIRE_BF16, BM, BN>(M, x, prev, cur, out, m, n, one_eta,
+                                      eta, p);
+}
+
+// The rounds' kernel asks for 5 blocks of 128 threads an SM (at most 102
+// registers, no spills): the bf16 wire at m = 768 then runs its 564 blocks
+// in one wave, not 1.07 (0.60 ms against 0.70 on the H100).  The apply and
+// the fp8 receive run 3-8% faster without the bound.
+template <bool WIRE_BF16, int BM, int BN>
+__global__ void __launch_bounds__(PanelTile<BM, BN>::kThreads,
+                                  640 / PanelTile<BM, BN>::kThreads)
+panel_round_kernel(const float* __restrict__ M, Src x, Src prev, Src cur,
+                   float* __restrict__ out, int m, long long n,
+                   float one_eta, float eta, Panel p) {
+  panel_body<kRound, WIRE_BF16, BM, BN>(M, x, prev, cur, out, m, n, one_eta,
+                                        eta, p);
+}
+
+// The kernel of a (KIND, WIRE_BF16) launch on the (BM, BN) tile.
+template <int KIND, bool WIRE_BF16, int BM, int BN>
+constexpr auto panel_entry() {
+  if constexpr (KIND == kRound) return panel_round_kernel<WIRE_BF16, BM, BN>;
+  else return panel_kernel<KIND, WIRE_BF16, BM, BN>;
+}
+
+// Where round t of K writes: the 3-cycle (out, work, work + w), turned so
+// that round K - 1 writes out; w = slices m n floats, work holds 2 w when
+// K >= 2.
+inline float* round_out(float* out, float* work, long long w, int t, int K) {
+  const int s = ((t - K + 1) % 3 + 3) % 3;
+  return s == 0 ? out : work + (s - 1) * w;
+}
+
+// out = x over slices (m, n) iterates, contiguous (K = 0).
 __global__ void __launch_bounds__(kThreads)
-source_kernel(Src x, float* __restrict__ out, int m, long long n) {
-  const long long total = (long long)m * n;
+source_kernel(Src x, float* __restrict__ out, int m, long long n,
+              long long total) {
   for (long long g = (long long)blockIdx.x * kThreads + threadIdx.x;
-       g < total; g += (long long)gridDim.x * kThreads)
-    out[g] = x.at((int)(g / n), g % n, n);
+       g < total; g += (long long)gridDim.x * kThreads) {
+    const long long row = g / n;     // the identity's row within its slice
+    out[g] = x.at(x.kind == 2 ? row % m : row, g % n, n);
+  }
 }
 
 // Blocks of an elementwise pass over m n elements, capped (grid-stride).
-inline unsigned elementwise_blocks(int m, long long n) {
-  const long long blocks = ((long long)m * n + kThreads - 1) / kThreads;
+inline unsigned elementwise_blocks(long long m, long long n) {
+  const long long blocks = (m * n + kThreads - 1) / kThreads;
   return (unsigned)(blocks < 65536 ? blocks : 65536);
 }
 
 inline cudaError_t copy_source(Src x, float* out, int m, long long n,
-                               cudaStream_t st) {
-  source_kernel<<<elementwise_blocks(m, n), kThreads, 0, st>>>(x, out, m, n);
+                               int slices, cudaStream_t st) {
+  const long long total = (long long)slices * m * n;
+  source_kernel<<<elementwise_blocks(total, 1), kThreads, 0, st>>>(
+      x, out, m, n, total);
   return cudaGetLastError();
+}
+
+// The Panel of a launch over M; vec: the iterates' rows are 16-byte
+// aligned (the caller's vectorizable and the scratch's alignment).
+Panel make_panel(int bm, int bn, const float* M, int m, bool vec,
+                 const Slices& sl) {
+  return {bm, bn, m % 4 == 0 && aligned16(M) && sl.l % 4 == 0, vec, sl};
+}
+
+// One instantiation's shared-memory attribute, raised as launches and
+// occupancy queries need it (launch.cuh).
+template <int KIND, bool WIRE_BF16, int BM, int BN>
+cudaError_t panel_allow(size_t smem) {
+  static Setup cache;
+  return setup(cache, panel_entry<KIND, WIRE_BF16, BM, BN>(), 0, smem,
+               nullptr);
+}
+
+template <int KIND, bool WIRE_BF16, int BM, int BN>
+cudaError_t launch_panel_tile(const float* M, Src x, Src prev, Src cur,
+                              float* out, int m, long long n, float one_eta,
+                              float eta, const Panel& p, cudaStream_t st) {
+  const size_t smem = panel_smem(BM, BN, x.kind == 1);
+  const cudaError_t e = panel_allow<KIND, WIRE_BF16, BM, BN>(smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((unsigned)((n + BN - 1) / BN),
+                  (unsigned)((m + BM - 1) / BM), (unsigned)p.sl.count);
+  const auto kern = panel_entry<KIND, WIRE_BF16, BM, BN>();
+  kern<<<grid, PanelTile<BM, BN>::kThreads, smem, st>>>(
+      M, x, prev, cur, out, m, n, one_eta, eta, p);
+  return cudaGetLastError();
+}
+
+// f(BM, BN) as integral constants for a tile (bm, bn) the panel kernels
+// are built for (the wrapper's PANEL_TILES); any other: an error.
+template <typename F>
+cudaError_t on_panel_tile(int bm, int bn, F&& f) {
+  if (bm == 128 && bn == 32) return f(std::integral_constant<int, 128>{},
+                                      std::integral_constant<int, 32>{});
+  if (bm == 64 && bn == 64) return f(std::integral_constant<int, 64>{},
+                                     std::integral_constant<int, 64>{});
+  if (bm == 64 && bn == 32) return f(std::integral_constant<int, 64>{},
+                                     std::integral_constant<int, 32>{});
+  if (bm == 32 && bn == 64) return f(std::integral_constant<int, 32>{},
+                                     std::integral_constant<int, 64>{});
+  if (bm == 32 && bn == 32) return f(std::integral_constant<int, 32>{},
+                                     std::integral_constant<int, 32>{});
+  if (bm == 16 && bn == 32) return f(std::integral_constant<int, 16>{},
+                                     std::integral_constant<int, 32>{});
+  if (bm == 32 && bn == 16) return f(std::integral_constant<int, 32>{},
+                                     std::integral_constant<int, 16>{});
+  if (bm == 32 && bn == 8) return f(std::integral_constant<int, 32>{},
+                                    std::integral_constant<int, 8>{});
+  return cudaErrorInvalidValue;
+}
+
+// Whether a C entry may launch the panel kernels on (bm, bn) over `sl`:
+// a tile they are built for; more than one slice only as contiguous (m,
+// n) iterates (what the rotation's buffers and the elementwise passes
+// assume).
+bool valid_panel(int m, long long n, int bm, int bn, const Slices& sl) {
+  const bool built = on_panel_tile(bm, bn, [](auto, auto) {
+                       return cudaSuccess;
+                     }) == cudaSuccess;
+  return m > 0 && n > 0 && built && valid_slices(sl) &&
+         (sl.count == 1 || sl.x == (long long)m * n) &&
+         (long long)sl.count * m <= 0x7fffffffLL;
 }
 
 template <int KIND, bool WIRE_BF16>
 cudaError_t launch_panel(const float* M, Src x, Src prev, Src cur,
                          float* out, int m, long long n, float one_eta,
-                         float eta, cudaStream_t st) {
-  const dim3 grid((unsigned)((n + kPanel - 1) / kPanel),
-                  (unsigned)((m + kPanel - 1) / kPanel));
-  panel_kernel<KIND, WIRE_BF16><<<grid, kThreads, 0, st>>>(M, x, prev, cur,
-                                                           out, m, n, one_eta,
-                                                           eta);
-  return cudaGetLastError();
+                         float eta, const Panel& p, cudaStream_t st) {
+  return on_panel_tile(p.bm, p.bn, [&](auto bm, auto bn) {
+    return launch_panel_tile<KIND, WIRE_BF16, decltype(bm)::value,
+                             decltype(bn)::value>(M, x, prev, cur, out, m, n,
+                                                  one_eta, eta, p, st);
+  });
 }
 
-// Where round t of K writes: the 3-cycle (out, work, work + m n), turned
-// so that round K - 1 writes out; work holds 2 m n floats when K >= 2.
-inline float* round_out(float* out, float* work, int m, long long n, int t,
-                        int K) {
-  const int s = ((t - K + 1) % 3 + 3) % 3;
-  return s == 0 ? out : work + (long long)(s - 1) * m * n;
+// Blocks of the panel kernel (KIND, WIRE_BF16) on a bm x bn tile one SM
+// holds at once, as its registers and shared memory allow (out[0]), and a
+// block's dynamic shared bytes (out[1]); track: the iterate is a tracked
+// source (three staged arrays).
+template <int KIND, bool WIRE_BF16>
+cudaError_t panel_occupancy(int bm, int bn, bool track, int* out) {
+  const size_t smem = panel_smem(bm, bn, track);
+  out[1] = (int)smem;
+  return on_panel_tile(bm, bn, [&](auto b, auto w) {
+    constexpr int BM = decltype(b)::value, BN = decltype(w)::value;
+    const cudaError_t e = panel_allow<KIND, WIRE_BF16, BM, BN>(smem);
+    if (e != cudaSuccess) return e;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        out, panel_entry<KIND, WIRE_BF16, BM, BN>(),
+        PanelTile<BM, BN>::kThreads, smem);
+  });
 }
 
 // K panel rounds over L from x (cur and prev of round t: the outputs of
-// rounds t - 1 and t - 2, x before the first).  K <= 0: out = x.
+// rounds t - 1 and t - 2, x before the first), one launch a round.
+// K <= 0: out = x.
 template <bool WIRE_BF16>
 cudaError_t panel_rounds(const float* L, Src x, float* out, float* work,
                          int m, long long n, float one_eta, float eta,
-                         int K, cudaStream_t st) {
-  if (K <= 0) return copy_source(x, out, m, n, st);
+                         int K, const Panel& p, cudaStream_t st) {
+  if (K <= 0) return copy_source(x, out, m, n, p.sl.count, st);
+  const long long w = (long long)p.sl.count * m * n;
   for (int t = 0; t < K; ++t) {
-    const Src cur = t == 0 ? x : buffer(round_out(out, work, m, n, t - 1, K));
-    const Src prev =
-        t <= 1 ? x : buffer(round_out(out, work, m, n, t - 2, K));
+    const Src cur = t == 0 ? x : buffer(round_out(out, work, w, t - 1, K));
+    const Src prev = t <= 1 ? x : buffer(round_out(out, work, w, t - 2, K));
     const cudaError_t err = launch_panel<kRound, WIRE_BF16>(
-        L, cur, prev, cur, round_out(out, work, m, n, t, K), m, n, one_eta,
-        eta, st);
+        L, cur, prev, cur, round_out(out, work, w, t, K), m, n, one_eta, eta,
+        p, st);
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;

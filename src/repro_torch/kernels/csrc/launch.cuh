@@ -20,7 +20,9 @@ bool aligned16(const void* p) {
 // allows them (raised, never lowered, so a concurrent launch of a larger
 // size stays allowed) and how many blocks of `threads` the device holds at
 // once (the persistent apply kernel's grid).  Asked once per device and
-// size, then kept: a launch then costs no runtime query.
+// size, then kept: a launch then costs no runtime query.  A null
+// `resident` asks for the attribute alone (the panel kernels' grid follows
+// the output, not the device).
 struct Setup {
   std::mutex mu;
   size_t allowed[kMaxDevices] = {};
@@ -42,6 +44,7 @@ cudaError_t setup(Setup& cache, Kernel kern, int threads, size_t smem,
     if (err != cudaSuccess) return err;
     cache.allowed[dev] = smem;
   }
+  if (resident == nullptr) return cudaSuccess;
   if (cache.smem[dev] != smem) {
     int sms = 0, per_sm = 0;
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);

@@ -29,7 +29,7 @@ independently and all K rounds fuse into one pass over the iterate.
   (or ``P``) for ``m`` agents, so that the resident kernels run; past it
   every wrapper launches the panel kernels (``csrc/fastmix_tiles.cuh``),
   which stream ``L``/``P`` and the iterate through shared memory and take
-  any agent count.
+  any agent count, on the output tile :func:`panel_tile` picks.
 * :func:`fastmix_poly` / :func:`fastmix_track_poly` — the algebraic
   collapse ``S_out = P_K(L) S`` in the iterate's dtype: the plain twin of
   the no-wire kernels in fp32, and the f64 path (f64 never enters a
@@ -61,8 +61,8 @@ WIRE_ITEMSIZE = {None: 4, "bf16": 2, "int8": 1, "fp8": 1}
 LAUNCHES = {"fastmix": 0, "fastmix_track": 0, "fastmix_poly": 0,
             "fastmix_ef": 0, "fastmix_track_ef": 0, "apply_track": 0}
 #: The tile of each wrapper's last kernel launch (``rows, BN[, stages]``;
-#: apply-track also its product's ``BM, KP``): what was launched, for the
-#: callers that check a tuned choice.
+#: apply-track also its product's ``BM, KP``; ``0, BN, BM`` on the panel
+#: kernels): what was launched, for the callers that check a tuned choice.
 LAST_TILE: dict = {}
 #: Shared memory one block may use on sm_90 (232,448 bytes).
 SMEM_LIMIT = 232448
@@ -78,6 +78,16 @@ FASTMIX_TILES = {8: 4, 4: 1}
 #: loops over column tiles of 64).
 PRODUCT_ROWS = (128, 64)
 PRODUCT_COLS = (8, 16, 32, 64)
+#: The panel kernels' output tiles ``(BM, BN)`` past :func:`kernel_fits`,
+#: largest first.  Each thread owns a 4 x 4 register tile where BN >= 32,
+#: else 4 x 1 (:func:`panel_cols`); a warp holds 4 x 8 thread tiles.
+PANEL_TILES = ((128, 32), (64, 64), (64, 32), (32, 64), (32, 32), (16, 32),
+               (32, 16), (32, 8))
+#: Agents a stage of the panel kernels' ring, its stages, and their
+#: blocks' largest thread count (255 registers a thread fit an SM).
+PANEL_CHUNK = 32
+PANEL_STAGES = 3
+PANEL_MAX_THREADS = 256
 #: e4m3fn's largest finite value; the fp8 wire saturates there.
 FP8_MAX = 448.0
 
@@ -262,6 +272,86 @@ def apply_tile(m: int, n: int, track: bool, sms: int) -> tuple:
     return rows, tile_width(m, n, rows, 1, sms), 1
 
 
+def panel_cols(bn: int) -> int:
+    """Columns of a panel thread's tile (its rows are 4): 4 (16-byte
+    fragments) on an output tile 32 or 64 columns wide, else 1."""
+    return 4 if bn >= 32 else 1
+
+
+def panel_threads(bm: int, bn: int) -> int:
+    """Threads of a panel block: one per 4 x :func:`panel_cols` outputs."""
+    return bm // 4 * (bn // panel_cols(bn))
+
+
+def panel_smem(bm: int, bn: int, track: bool) -> int:
+    """Shared-memory bytes of a panel block (``panel_smem`` in
+    ``csrc/fastmix_tiles.cuh``): :data:`PANEL_STAGES` stages of M's ``BM x
+    32`` panel, row-major with rows padded to 36 floats, and of the
+    iterate's ``32 x BN`` panel (S, G and G_prev side by side with
+    tracking)."""
+    return 4 * PANEL_STAGES * (bm * (PANEL_CHUNK + 4)
+                               + (3 if track else 1) * PANEL_CHUNK * bn)
+
+
+@functools.lru_cache(maxsize=1024)
+def panel_tile(m: int, n: int, sms: int) -> tuple:
+    """``(BM, BN)``: the panel kernels' output tile over an ``(m, n)``
+    iterate on ``sms`` SMs, one of :data:`PANEL_TILES`.
+
+    No sum is split between blocks (the kernels' bits are one FMA chain per
+    output), so smaller tiles are what fills the card.  The choice: tiles
+    whose grid gives each SM a block where any does; among them the least
+    modelled time of the busiest SM, then the largest tile (the fewest
+    re-reads of M and the iterate), then :data:`PANEL_TILES`' order.  The
+    model, per agent: each of an SM's 4 schedulers runs ``4 C`` FMAs and
+    2 fragment loads for each of its warps, and the SM's shared memory
+    serves one wavefront a cycle, 2 a warp.  A tile decides which outputs a
+    block owns, never the order of a sum: every tile gives the same bits.
+    """
+    best = None
+    for order, (bm, bn) in enumerate(PANEL_TILES):
+        blocks = _cdiv(m, bm) * _cdiv(n, bn)
+        warps = _cdiv(blocks, sms) * panel_threads(bm, bn) // 32
+        cycles = max(_cdiv(warps, 4) * (4 * panel_cols(bn) + 2), 2 * warps)
+        key = (blocks < sms, cycles, -bm * bn, order)
+        if best is None or key < best[0]:
+            best = (key, (bm, bn))
+    return best[1]
+
+
+def panel_occupancy(kind: str, bm: int, bn: int, *, track: bool = False,
+                    wire_bf16: bool = False) -> tuple:
+    """``(blocks, smem)``: how many blocks of a panel kernel on a ``bm x
+    bn`` tile one SM of the current card holds at once, as its registers
+    and shared memory allow, and a block's dynamic shared bytes.  ``kind``
+    ``"apply"``, ``"round"`` (``wire_bf16``: on the bf16 wire) or
+    ``"ef_recv"`` (the fp8-EF receive); ``track``: the iterate read is the
+    tracking combine (its first round, or the apply)."""
+    out = (ctypes.c_int * 2)()
+    if kind == "ef_recv":
+        fn, lib = _build.load("fastmix_ef").fastmix_ef_panel_occupancy, \
+            "fastmix_ef"
+        fn.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)]
+        args = (bm, bn, out)
+    else:
+        fn, lib = _build.load("fastmix").fastmix_panel_occupancy, "fastmix"
+        fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+        args = ({"apply": 0, "round": 1}[kind], int(wire_bf16), bm, bn,
+                int(track), out)
+    fn.restype = ctypes.c_int
+    _build.check(lib, fn(*args))
+    return tuple(out)
+
+
+def _panel_tile(tile: tuple, m: int, n: int, dev: torch.device) -> tuple:
+    """``(rows, BN, BM)`` of a gossip launch: a resident tile's rows and BN
+    (BM 0), or past :func:`kernel_fits` (rows 0) :func:`panel_tile`'s."""
+    if tile[0]:
+        return tile[0], tile[1], 0
+    bm, bn = panel_tile(m, n, sm_count(dev.index))
+    return 0, bn, bm
+
+
 # the chooser's tile and the legal widths per (m, n, apply, track, device)
 _GOSSIP_TILES: dict = {}
 
@@ -326,11 +416,12 @@ def sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _work(m: int, n: int, K: int, panel: bool, like: torch.Tensor):
-    """Scratch of the panel rounds: two ``(m, n)`` fp32 iterates when they
-    run two rounds or more, else none."""
+def _work(m: int, n: int, K: int, panel: bool, like: torch.Tensor,
+          slices: int = 1):
+    """Scratch of the panel rounds: two ``(slices, m, n)`` fp32 iterates
+    when they run two rounds or more, else none."""
     if panel and K >= 2:
-        return torch.empty((2, m, n), dtype=torch.float32,
+        return torch.empty((2, slices, m, n), dtype=torch.float32,
                            device=like.device)
     return None
 
@@ -540,7 +631,8 @@ def poly_matrix(L: torch.Tensor, eta, K, *,
     m)``, slice t equal to the single build of ``(L_t, eta_t, K_t)``.
     ``coef``: the momenta's :func:`coef_table` when the caller made it
     already (a window does), else it is made here.  Past
-    :func:`kernel_fits` the panel rounds run slice by slice.
+    :func:`kernel_fits` the panel rounds take the window's slices in each
+    launch when they share one K, else they run slice by slice.
     """
     if L.dim() not in (2, 3) or L.shape[-1] != L.shape[-2]:
         raise ValueError(f"L must be (m, m) or (T, m, m); got "
@@ -567,8 +659,10 @@ def poly_matrix(L: torch.Tensor, eta, K, *,
         _check_matrix("L", L, m, L.device)
         return _build_poly(L, m, float(eta), int(K))
     ls = _matrix_stride("L", L, m, T, L.device)
-    rows, bn = rounds_tile(m, m, sm_count(L.device.index))
-    if rows == 0:           # the panel rounds: one build per slice
+    rows, bn, bm = _panel_tile(rounds_tile(m, m, sm_count(L.device.index)),
+                               m, m, L.device)
+    shared_k = len(set(ks)) == 1
+    if rows == 0 and not shared_k:    # the panel rounds' K is the host's
         P = torch.stack([_build_poly(
             _per_slice(L, t), m, eta if etas is None else etas[t], ks[t],
             count=False) for t in range(T)])
@@ -576,15 +670,15 @@ def poly_matrix(L: torch.Tensor, eta, K, *,
         return P
     P = torch.empty((T, m, m), dtype=torch.float32, device=L.device)
     coef, cs, _keep = _coef_arg(etas, coef, T, L.device)
-    shared_k = len(set(ks)) == 1
     k_dev = None if shared_k else torch.as_tensor(
         np.asarray(ks, dtype=np.int32), device=L.device)
     one_eta, eta0 = (1.0 + float(eta), float(eta)) if etas is None \
         else (1.0, 0.0)
+    work = _work(m, m, ks[0], rows == 0, L, T)
     stream = torch.cuda.current_stream(L.device).cuda_stream
-    err = _poly_entry()(L.data_ptr(), P.data_ptr(), None, m, one_eta, eta0,
-                        ks[0], bn, rows, T, ls, coef, cs, _ptr(k_dev),
-                        stream)
+    err = _poly_entry()(L.data_ptr(), P.data_ptr(), _ptr(work), m, one_eta,
+                        eta0, ks[0], bn, rows, bm, T, ls, coef, cs,
+                        _ptr(k_dev), stream)
     _build.check("fastmix", err)
     LAUNCHES["fastmix_poly"] += 1
     return P
@@ -593,13 +687,14 @@ def poly_matrix(L: torch.Tensor, eta, K, *,
 def _build_poly(L: torch.Tensor, m: int, eta: float, K: int, *,
                 count: bool = True) -> torch.Tensor:
     """One ``(m, m)`` build from a row-major ``L`` (a slice of a stack)."""
-    rows, bn = rounds_tile(m, m, sm_count(L.device.index))
+    rows, bn, bm = _panel_tile(rounds_tile(m, m, sm_count(L.device.index)),
+                               m, m, L.device)
     P = torch.empty((m, m), dtype=torch.float32, device=L.device)
     work = _work(m, m, K, rows == 0, L)
     stream = torch.cuda.current_stream(L.device).cuda_stream
     err = _poly_entry()(L.data_ptr(), P.data_ptr(), _ptr(work), m,
-                        1.0 + float(eta), float(eta), int(K), bn, rows, 1, 0,
-                        None, 0, None, stream)
+                        1.0 + float(eta), float(eta), int(K), bn, rows, bm,
+                        1, 0, None, 0, None, stream)
     _build.check("fastmix", err)
     if count:
         LAUNCHES["fastmix_poly"] += 1
@@ -611,7 +706,7 @@ def _entry():
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 6 + [
         ctypes.c_int, ctypes.c_longlong, ctypes.c_float, ctypes.c_float] + [
-        ctypes.c_int] * 6 + [ctypes.c_longlong, ctypes.c_longlong,
+        ctypes.c_int] * 7 + [ctypes.c_longlong, ctypes.c_longlong,
                              ctypes.c_void_p, ctypes.c_longlong,
                              ctypes.c_void_p]
     return fn
@@ -621,7 +716,7 @@ def _apply_entry():
     fn = _build.load("fastmix").fastmix_apply
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 5 + [
-        ctypes.c_int, ctypes.c_longlong] + [ctypes.c_int] * 5 + [
+        ctypes.c_int, ctypes.c_longlong] + [ctypes.c_int] * 6 + [
         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
     return fn
 
@@ -630,14 +725,14 @@ def _poly_entry():
     fn = _build.load("fastmix").fastmix_poly
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 3 + [
-        ctypes.c_int, ctypes.c_float, ctypes.c_float] + [ctypes.c_int] * 4 + [
+        ctypes.c_int, ctypes.c_float, ctypes.c_float] + [ctypes.c_int] * 5 + [
         ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
         ctypes.c_void_p, ctypes.c_void_p]
     return fn
 
 
 def _launch(S, G, G_prev, L, eta, K: int, wire_bf16: bool, track: bool,
-            P, batched: bool = False, coef=None, count: bool = True,
+            P, batched: bool = False, coef=None,
             block_n: Optional[int] = None) -> torch.Tensor:
     B = S.shape[0] if batched else 1
     m = S.shape[1] if batched else S.shape[0]
@@ -652,37 +747,31 @@ def _launch(S, G, G_prev, L, eta, K: int, wire_bf16: bool, track: bool,
         P = poly_matrix(L, eta if etas is None else etas, K)
     M = L if rounds_path else P
     ms = _matrix_stride("L" if rounds_path else "P", M, m, B, dev)
-    if batched and not kernel_fits(m, None):   # panels: slice by slice
-        for b in range(B):
-            out[b] = _launch(S[b], G[b] if track else None,
-                             G_prev[b] if track else None, _per_slice(L, b),
-                             eta if etas is None else etas[b], K, wire_bf16,
-                             track, _per_slice(P, b), count=False,
-                             block_n=block_n)
-        LAUNCHES["fastmix_track" if track else "fastmix"] += 1
-        return out
     stream = torch.cuda.current_stream(dev).cuda_stream
     g = G.data_ptr() if track else None
     gp = G_prev.data_ptr() if track else None
     name = "fastmix_track" if track else "fastmix"
     if rounds_path:
-        rows, bn = LAST_TILE[name] = gossip_tile(m, n, dev, block_n=block_n)
-        work = _work(m, n, K, rows == 0, S)
+        tile = gossip_tile(m, n, dev, block_n=block_n)
+        rows, bn, bm = _panel_tile(tile, m, n, dev)
+        LAST_TILE[name] = tile if rows else (0, bn, bm)
+        work = _work(m, n, K, rows == 0, S, B)
         cp, cs, _keep = _coef_arg(etas, coef, B, dev)
         e = float(eta) if etas is None else 0.0
         err = _entry()(M.data_ptr(), S.data_ptr(), g, gp, out.data_ptr(),
-                       _ptr(work), m, n, 1.0 + e, e, int(K), bn, rows,
+                       _ptr(work), m, n, 1.0 + e, e, int(K), bn, rows, bm,
                        int(track), int(wire_bf16), B, m * n, ms, cp, cs,
                        stream)
     else:
-        rows, bn, stages = LAST_TILE[name] = gossip_tile(
-            m, n, dev, apply=True, track=track, block_n=block_n)
+        tile = gossip_tile(m, n, dev, apply=True, track=track,
+                           block_n=block_n)
+        rows, bn, bm = _panel_tile(tile, m, n, dev)
+        LAST_TILE[name] = tile if rows else (0, bn, bm)
         err = _apply_entry()(M.data_ptr(), S.data_ptr(), g, gp,
-                             out.data_ptr(), m, n, bn, rows, stages,
+                             out.data_ptr(), m, n, bn, rows, bm, tile[2],
                              int(track), B, m * n, ms, stream)
     _build.check("fastmix", err)
-    if count:
-        LAUNCHES[name] += 1
+    LAUNCHES[name] += 1
     return out
 
 
@@ -832,14 +921,14 @@ def _ef_entry():
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 8 + [
         ctypes.c_int, ctypes.c_longlong, ctypes.c_float, ctypes.c_float] + [
-        ctypes.c_int] * 5 + [ctypes.c_longlong, ctypes.c_longlong,
+        ctypes.c_int] * 6 + [ctypes.c_longlong, ctypes.c_longlong,
                              ctypes.c_void_p, ctypes.c_longlong,
                              ctypes.c_void_p]
     return fn
 
 
 def _launch_ef(S, G, G_prev, err, L, eta, K: int, track: bool,
-               batched: bool = False, coef=None, count: bool = True,
+               batched: bool = False, coef=None,
                block_n: Optional[int] = None):
     B = S.shape[0] if batched else 1
     m = S.shape[1] if batched else S.shape[0]
@@ -851,16 +940,10 @@ def _launch_ef(S, G, G_prev, err, L, eta, K: int, track: bool,
     etas = _host_etas(eta, B) if batched else None
     ls = _matrix_stride("L", L, m, B, dev)
     name = "fastmix_track_ef" if track else "fastmix_ef"
-    rows, bn = LAST_TILE[name] = gossip_tile(m, n, dev, block_n=block_n)
-    if batched and rows == 0:       # panels: slice by slice
-        for b in range(B):
-            out[b], err_out[b] = _launch_ef(
-                S[b], G[b] if track else None, G_prev[b] if track else None,
-                err[b], _per_slice(L, b), eta if etas is None else etas[b],
-                K, track, count=False)
-        LAUNCHES[name] += 1
-        return out, err_out
-    work = _work(m, n, K, rows == 0, S)
+    tile = gossip_tile(m, n, dev, block_n=block_n)
+    rows, bn, bm = _panel_tile(tile, m, n, dev)
+    LAST_TILE[name] = tile if rows else (0, bn, bm)
+    work = _work(m, n, K, rows == 0, S, B)
     cp, cs, _keep = _coef_arg(etas, coef, B, dev)
     e = float(eta) if etas is None else 0.0
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -868,11 +951,10 @@ def _launch_ef(S, G, G_prev, err, L, eta, K: int, track: bool,
                        G.data_ptr() if track else None,
                        G_prev.data_ptr() if track else None,
                        err.data_ptr(), out.data_ptr(), err_out.data_ptr(),
-                       _ptr(work), m, n, 1.0 + e, e, int(K), bn, rows,
+                       _ptr(work), m, n, 1.0 + e, e, int(K), bn, rows, bm,
                        int(track), B, m * n, ls, cp, cs, stream)
     _build.check("fastmix_ef", code)
-    if count:
-        LAUNCHES[name] += 1
+    LAUNCHES[name] += 1
     return out, err_out
 
 
@@ -1008,7 +1090,7 @@ def _apply_track_entry():
     fn = _build.load("apply_track").apply_track
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [
-        ctypes.c_float, ctypes.c_float] + [ctypes.c_int] * 8 + [
+        ctypes.c_float, ctypes.c_float] + [ctypes.c_int] * 9 + [
         ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
         ctypes.c_void_p]
     return fn
@@ -1045,7 +1127,8 @@ def apply_track_fused(A: torch.Tensor, W: torch.Tensor, S: torch.Tensor,
     stack: ``A`` ``(B, m, d, d)``, the rest ``(B, m, d, k)``) runs all B
     problems in the same two launches: the product over ``B m`` agents,
     the gossip over B slices, ``L``/``P``/``eta``/``coef`` as in
-    :func:`fastmix_fused`.  Past the resident limit it runs problem by
+    :func:`fastmix_fused`; past the resident limit too, unless the ``B m``
+    agents exceed the product grid's 65535 rows: then it runs problem by
     problem.
 
     ``block_n`` is the gossip kernel's column-tile width (as in
@@ -1092,7 +1175,7 @@ def apply_track_fused(A: torch.Tensor, W: torch.Tensor, S: torch.Tensor,
     if not rounds_path and P is None:
         P = poly_matrix(L, eta if etas is None else etas, K)
     M = L if rounds_path else P
-    if batched and not kernel_fits(m, None):   # panels: problem by problem
+    if B * m > 65535:          # the product's grid: problem by problem
         for b in range(B):
             S_new[b], G[b] = _apply_track_launch(
                 A[b], W[b], S[b], G_prev[b], _per_slice(M, b),
@@ -1118,25 +1201,24 @@ def _apply_track_launch(A, W, S, G_prev, M, eta, K, wire_bf16, B, etas,
     rounds_path = wire_bf16 or K <= 0
     name = "L" if rounds_path else "P"
     ms = _matrix_stride(name, M, m, B, dev)
-    work = None
     if rounds_path:
-        rows, bn = gossip_tile(m, n, dev, block_n=block_n)
-        stages = 0
-        work = _work(m, n, K, rows == 0, S)
+        (rows, bn), stages = gossip_tile(m, n, dev, block_n=block_n), 0
     else:
         rows, bn, stages = gossip_tile(m, n, dev, apply=True, track=True,
                                        block_n=block_n)
+    rows, bn, pbm = _panel_tile((rows, bn), m, n, dev)
+    work = _work(m, n, K, rows == 0 and rounds_path, S, B)
     # the tile follows all B m agents
     bm, kp = product_launch_tile(B * m, d, k, dev, block_m=block_m)
-    LAST_TILE["apply_track"] = (bm, kp, rows, bn, stages)
+    LAST_TILE["apply_track"] = (bm, kp, rows, bn, stages if rows else pbm)
     cp, cs, _keep = _coef_arg(etas, coef, B, dev)
     e = float(eta) if etas is None else 0.0
     stream = torch.cuda.current_stream(dev).cuda_stream
     code = _apply_track_entry()(
         M.data_ptr(), A.data_ptr(), W.data_ptr(), S.data_ptr(),
         G_prev.data_ptr(), S_new.data_ptr(), G.data_ptr(), _ptr(work), m,
-        d, k, 1.0 + e, e, int(K), bm, kp, rows, bn, stages, int(wire_bf16),
-        B, ms, cp, cs, stream)
+        d, k, 1.0 + e, e, int(K), bm, kp, rows, bn, pbm, stages,
+        int(wire_bf16), B, ms, cp, cs, stream)
     _build.check("apply_track", code)
     return S_new, G
 

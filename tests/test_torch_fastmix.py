@@ -187,6 +187,36 @@ def test_every_agent_count_that_fits_gets_a_tile(n):
             assert fm.apply_tile(m, cols, track, 132) == (0, 0, 0)
 
 
+@pytest.mark.parametrize("n", ["m", 33, 1500, 131072])
+def test_panel_tile_fills_the_card_and_fits_a_block(n):
+    """Past the resident limit (m = 231 .. 1024) ``panel_tile`` is a pure
+    function of ``(m, n, sms)`` (the cached answer is the uncached one)
+    returning one of ``PANEL_TILES``, whose block fits: 4 x 8 thread tiles
+    a warp, at most 256 threads (255 registers each within an SM's
+    65,536) and its tracked shared memory within a block's.  Its grid gives
+    the 132 SMs a block each where the shape allows: at least 132 blocks at
+    (256, 1500), and 64 or more for the ``P_K(L)`` build at m = 256."""
+    for m in range(231, 1025):
+        cols = m if n == "m" else n
+        bm, bn = tile = fm.panel_tile(m, cols, 132)
+        assert tile == fm.panel_tile.__wrapped__(m, cols, 132)
+        assert tile in fm.PANEL_TILES
+        threads = fm.panel_threads(bm, bn)
+        assert bm % 16 == 0 and (bn // fm.panel_cols(bn)) % 8 == 0
+        assert 32 <= threads <= fm.PANEL_MAX_THREADS and threads % 32 == 0
+        assert threads * 255 <= 65536
+        assert fm.panel_smem(bm, bn, True) <= fm.SMEM_LIMIT
+        blocks = -(-m // bm) * -(-cols // bn)
+        if any(-(-m // a) * -(-cols // b) >= 132 for a, b in fm.PANEL_TILES):
+            assert blocks >= 132, (m, cols, tile)
+    if n == 1500:
+        bm, bn = fm.panel_tile(256, 1500, 132)
+        assert -(-256 // bm) * -(-1500 // bn) >= 132
+    if n == "m":
+        bm, bn = fm.panel_tile(256, 256, 132)
+        assert -(-256 // bm) * -(-256 // bn) >= 64
+
+
 @pytest.mark.parametrize("track", [False, True])
 @pytest.mark.parametrize("m,n,k,K", WIDE)
 def test_collapse_matches_reference_kernel_wide(m, n, k, K, track):

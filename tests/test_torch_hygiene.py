@@ -330,12 +330,13 @@ ENTRIES = ("apply_track", "cholqr2", "fastmix", "fastmix_apply",
 #: The argument count of each C entry.  The gossip entries take the slice
 #: axis (a slice count, the iterate's and the matrix's slice strides, the
 #: per-slice coefficient table and its stride; ``fastmix_poly`` also the
-#: per-slice round counts; ``apply_track`` the problem count); ``cholqr2``
+#: per-slice round counts; ``apply_track`` the problem count) and the
+#: panel kernels' output rows beside the tile width; ``cholqr2``
 #: takes the group of elements that shares a rescue flag (one problem).
 #: ``flash_attention`` takes the optional lse output; its backward takes
 #: its 24 strides as one host array.
-ARITY = {"apply_track": 25, "cholqr2": 11, "fastmix": 21,
-         "fastmix_apply": 15, "fastmix_ef": 22, "fastmix_poly": 15,
+ARITY = {"apply_track": 26, "cholqr2": 11, "fastmix": 22,
+         "fastmix_apply": 16, "fastmix_ef": 23, "fastmix_poly": 16,
          "flash_attention": 27, "flash_attention_bwd": 21, "gram": 7,
          "power_matmul": 9}
 

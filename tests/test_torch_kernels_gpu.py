@@ -181,9 +181,29 @@ def test_fastmix_one_gossip_launch_with_P_on_card(sm90, track):
 
 
 def _panel_everywhere(monkeypatch):
-    """Make every gossip chooser pick the panel kernels."""
+    """Make every gossip chooser pick the panel kernels (with an empty
+    cache of gossip tiles, so that no resident tile chosen before is
+    reused, and the panel tiles do not outlive the test)."""
     monkeypatch.setattr(fm, "rounds_tile", lambda m, n, sms: (0, 0))
     monkeypatch.setattr(fm, "apply_tile", lambda m, n, track, sms: (0, 0, 0))
+    monkeypatch.setattr(fm, "_GOSSIP_TILES", {})
+
+
+def _count_entries(monkeypatch) -> list:
+    """Record each call of the FastMix C entries (one per launch of the
+    resident kernels; on the panel path one per round loop or apply, over
+    every slice); returns the list the calls append their names to."""
+    calls = []
+    for name in ("_entry", "_apply_entry", "_ef_entry", "_poly_entry"):
+        def counted(real=getattr(fm, name), name=name):
+            fn = real()
+
+            def call(*args):
+                calls.append(name)
+                return fn(*args)
+            return call
+        monkeypatch.setattr(fm, name, counted)
+    return calls
 
 
 @pytest.mark.gpu
@@ -215,10 +235,49 @@ def test_panel_kernels_equal_the_resident_ones_on_card(sm90, monkeypatch, m,
     resident, P_res = run(), fm.poly_matrix(L, 0.3, K)
     _panel_everywhere(monkeypatch)
     panel, P_pan = run(), fm.poly_matrix(L, 0.3, K)
+    name = ("fastmix_track" if track else "fastmix") + \
+        ("_ef" if mode == "fp8" else "")
+    assert fm.LAST_TILE[name][0] == 0          # the panel kernels ran
     torch.cuda.synchronize()
     assert torch.equal(P_pan, P_res)
     for a, b in zip(resident, panel):
         assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile", fm.PANEL_TILES)
+@pytest.mark.parametrize("mode", ["apply", "bf16", "build"])
+@pytest.mark.parametrize("m", [231, 256, 768])
+def test_every_panel_tile_gives_the_default_bits_on_card(sm90, monkeypatch,
+                                                         m, mode, tile):
+    """Every output tile the panel kernels take (``fm.PANEL_TILES``, the
+    chooser's candidates) gives the default tile's result bit for bit: a
+    tile decides which block owns an output, never the order of its sum.
+    The tracked ``P_K(L)`` apply, three tracked rounds on the bf16 wire,
+    and the ``P_K(L)`` build, past the resident kernels' 230 agents."""
+    n = m if mode == "build" else 1500
+    rng = np.random.default_rng(m + n)
+    L = torch.from_numpy(P.erdos_renyi(m, p=0.5, seed=0).mixing
+                         .astype(np.float32)).cuda()
+    S, G, Gp = (torch.from_numpy(rng.standard_normal((m, n))
+                                 .astype(np.float32)).cuda()
+                for _ in range(3))
+    Pk = fm.poly_matrix(L, 0.3, 8)
+
+    def run():
+        if mode == "build":
+            return fm.poly_matrix(L, 0.3, 8)
+        return fm.fastmix_track_fused(S, G, Gp, L, 0.3, 3 if mode == "bf16"
+                                      else 8, wire_bf16=mode == "bf16",
+                                      P=None if mode == "bf16" else Pk)
+
+    default = run()
+    monkeypatch.setattr(fm, "panel_tile", lambda m, n, sms: tile)
+    got = run()
+    if mode != "build":
+        assert fm.LAST_TILE["fastmix_track"] == (0, tile[1], tile[0])
+    torch.cuda.synchronize()
+    assert torch.equal(got, default)
 
 
 @pytest.mark.gpu
@@ -1008,14 +1067,17 @@ def _slice_operands(B, m, seed):
 @pytest.mark.parametrize("track", [False, True])
 @pytest.mark.parametrize("mode", ["fp32", "k0", "bf16", "fp8"])
 @pytest.mark.parametrize("B,m,n,K", [(8, 50, 1500, 8), (3, 7, 33, 3),
-                                     (2, 240, 64, 3)])
-def test_sliced_gossip_equals_single_launches_on_card(sm90, B, m, n, K, mode,
-                                                      track, shared):
+                                     (2, 240, 64, 3), (8, 256, 1500, 8)])
+def test_sliced_gossip_equals_single_launches_on_card(sm90, monkeypatch, B,
+                                                      m, n, K, mode, track,
+                                                      shared):
     """A batched launch (a leading problem axis, ``L``/``P`` shared or one
     per problem, each problem its own momentum) gives each problem the
     single launch's result bit for bit, in one launch counted once: the
     no-wire ``P_K(L)`` apply, the K = 0 and bf16 round loops, the fp8-EF
-    rounds.  m = 240 runs the panel kernels problem by problem."""
+    rounds.  m = 240 and 256 run the panel kernels, every problem in each
+    launch: one call of the C entry, one launch a round (two on the fp8
+    wire)."""
     rng = np.random.default_rng(B + m + n + K)
     Ls, etas = _slice_operands(B, m, 3)
     if shared:
@@ -1043,6 +1105,7 @@ def test_sliced_gossip_equals_single_launches_on_card(sm90, B, m, n, K, mode,
         return (fm.fastmix_fused(S[b], L_b, e_b, K, wire_bf16=wire, P=P_b),)
 
     kernels.reset_launch_counts()
+    calls = _count_entries(monkeypatch)
     if mode == "fp8":
         got = (fm.fastmix_track_ef_fused(S, G, Gp, E, Ls, etas, K,
                                          batched=True) if track
@@ -1055,6 +1118,7 @@ def test_sliced_gossip_equals_single_launches_on_card(sm90, B, m, n, K, mode,
                                       batched=True),))
         name = "fastmix_track" if track else "fastmix"
     assert kernels.launch_counts()[name] == 1
+    assert len(calls) == 1, calls
     want = [one(b) for b in range(B)]
     torch.cuda.synchronize()
     for b in range(B):
@@ -1064,21 +1128,26 @@ def test_sliced_gossip_equals_single_launches_on_card(sm90, B, m, n, K, mode,
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("m", [50, 7, 240])
-def test_window_build_equals_single_builds_on_card(sm90, m):
+def test_window_build_equals_single_builds_on_card(sm90, monkeypatch, m):
     """A window of T polynomials in one launch -- per-slice ``L`` and
-    momentum, mixed K (0 to 12), and the shared-``L`` increasing-rounds
-    window -- equals T single builds bit for bit.  m = 240 runs the panel
-    rounds slice by slice."""
+    momentum with one K or mixed K (0 to 12), and the shared-``L``
+    increasing-rounds window -- equals T single builds bit for bit.  m =
+    240 runs the panel rounds: the one-K window's slices in each launch
+    (one call of the C entry), the mixed ones slice by slice."""
     T = 100 if m <= 50 else 6
     Ls, etas = _slice_operands(T, m, 5)
     ks = [(t * 7) % 13 for t in range(T)]
     kernels.reset_launch_counts()
+    calls = _count_entries(monkeypatch)
+    one = fm.poly_matrix(Ls, etas, 8)
+    assert len(calls) == 1, calls
     got = fm.poly_matrix(Ls, etas, ks)
     inc = fm.poly_matrix(Ls[0], etas[0], [8 + t for t in range(T)])
-    assert kernels.launch_counts()["fastmix_poly"] == 2
+    assert kernels.launch_counts()["fastmix_poly"] == 3
     torch.cuda.synchronize()
     assert got.shape == (T, m, m) and inc.shape == (T, m, m)
     for t in range(T):
+        assert torch.equal(one[t], fm.poly_matrix(Ls[t], etas[t], 8)), t
         assert torch.equal(got[t], fm.poly_matrix(Ls[t], etas[t], ks[t])), t
         assert torch.equal(inc[t], fm.poly_matrix(Ls[0], etas[0], 8 + t)), t
 
