@@ -10,7 +10,15 @@ What it does, in order; any failure raises and the exit code is non-zero:
 1. prints the card (``nvidia-smi`` name and power limit), the torch/CUDA
    versions and the TF32 flags, which it sets off and asserts off;
 2. builds every CUDA kernel of ``src/repro_torch/kernels/csrc`` (one nvcc
-   per source, all in parallel) and prints the build time;
+   per source, all in parallel) and prints the build time; 2b. runs the
+   port's five static-analysis passes (``repro_torch.analysis``) on the
+   card in-process: the lint, the dispatch-mode dtype audit and the
+   seven warm-call contracts on ``cuda`` tensors, the Hopper budgets with
+   their card checks (``cuobjdump`` registers, stack and shared memory of
+   every kernel of the eight libraries against the registry, the
+   occupancy model against the runtime's), and deadcode; one ``analysis``
+   line per pass, one ``budget`` line per kernel and one ``warm`` line
+   per contract, failing on any violation or skipped check;
 3. holds each kernel against its plain PyTorch version on the card at the
    main paths' shapes, and times kernel, plain version, the library
    yardstick (a PyTorch call the port never makes) and the card's bound:
@@ -948,6 +956,44 @@ def flash_bwd_resources(fa, build) -> dict:
                   f"bytes, {res['local']} local bytes, {smem} dynamic shared "
                   f"bytes, {n_blocks} blocks an SM", flush=True)
     return out
+
+
+def analysis_phase() -> dict:
+    """The static-analysis passes on the card, in-process (phase 2b): an
+    ``analysis`` line per pass (units checked, violations, skips), a
+    ``budget`` line per kernel family (registers, stack, static and
+    modelled dynamic shared memory at the main shape, blocks an SM from the
+    model and from the runtime where the C exports it) and a ``warm`` line
+    per contract (builds, libraries opened, autotune measurements in the
+    steady phase).  Fails on a violation or a skipped check."""
+    from repro_torch.analysis import budget, deadcode, lint, tracecheck, warm
+    tic = time.perf_counter()
+    budget_report, warm_report = [], []
+    results = [lint.run(), tracecheck.run(device="cuda"),
+               warm.run(device="cuda", report=warm_report),
+               budget.run(report=budget_report), deadcode.run()]
+    for r in results:
+        print("analysis " + json.dumps(
+            {"pass": r.name, "ok": r.ok, "checked": r.checked,
+             "violations": [v.render() for v in r.violations],
+             "skipped": r.skipped}), flush=True)
+    for line in budget.report_lines(budget_report):
+        print(line)
+    for row in warm_report:
+        print("warm " + json.dumps(row))
+    sec = time.perf_counter() - tic
+    print(f"analysis: five passes in {sec:.1f} s", flush=True)
+    bad = [v.render() for r in results for v in r.violations]
+    if bad:
+        fail(f"static analysis found {len(bad)} violation(s): {bad[:5]}")
+    skipped = [f"{r.name}: {s}" for r in results for s in r.skipped]
+    if skipped:
+        fail(f"static analysis skipped checks on the card: {skipped}")
+    if len(budget_report) != len(budget.registry.KERNELS) or \
+            len(warm_report) != len(warm.CONTRACTS):
+        fail("static analysis: a kernel family or a warm contract is "
+             "missing from its lines")
+    return {"seconds": sec, "budget": budget_report, "warm": warm_report}
 
 
 def load_script(path: Path):
@@ -2806,6 +2852,9 @@ def main() -> int:
     # ---- 2. build every kernel from the checkout's sources
     sec = _build.build_all()
     print(f"build: {sec:.2f} s for {', '.join(_build.SOURCES)}", flush=True)
+
+    # ---- 2b. the static-analysis passes on the card, in-process
+    analysis_phase()
 
     # ---- 3. each kernel against its plain version at the main path's shapes
     main_rows = {

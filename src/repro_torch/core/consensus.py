@@ -334,13 +334,16 @@ class ConsensusEngine:
     def quantization_floor(self) -> float:
         return WIRE_QUANT_FLOOR[self.wire_dtype]
 
-    def prebuild(self, rounds, device) -> None:
+    def prebuild(self, rounds, device, dtype=torch.float32) -> None:
         """Build the fp32 ``P_K(L)`` of every round count in ``rounds``
         that the cache lacks, in one ``fastmix_poly`` launch (a window of
         polynomials, each slice its own K): DePCA's increasing rounds then
         find each iteration's ``P`` built.  A no-op off the ``cuda``
-        backend and on the wires."""
-        if self.backend != "cuda" or self.wire_dtype is not None:
+        backend, on the wires and for an f64 run (``dtype``), which
+        collapses the rounds in f64 and never reads ``P``, as
+        :meth:`_P` says."""
+        if self.backend != "cuda" or self.wire_dtype is not None or \
+                dtype == torch.float64:
             return
         dev = torch.device(device)
         todo = sorted({int(r) for r in rounds if int(r) > 0

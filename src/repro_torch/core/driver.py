@@ -257,7 +257,7 @@ class IterationDriver:
         with self._launch("driver.run", substrate, T, _kind(ops),
                           event=not unrolled):
             if unrolled:
-                eng.prebuild(rounds_at, ops.device)
+                eng.prebuild(rounds_at, ops.device, dt)
             else:
                 mix = step.make_mix(eng)
                 apply_mix = step.make_apply_mix(eng, ops)

@@ -33,6 +33,10 @@ SOURCES = ("fastmix", "gram", "fastmix_ef", "apply_track", "power_matmul",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+#: Libraries opened by :func:`load` (``ctypes.CDLL``) since the caller last
+#: reset it: what a cold call pays beside a build (the warm-call contracts
+#: of ``repro_torch.analysis.warm`` read it).
+LOADS = {"libraries": 0}
 
 
 def _nvcc() -> str:
@@ -98,6 +102,7 @@ def load(name: str) -> ctypes.CDLL:
         if lib is None:
             _finish(name, _start(name))
             lib = _libs[name] = ctypes.CDLL(str(_lib_path(name)))
+            LOADS["libraries"] += 1
     return lib
 
 

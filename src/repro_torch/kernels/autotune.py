@@ -77,6 +77,11 @@ _CHOICES: Dict[tuple, tuple] = {}
 _STAT_TTL = 1.0
 
 
+#: Calls of :func:`measure_best` since the caller last reset it: nothing
+#: measures on first use, so a warm call makes none (the warm-call
+#: contracts of ``repro_torch.analysis.warm`` read it).
+MEASUREMENTS = {"measure_best": 0}
+
 _FALLBACK_PATH: Optional[str] = None
 
 
@@ -324,6 +329,7 @@ def measure_best(kernel: str, param: str, shape: Iterable[int], dtype,
     events around the ``reps`` calls, else with the host clock.  A
     candidate that raises is skipped.
     """
+    MEASUREMENTS["measure_best"] += 1
     import torch
     cuda = torch.cuda.is_available() and (device is None or
                                           device != "cpu")

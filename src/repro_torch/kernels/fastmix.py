@@ -60,6 +60,10 @@ WIRE_ITEMSIZE = {None: 4, "bf16": 2, "int8": 1, "fp8": 1}
 #: one per call.
 LAUNCHES = {"fastmix": 0, "fastmix_track": 0, "fastmix_poly": 0,
             "fastmix_ef": 0, "fastmix_track_ef": 0, "apply_track": 0}
+#: Calls of :func:`poly_matrix`, on any device and for any engine: each is
+#: a ``P_K(L)`` build (a window of them counts once).  The warm-call
+#: contracts (``repro_torch.analysis.warm``) read it; reset by the caller.
+POLY_BUILDS = {"poly_matrix": 0}
 #: The tile of each wrapper's last kernel launch (``rows, BN[, stages]``;
 #: apply-track also its product's ``BM, KP``; ``0, BN, BM`` on the panel
 #: kernels): what was launched, for the callers that check a tuned choice.
@@ -78,6 +82,10 @@ FASTMIX_TILES = {8: 4, 4: 1}
 #: loops over column tiles of 64).
 PRODUCT_ROWS = (128, 64)
 PRODUCT_COLS = (8, 16, 32, 64)
+#: The product's contraction chunk, its ``cp.async`` ring stages and the
+#: row stride of its A stage (``kBK``, ``kRing``, ``kAStride`` in
+#: ``csrc/product_tiles.cuh``).
+PRODUCT_CHUNK, PRODUCT_RING, PRODUCT_A_STRIDE = 32, 3, 36
 #: The panel kernels' output tiles ``(BM, BN)`` past :func:`kernel_fits`,
 #: largest first.  Each thread owns a 4 x 4 register tile where BN >= 32,
 #: else 4 x 1 (:func:`panel_cols`); a warp holds 4 x 8 thread tiles.
@@ -634,6 +642,7 @@ def poly_matrix(L: torch.Tensor, eta, K, *,
     :func:`kernel_fits` the panel rounds take the window's slices in each
     launch when they share one K, else they run slice by slice.
     """
+    POLY_BUILDS["poly_matrix"] += 1
     if L.dim() not in (2, 3) or L.shape[-1] != L.shape[-2]:
         raise ValueError(f"L must be (m, m) or (T, m, m); got "
                          f"{tuple(L.shape)}")
@@ -1042,6 +1051,24 @@ def fastmix_track_ef_fused(S: torch.Tensor, G: torch.Tensor,
 # ------------------------------------------------------------------------
 # apply -> track -> mix: the dense DeEPCA gossip half-iteration
 # ------------------------------------------------------------------------
+def product_threads(bm: int, kp: int) -> int:
+    """Threads of a product block (``product_threads`` in
+    ``csrc/product_tiles.cuh``): one per TR x TC register tile of the BM x
+    KP output tile, 1 x 8 at KP = 8, 4 x 4 at 16, else 8 x 4."""
+    tr = 1 if kp == 8 else 4 if kp == 16 else 8
+    tc = 8 if kp == 8 else 4
+    return bm // tr * (kp // tc)
+
+
+def product_smem(bm: int, kp: int) -> int:
+    """Dynamic shared bytes of a product block (``product_smem`` in
+    ``csrc/product_tiles.cuh``; apply-track's product and the power
+    matmul): :data:`PRODUCT_RING` stages of A's BM x 32 chunk, rows padded
+    to 36 floats, and of W's 32 x KP chunk.  The cluster split sums its
+    partials in the same ring."""
+    return 4 * PRODUCT_RING * (bm * PRODUCT_A_STRIDE + PRODUCT_CHUNK * kp)
+
+
 @functools.lru_cache(maxsize=256)
 def product_tile(m: int, d: int, k: int, sms: int) -> tuple:
     """``(BM, KP, grid)`` of apply-track's per-agent product ``A[a] @ W[a]``.

@@ -60,6 +60,39 @@ KERNEL_HEAD_DIMS = (64, 128)
 _MAX_BH = 65535             # the kernel puts B * H on grid.y
 _Q_CHUNK = 1024             # query rows per step of the plain version
 _ALIGN = 16                 # bytes: the kernel's copies are 16 bytes wide
+#: Rows of every q and kv tile of the kernels (``kBQ``, ``kBKV``,
+#: ``kTileRows``, ``kB`` in the sources) and the bf16 kernels' ring stages.
+TILE_ROWS = 64
+STAGES = 2
+
+
+def forward_smem(hd: int, bf16: bool) -> int:
+    """Dynamic shared bytes of a forward block at head dim ``hd``
+    (``csrc/flash_attention.cu``): bf16 (``smem_bytes_bf16``) the q tile
+    and :data:`STAGES`-deep K and V rings of 64 x hd bf16; fp32
+    (``smem_floats``) q and k tiles with rows padded to hd + 1, v, and the
+    64 x 65 score tile."""
+    r = TILE_ROWS
+    if bf16:
+        return 2 * (r * hd + 2 * STAGES * r * hd)
+    return 4 * (2 * r * (hd + 1) + r * hd + r * (r + 1))
+
+
+def backward_smem(hd: int, bf16: bool) -> tuple:
+    """``(dq, dkdv)``: dynamic shared bytes of a block of the backward's dQ
+    grid and of its dK/dV grid at head dim ``hd``
+    (``csrc/flash_attention_bwd.cu``).  bf16 (``smem_dq_bf16``,
+    ``smem_dkdv_bf16``): dQ holds q, dO and two-stage K and V rings of 64
+    x hd bf16 with lse and D of 64 rows; dK/dV the K and V tiles, then a
+    ring a warp group of two-stage q and dO tiles with their lse and D.
+    fp32 (``smem_dq``, ``smem_dkdv``): four tiles with rows padded to hd +
+    1, one (dQ) or two (dK/dV) 64 x 65 score tiles, lse and D."""
+    r = TILE_ROWS
+    if bf16:
+        return (2 * 6 * r * hd + 4 * 2 * r,
+                2 * (2 + 4 * STAGES) * r * hd + 4 * 2 * 2 * STAGES * r)
+    tiles = 4 * r * (hd + 1) + 2 * r
+    return 4 * (tiles + r * (r + 1)), 4 * (tiles + 2 * r * (r + 1))
 
 
 def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> int:

@@ -18,6 +18,15 @@ from . import _build
 LAUNCHES = {"gram": 0}
 
 _MAX_BATCH = 65535          # the kernel puts the batch on grid.z
+#: The output tile edge and chunk height (``kTile`` in ``csrc/gram.cu``).
+GRAM_TILE = 32
+
+
+def gram_smem() -> int:
+    """Static shared bytes of a Gram block (``xi`` and ``xj`` in
+    ``csrc/gram.cu``): two ``GRAM_TILE x (GRAM_TILE + 1)`` fp32 tiles; the
+    kernel takes no dynamic shared memory."""
+    return 2 * 4 * GRAM_TILE * (GRAM_TILE + 1)
 
 
 def gram_plain(x: torch.Tensor) -> torch.Tensor:

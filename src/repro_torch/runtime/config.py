@@ -64,6 +64,9 @@ ENV_VARS: Tuple[str, ...] = (ENV_QR_IMPL, ENV_FASTMIX_BLOCK_N, ENV_AUTOTUNE,
                              ENV_AUTOTUNE_CACHE, ENV_TELEMETRY,
                              ENV_WIRE_DTYPE, ENV_ACCEL, ENV_DIAG, ENV_TRACE,
                              ENV_FLEET_SLOTS, ENV_FLEET_SLO_MS)
+#: The prefix every knob's name carries: a variable with it belongs to this
+#: module (``repro_torch.analysis``'s env-config rule reads it).
+ENV_PREFIX = "REPRO_"
 
 QR_IMPLS = ("cholqr2", "householder")
 WIRE_DTYPES = ("bf16", "int8", "fp8")
