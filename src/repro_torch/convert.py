@@ -69,7 +69,10 @@ def lm_named_from_reference(tree, cfg, device=None) -> dict:
 
     ``tree["groups"][i]`` stacks the ``cfg.n_groups`` repeats of pattern
     slot ``i`` on a leading axis; group ``g`` of slot ``i`` becomes layer
-    ``g * len(cfg.pattern) + i`` (``layers.<l>.mixer.wq``, ...).  Numpy
+    ``g * len(cfg.pattern) + i`` (``layers.<l>.mixer.wq``, ...).  An
+    encoder-decoder's ``tree["encoder"]["groups"][0]`` stacks its
+    ``cfg.encoder_layers`` blocks (``encoder.layers.<l>.*``) and
+    ``tree["encoder"]["final_norm"]`` is ``encoder.final_norm``.  Numpy
     leaves become tensors on ``device`` (``None``: the card), values
     bit-identical; tensor leaves stay where they are and each layer's
     entry is a view of its stack.
@@ -82,19 +85,24 @@ def lm_named_from_reference(tree, cfg, device=None) -> dict:
 
     out = {key: leaf(tree[key])
            for key in ("embed", "final_norm", "lm_head") if key in tree}
-    width = len(cfg.pattern)
 
-    def walk(path: str, node, i: int) -> None:
+    def walk(prefix: str, path: str, node, i: int, n: int,
+             width: int) -> None:
         if isinstance(node, dict):
             for key, child in node.items():
-                walk(f"{path}.{key}", child, i)
+                walk(prefix, f"{path}.{key}", child, i, n, width)
             return
         stack = leaf(node)
-        for g in range(cfg.n_groups):
-            out[f"layers.{g * width + i}{path}"] = stack[g]
+        for g in range(n):
+            out[f"{prefix}.{g * width + i}{path}"] = stack[g]
 
     for i, slot in enumerate(tree["groups"]):
-        walk("", slot, i)
+        walk("layers", "", slot, i, cfg.n_groups, len(cfg.pattern))
+    if "encoder" in tree:
+        enc = tree["encoder"]
+        walk("encoder.layers", "", enc["groups"][0], 0, cfg.encoder_layers,
+             1)
+        out["encoder.final_norm"] = leaf(enc["final_norm"])
     return out
 
 
@@ -102,8 +110,10 @@ def lm_params_to_reference(params, cfg) -> dict:
     """The inverse of :func:`lm_named_from_reference`: an :class:`LM` (or
     a ``{parameter name: tensor}`` dict such as its gradients or AdamW
     moments) in the reference's tree layout, ``{"embed", "final_norm"[,
-    "lm_head"], "groups": (slot 0, ...)}`` with every layer weight stacked
-    over ``cfg.n_groups`` (``torch.stack``: a copy, detached).  A
+    "lm_head"], "groups": (slot 0, ...)[, "encoder": {"groups": (slot,),
+    "final_norm"}]}`` with every layer weight stacked over
+    ``cfg.n_groups`` (the encoder's over ``cfg.encoder_layers``;
+    ``torch.stack``: a copy, detached).  A
     checkpoint of this tree is one the reference's ``restore`` reads, and
     its leaf keys and shapes are the ones the reference's compressors
     see."""
@@ -111,24 +121,31 @@ def lm_params_to_reference(params, cfg) -> dict:
         if isinstance(params, torch.nn.Module) else dict(params)
     out = {key: named[key].detach()
            for key in ("embed", "final_norm", "lm_head") if key in named}
-    width = len(cfg.pattern)
-    groups = []
-    for i in range(width):
+
+    def stacked_slot(prefix: str, i: int, n: int, width: int) -> dict:
         slot: dict = {}
-        prefix = f"layers.{i}."
+        first = f"{prefix}.{i}."
         for name in named:
-            if not name.startswith(prefix):
+            if not name.startswith(first):
                 continue
-            rest = name[len(prefix):]
+            rest = name[len(first):]
             node = slot
             *path, last = rest.split(".")
             for key in path:
                 node = node.setdefault(key, {})
             node[last] = torch.stack([
-                named[f"layers.{g * width + i}.{rest}"].detach()
-                for g in range(cfg.n_groups)])
-        groups.append(slot)
-    out["groups"] = tuple(groups)
+                named[f"{prefix}.{g * width + i}.{rest}"].detach()
+                for g in range(n)])
+        return slot
+
+    width = len(cfg.pattern)
+    out["groups"] = tuple(stacked_slot("layers", i, cfg.n_groups, width)
+                          for i in range(width))
+    if "encoder.final_norm" in named:
+        out["encoder"] = {
+            "groups": (stacked_slot("encoder.layers", 0, cfg.encoder_layers,
+                                    1),),
+            "final_norm": named["encoder.final_norm"].detach()}
     return out
 
 

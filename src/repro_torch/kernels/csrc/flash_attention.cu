@@ -1,4 +1,4 @@
-// Causal flash attention, forward, with grouped-query heads (GQA).
+// Flash attention, forward, causal or not, with grouped-query heads (GQA).
 //
 // Replaces the Pallas TPU kernel
 //   src/repro/kernels/flash_attention.py::flash_attention_single
@@ -26,6 +26,12 @@
 // writing o once.  At the LM prefill's shapes (B = 8, H = 9, Hkv = 3,
 // S = 512, HD = 64) that is some 190 flops per byte, below the card's 295
 // for bf16: the bytes bound it; at S = 4096 the tensor cores' rate does.
+// Non-causal (causal == 0: whisper's encoder and cross-attention) the work
+// is the whole score matrix, 4 * B * H * Sq * Skv * HD flops; every kv
+// tile is read, the mask touches only the tile that crosses Skv, and all
+// q tiles of a head cost the same, so the launch order below changes
+// nothing there.  A decode step's cross-attention (Sq = 1) is one block a
+// (b, h) walking every kv tile.
 //
 // Two kernels, one per input type.
 //

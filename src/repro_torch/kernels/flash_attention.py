@@ -1,5 +1,5 @@
-"""Causal flash attention with grouped-query heads: the forward kernel and
-its gradient.
+"""Flash attention with grouped-query heads, causal or not: the forward
+kernel and its gradient.
 
 :func:`flash_attention` is the wrapper of the hand-written CUDA kernel
 ``csrc/flash_attention.cu``, the port of the reference's Pallas

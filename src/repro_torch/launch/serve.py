@@ -21,7 +21,9 @@ streaming workloads (the reference's ``repro/launch/serve.py``)::
 ``--workload lm``: the weights are made from ``--seed`` by the port's own
 init at the config's published shapes (nothing is downloaded); the prompt
 is ``--batch`` rows of ``--prompt-len`` token ids drawn from numpy's
-generator with the same seed, as in the reference.
+generator with the same seed, as in the reference, and for an
+encoder-decoder (``--arch whisper_small``) the stub frontend's frame
+embeddings are drawn from that generator after the tokens.
 
 ``--workload pca``: ``--batch`` independent DeEPCA problems
 (``synthetic_problem_batch``) served through one
@@ -74,15 +76,34 @@ def _sync(device: torch.device) -> None:
 def prompt_tokens(cfg, batch: int, prompt_len: int, seed: int,
                   device=None) -> torch.Tensor:
     """(B, P) int64 token ids from ``numpy.random.default_rng(seed)``."""
+    return prompt_inputs(cfg, batch, prompt_len, seed, device)[0]
+
+
+def prompt_inputs(cfg, batch: int, prompt_len: int, seed: int,
+                  device=None):
+    """``(tokens, embeds)``: (B, P) int64 token ids from
+    ``numpy.random.default_rng(seed)`` and, for an encoder-decoder, the
+    frame embeddings the reference's serve draws from the same generator
+    after them, ``standard_normal((B, n_frames, d)) * 0.02`` in bf16
+    (``None`` otherwise)."""
     rng = np.random.default_rng(seed)
-    return torch.as_tensor(rng.integers(0, cfg.vocab, (batch, prompt_len)),
-                           dtype=torch.int64, device=resolve_device(device))
+    dev = resolve_device(device)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (batch, prompt_len)),
+                             dtype=torch.int64, device=dev)
+    embeds = None
+    if cfg.is_encdec:
+        frames = rng.standard_normal((batch, cfg.n_frames, cfg.d_model))
+        embeds = torch.as_tensor(frames * 0.02).to(dev, torch.bfloat16)
+    return tokens, embeds
 
 
 @torch.no_grad()
 def serve_lm(cfg, params, tokens: torch.Tensor, gen: int, *,
+             embeds: Optional[torch.Tensor] = None,
              attention: str = "kernel") -> dict:
-    """Prefill ``tokens`` (B, P), then ``gen - 1`` greedy decode steps.
+    """Prefill ``tokens`` (B, P) (with an encoder-decoder's frame
+    ``embeds``), then ``gen - 1`` greedy decode steps; ``attention``
+    picks the path of both.
 
     Returns ``tokens`` (B, gen) generated ids, ``first_logits`` (B, V) of
     the prefill, and host-clock ``prefill_ms``, ``decode_ms_per_token``,
@@ -96,10 +117,10 @@ def serve_lm(cfg, params, tokens: torch.Tensor, gen: int, *,
     batch, prompt_len = tokens.shape
     prefill_fn = make_prefill_step(cfg, prompt_len + gen,
                                    attention=attention)
-    decode_fn = make_decode_step(cfg)
+    decode_fn = make_decode_step(cfg, attention=attention)
     _sync(dev)
     t0 = time.perf_counter()
-    logits, cache = prefill_fn(params, tokens)
+    logits, cache = prefill_fn(params, tokens, embeds)
     tok = logits.argmax(dim=-1)[:, None]
     out = [tok]
     _sync(dev)
@@ -130,8 +151,8 @@ def run_lm(arch: str, *, reduced: bool = False, batch: int = 4,
     dev = resolve_device(device)
     cfg = get_reduced(arch) if reduced else get_config(arch)
     params = init_params(cfg, seed, device=dev)
-    tokens = prompt_tokens(cfg, batch, prompt_len, seed, device=dev)
-    res = serve_lm(cfg, params, tokens, gen)
+    tokens, embeds = prompt_inputs(cfg, batch, prompt_len, seed, device=dev)
+    res = serve_lm(cfg, params, tokens, gen, embeds=embeds)
     gen_ids = res["tokens"]
     print(f"generated {tuple(gen_ids.shape)} in {res['seconds']:.2f}s "
           f"({res['tok_s']:.1f} tok/s) on {dev}: prefill "

@@ -107,17 +107,19 @@ def make_train_step_compressed(cfg: ArchConfig, opt: AdamW, transport, topo,
 
 def make_prefill_step(cfg: ArchConfig, max_seq: int, *,
                       attention: str = "kernel"):
-    """``prefill_step(params, tokens) -> (last-token logits, cache)``;
-    ``attention`` picks the prefill's path (``"kernel"`` or ``"plain"``)."""
-    def prefill_step(params, tokens):
-        return prefill(cfg, params, tokens, max_seq=max_seq,
+    """``prefill_step(params, tokens, embeds=None) -> (last-token logits,
+    cache)``; ``embeds`` are an encoder-decoder's frame embeddings;
+    ``attention`` picks the path (``"kernel"`` or ``"plain"``)."""
+    def prefill_step(params, tokens, embeds=None):
+        return prefill(cfg, params, tokens, embeds=embeds, max_seq=max_seq,
                        attention=attention)
     return prefill_step
 
 
-def make_decode_step(cfg: ArchConfig):
+def make_decode_step(cfg: ArchConfig, *, attention: str = "kernel"):
     """``serve_step(params, cache, token) -> (logits, cache)``; the cache is
-    updated in place (the reference donates it)."""
+    updated in place (the reference donates it); ``attention`` as for
+    :func:`make_prefill_step` (an encoder-decoder's cross-attention)."""
     def serve_step(params, cache, token):
-        return decode_step(cfg, params, cache, token)
+        return decode_step(cfg, params, cache, token, attention=attention)
     return serve_step

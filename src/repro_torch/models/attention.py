@@ -1,4 +1,5 @@
-"""Attention mixer: grouped-query attention (causal or bidirectional).
+"""Attention mixer: grouped-query attention (causal, bidirectional or
+cross).
 
 The reference's ``repro/models/attention.py``, GQA only.  Score paths:
 
@@ -11,16 +12,22 @@ The reference's ``repro/models/attention.py``, GQA only.  Score paths:
   does not compose with GSPMD) does not apply, so this one path takes the
   place of both the reference's ``_einsum_attention`` and
   ``_chunked_attention``, forward and backward;
-* a non-causal or offset query takes the kernel's plain version;
-* a single decode token attends the whole (B, Hkv, S_max, hd) cache in
-  :func:`_decode_attention`, torch ops (the reference's
-  ``DECODE_GROUPED = False`` path: not a Pallas kernel there either).
+* every **non-causal** call (``q_offset == 0``, any Sq and Skv) goes to
+  the same wrapper with ``causal=False``: the encoder's bidirectional
+  self-attention (Sq == Skv), and cross-attention over the encoder's
+  output (``kv_source``) at prefill (Sq the prompt) and at each decode
+  step (Sq == 1);
+* a causal query with an offset or Sq != Skv takes the kernel's plain
+  version;
+* a single decode token attends the whole (B, Hkv, S_max, hd) self-
+  attention cache in :func:`_decode_attention`, torch ops (the
+  reference's ``DECODE_GROUPED = False`` path: not a Pallas kernel there
+  either).
 
-``attention="kernel"`` (the default) or ``"plain"`` picks the prefill's
-path explicitly, for comparisons; nothing picks on failure.  The
-reference's ``models/partitioning.py`` is not ported: on one device its
-``constrain`` is the identity.  MLA (``mla_forward``) raises
-``NotImplementedError``.
+``attention="kernel"`` (the default) or ``"plain"`` picks the path
+explicitly, for comparisons; nothing picks on failure.  The reference's
+``models/partitioning.py`` is not ported: on one device its ``constrain``
+is the identity.  MLA (``mla_forward``) raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -71,48 +78,54 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q (B, H, Sq, hd), k and v (B, Hkv, Skv, hd) -> (B, H, Sq, hd), a
     view of a ``(B, Sq, H, hd)``-contiguous result.
 
-    The causal prefill goes to the flash wrapper (kernel on the card);
-    everything else, and ``attention="plain"``, to its plain version.  Both
-    take the operands as the strided views they are: no copy.
+    The causal prefill (Sq == Skv) and every non-causal call go to the
+    flash wrapper (kernel on the card); a causal call with an offset or
+    Sq != Skv, and ``attention="plain"``, to its plain version.  Both take
+    the operands as the strided views they are: no copy.
     """
     if attention not in ATTENTION_PATHS:
         raise ValueError(f"attention must be one of {ATTENTION_PATHS}, got "
                          f"{attention!r}")
-    if attention == "kernel" and causal and q_offset == 0 \
-            and q.shape[2] == k.shape[2]:
-        return flash_attention(q, k, v, causal=True)
+    if attention == "kernel" and q_offset == 0 and \
+            (not causal or q.shape[2] == k.shape[2]):
+        return flash_attention(q, k, v, causal=causal)
     return flash_attention_plain(q, k, v, causal=causal, q_offset=q_offset)
 
 
 def attn_forward(cfg: ArchConfig, p, x: torch.Tensor, *,
                  positions: torch.Tensor, causal: bool = True,
-                 cache: Optional[dict] = None, attention: str = "kernel"
+                 cache: Optional[dict] = None, attention: str = "kernel",
+                 kv_source: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, Optional[dict]]:
-    """GQA self-attention.  x: (B, S, d); ``p`` maps the projection names
-    to weights.  cache: ``{"k", "v": (B, Hkv, S_max, hd), "pos": int}``;
-    the step's k/v are written into it at ``pos`` in place (the reference's
-    ``dynamic_update_slice``), and a single token (S == 1) then attends the
-    whole cache.  Returns ``(out, {"k", "v"} or None)``."""
+    """GQA self- or cross-attention.  x: (B, S, d); ``p`` maps the
+    projection names to weights.  cache: ``{"k", "v": (B, Hkv, S_max, hd),
+    "pos": int}``; the step's k/v are written into it at ``pos`` in place
+    (the reference's ``dynamic_update_slice``), and a single token (S == 1)
+    then attends the whole cache.  ``kv_source`` (B, S_src, d), the
+    encoder's output: k and v are projected from it (S_src positions), no
+    RoPE is applied and no cache is written (cross-attention).  Returns
+    ``(out, {"k", "v"} or None)``."""
     b, s, _ = x.shape
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dt = x.dtype
+    src = x if kv_source is None else kv_source
     q = x @ p["wq"].to(dt)
-    k = x @ p["wk"].to(dt)
-    v = x @ p["wv"].to(dt)
+    k = src @ p["wk"].to(dt)
+    v = src @ p["wv"].to(dt)
     if cfg.qkv_bias:
         q = q + p["bq"].to(dt)
         k = k + p["bk"].to(dt)
         v = v + p["bv"].to(dt)
     q = q.reshape(b, s, h, hd)
-    k = k.reshape(b, s, hkv, hd)
-    v = v.reshape(b, s, hkv, hd)
-    if cfg.rope_theta > 0:
+    k = k.reshape(b, src.shape[1], hkv, hd)
+    v = v.reshape(b, src.shape[1], hkv, hd)
+    if cfg.rope_theta > 0 and kv_source is None:
         q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
         k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
     q, k, v = (t.transpose(1, 2) for t in (q, k, v))
 
     new_cache = None
-    if cache is not None:
+    if cache is not None and kv_source is None:
         pos = int(cache["pos"])
         ck, cv = cache["k"], cache["v"]
         if pos + s > ck.shape[2]:

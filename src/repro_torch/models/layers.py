@@ -63,6 +63,20 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     return out.to(x.dtype)
 
 
+def sinusoidal_positions(seq: int, d: int, offset: int = 0,
+                         device=None) -> torch.Tensor:
+    """Whisper-style fixed positional embedding (no RoPE), fp32 (S, d):
+    ``sin`` on the even columns and ``cos`` on the odd ones, interleaved,
+    of ``pos / 10000 ** (dim / d)`` with ``pos = offset + arange(S)``."""
+    pos = (int(offset) + torch.arange(seq, device=device)).float()[:, None]
+    dim = torch.arange(0, d, 2, dtype=torch.float32, device=device)[None, :]
+    angle = pos / (10000.0 ** (dim / d))
+    pe = torch.zeros(seq, d, dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(angle)
+    pe[:, 1::2] = torch.cos(angle)
+    return pe
+
+
 # ---------------------------------------------------------------- SwiGLU FFN
 def ffn_forward(p, x: torch.Tensor) -> torch.Tensor:
     """SwiGLU: ``(silu(x W_gate) * (x W_up)) W_o``, silu in fp32; ``p``

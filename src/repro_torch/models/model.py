@@ -1,5 +1,6 @@
 """LM assembly: init / cache / forward / loss / prefill / decode (the
-reference's ``repro/models/model.py`` for decoder-only dense GQA models).
+reference's ``repro/models/model.py`` for dense GQA models, decoder-only
+or encoder-decoder).
 
 The reference scans over stacked pattern groups; here a Python loop runs
 the layers in order (layer ``g * len(pattern) + i`` is group ``g`` of
@@ -9,8 +10,17 @@ the backward (``torch.utils.checkpoint``, the reference's ``REMAT_POLICY =
 forward twice per step and backward once.  With ``CAST_PARAMS_ONCE`` every fp32 parameter of two
 or more dimensions is cast to the bf16 compute dtype once per call, before
 the layers, while the norm scales stay fp32 (the reference's knob of the
-same name).  ``first_dense_ff`` (DeepSeek), encoder–decoder (whisper) and
-``n_patches`` (VLM) raise ``NotImplementedError``.
+same name).  An encoder–decoder (whisper, ``cfg.is_encdec``) encodes
+the stub frontend's frame embeddings (``embeds``) through ``encoder``'s
+bidirectional blocks, and each decoder block cross-attends the result;
+``first_dense_ff`` (DeepSeek) and ``n_patches`` (VLM) raise
+``NotImplementedError``.
+
+One deliberate difference: the reference's cached forward reads
+``cache["encoder_out"]`` whenever the step has one token, so a one-token
+prompt's prefill attends the fresh cache's zeros instead of the audio;
+here the frames are encoded whenever ``embeds`` are given, and only
+:func:`decode_step` reads the cached encoder output.
 """
 from __future__ import annotations
 
@@ -22,10 +32,13 @@ from torch import nn
 
 from .._device import resolve_device
 from .blocks import Block, block_forward
-from .config import ArchConfig
-from .layers import cross_entropy, rms_norm, truncated_normal
+from .config import ArchConfig, BlockSpec
+from .layers import (cross_entropy, rms_norm, sinusoidal_positions,
+                     truncated_normal)
 
 CAST_PARAMS_ONCE = True
+#: The encoder's block (the reference's ``_encode``).
+ENCODER_SPEC = BlockSpec("attn_bidir", "dense")
 
 
 def check_config(cfg: ArchConfig) -> None:
@@ -34,10 +47,6 @@ def check_config(cfg: ArchConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: a dense layer 0 before the pattern (first_dense_ff) "
             "is not ported yet (ROADMAP queue 1 item 13b)")
-    if cfg.is_encdec:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder models are not ported yet "
-            "(ROADMAP queue 1 item 13b)")
     if cfg.n_patches:
         raise NotImplementedError(
             f"{cfg.name}: prepended patch embeddings (VLM) are not ported "
@@ -45,9 +54,12 @@ def check_config(cfg: ArchConfig) -> None:
 
 
 class LM(nn.Module):
-    """Decoder-only LM: ``embed`` (V, d), ``layers`` (one :class:`Block`
-    per layer), ``final_norm`` (d,) and, unless the embeddings are tied,
-    ``lm_head`` (d, V).  Weights are ``(d_in, d_out)`` as in the reference.
+    """The LM: ``embed`` (V, d), ``layers`` (one :class:`Block` per
+    layer), ``final_norm`` (d,), unless the embeddings are tied ``lm_head``
+    (d, V), and for an encoder-decoder ``encoder.layers`` (one
+    ``ENCODER_SPEC`` block per ``encoder_layers``) and
+    ``encoder.final_norm``.  Weights are ``(d_in, d_out)`` as in the
+    reference.
     The constructor allocates without initialising (:func:`init_params`
     draws the weights; ``convert.lm_params_from_reference`` loads them)."""
 
@@ -62,8 +74,19 @@ class LM(nn.Module):
         if not cfg.tie_embeddings:
             self.lm_head = nn.Parameter(torch.empty(d, v, **kw))
         self.layers = nn.ModuleList(
-            Block(cfg, cfg.pattern[i % len(cfg.pattern)], **kw)
+            Block(cfg, layer_spec(cfg, i), **kw)
             for i in range(cfg.n_layers))
+        if cfg.is_encdec:
+            self.encoder = nn.Module()
+            self.encoder.layers = nn.ModuleList(
+                Block(cfg, ENCODER_SPEC, **kw)
+                for _ in range(cfg.encoder_layers))
+            self.encoder.final_norm = nn.Parameter(torch.zeros(d, **kw))
+
+
+def layer_spec(cfg: ArchConfig, i: int) -> BlockSpec:
+    """Decoder layer ``i``'s block: pattern slot ``i % len(pattern)``."""
+    return cfg.pattern[i % len(cfg.pattern)]
 
 
 def init_params(cfg: ArchConfig, seed: int = 0, *, device=None,
@@ -86,20 +109,28 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, device=None,
                 dtype=dtype))
         for block in model.layers:
             block.init(gen)
+        if cfg.is_encdec:
+            for block in model.encoder.layers:
+                block.init(gen)
     return model
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
                dtype=torch.bfloat16, device=None) -> dict:
     """``{"pos": 0, "layers": [{"k", "v": (B, Hkv, S_max, hd)}, ...]}``,
-    zeros; ``pos`` is a Python int (no device round trip per step)."""
+    zeros, and for an encoder-decoder ``"encoder_out"`` (B, n_frames, d);
+    ``pos`` is a Python int (no device round trip per step)."""
     check_config(cfg)
     dev = resolve_device(device)
     shape = (batch, cfg.n_kv_heads, max_seq, cfg.head_dim)
-    return {"pos": 0, "layers": [
+    cache = {"pos": 0, "layers": [
         {"k": torch.zeros(shape, dtype=dtype, device=dev),
          "v": torch.zeros(shape, dtype=dtype, device=dev)}
         for _ in range(cfg.n_layers)]}
+    if cfg.is_encdec:
+        cache["encoder_out"] = torch.zeros(batch, cfg.n_frames, cfg.d_model,
+                                           dtype=dtype, device=dev)
+    return cache
 
 
 def make_positions(cfg: ArchConfig, batch: int, seq: int, offset: int = 0,
@@ -130,36 +161,81 @@ def _param_tree(model: LM, compute: torch.dtype) -> dict:
     return tree
 
 
+def _embed(cfg: ArchConfig, tree: dict, tokens: torch.Tensor,
+           compute: torch.dtype, offset: int) -> torch.Tensor:
+    """Token embeddings in the compute dtype; with ``rope_theta == 0`` plus
+    the sinusoidal positions from ``offset``, cast before the add."""
+    x = torch.nn.functional.embedding(tokens, tree["embed"]).to(compute)
+    if cfg.rope_theta == 0:       # sinusoidal absolute positions (whisper)
+        pe = sinusoidal_positions(x.shape[1], cfg.d_model, offset,
+                                  device=x.device)
+        x = x + pe[None].to(compute)
+    return x
+
+
+def _encode(cfg: ArchConfig, tree: dict, frames: torch.Tensor,
+            compute: torch.dtype, attention: str) -> torch.Tensor:
+    """The audio encoder over the stub frontend's frame embeddings (B, F,
+    d): plus the sinusoidal positions, the bidirectional blocks, the
+    encoder's final norm."""
+    b, f, _ = frames.shape
+    x = frames.to(compute)
+    x = x + sinusoidal_positions(f, cfg.d_model, device=x.device)[None].to(
+        compute)
+    positions = make_positions(cfg, b, f, device=x.device)
+    layers = tree["encoder"]["layers"]
+    for i in range(cfg.encoder_layers):
+        x, _ = block_forward(cfg, ENCODER_SPEC, layers[str(i)], x,
+                             positions=positions, attention=attention)
+    return rms_norm(x, tree["encoder"]["final_norm"], cfg.norm_eps)
+
+
 def forward(cfg: ArchConfig, params: LM, tokens: torch.Tensor, *,
+            embeds: Optional[torch.Tensor] = None,
             cache: Optional[dict] = None, last_only: bool = False,
             remat: bool = False,
             attention: str = "kernel") -> Tuple[torch.Tensor, Optional[dict]]:
-    """Returns ``(logits, new_cache)``; tokens (B, S) int.  ``attention``
-    picks the prefill's attention path (``"kernel"`` or ``"plain"``).
-    ``remat`` (training, no cache) recomputes each layer in the backward
-    instead of keeping its activations.  The reference's third output, the
-    MoE auxiliary loss, is always zero here and is left out."""
+    """Returns ``(logits, new_cache)``; tokens (B, S) int.  ``embeds``
+    (B, n_frames, d): an encoder-decoder's frame embeddings, encoded
+    whenever given; without them a one-token cached step reads the
+    cache's ``encoder_out``.  ``attention`` picks the attention path
+    (``"kernel"`` or ``"plain"``).  ``remat`` (training, no cache)
+    recomputes each decoder layer in the backward instead of keeping its
+    activations.  The reference's third output, the MoE auxiliary loss, is
+    always zero here and is left out."""
     check_config(cfg)
     if remat and cache is not None:
         raise ValueError("remat is for training: no cache")
     compute = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
     tree = _param_tree(params, compute)
     b, s = tokens.shape
-    x = torch.nn.functional.embedding(tokens, tree["embed"]).to(compute)
     pos = cache["pos"] if cache is not None else 0
+    x = _embed(cfg, tree, tokens, compute, pos)
     positions = make_positions(cfg, b, s, offset=pos, device=tokens.device)
+
+    encoder_out = None
+    if cfg.is_encdec:
+        if embeds is not None:
+            encoder_out = _encode(cfg, tree, embeds, compute, attention)
+        elif cache is not None and s == 1:
+            encoder_out = cache["encoder_out"].to(compute)
+        else:
+            raise ValueError(f"{cfg.name}: an encoder-decoder forward needs "
+                             "the frame embeds (embeds=)")
 
     new_layers = []
     for i in range(cfg.n_layers):
         p = tree["layers"][str(i)]
+        spec = layer_spec(cfg, i)
         if remat:
             x = torch.utils.checkpoint.checkpoint(
-                _train_block, cfg, p, x, positions, attention,
-                use_reentrant=False)
+                _train_block, cfg, spec, p, x, positions, encoder_out,
+                attention, use_reentrant=False)
             continue
         c = cache["layers"][i] if cache is not None else None
-        x, nc = block_forward(cfg, p, x, positions=positions, pos=pos,
-                              cache=c, attention=attention)
+        x, nc = block_forward(cfg, spec, p, x, positions=positions, pos=pos,
+                              cache=c, encoder_out=encoder_out,
+                              attention=attention)
         new_layers.append(nc)
 
     x = rms_norm(x, tree["final_norm"], cfg.norm_eps)
@@ -170,44 +246,59 @@ def forward(cfg: ArchConfig, params: LM, tokens: torch.Tensor, *,
     new_cache = None
     if cache is not None:
         new_cache = {"pos": pos + s, "layers": new_layers}
+        if cfg.is_encdec:
+            new_cache["encoder_out"] = cache["encoder_out"]
+            if embeds is not None:
+                cache["encoder_out"].copy_(encoder_out)
     return logits, new_cache
 
 
-def _train_block(cfg: ArchConfig, p: dict, x: torch.Tensor,
-                 positions: torch.Tensor, attention: str) -> torch.Tensor:
-    return block_forward(cfg, p, x, positions=positions,
-                         attention=attention)[0]
+def _train_block(cfg: ArchConfig, spec: BlockSpec, p: dict, x: torch.Tensor,
+                 positions: torch.Tensor,
+                 encoder_out: Optional[torch.Tensor],
+                 attention: str) -> torch.Tensor:
+    return block_forward(cfg, spec, p, x, positions=positions,
+                         encoder_out=encoder_out, attention=attention)[0]
 
 
 def loss_fn(cfg: ArchConfig, params: LM, batch: Dict[str, torch.Tensor], *,
             attention: str = "kernel") -> torch.Tensor:
     """Causal-LM loss (the reference's ``loss_fn``): the mean token cross
     entropy, in fp32, of :func:`forward` with ``remat`` on.  batch:
-    ``tokens`` and ``labels`` (B, S) int.  The logits are in the compute
-    dtype (bf16 when ``cfg.dtype`` is, after the ``CAST_PARAMS_ONCE``
-    cast).  The reference adds ``AUX_LOSS_WEIGHT`` times the MoE auxiliary
-    loss, which is zero for the dense blocks ported here."""
-    logits, _ = forward(cfg, params, batch["tokens"], remat=True,
+    ``tokens`` and ``labels`` (B, S) int, and for an encoder-decoder
+    ``embeds``.  The logits are in the compute dtype (bf16 when
+    ``cfg.dtype`` is, after the ``CAST_PARAMS_ONCE`` cast).  The reference
+    adds ``AUX_LOSS_WEIGHT`` times the MoE auxiliary loss, which is zero
+    for the dense blocks ported here."""
+    logits, _ = forward(cfg, params, batch["tokens"],
+                        embeds=batch.get("embeds"), remat=True,
                         attention=attention)
     return cross_entropy(logits, batch["labels"])
 
 
 @torch.no_grad()
 def prefill(cfg: ArchConfig, params: LM, tokens: torch.Tensor, *,
-            max_seq: int, cache_dtype=torch.bfloat16,
+            embeds: Optional[torch.Tensor] = None, max_seq: int,
+            cache_dtype=torch.bfloat16,
             attention: str = "kernel") -> Tuple[torch.Tensor, dict]:
-    """Fill a fresh KV cache; returns ``(last-token logits (B, V), cache)``."""
+    """Fill a fresh KV cache (and, for an encoder-decoder, its
+    ``encoder_out`` with the encoded ``embeds``, in the cache dtype);
+    returns ``(last-token logits (B, V), cache)``."""
     cache = init_cache(cfg, tokens.shape[0], max_seq, cache_dtype,
                        device=tokens.device)
-    logits, cache = forward(cfg, params, tokens, cache=cache, last_only=True,
-                            attention=attention)
+    logits, cache = forward(cfg, params, tokens, embeds=embeds, cache=cache,
+                            last_only=True, attention=attention)
     return logits[:, 0], cache
 
 
 @torch.no_grad()
 def decode_step(cfg: ArchConfig, params: LM, cache: dict,
-                token: torch.Tensor) -> Tuple[torch.Tensor, dict]:
+                token: torch.Tensor, *,
+                attention: str = "kernel") -> Tuple[torch.Tensor, dict]:
     """One serve step: token (B, 1) -> ``(logits (B, V), cache)``; the
-    cache is updated in place and returned."""
-    logits, cache = forward(cfg, params, token, cache=cache, last_only=True)
+    cache is updated in place and returned.  An encoder-decoder reads the
+    cache's ``encoder_out`` and projects the cross-attention's k and v
+    from it again, as the reference does."""
+    logits, cache = forward(cfg, params, token, cache=cache, last_only=True,
+                            attention=attention)
     return logits[:, 0], cache

@@ -100,6 +100,7 @@ def test_lm_entry_points_default_to_the_card():
     cfg = get_reduced("smollm_135m")
     assert serve.run_lm.__kwdefaults__["device"] is None
     assert serve.prompt_tokens.__defaults__ == (None,)    # device
+    assert serve.prompt_inputs.__defaults__ == (None,)    # device
     assert PM.init_params(cfg, 0, device="cpu").embed.device.type == "cpu"
     if not torch.cuda.is_available():
         with pytest.raises((RuntimeError, AssertionError)):

@@ -882,6 +882,70 @@ def test_lm_kernel_and_plain_attention_agree_on_card(sm90, dtype):
                                want.float().cpu().numpy(), rtol=0, atol=tol)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("sq,skv", [(1500, 1500), (32, 1500), (1, 1500)])
+def test_flash_attention_non_causal_at_whisper_shapes_on_card(sm90, sq, skv,
+                                                              dtype):
+    """Whisper-small's non-causal calls (B=8, H=Hkv=12, hd 64): the
+    encoder (Sq = Skv = 1500, ragged against the 64-row tiles) and the
+    cross-attention at a 32-token prefill and at a decode step (Sq = 1),
+    each in the LM's layout: (B, S, heads, hd) projections transposed to
+    (B, heads, S, hd) views, q's and k/v's from separate buffers."""
+    rng = np.random.default_rng(sq + skv)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                                ).to(dtype).cuda().transpose(1, 2)
+               for shape in ((8, sq, 12, 64), (8, skv, 12, 64),
+                             (8, skv, 12, 64)))
+    before = fa.LAUNCHES["flash_attention"]
+    got = fa.flash_attention(q, k, v, causal=False)
+    want = fa.flash_attention_plain(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == before + 1
+    assert got.shape == q.shape and got.transpose(1, 2).is_contiguous()
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_whisper_kernel_and_plain_attention_agree_on_card(sm90, dtype):
+    """A small whisper with the published head_dim 64 and 100 frames: a
+    prefill launches the flash kernel once a layer in the encoder
+    (bidirectional) and twice a decoder layer (causal, cross), a decode
+    step once a layer (cross, Sq = 1); the logits of kernel and plain
+    attention agree as the dense LM's do."""
+    import dataclasses
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch import serve
+    from repro_torch.models import model as PM
+    cfg = dataclasses.replace(get_reduced("whisper_small"), head_dim=64,
+                              n_frames=100, dtype=dtype)
+    lm = PM.init_params(cfg, 0)
+    toks, frames = serve.prompt_inputs(cfg, 4, 20, 0)
+    kernels.reset_launch_counts()
+    got, cache = PM.prefill(cfg, lm, toks, embeds=frames, max_seq=24)
+    assert kernels.launch_counts()["flash_attention"] == \
+        cfg.encoder_layers + 2 * cfg.n_layers
+    want, plain_cache = PM.prefill(cfg, lm, toks, embeds=frames, max_seq=24,
+                                   attention="plain")
+    tok = got.argmax(-1)[:, None]
+    kernels.reset_launch_counts()
+    step, _ = PM.decode_step(cfg, lm, cache, tok)
+    assert kernels.launch_counts()["flash_attention"] == cfg.n_layers
+    step_plain, _ = PM.decode_step(cfg, lm, plain_cache, tok,
+                                   attention="plain")
+    assert kernels.launch_counts()["flash_attention"] == cfg.n_layers
+    torch.cuda.synchronize()
+    for a, b in ((got, want), (step, step_plain)):
+        tol = 5e-2 * float(b.float().abs().max()) if dtype == "bfloat16" \
+            else 1e-4
+        np.testing.assert_allclose(a.float().cpu().numpy(),
+                                   b.float().cpu().numpy(), rtol=0, atol=tol)
+
+
 # ------------------------------------------------ the flash kernel's backward
 def _bwd_operands(b, h, hkv, sq, skv, hd, dtype, seed, layout="lm"):
     """q, k, v, dO in the LM's layout ((B, S, heads, hd) transposed), or

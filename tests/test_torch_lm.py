@@ -91,14 +91,14 @@ def test_registry_raises_for_unported_ids():
         PC.get_config("gpt-5")
 
 
-@pytest.mark.parametrize("spec", [BlockSpec("attn_bidir", "dense"),
+@pytest.mark.parametrize("spec", [BlockSpec("attn_bidir", "moe"),
                                   BlockSpec("attn", "none"),
                                   BlockSpec("mla", "dense"),
                                   BlockSpec("mamba", "none"),
                                   BlockSpec("mlstm", "none"),
                                   BlockSpec("slstm", "none"),
                                   BlockSpec("attn", "moe"),
-                                  BlockSpec("attn", "dense", cross=True)])
+                                  BlockSpec("mla", "dense", cross=True)])
 def test_other_blocks_raise_not_implemented(spec):
     cfg = dataclasses.replace(PC.get_reduced("smollm_135m"), pattern=(spec,))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -109,8 +109,13 @@ def test_other_blocks_raise_not_implemented(spec):
                                          ("encoder_layers", 1),
                                          ("n_patches", 4)])
 def test_other_model_features_raise_not_implemented(field, value):
+    """DeepSeek's dense layer 0 and a VLM's patches raise; an
+    encoder-decoder (whisper) runs, so its case asks for both of the
+    others beside the encoder."""
+    extra = {"first_dense_ff": 32, "n_patches": 4} \
+        if field == "encoder_layers" else {}
     cfg = dataclasses.replace(PC.get_reduced("smollm_135m"),
-                              **{field: value})
+                              **{field: value}, **extra)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         PM.LM(cfg, device="cpu")
 
