@@ -155,7 +155,19 @@ What it does, in order; any failure raises and the exit code is non-zero:
    served (batch 4, prompt 512, 8 tokens) and yi-34b (batch 1, prompt
    128, 4 tokens), each against the plain attention with its peak
    memory, and qwen1.5-110b's parameter count (207 GiB in bf16: it does
-   not fit); the flash backward kernel
+   not fit); 7c4. xlstm-350m at full width (fp32 master weights, bf16
+   compute; 21 mLSTM and 3 sLSTM blocks, no FFN, no attention): served
+   (batch 8, prompt 512 = 4 chunks, 32 greedy tokens) with a decode
+   step's and one sLSTM and one mLSTM layer's prefill profile windows,
+   an fp32 copy's 128 teacher-forced decode steps after a 512-token
+   prefill held to one chunked forward over 640 (rtol = atol = 2e-3, the
+   worst step within ``XLSTM_DECODE_LIMIT`` = 2 of it: the forward agrees
+   with itself over 512 and 640 tokens only that far), one mLSTM and one
+   sLSTM layer's bf16 output against its fp32 one (``LM_BF16_TOL``; the
+   whole bf16 prefill's distance from the fp32 one is a printed reading),
+   and 3 ``make_train_step`` steps on one batch
+   (batch 8, seq 512: finite, falling loss); no kernel of the port lies
+   on this path, so every launch count must stay 0; the flash backward kernel
    (dq, dk, dv) against its plain version at the training shape (B=8,
    H=9, Hkv=3, S=512, hd 64, bf16), at B=1, S=4096, hd 128 in bf16, and
    at lengths that are not multiples of its tiles (bf16; fp32 at hd 128),
@@ -166,7 +178,8 @@ What it does, in order; any failure raises and the exit code is non-zero:
    one step through the flash kernels against the plain attention (loss
    and every gradient leaf), 20 steps of ``make_train_step`` at batch 8,
    seq 512 (exactly 60 forward and 30 backward flash launches per step,
-   the loss decreasing, ms per step, tokens/s, peak memory, a profile
+   the loss on a held-out batch of the stream lower after the steps than
+   before them, ms per step, tokens/s, peak memory, a profile
    window with the flash kernels' device shares), then ``python -m
    repro_torch.launch.train`` in subprocesses, an uninterrupted run and
    one crashing at step 25 then resumed (``[resume] step 20``, equal
@@ -2714,12 +2727,237 @@ def dense_gqa_phase(kernels, card: str) -> dict:
     return out
 
 
+#: 7c4's request: (batch, prompt, greedy tokens); the prompt is 4 chunks
+#: of the config's 128 (the chunk rule), the request the LM cells' own
+XLSTM_BATCH, XLSTM_PROMPT, XLSTM_GEN = 8, 512, 32
+#: 7c4's teacher-forced check, fp32: (batch, prefill, decode steps)
+XLSTM_TF = (2, 512, 128)
+#: 7c4's decode against the parallel forward: rtol = atol (the reference's
+#: ``test_decode_matches_parallel_forward`` bound), and the limit on the
+#: worst step in units of that bound.  At this width the chunked forward
+#: agrees with itself only to about twice the bound: over the positions
+#: they share, ``forward(512)`` leaves ``forward(640)`` by 1.86 of it
+#: (NVIDIA H100 80GB HBM3, 700 W; PERF.md section 5), and the decode read
+#: 1.73
+XLSTM_DECODE_TOL = 2e-3
+XLSTM_DECODE_LIMIT = 2.0
+XLSTM_TRAIN_STEPS = 3
+
+
+def xlstm_phase(kernels, card: str) -> None:
+    """7c4: xlstm-350m at full width (24 blocks, 21 mLSTM and 3 sLSTM, no
+    FFN), seeded fp32 master weights, bf16 compute: served through
+    ``serve_lm`` (profile windows of a decode step and of one sLSTM and one
+    mLSTM layer's prefill); the recurrent decode held to the chunked
+    parallel forward in fp32 (``XLSTM_TF``: 128 teacher-forced steps after
+    a 512-token prefill against one forward over 640); one mLSTM and one
+    sLSTM layer's bf16 output against its fp32 one, and the whole bf16
+    prefill's distance from the fp32 one; ``XLSTM_TRAIN_STEPS`` steps of
+    ``make_train_step`` on one batch of the trainer's stream (the last one
+    profiled).  No kernel of the port lies on this path: every launch
+    count stays 0.
+
+    At this width the model at init amplifies rounding: its mLSTM's gated
+    norm divides rows of rms 1e-3 by that rms.  Two fp32 forwards that
+    differ only in their GEMM shapes leave each other by about twice the
+    reference's 2e-3, so the decode is held to ``XLSTM_DECODE_LIMIT``
+    times it; and the whole bf16 model lies most of the logits' range from
+    the fp32 one, so ``LM_BF16_TOL`` holds each mixer kind alone (one
+    mLSTM and one sLSTM layer on the same full-width input), and the whole
+    model's distance is printed as a reading."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model as PM
+    from repro_torch.models import ssm as PS
+    from repro_torch.optim import AdamW, cosine_schedule
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config("xlstm_350m")
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    lm, init_s = run_timed(PM.init_params, cfg, 0)
+    n_params = sum(p.numel() for p in lm.parameters())
+    batch, prompt_len, gen = XLSTM_BATCH, XLSTM_PROMPT, XLSTM_GEN
+    launched = {}
+
+    # ---- serve
+    tokens = serve.prompt_tokens(cfg, batch, prompt_len, 0)
+    serve.serve_lm(cfg, lm, tokens, 2)                          # warm-up
+    res, _, counts = counted(kernels, serve.serve_lm, cfg, lm, tokens, gen)
+    launched["serve"] = sum(counts.values())
+    peak = torch.cuda.max_memory_allocated()
+    print(f"lm serve {cfg.name} ({n_params / 1e6:.1f}M params, fp32 "
+          f"weights {n_params * 4 / 1e9:.2f} GB, init {init_s:.2f} s; "
+          f"{cfg.n_layers} blocks: 21 mLSTM, 3 sLSTM, no FFN) batch={batch} "
+          f"prompt={prompt_len} gen={gen} bf16 on {card}: prefill_ms="
+          f"{res['prefill_ms']:.3f} decode_ms_per_token="
+          f"{res['decode_ms_per_token']:.3f} tok_s={res['tok_s']:.1f} "
+          f"max_memory_allocated={peak / 2 ** 30:.3f} GiB; kernel launches "
+          f"in the served call {launched['serve']} (want 0)", flush=True)
+    print(f"lm {cfg.name} first tokens {res['tokens'][:2, :8].tolist()}",
+          flush=True)
+    if not (torch.isfinite(res["first_logits"]).all()
+            and res["tokens"].shape == (batch, gen)):
+        fail("xlstm serve: non-finite logits or a wrong shape")
+    state = {"cache": PM.prefill(cfg, lm, tokens,
+                                 max_seq=prompt_len + gen)[1]}
+
+    def xlstm_decode():   # the same cache every call (the state stays)
+        PM.decode_step(cfg, lm, state["cache"], tokens[:, :1])
+
+    profile_window(f"xlstm decode batch {batch}, 5 steps, on {card}",
+                   "step", xlstm_decode, units=5, calls=5)
+    del state
+    slstm = next(i for i in range(cfg.n_layers)
+                 if PM.layer_spec(cfg, i).mixer == "slstm")
+    c0 = PS.slstm_cache_init(cfg, batch)
+    s0 = PS.ssd_cache_init(cfg, batch, "mlstm", torch.bfloat16)
+    h = torch.randn(batch, prompt_len, cfg.d_model, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(0)
+                    ).to(torch.bfloat16)
+    with torch.no_grad():                   # as a prefill runs them
+        tree = PM._param_tree(lm, torch.bfloat16)["layers"]
+        profile_window(
+            f"xlstm one sLSTM layer's prefill (layer {slstm}, {prompt_len} "
+            f"time steps) batch {batch}, on {card}", "layer",
+            lambda: PS.slstm_forward(cfg, tree[str(slstm)]["mixer"], h,
+                                     cache=c0), units=1)
+        profile_window(
+            f"xlstm one mLSTM layer's prefill (layer 0, "
+            f"{prompt_len // cfg.ssd_chunk} chunks) batch {batch}, on "
+            f"{card}", "layer",
+            lambda: PS.ssd_forward(cfg, tree["0"]["mixer"], h,
+                                   kind="mlstm", cache=s0), units=1)
+        # bf16 against fp32, each mixer kind alone on the same input
+        tree32 = PM._param_tree(lm, torch.float32)["layers"]
+        mixers = {
+            "mLSTM layer 0": lambda t, x: PS.ssd_forward(
+                cfg, t["0"]["mixer"], x, kind="mlstm")[0],
+            f"sLSTM layer {slstm}": lambda t, x: PS.slstm_forward(
+                cfg, t[str(slstm)]["mixer"], x)[0]}
+        kernels.reset_launch_counts()
+        for label, fn in mixers.items():
+            want = fn(tree32, h.float())
+            got = fn(tree, h).float()
+            diff = float((got - want).abs().max())
+            top = float(want.abs().max())
+            print(f"lm {cfg.name} {label} bf16 vs fp32 (batch {batch}, "
+                  f"{prompt_len} tokens, one input of rms 1): max abs diff "
+                  f"{diff:.4e} of max|out| {top:.4f} (tol {LM_BF16_TOL:g} x "
+                  f"max|out|) on {card}", flush=True)
+            if not (torch.isfinite(got).all() and
+                    diff <= LM_BF16_TOL * top):
+                fail(f"xlstm: the bf16 {label} {diff} from its fp32 run "
+                     f"(tol {LM_BF16_TOL * top})")
+        launched["mixers"] = sum(kernels.launch_counts().values())
+    del tree, tree32, h, c0, s0, want, got
+
+    # the whole model's bf16 prefill against its fp32 one: a reading
+    kernels.reset_launch_counts()
+    l32 = PM.prefill(cfg32, lm, tokens, max_seq=prompt_len,
+                     cache_dtype=torch.float32)[0]
+    launched["prefill_fp32"] = sum(kernels.launch_counts().values())
+    l16 = res["first_logits"].float()
+    print(f"lm {cfg.name} bf16 vs fp32 prefill last-token logits, the "
+          f"whole model (a reading, held to no bound: the model at init "
+          f"amplifies rounding): max abs diff "
+          f"{float((l16 - l32).abs().max()):.4e} of max|logits| "
+          f"{float(l32.abs().max()):.4f}", flush=True)
+    if not torch.isfinite(l32).all():
+        fail("xlstm: non-finite fp32 prefill logits")
+    del res, l16, l32
+
+    # ---- the recurrent decode against the chunked parallel forward, fp32
+    b_tf, p_tf, steps_tf = XLSTM_TF
+    toks = serve.prompt_tokens(cfg, b_tf, p_tf + steps_tf, 1)
+
+    def excess(got, want):
+        return float(((got - want).abs() /
+                      (XLSTM_DECODE_TOL * (1 + want.abs()))).max())
+
+    def teacher_forced():
+        with torch.no_grad():
+            full, _ = PM.forward(cfg32, lm, toks)
+            shorter = excess(PM.forward(cfg32, lm, toks[:, :p_tf])[0],
+                             full[:, :p_tf])
+        _, cache = PM.prefill(cfg32, lm, toks[:, :p_tf],
+                              max_seq=p_tf + steps_tf,
+                              cache_dtype=torch.float32)
+        worst, where = 0.0, p_tf
+        for t in range(p_tf, p_tf + steps_tf):
+            step, cache = PM.decode_step(cfg32, lm, cache, toks[:, t:t + 1])
+            ratio = excess(step, full[:, t])
+            if ratio > worst:
+                worst, where = ratio, t
+        return worst, where, shorter
+
+    (worst, where, shorter), tf_s, counts = counted(kernels, teacher_forced)
+    launched["teacher_forced"] = sum(counts.values())
+    print(f"lm {cfg.name} fp32 recurrent decode vs chunked parallel forward "
+          f"(batch {b_tf}, prefill {p_tf} = {p_tf // cfg.ssd_chunk} chunks, "
+          f"{steps_tf} teacher-forced steps against one forward over "
+          f"{p_tf + steps_tf}): worst |step - forward| / (tol (1 + "
+          f"|forward|)) {worst:.4f} at position {where} (tol rtol = atol = "
+          f"{XLSTM_DECODE_TOL:g}, limit {XLSTM_DECODE_LIMIT:g}); a reading: "
+          f"forward({p_tf}) against forward({p_tf + steps_tf}) on the "
+          f"positions they share {shorter:.4f}; {tf_s:.2f} s on {card}",
+          flush=True)
+    if not worst <= XLSTM_DECODE_LIMIT:
+        fail(f"xlstm: decode leaves the parallel forward at position "
+             f"{where} ({worst:.3f} x the bound, limit "
+             f"{XLSTM_DECODE_LIMIT:g})")
+
+    # ---- train: one batch of the trainer's stream, XLSTM_TRAIN_STEPS
+    # times; the last one under the profiler
+    data = _token_batches(cfg, 1, batch, prompt_len)[0]
+    opt = AdamW(lr=cosine_schedule(3e-3, warmup=5, total=100))
+    ostate = opt.init({k: p.detach() for k, p in lm.named_parameters()})
+    step = make_train_step(cfg, opt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    losses, step_ms = [], []
+
+    def one_step():
+        nonlocal ostate
+        ostate, loss = step(lm, ostate, data)
+        losses.append(loss)
+
+    for _ in range(XLSTM_TRAIN_STEPS - 1):
+        step_ms.append(run_timed(one_step)[1] * 1e3)
+    profile_window(
+        f"xlstm train step batch {batch} seq {prompt_len}, 1 step, on "
+        f"{card}", "step", one_step, units=1)
+    launched["train"] = sum(kernels.launch_counts().values())
+    tpeak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    print(f"lm train {cfg.name} make_train_step batch={batch} "
+          f"seq={prompt_len} steps={XLSTM_TRAIN_STEPS} (one batch of the "
+          f"trainer's stream each step) bf16 compute, fp32 master state, on "
+          f"{card}: ms per step {[round(x, 3) for x in step_ms]} (the first "
+          f"a cold step; the last step under the profiler) "
+          f"max_memory_allocated={tpeak / 2 ** 30:.3f} GiB; losses "
+          f"{[round(x, 4) for x in losses]}; kernel launches {launched}",
+          flush=True)
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        fail(f"xlstm train losses not finite and falling: {losses}")
+    if any(launched.values()):
+        fail(f"xlstm: a kernel of the port launched on a path with none: "
+             f"{launched}")
+    del lm, ostate, step, data
+    torch.cuda.empty_cache()
+
+
 def train_phase(kernels) -> dict:
     """Phase 7d: one step's loss and gradients through the flash kernels
     against the plain attention (and the launch counts of that step),
     then ``TRAIN_STEPS`` steps of ``make_train_step`` with the launches of
     every step, ms per step and tokens/s with the data on the card, the
-    peak memory, and a profile window of 2 steps.  Returns the numbers and
+    peak memory, the loss on a held-out batch before and after the steps
+    (each step trains on another batch, so the first and last step's
+    losses differ by the batches' own spread), and a profile window of 2
+    steps.  Returns the numbers and
     the launches of the timed steps."""
     from repro_torch.configs import get_config
     from repro_torch.launch.steps import make_train_step
@@ -2737,7 +2975,12 @@ def train_phase(kernels) -> dict:
     n = cfg.n_layers
     torch.cuda.empty_cache()
     lm = PM.init_params(cfg, 0, device="cuda")
-    batches = _token_batches(cfg, steps + 2, batch, seq)
+    batches = _token_batches(cfg, steps + 3, batch, seq)
+    held = batches.pop()             # the loss is read on it, never trained
+
+    def held_loss() -> float:
+        with torch.no_grad():
+            return float(PM.loss_fn(cfg, lm, held))
 
     # one step, kernels against the plain attention (the first is the
     # warm-up: every kernel of the step loads here)
@@ -2778,6 +3021,7 @@ def train_phase(kernels) -> dict:
     state = opt.init({k: p.detach() for k, p in lm.named_parameters()})
     step = make_train_step(cfg, opt)
     per_step, losses = [], []
+    held0 = held_loss()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
@@ -2794,6 +3038,7 @@ def train_phase(kernels) -> dict:
     sec = time.perf_counter() - tic
     total = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated()
+    held1 = held_loss()
     losses = [float(x) for x in losses]
     ms = sec / steps * 1e3
     tok_s = batch * seq * steps / sec
@@ -2801,13 +3046,15 @@ def train_phase(kernels) -> dict:
           f"seq={seq} steps={steps} {cfg.dtype} compute, fp32 master "
           f"state, data on the card: ms_per_step={ms:.3f} tok_s={tok_s:.1f} "
           f"max_memory_allocated={peak / 2 ** 30:.3f} GiB; loss first "
-          f"{losses[0]:.4f} last {losses[-1]:.4f}; flash launches per step "
-          f"(fwd, bwd) {sorted(set(per_step))}", flush=True)
+          f"{losses[0]:.4f} last {losses[-1]:.4f}; on a held-out batch "
+          f"{held0:.4f} before the steps, {held1:.4f} after; flash launches "
+          f"per step (fwd, bwd) {sorted(set(per_step))}", flush=True)
     if set(per_step) != {(2 * n, n)}:
         fail(f"train steps' flash launches {per_step}: want ({2 * n}, {n}) "
              "every step")
-    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
-        fail(f"train losses not finite and decreasing: {losses}")
+    if not (np.isfinite(losses).all() and held1 < held0):
+        fail(f"train losses not finite, or the held-out batch's loss not "
+             f"falling ({held0} before, {held1} after): {losses}")
     extra = iter(batches[steps:])
 
     def one_step():
@@ -3665,6 +3912,10 @@ def main() -> int:
 
     # ---- 7c3. the dense-GQA configs at full width, bf16 weights
     dense_gqa = dense_gqa_phase(kernels, card)
+
+    # ---- 7c4. xlstm-350m at full width: the recurrent mixers, served,
+    # held to the chunked forward and trained (no kernel on its path)
+    xlstm_phase(kernels, card)
 
     # ---- 7d. LM training at full width: make_train_step (the flash
     # kernels forward and backward), then the trainer CLI's crash-resume

@@ -23,7 +23,11 @@ init at the config's published shapes (nothing is downloaded); the prompt
 is ``--batch`` rows of ``--prompt-len`` token ids drawn from numpy's
 generator with the same seed, as in the reference, and for an
 encoder-decoder (``--arch whisper_small``) the stub frontend's frame
-embeddings are drawn from that generator after the tokens.
+embeddings are drawn from that generator after the tokens.  A model with
+an SSD mixer (``--arch xlstm_350m``) keeps a recurrent state instead of a
+k/v cache; its prompt length must keep the chunk rule (a multiple of
+``ssd_chunk``, or fewer tokens), else ``ValueError`` before anything is
+allocated.
 
 ``--workload pca``: ``--batch`` independent DeEPCA problems
 (``synthetic_problem_batch``) served through one
@@ -145,11 +149,14 @@ def run_lm(arch: str, *, reduced: bool = False, batch: int = 4,
            device: Optional[str] = None) -> dict:
     """Build the seeded model and prompt, serve, print the reference's
     lines (shape, time, tok/s, first tokens); returns :func:`serve_lm`'s
-    result."""
+    result.  A prompt length that breaks an SSD model's chunk rule raises
+    ``ValueError`` first."""
     from ..configs import get_config, get_reduced
     from ..models import init_params
+    from ..models.model import check_sequence
     dev = resolve_device(device)
     cfg = get_reduced(arch) if reduced else get_config(arch)
+    check_sequence(cfg, prompt_len)          # before anything is allocated
     params = init_params(cfg, seed, device=dev)
     tokens, embeds = prompt_inputs(cfg, batch, prompt_len, seed, device=dev)
     res = serve_lm(cfg, params, tokens, gen, embeds=embeds)

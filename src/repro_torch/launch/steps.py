@@ -17,7 +17,11 @@ def _named(params) -> Dict[str, torch.Tensor]:
 
 
 def _grads(params) -> Dict[str, torch.Tensor]:
-    return {k: p.grad for k, p in params.named_parameters()}
+    """Each parameter's gradient; zeros for one the loss does not reach
+    (an mLSTM's ``A_log`` and ``D``), as ``jax.grad`` gives the reference,
+    whose AdamW then still decays it."""
+    return {k: p.grad if p.grad is not None else torch.zeros_like(p)
+            for k, p in params.named_parameters()}
 
 
 def _loss_and_grads(cfg: ArchConfig, params, batch) -> torch.Tensor:

@@ -12,6 +12,11 @@ kernels take 64 and 128)::
         --reduced --steps 60 --batch 8 --seq 64
     PYTHONPATH=src python -m repro_torch.launch.train --steps 40 \\
         --batch 4 --seq 128 --ckpt-dir ck --ckpt-every 10
+    PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm_350m \\
+        --reduced --device cpu --steps 3 --log-every 1
+
+``--arch xlstm_350m`` trains the recurrent mixers (no kernel of the port
+on its path); its ``--seq`` keeps the chunk rule (``ValueError`` first).
 
 Checkpoints hold ``(params, opt_state)`` in the reference's tree layout
 (``convert.lm_params_to_reference``: layer weights stacked over the
@@ -34,6 +39,7 @@ from ..configs import get_config, get_reduced
 from ..convert import lm_named_from_reference, lm_params_to_reference
 from ..data import PrefetchIterator, SyntheticTokenStream, TokenStreamConfig
 from ..models import init_params
+from ..models.model import check_sequence
 from ..optim import AdamW, AdamWState, cosine_schedule
 from .steps import make_train_step
 
@@ -67,6 +73,7 @@ def build(args):
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
     opt = AdamW(lr=cosine_schedule(args.lr, warmup=max(args.steps // 20, 5),
                                    total=args.steps))
+    check_sequence(cfg, args.seq)            # before anything is allocated
     dev = resolve_device(args.device)
     params = init_params(cfg, args.seed, device=dev)
     opt_state = opt.init({k: p.detach()

@@ -1,6 +1,8 @@
-"""LM scaffold of the port: dense GQA decoder-only models (SmolLM-135M)
-with the hand-written flash-attention kernel on the prefill and, with
-its backward kernel, on the training loss."""
+"""LM scaffold of the port: dense GQA models (SmolLM-135M, yi, phi3,
+qwen1.5, the encoder-decoder whisper-small) with the hand-written
+flash-attention kernel on the prefill and, with its backward kernel, on
+the training loss; and the recurrent xLSTM (mLSTM and sLSTM mixers,
+``ssm.py``), which runs no kernel of the port."""
 from .config import (SHAPES, ArchConfig, BlockSpec, ShapeSpec,
                      model_flops_per_token)
 from .layers import cross_entropy

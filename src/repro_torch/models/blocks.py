@@ -1,10 +1,11 @@
-"""Residual block: pre-norm attention (causal ``"attn"`` or bidirectional
-``"attn_bidir"``), then, with ``cross``, pre-norm cross-attention over the
-encoder's output, then pre-norm dense FFN (the reference's
-``repro/models/blocks.py`` for those specs).
+"""Residual block (the reference's ``repro/models/blocks.py``): pre-norm
+mixer (causal ``"attn"`` or bidirectional ``"attn_bidir"`` attention, the
+SSD mixers ``"mamba"`` and ``"mlstm"``, or ``"slstm"``), then, with
+``cross``, pre-norm cross-attention over the encoder's output, then, unless
+the FFN is ``"none"``, pre-norm dense FFN.
 
-Other block kinds raise ``NotImplementedError`` naming the ROADMAP item
-that ports them.
+MLA attention and the MoE FFN raise ``NotImplementedError`` naming the
+ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -13,29 +14,31 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from .._device import resolve_device
 from .attention import Attention, attn_forward
 from .config import ArchConfig, BlockSpec
 from .layers import dense_init, ffn_forward, rms_norm
+from .ssm import (SLSTM, SSD, slstm_cache_init, slstm_forward,
+                  ssd_cache_init, ssd_forward)
 
 _NOT_PORTED = {
     "mla": "DeepSeek MLA attention",
-    "mamba": "the Mamba (SSD) mixer",
-    "mlstm": "the mLSTM mixer",
-    "slstm": "the sLSTM mixer",
     "moe": "the mixture-of-experts FFN",
-    "none": "a block without an FFN",
 }
+ATTENTION = ("attn", "attn_bidir")
+MIXERS = ATTENTION + ("mamba", "mlstm", "slstm")
+FFNS = ("dense", "none")
 
 
 def check_spec(spec: BlockSpec) -> None:
-    """Raise ``NotImplementedError`` unless ``spec`` is a dense GQA block:
-    ``BlockSpec("attn" or "attn_bidir", "dense", cross=...)``."""
+    """Raise ``NotImplementedError`` for a block the port does not run yet
+    (MLA, MoE) and ``ValueError`` for an unknown kind."""
     for kind in (spec.mixer, spec.ffn):
         if kind in _NOT_PORTED:
             raise NotImplementedError(
                 f"{_NOT_PORTED[kind]} is not ported yet (ROADMAP queue 1 "
                 "item 13b)")
-    if spec.mixer not in ("attn", "attn_bidir") or spec.ffn != "dense":
+    if spec.mixer not in MIXERS or spec.ffn not in FFNS:
         raise ValueError(f"unknown block spec {spec}")
 
 
@@ -58,10 +61,12 @@ class FFN(nn.Module):
 
 
 class Block(nn.Module):
-    """``norm1``, the attention ``mixer``, with ``spec.cross`` the
-    cross-attention ``cross`` and its ``norm_cross``, then ``norm2`` and
-    the dense ``ffn``; the norm scales are offsets from 1 (zeros at
-    init)."""
+    """``norm1`` and the ``mixer`` of ``spec.mixer``'s kind
+    (:class:`~.attention.Attention`, :class:`~.ssm.SSD` or
+    :class:`~.ssm.SLSTM`), with ``spec.cross`` the cross-attention
+    ``cross`` and its ``norm_cross``, then, unless ``spec.ffn`` is
+    ``"none"``, ``norm2`` and the dense ``ffn``; the norm scales are
+    offsets from 1 (zeros at init)."""
 
     def __init__(self, cfg: ArchConfig, spec: BlockSpec, *, device=None,
                  dtype=torch.float32):
@@ -69,19 +74,45 @@ class Block(nn.Module):
         check_spec(spec)
         kw = dict(device=device, dtype=dtype)
         self.norm1 = nn.Parameter(torch.zeros(cfg.d_model, **kw))
-        self.mixer = Attention(cfg, **kw)
+        if spec.mixer in ATTENTION:
+            self.mixer = Attention(cfg, **kw)
+        elif spec.mixer == "slstm":
+            self.mixer = SLSTM(cfg, **kw)
+        else:
+            self.mixer = SSD(cfg, spec.mixer, **kw)
         if spec.cross:
             self.cross = Attention(cfg, **kw)
             self.norm_cross = nn.Parameter(torch.zeros(cfg.d_model, **kw))
-        self.norm2 = nn.Parameter(torch.zeros(cfg.d_model, **kw))
-        self.ffn = FFN(cfg.d_model, cfg.d_ff, **kw)
+        if spec.ffn != "none":
+            self.norm2 = nn.Parameter(torch.zeros(cfg.d_model, **kw))
+            self.ffn = FFN(cfg.d_model, cfg.d_ff, **kw)
 
     @torch.no_grad()
     def init(self, generator: torch.Generator) -> None:
         self.mixer.init(generator)
         if hasattr(self, "cross"):
             self.cross.init(generator)
-        self.ffn.init(generator)
+        if hasattr(self, "ffn"):
+            self.ffn.init(generator)
+
+
+def block_cache_init(cfg: ArchConfig, spec: BlockSpec, batch: int,
+                     max_seq: int, dtype=torch.bfloat16,
+                     device=None) -> dict:
+    """One block's decode-time state, zeros, on ``device`` (``None``: the
+    card): ``{"kv": {"k", "v": (B, Hkv, S_max, hd)}}`` in ``dtype`` for
+    attention, ``{"ssm": {"state", "conv"}}`` for an SSD mixer (the conv
+    state in ``dtype``), ``{"ssm": {"h", "c", "n"}}`` for the sLSTM."""
+    check_spec(spec)
+    dev = resolve_device(device)
+    if spec.mixer in ATTENTION:
+        shape = (batch, cfg.n_kv_heads, max_seq, cfg.head_dim)
+        return {"kv": {"k": torch.zeros(shape, dtype=dtype, device=dev),
+                       "v": torch.zeros(shape, dtype=dtype, device=dev)}}
+    if spec.mixer == "slstm":
+        return {"ssm": slstm_cache_init(cfg, batch, device=dev)}
+    return {"ssm": ssd_cache_init(cfg, batch, spec.mixer, dtype,
+                                  device=dev)}
 
 
 def block_forward(cfg: ArchConfig, spec: BlockSpec, p, x: torch.Tensor, *,
@@ -91,19 +122,32 @@ def block_forward(cfg: ArchConfig, spec: BlockSpec, p, x: torch.Tensor, *,
                   attention: str = "kernel"
                   ) -> Tuple[torch.Tensor, Optional[dict]]:
     """One block of kind ``spec`` on x (B, S, d); ``p`` maps ``norm1``,
-    ``mixer``, [``norm_cross``, ``cross``,] ``norm2``, ``ffn`` to (nested)
-    weights; ``encoder_out`` (B, F, d) is what ``cross`` attends.  Returns
+    ``mixer``, [``norm_cross``, ``cross``,] [``norm2``, ``ffn``] to
+    (nested) weights; ``cache`` is the block's :func:`block_cache_init`
+    entry; ``encoder_out`` (B, F, d) is what ``cross`` attends.  Returns
     ``(x, new_cache)``; the reference's third output, the MoE auxiliary
-    loss, is always zero for the dense blocks ported here and is left
-    out."""
+    loss, is always zero for the blocks ported here and is left out."""
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
-    kvc = None
-    if cache is not None:
-        kvc = dict(cache)
-        kvc["pos"] = pos
-    out, new_cache = attn_forward(cfg, p["mixer"], h, positions=positions,
-                                  causal=(spec.mixer == "attn"), cache=kvc,
-                                  attention=attention)
+    new_cache = None
+    if spec.mixer in ATTENTION:
+        kvc = None
+        if cache is not None:
+            kvc = dict(cache["kv"])
+            kvc["pos"] = pos
+        out, nc = attn_forward(cfg, p["mixer"], h, positions=positions,
+                               causal=(spec.mixer == "attn"), cache=kvc,
+                               attention=attention)
+        if nc is not None:
+            new_cache = {"kv": nc}
+    else:
+        ssm = cache["ssm"] if cache is not None else None
+        if spec.mixer == "slstm":
+            out, nc = slstm_forward(cfg, p["mixer"], h, cache=ssm)
+        else:
+            out, nc = ssd_forward(cfg, p["mixer"], h, kind=spec.mixer,
+                                  cache=ssm)
+        if nc is not None:
+            new_cache = {"ssm": nc}
     x = x + out
     if spec.cross:
         if encoder_out is None:
@@ -113,5 +157,7 @@ def block_forward(cfg: ArchConfig, spec: BlockSpec, p, x: torch.Tensor, *,
                               causal=False, kv_source=encoder_out,
                               attention=attention)
         x = x + out
-    h = rms_norm(x, p["norm2"], cfg.norm_eps)
-    return x + ffn_forward(p["ffn"], h), new_cache
+    if spec.ffn != "none":
+        h = rms_norm(x, p["norm2"], cfg.norm_eps)
+        x = x + ffn_forward(p["ffn"], h)
+    return x, new_cache

@@ -1,20 +1,24 @@
 """LM assembly: init / cache / forward / loss / prefill / decode (the
 reference's ``repro/models/model.py`` for dense GQA models, decoder-only
-or encoder-decoder).
+or encoder-decoder, and the recurrent xLSTM / SSD models).
 
 The reference scans over stacked pattern groups; here a Python loop runs
 the layers in order (layer ``g * len(pattern) + i`` is group ``g`` of
 pattern slot ``i``).  Training (:func:`loss_fn`) recomputes each layer in
 the backward (``torch.utils.checkpoint``, the reference's ``REMAT_POLICY =
 "full"`` on its scanned group body), so each layer's attention runs
-forward twice per step and backward once.  With ``CAST_PARAMS_ONCE`` every fp32 parameter of two
-or more dimensions is cast to the bf16 compute dtype once per call, before
-the layers, while the norm scales stay fp32 (the reference's knob of the
-same name).  An encoder–decoder (whisper, ``cfg.is_encdec``) encodes
-the stub frontend's frame embeddings (``embeds``) through ``encoder``'s
-bidirectional blocks, and each decoder block cross-attends the result;
-``first_dense_ff`` (DeepSeek) and ``n_patches`` (VLM) raise
-``NotImplementedError``.
+forward twice per step and backward once (an SSD or sLSTM layer's loops
+likewise).  With ``CAST_PARAMS_ONCE`` every fp32 parameter of two or
+more dimensions, and every parameter of a layer, is cast to the bf16
+compute dtype once per call, before the layers; only the final norms
+stay fp32.  This is the reference's knob of the same name: it casts
+every leaf of two or more dimensions of its group-stacked tree, where a
+layer's norm scales and biases (an SSD's ``dt_bias``, ``A_log``, ``D``,
+an sLSTM's ``b``) carry the stacking axis too.  An
+encoder–decoder (whisper, ``cfg.is_encdec``) encodes the stub frontend's
+frame embeddings (``embeds``) through ``encoder``'s bidirectional blocks,
+and each decoder block cross-attends the result; ``first_dense_ff``
+(DeepSeek) and ``n_patches`` (VLM) raise ``NotImplementedError``.
 
 One deliberate difference: the reference's cached forward reads
 ``cache["encoder_out"]`` whenever the step has one token, so a one-token
@@ -31,12 +35,16 @@ import torch.utils.checkpoint
 from torch import nn
 
 from .._device import resolve_device
-from .blocks import Block, block_forward
+from .blocks import Block, block_cache_init, block_forward
 from .config import ArchConfig, BlockSpec
 from .layers import (cross_entropy, rms_norm, sinusoidal_positions,
                      truncated_normal)
+from .ssm import chunk_size
 
 CAST_PARAMS_ONCE = True
+#: The parameters the reference stacks by pattern group: every leaf under
+#: them has two or more dimensions there, so its cast takes them all.
+_STACKED = ("layers.", "encoder.layers.")
 #: The encoder's block (the reference's ``_encode``).
 ENCODER_SPEC = BlockSpec("attn_bidir", "dense")
 
@@ -115,18 +123,29 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, device=None,
     return model
 
 
+def check_sequence(cfg: ArchConfig, seq: int) -> None:
+    """Raise ``ValueError`` if a model with an SSD mixer cannot take a
+    sequence of ``seq`` tokens in one chunked scan (the reference's chunk
+    rule, :func:`~.ssm.chunk_size`); other models take any length."""
+    if any(spec.mixer in ("mamba", "mlstm") for spec in cfg.pattern):
+        chunk_size(cfg.ssd_chunk, seq)
+
+
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
                dtype=torch.bfloat16, device=None) -> dict:
-    """``{"pos": 0, "layers": [{"k", "v": (B, Hkv, S_max, hd)}, ...]}``,
-    zeros, and for an encoder-decoder ``"encoder_out"`` (B, n_frames, d);
-    ``pos`` is a Python int (no device round trip per step)."""
+    """``{"pos": 0, "layers": [entry, ...]}`` with one zero entry a layer
+    by its block's kind (:func:`~.blocks.block_cache_init`: ``{"kv": {"k",
+    "v": (B, Hkv, S_max, hd)}}`` for attention, ``{"ssm": {"state",
+    "conv"}}`` for an SSD mixer, ``{"ssm": {"h", "c", "n"}}`` for the
+    sLSTM; a model with no attention allocates no k/v), and for an
+    encoder-decoder ``"encoder_out"`` (B, n_frames, d); ``pos`` is a
+    Python int (no device round trip per step)."""
     check_config(cfg)
     dev = resolve_device(device)
-    shape = (batch, cfg.n_kv_heads, max_seq, cfg.head_dim)
     cache = {"pos": 0, "layers": [
-        {"k": torch.zeros(shape, dtype=dtype, device=dev),
-         "v": torch.zeros(shape, dtype=dtype, device=dev)}
-        for _ in range(cfg.n_layers)]}
+        block_cache_init(cfg, layer_spec(cfg, i), batch, max_seq, dtype,
+                         device=dev)
+        for i in range(cfg.n_layers)]}
     if cfg.is_encdec:
         cache["encoder_out"] = torch.zeros(batch, cfg.n_frames, cfg.d_model,
                                            dtype=dtype, device=dev)
@@ -151,7 +170,8 @@ def _param_tree(model: LM, compute: torch.dtype) -> dict:
     cast = CAST_PARAMS_ONCE and compute != torch.float32
     tree: dict = {}
     for name, p in model.named_parameters():
-        if cast and p.dtype == torch.float32 and p.dim() >= 2:
+        if cast and p.dtype == torch.float32 and (
+                p.dim() >= 2 or name.startswith(_STACKED)):
             p = p.to(compute)
         node = tree
         *path, leaf = name.split(".")
@@ -195,7 +215,8 @@ def forward(cfg: ArchConfig, params: LM, tokens: torch.Tensor, *,
             cache: Optional[dict] = None, last_only: bool = False,
             remat: bool = False,
             attention: str = "kernel") -> Tuple[torch.Tensor, Optional[dict]]:
-    """Returns ``(logits, new_cache)``; tokens (B, S) int.  ``embeds``
+    """Returns ``(logits, new_cache)``; tokens (B, S) int (with an SSD
+    mixer, S keeps the chunk rule, :func:`check_sequence`).  ``embeds``
     (B, n_frames, d): an encoder-decoder's frame embeddings, encoded
     whenever given; without them a one-token cached step reads the
     cache's ``encoder_out``.  ``attention`` picks the attention path
@@ -281,9 +302,12 @@ def prefill(cfg: ArchConfig, params: LM, tokens: torch.Tensor, *,
             embeds: Optional[torch.Tensor] = None, max_seq: int,
             cache_dtype=torch.bfloat16,
             attention: str = "kernel") -> Tuple[torch.Tensor, dict]:
-    """Fill a fresh KV cache (and, for an encoder-decoder, its
-    ``encoder_out`` with the encoded ``embeds``, in the cache dtype);
-    returns ``(last-token logits (B, V), cache)``."""
+    """Fill a fresh cache (k/v or recurrent state, and, for an
+    encoder-decoder, its ``encoder_out`` with the encoded ``embeds``, in
+    the cache dtype); returns ``(last-token logits (B, V), cache)``.  A
+    prompt that breaks the chunk rule raises ``ValueError`` before the
+    cache is allocated."""
+    check_sequence(cfg, tokens.shape[1])
     cache = init_cache(cfg, tokens.shape[0], max_seq, cache_dtype,
                        device=tokens.device)
     logits, cache = forward(cfg, params, tokens, embeds=embeds, cache=cache,
@@ -296,7 +320,9 @@ def decode_step(cfg: ArchConfig, params: LM, cache: dict,
                 token: torch.Tensor, *,
                 attention: str = "kernel") -> Tuple[torch.Tensor, dict]:
     """One serve step: token (B, 1) -> ``(logits (B, V), cache)``; the
-    cache is updated in place and returned.  An encoder-decoder reads the
+    k/v buffers are written in place, and the returned cache holds them
+    and each recurrent layer's new state (the input's state entries are
+    left as they were).  An encoder-decoder reads the
     cache's ``encoder_out`` and projects the cross-attention's k and v
     from it again, as the reference does."""
     logits, cache = forward(cfg, params, token, cache=cache, last_only=True,

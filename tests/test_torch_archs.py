@@ -1,13 +1,14 @@
 """The architectures the port runs beside SmolLM: the dense-GQA yi-34b,
 phi3-medium-14b and qwen1.5-110b (QKV bias, untied heads, new head
-ratios) and the encoder-decoder whisper-small.
+ratios), the encoder-decoder whisper-small and the recurrent xlstm-350m.
 
 Their configs equal the reference's, published and reduced, with the
 reference's parameter counts; the reduced dense-GQA models, loaded from
 the reference's ``init_params(cfg, PRNGKey(0))``, give its fp32 logits
 within atol 1e-4 (``tests/test_torch_lm.py``'s bound) and its greedy
 tokens, over a prefill and 3 decode steps (fp32 cache).  Whisper's
-parity is ``tests/test_torch_whisper.py``.
+parity is ``tests/test_torch_whisper.py``, xlstm's
+``tests/test_torch_ssm.py``.
 """
 import dataclasses
 import functools
@@ -35,7 +36,8 @@ FP32_TOL = 1e-4
 PARAM_COUNTS = {"whisper_small": 334_663_680,
                 "yi_34b": 34_388_910_080,
                 "phi3_medium_14b": 14_659_502_080,
-                "qwen1_5_110b": 111_209_086_976}
+                "qwen1_5_110b": 111_209_086_976,
+                "xlstm_350m": 212_938_920}
 DENSE_GQA = ["yi_34b", "phi3_medium_14b", "qwen1_5_110b"]
 
 

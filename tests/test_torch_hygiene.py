@@ -112,6 +112,31 @@ def test_lm_entry_points_default_to_the_card():
                         "--gen", "1"])
 
 
+def test_recurrent_caches_default_to_the_card():
+    """The SSD and sLSTM caches and xlstm's ``init_cache`` take the card
+    unless asked for the CPU; on a host without CUDA torch's own error
+    surfaces."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import model as PM
+    from repro_torch.models import ssm as PS
+    cfg = get_reduced("xlstm_350m")
+    assert PS.ssd_cache_init.__defaults__[-1] is None          # device
+    assert PS.slstm_cache_init.__defaults__ == (None,)         # device
+    cpu = PM.init_cache(cfg, 1, 8, device="cpu")
+    assert all(x.device.type == "cpu" for entry in cpu["layers"]
+               for x in entry["ssm"].values())
+    assert PS.ssd_cache_init(cfg, 1, "mlstm", device="cpu")["state"] \
+        .device.type == "cpu"
+    assert PS.slstm_cache_init(cfg, 1, device="cpu")["h"].device.type == \
+        "cpu"
+    if not torch.cuda.is_available():
+        for make in (lambda: PS.ssd_cache_init(cfg, 1, "mlstm"),
+                     lambda: PS.slstm_cache_init(cfg, 1),
+                     lambda: PM.init_cache(cfg, 1, 8)):
+            with pytest.raises((RuntimeError, AssertionError)):
+                make()
+
+
 def test_pca_serving_defaults_to_the_card():
     """``serve --workload pca`` and its set-up take the card unless asked
     for the CPU, and so do the problems they make; on a host without

@@ -946,6 +946,32 @@ def test_whisper_kernel_and_plain_attention_agree_on_card(sm90, dtype):
                                    b.float().cpu().numpy(), rtol=0, atol=tol)
 
 
+@pytest.mark.gpu
+def test_xlstm_decode_matches_parallel_forward_on_card(sm90):
+    """The reduced xlstm on the card, fp32, fp32 cache: a 16-token prefill
+    (two chunks of 8), then 8 teacher-forced decode steps, each within
+    rtol = atol = 2e-3 of a parallel forward over all 24 tokens at that
+    position (the reference's bound); no kernel launches."""
+    import dataclasses
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import model as PM
+    cfg = dataclasses.replace(get_reduced("xlstm_350m"), dtype="float32")
+    lm = PM.init_params(cfg, 0)
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab, (2, 24))).cuda()
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        full, _ = PM.forward(cfg, lm, toks)
+    _, cache = PM.prefill(cfg, lm, toks[:, :16], max_seq=24,
+                          cache_dtype=torch.float32)
+    for t in range(16, 24):
+        step, cache = PM.decode_step(cfg, lm, cache, toks[:, t:t + 1])
+        np.testing.assert_allclose(step.cpu().numpy(),
+                                   full[:, t].cpu().numpy(), rtol=2e-3,
+                                   atol=2e-3, err_msg=f"position {t}")
+    assert not any(kernels.launch_counts().values())
+
+
 # ------------------------------------------------ the flash kernel's backward
 def _bwd_operands(b, h, hkv, sq, skv, hd, dtype, seed, layout="lm"):
     """q, k, v, dO in the LM's layout ((B, S, heads, hd) transposed), or

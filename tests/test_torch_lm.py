@@ -92,17 +92,37 @@ def test_registry_raises_for_unported_ids():
 
 
 @pytest.mark.parametrize("spec", [BlockSpec("attn_bidir", "moe"),
-                                  BlockSpec("attn", "none"),
                                   BlockSpec("mla", "dense"),
-                                  BlockSpec("mamba", "none"),
-                                  BlockSpec("mlstm", "none"),
-                                  BlockSpec("slstm", "none"),
                                   BlockSpec("attn", "moe"),
                                   BlockSpec("mla", "dense", cross=True)])
 def test_other_blocks_raise_not_implemented(spec):
     cfg = dataclasses.replace(PC.get_reduced("smollm_135m"), pattern=(spec,))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         PM.LM(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("spec", [BlockSpec("attn", "none"),
+                                  BlockSpec("mamba", "none"),
+                                  BlockSpec("mlstm", "none"),
+                                  BlockSpec("slstm", "none")])
+def test_one_spec_blocks_match_reference(spec):
+    """The block kinds that run since the recurrent mixers were ported: a
+    reduced SmolLM (2 layers) whose pattern is that one spec, loaded from
+    the reference's seeded parameters, gives its fp32 logits within 1e-4
+    (the SSD mixers at the config's defaults: one head of 128, chunk 128,
+    so the 24-token prompt is one chunk)."""
+    cfg_ref = dataclasses.replace(ref_reduced("smollm_135m"),
+                                  dtype="float32", pattern=(spec,))
+    cfg = dataclasses.replace(PC.get_reduced("smollm_135m"),
+                              dtype="float32", pattern=(spec,))
+    params = RM.init_params(cfg_ref, jax.random.PRNGKey(0))
+    lm = convert.lm_params_from_reference(jax.tree.map(np.asarray, params),
+                                          cfg, device="cpu")
+    toks = _tokens(cfg, 2, 24)
+    want, _, _ = RM.forward(cfg_ref, params, jnp.asarray(toks))
+    with torch.no_grad():
+        got, _ = PM.forward(cfg, lm, torch.from_numpy(toks).long())
+    np.testing.assert_allclose(got.numpy(), _np(want), rtol=0, atol=FP32_TOL)
 
 
 @pytest.mark.parametrize("field,value", [("first_dense_ff", 32),
@@ -162,7 +182,7 @@ def test_prefill_and_greedy_decode_fp32():
     assert cp["pos"] == int(cj["pos"]) == 16
     for name in ("k", "v"):
         want = _np(cj["groups"][0]["kv"][name])       # (groups, B, Hkv, S, hd)
-        got = np.stack([cp["layers"][i][name].numpy()
+        got = np.stack([cp["layers"][i]["kv"][name].numpy()
                         for i in range(cfg.n_layers)])
         np.testing.assert_allclose(got, want, rtol=0, atol=FP32_TOL)
     tj = jnp.argmax(lj, -1).astype(jnp.int32)[:, None]
@@ -186,7 +206,7 @@ def test_prefill_and_decode_bf16():
     lj, cj = RM.prefill(cfg_ref, params, jnp.asarray(toks), max_seq=24)
     lp, cp = PM.prefill(cfg, lm, torch.from_numpy(toks).long(), max_seq=24)
     assert lp.dtype == torch.bfloat16
-    assert cp["layers"][0]["k"].dtype == torch.bfloat16
+    assert cp["layers"][0]["kv"]["k"].dtype == torch.bfloat16
     tol = LM_BF16_TOL * float(np.abs(_np(lj)).max())
     np.testing.assert_allclose(_np(lp.float()), _np(lj), rtol=0, atol=tol)
     tok = lp.argmax(-1)[:, None]
@@ -246,9 +266,9 @@ def test_cache_and_positions():
     cfg = PC.get_reduced("smollm_135m")
     cache = PM.init_cache(cfg, 3, 20, device="cpu")
     assert cache["pos"] == 0 and len(cache["layers"]) == cfg.n_layers
-    assert cache["layers"][0]["k"].shape == (3, cfg.n_kv_heads, 20,
-                                             cfg.head_dim)
-    assert cache["layers"][0]["v"].dtype == torch.bfloat16
+    assert cache["layers"][0]["kv"]["k"].shape == (3, cfg.n_kv_heads, 20,
+                                                   cfg.head_dim)
+    assert cache["layers"][0]["kv"]["v"].dtype == torch.bfloat16
     pos = PM.make_positions(cfg, 2, 4, offset=5, device="cpu")
     np.testing.assert_array_equal(pos.numpy(), [[5, 6, 7, 8]] * 2)
     lm = PM.init_params(cfg, 0, device="cpu")
