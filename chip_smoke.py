@@ -5,7 +5,8 @@ else of the network):
 
     python3 chip_smoke.py
 
-What it does, in order; any failure raises and the exit code is non-zero:
+What it does, in order (each phase ends with a ``phase <name> wall_s=``
+line); any failure raises and the exit code is non-zero:
 
 1. prints the card (``nvidia-smi`` name and power limit), the torch/CUDA
    versions and the TF32 flags, which it sets off and asserts off;
@@ -83,8 +84,8 @@ What it does, in order; any failure raises and the exit code is non-zero:
    decisions equal to ``stacked``, estimates within 1e-4, fp8 within
    max(1e-4, 2x the stacked fp32-vs-f64 spread) of the f64 run, ``ef``
    zeroed at the restart); ``serve --workload pca-fleet`` in-process (12
-   tenants in two buckets of 8 slots, 6 ticks, a leave and a join at tick
-   3): two programs, no cold launch, build or library load after the
+   tenants in two buckets of 8 slots, 5 ticks, a leave and a join at tick
+   2): two programs, no cold launch, build or library load after the
    warm-up tick, windows x T gossip launches per tick, every tenant bit
    for bit equal to a solo tracker on every tick, fleet ticks against
    the solo trackers one after another with the data ready, a profiled
@@ -166,7 +167,8 @@ What it does, in order; any failure raises and the exit code is non-zero:
    sLSTM layer's bf16 output against its fp32 one (``LM_BF16_TOL``; the
    whole bf16 prefill's distance from the fp32 one is a printed reading),
    and 3 ``make_train_step`` steps on one batch
-   (batch 8, seq 512: finite, falling loss); no kernel of the port lies
+   (batch 8, seq 512: finite, falling loss), then one step profiled at
+   128 tokens; no kernel of the port lies
    on this path, so every launch count must stay 0; the flash backward kernel
    (dq, dk, dv) against its plain version at the training shape (B=8,
    H=9, Hkv=3, S=512, hd 64, bf16), at B=1, S=4096, hd 128 in bf16, and
@@ -174,6 +176,20 @@ What it does, in order; any failure raises and the exit code is non-zero:
    bit-equal across calls, timed beside SDPA's backward, after a line per
    bf16 backward kernel with its registers, spills and blocks an SM, and
    the forward re-timed writing its lse;
+   7c5. whisper-small trained at full width (fp32 masters, bf16 compute;
+   batch 8, 1500 frames, 448 text tokens): the backward kernel against
+   its plain version at the training shapes, non-causal (the encoder's
+   1500 x 1500 in bf16 and fp32, cross-attention's 448 x 1500, a
+   both-ragged 33 x 100 GQA case at hd 128; two calls bit-equal; SDPA's
+   backward beside it) and the forward with lse at the cross shape; one
+   train step through the kernels against the plain attention (the loss
+   and every gradient leaf, the encoder's included) with exactly 60
+   forward and 36 backward flash launches (12 encoder blocks, not
+   recomputed; 12 decoder blocks' self- and cross-attention, recomputed
+   under remat) and no call of a plain version; 5 steps of
+   ``make_train_step`` (ms a step, text tokens/s, peak memory, the
+   held-out loss lower after them, every encoder leaf's first gradient
+   finite and nonzero) and a profile window of one step;
    7d. full-width SmolLM-135M training (bf16 compute, fp32 master state):
    one step through the flash kernels against the plain attention (loss
    and every gradient leaf), 20 steps of ``make_train_step`` at batch 8,
@@ -182,8 +198,8 @@ What it does, in order; any failure raises and the exit code is non-zero:
    before them, ms per step, tokens/s, peak memory, a profile
    window with the flash kernels' device shares), then ``python -m
    repro_torch.launch.train`` in subprocesses, an uninterrupted run and
-   one crashing at step 25 then resumed (``[resume] step 20``, equal
-   final lines, the step-40 checkpoints bit-equal); 7e.
+   one crashing at step 7 then resumed (``[resume] step 5``, equal
+   final lines, the step-10 checkpoints bit-equal); 7e.
    ``make_train_step_compressed`` on 4 ranks of the one card
    (``erdos_renyi(4, 0.7)``, rank 16, K=6, batch 8 per rank, seq 64, 10
    steps after one untimed): every rank's ``cholqr2`` launched, exact
@@ -270,6 +286,22 @@ TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL = 5e-3, 5e-2
 LM_BF16_TOL = 5e-2
 
 TF32_OFF = "TF32 must stay off: the port's fp32 is IEEE fp32"
+
+
+class PhaseClock:
+    """Wall seconds of each phase, printed on a line of its own as the
+    phase ends, with the script's running total."""
+
+    def __init__(self):
+        self.start = self.last = time.perf_counter()
+        self.laps = {}
+
+    def lap(self, name: str) -> None:
+        now = time.perf_counter()
+        self.laps[name] = now - self.last
+        self.last = now
+        print(f"phase {name} wall_s={self.laps[name]:.1f} (script "
+              f"{now - self.start:.1f} s)", flush=True)
 
 
 def fail(msg: str) -> None:
@@ -887,10 +919,13 @@ def check_flash(fa, peaks, b: int, h: int, hkv: int, s: int, hd: int,
            "max_abs_err": err, "tol": tol, "ok": ok, "causal": causal}
     row["ms"], row["host_us"] = time_ms(
         lambda: fa.flash_attention(q, k, v, causal=causal))
-    # the same kernel writing the fp32 lse the backward reads (training)
-    row["ms_with_lse"] = time_ms(
-        lambda: fa._forward(q, k, v, causal, with_lse=True))[0]
-    row["note"] = f"with lse (training's forward) {row['ms_with_lse']:.6f} ms"
+    # training's forward: the same kernel writing what the backward reads,
+    # the fp32 lse and, in bf16, the fp32 output before its cast (o32)
+    row["ms_training_forward"] = time_ms(
+        lambda: fa.forward_for_backward(q, k, v, causal))[0]
+    row["note"] = (f"training's forward (lse"
+                   f"{' and o32' if dtype == torch.bfloat16 else ''}) "
+                   f"{row['ms_training_forward']:.6f} ms")
     row["plain_ms"] = time_ms(
         lambda: fa.flash_attention_plain(q, k, v, causal=causal),
         reps=3, trials=3)[0]
@@ -911,25 +946,36 @@ def check_flash(fa, peaks, b: int, h: int, hkv: int, s: int, hd: int,
 
 
 def check_flash_bwd(fa, peaks, b: int, h: int, hkv: int, s: int, hd: int,
-                    dtype, seed: int) -> dict:
+                    dtype, seed: int, *, skv=None,
+                    causal: bool = True) -> dict:
     """The forward kernel's lse against the plain version's, then the
     backward kernel (dq, dk, dv) against
-    ``flash_attention_backward_plain`` from the forward kernel's own
-    output and lse, operands in the LM's layout; two calls bit-equal.
-    Timed beside the plain version and SDPA's backward (kv heads
-    repeated), the yardstick the port never calls."""
+    ``flash_attention_backward_plain`` from the training path's forward
+    (``forward_for_backward``: its lse and the output D reads, fp32 for
+    bf16), operands in the LM's layout; two calls bit-equal.  q and dO
+    have ``s`` rows, k and v ``skv`` (default ``s``); non-causal calls
+    are whisper's (the encoder, and cross-attention at Sq != Skv).  Timed
+    beside the plain version and SDPA's backward (kv heads repeated), the
+    yardstick the port never calls."""
+    sq, skv = s, s if skv is None else skv
     g = torch.Generator(device="cuda").manual_seed(seed)
-    q, do = (torch.randn(b, s, h, hd, generator=g, device="cuda").to(dtype)
+    q, do = (torch.randn(b, sq, h, hd, generator=g, device="cuda").to(dtype)
              .transpose(1, 2) for _ in range(2))
-    k, v = (torch.randn(b, s, hkv, hd, generator=g, device="cuda").to(dtype)
-            .transpose(1, 2) for _ in range(2))
-    out, lse = fa._forward(q, k, v, True, with_lse=True)
-    _, lse_plain = fa.flash_attention_plain(q, k, v, return_lse=True)
+    k, v = (torch.randn(b, skv, hkv, hd, generator=g, device="cuda")
+            .to(dtype).transpose(1, 2) for _ in range(2))
+    out, o, lse = fa.forward_for_backward(q, k, v, causal)
+    _, lse_plain = fa.flash_attention_plain(q, k, v, causal=causal,
+                                            return_lse=True)
     lse_err = float((lse - lse_plain).abs().max())
     del lse_plain
-    got = fa.flash_attention_backward(q, k, v, out, lse, do)
-    again = fa.flash_attention_backward(q, k, v, out, lse, do)
-    want = fa.flash_attention_backward_plain(q, k, v, out, lse, do)
+
+    def kernel():
+        return fa.flash_attention_backward(q, k, v, o, lse, do,
+                                           causal=causal)
+
+    got, again = kernel(), kernel()
+    want = fa.flash_attention_backward_plain(q, k, v, o, lse, do,
+                                             causal=causal)
     torch.cuda.synchronize()
     name = str(dtype).split(".")[-1]
     tol = FLASH_BWD_TOL[name]
@@ -939,32 +985,46 @@ def check_flash_bwd(fa, peaks, b: int, h: int, hkv: int, s: int, hd: int,
     same = all(torch.equal(a, c) for a, c in zip(got, again))
     ok = max(rels) <= tol and same and lse_err <= FLASH_LSE_TOL
     del got, again, want
+    mask = "causal" if causal else "non-causal"
+    lengths = f"S={sq}" if sq == skv else f"Sq={sq} Skv={skv}"
     row = {"name": "flash_attention_bwd",
-           "shape": f"B={b} H={h} Hkv={hkv} S={s} hd={hd} causal {name} "
+           "shape": f"B={b} H={h} Hkv={hkv} {lengths} hd={hd} {mask} {name} "
                     f"(dq dk dv; strided, the LM's layout)",
-           "max_abs_err": max(diffs), "tol": tol, "ok": ok,
+           "max_abs_err": max(diffs), "tol": tol, "ok": ok, "causal": causal,
            "note": f"max error / max|ref| dq {rels[0]:.2e} dk {rels[1]:.2e} "
                    f"dv {rels[2]:.2e}; two calls bit-equal: {same}; "
                    f"forward lse max abs error {lse_err:.2e} (tol "
                    f"{FLASH_LSE_TOL:g})"}
-    row["ms"], row["host_us"] = time_ms(
-        lambda: fa.flash_attention_backward(q, k, v, out, lse, do))
+    row["ms"], row["host_us"] = time_ms(kernel)
     row["plain_ms"] = time_ms(
-        lambda: fa.flash_attention_backward_plain(q, k, v, out, lse, do),
+        lambda: fa.flash_attention_backward_plain(q, k, v, o, lse, do,
+                                                  causal=causal),
         reps=3, trials=3)[0]
     qr = q.detach().clone().requires_grad_()
     kr, vr = (x.repeat_interleave(h // hkv, dim=1).requires_grad_()
               for x in (k, v))
     sd = torch.nn.functional.scaled_dot_product_attention(qr, kr, vr,
-                                                          is_causal=True)
+                                                          is_causal=causal)
     row["library_ms"] = time_ms(lambda: torch.autograd.grad(
         sd, (qr, kr, vr), do, retain_graph=True))[0]
     row["library"] = ("backward of F.scaled_dot_product_attention(q, k, v "
-                      "repeated, is_causal=True) by torch.autograd.grad")
+                      f"repeated, is_causal={causal}) by torch.autograd.grad")
     elt = q.element_size()
-    # q, o, dO, k, v and the fp32 lse read once; dq, dk, dv written once
-    nbytes = elt * (4 * b * h * s * hd + 4 * b * hkv * s * hd) + 4 * b * h * s
-    flops = 5.0 * b * h * s * s * hd      # S, dP, dV, dQ, dK, causal half
+    # the function's bytes: q, o, dO and the fp32 lse read once and dq
+    # written once at Sq rows on H heads; k, v read and dk, dv written
+    # once at Skv rows on Hkv heads, all in the operands' dtype.  A bf16
+    # call's kernel reads o in fp32 (o32): 2 bytes an element more, this
+    # implementation's choice, so in the note and not in the bound
+    nbytes = (4 * elt * b * h * sq * hd + 4 * b * hkv * skv * hd * elt
+              + 4 * b * h * sq)
+    extra = (o.element_size() - elt) * b * h * sq * hd
+    if extra:
+        row["note"] += (f"; reads o in fp32 (o32): {extra} bytes beyond the "
+                        f"bound's {nbytes} ({extra / nbytes:.1%})")
+    # S, dP, dV, dQ, dK over the scores the function needs: the unmasked
+    # half when causal (Sq == Skv), the whole Sq x Skv matrix when not
+    flops = 5.0 * b * h * sq * sq * hd if causal else \
+        10.0 * b * h * sq * skv * hd
     row["bound_ms"], row["bound_by"] = bound(
         nbytes, flops, peaks, "bf16" if dtype == torch.bfloat16 else "fp32")
     return row
@@ -1585,9 +1645,11 @@ STREAM_ARGS = ("--workload pca-stream --m 50 --d 300 --k-top 5 "
                "--drift-rate 0.03 --iters 100 --requests 24 "
                "--max-batch 8").split()
 #: Phase 4h's fleet request: 12 tenants of ten sample counts (987-1005,
-#: two buckets of n_pad 992 and 1008, 8 slots each), 6 ticks.
+#: two buckets of n_pad 992 and 1008, 8 slots each), 5 ticks (cut from 6
+#: for the time limit: the request took 79-119 s on an H100's host, most
+#: of it the tenants' numpy draws), the churn at tick 2.
 FLEET_ARGS = ("--workload pca-fleet --m 50 --d 300 --k-top 5 "
-              "--n-per-agent 995 --tenants 12 --ticks 6 --tick-iters 3 "
+              "--n-per-agent 995 --tenants 12 --ticks 5 --tick-iters 3 "
               "--rounds 8 --drift-rate 0.03 --target 1e-3").split()
 #: A queue answer against a direct unpadded run of its request: rtol =
 #: atol (the reference's padded-request bound).
@@ -2233,8 +2295,9 @@ def fault_phase(P, kernels, fm, ops, W0, U, dev, K: int = 8,
 DIST_M, DIST_M_SMALL = 50, 16
 #: The paper cell's depth at DIST_M ranks, cut from its T=100 by the time
 #: limit (PERF.md §4: an iteration of the staged gloo wire at 50 ranks
-#: costs seconds); the 16-rank runs keep T=100.
-DIST_T = 10
+#: costs seconds; cut from 10, then 5); the 16-rank runs' depth, cut from
+#: T=100 (the dropout schedule's first 50 steps hold both step kinds).
+DIST_T, DIST_T_SMALL = 3, 50
 #: compressed gradients, the card's run against the same run on the CPU:
 #: max |card - cpu| within COMPRESS_TOL of max |cpu| after the steps (fp32;
 #: sound runs read about 7e-7; TF32's 2^-11 rounding in the Gram would
@@ -2332,7 +2395,7 @@ def _schedule_wire(P, recipe, T, K, slice_bytes) -> dict:
 
 
 def distributed_phase(P, kernels, dev, m=DIST_M, m_small=DIST_M_SMALL,
-                      n=995, d=300, k=5, K=8, T=DIST_T, T_small=100,
+                      n=995, d=300, k=5, K=8, T=DIST_T, T_small=DIST_T_SMALL,
                       comp_shape=(1024, 768), comp_steps=COMPRESS_STEPS,
                       timeout_s=900) -> dict:
     """Phase 4j: the distributed substrate, one process per agent.
@@ -2535,10 +2598,14 @@ def distributed_phase(P, kernels, dev, m=DIST_M, m_small=DIST_M_SMALL,
 #: it (bf16 compute, fp32 master state, per-layer remat).
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 20
 #: The trainer CLI's crash-resume check: the arguments of both runs.
-#: (one logged loss, at step 40: the final lines, ``final loss X (start
+#: (one logged loss, at the last step: the final lines, ``final loss X (start
 #: Y)``, are then equal in full, as the reference's test reads them)
-TRAIN_CLI = ("--steps", "40", "--batch", "4", "--seq", "128",
-             "--ckpt-every", "10", "--log-every", "40")
+TRAIN_CLI = ("--steps", "10", "--batch", "4", "--seq", "128",
+             "--ckpt-every", "5", "--log-every", "10")
+#: run B's crash step and the checkpoint it resumes from (10 steps and a
+#: crash at 7, cut from 40 and 25 for the time limit: the three runs took
+#: 61-68 s, mostly steps and start-up)
+TRAIN_CLI_CRASH, TRAIN_CLI_RESUME = 7, 5
 
 
 def _token_batches(cfg, n: int, batch: int, seq: int) -> list:
@@ -2742,6 +2809,10 @@ XLSTM_TF = (2, 512, 128)
 XLSTM_DECODE_TOL = 2e-3
 XLSTM_DECODE_LIMIT = 2.0
 XLSTM_TRAIN_STEPS = 3
+#: The xlstm train step's profile window runs one step at this many tokens
+#: (one chunk), cut from the prompt's 512: at 512 the sLSTM's time loop
+#: gives some 104,000 events, whose reading took 59 s of the phase.
+XLSTM_PROFILE_SEQ = 128
 
 
 def xlstm_phase(kernels, card: str) -> None:
@@ -2753,9 +2824,9 @@ def xlstm_phase(kernels, card: str) -> None:
     a 512-token prefill against one forward over 640); one mLSTM and one
     sLSTM layer's bf16 output against its fp32 one, and the whole bf16
     prefill's distance from the fp32 one; ``XLSTM_TRAIN_STEPS`` steps of
-    ``make_train_step`` on one batch of the trainer's stream (the last one
-    profiled).  No kernel of the port lies on this path: every launch
-    count stays 0.
+    ``make_train_step`` on one batch of the trainer's stream, then one
+    step on its first ``XLSTM_PROFILE_SEQ`` tokens under the profiler.  No
+    kernel of the port lies on this path: every launch count stays 0.
 
     At this width the model at init amplifies rounding: its mLSTM's gated
     norm divides rows of rms 1e-3 by that rms.  Two fp32 forwards that
@@ -2924,19 +2995,26 @@ def xlstm_phase(kernels, card: str) -> None:
         ostate, loss = step(lm, ostate, data)
         losses.append(loss)
 
-    for _ in range(XLSTM_TRAIN_STEPS - 1):
+    for _ in range(XLSTM_TRAIN_STEPS):
         step_ms.append(run_timed(one_step)[1] * 1e3)
-    profile_window(
-        f"xlstm train step batch {batch} seq {prompt_len}, 1 step, on "
-        f"{card}", "step", one_step, units=1)
-    launched["train"] = sum(kernels.launch_counts().values())
     tpeak = torch.cuda.max_memory_allocated()
+    short = {k: v[:, :XLSTM_PROFILE_SEQ] for k, v in data.items()}
+
+    def short_step():
+        nonlocal ostate
+        ostate, _ = step(lm, ostate, short)
+
+    profile_window(
+        f"xlstm train step batch {batch} seq {XLSTM_PROFILE_SEQ} (cut from "
+        f"{prompt_len} for the profiler's event count), 1 step, on {card}",
+        "step", short_step, units=1)
+    launched["train"] = sum(kernels.launch_counts().values())
     losses = [float(x) for x in losses]
     print(f"lm train {cfg.name} make_train_step batch={batch} "
           f"seq={prompt_len} steps={XLSTM_TRAIN_STEPS} (one batch of the "
           f"trainer's stream each step) bf16 compute, fp32 master state, on "
           f"{card}: ms per step {[round(x, 3) for x in step_ms]} (the first "
-          f"a cold step; the last step under the profiler) "
+          f"a cold step) "
           f"max_memory_allocated={tpeak / 2 ** 30:.3f} GiB; losses "
           f"{[round(x, 4) for x in losses]}; kernel launches {launched}",
           flush=True)
@@ -2949,136 +3027,329 @@ def xlstm_phase(kernels, card: str) -> None:
     torch.cuda.empty_cache()
 
 
-def train_phase(kernels) -> dict:
-    """Phase 7d: one step's loss and gradients through the flash kernels
-    against the plain attention (and the launch counts of that step),
-    then ``TRAIN_STEPS`` steps of ``make_train_step`` with the launches of
-    every step, ms per step and tokens/s with the data on the card, the
-    peak memory, the loss on a held-out batch before and after the steps
-    (each step trains on another batch, so the first and last step's
-    losses differ by the batches' own spread), and a profile window of 2
-    steps.  Returns the numbers and
-    the launches of the timed steps."""
-    from repro_torch.configs import get_config
-    from repro_torch.launch.steps import make_train_step
+#: 7c5: whisper-small trained at full width.  448 text tokens, Whisper's
+#: published decoder context (arXiv:2212.04356, the released models'
+#: n_text_ctx), over the config's 1500 frames, batch 8.
+WHISPER_TRAIN_BATCH, WHISPER_TEXT = 8, 448
+#: The timed steps and their peak learning rate, whisper-small's published
+#: one (arXiv:2212.04356, appendix F), in 7d's schedule shape (linear
+#: warm-up over max(steps // 20, 5) steps, cosine to the end).  7d's 3e-3
+#: raises the held-out loss here (``scripts/probe_whisper_train.py``).
+WHISPER_TRAIN_STEPS, WHISPER_TRAIN_LR = 5, 5e-4
+
+
+class PlainCalls:
+    """Counts calls of the attention's plain versions while it is entered:
+    the backward's (``flash_attention_backward_plain``) and the forward's
+    as ``sdpa`` reaches it (``attention.flash_attention_plain``); a run
+    through the kernels on the card makes none."""
+
+    def __init__(self, fa, attention):
+        self.sites = ((fa, "flash_attention_backward_plain"),
+                      (attention, "flash_attention_plain"))
+        self.calls = []
+
+    def __enter__(self):
+        self.saved = [getattr(mod, name) for mod, name in self.sites]
+        for (mod, name), real in zip(self.sites, self.saved):
+            def counted(*a, _real=real, _name=name, **kw):
+                self.calls.append(_name)
+                return _real(*a, **kw)
+            setattr(mod, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for (mod, name), real in zip(self.sites, self.saved):
+            setattr(mod, name, real)
+
+
+def step_against_plain(kernels, cfg, lm, batch) -> dict:
+    """One train step's loss and gradients (``loss_fn``, then backward; no
+    update) on ``batch`` through the flash kernels, under
+    :class:`PlainCalls`, against the same step through the plain attention
+    on a copy of ``lm``: the loss's relative difference, each gradient
+    leaf's relative Frobenius error, the kernels' step's flash launches and
+    plain-version calls, and each step's peak memory.  ``lm``'s gradients
+    are cleared after."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import attention as PA
     from repro_torch.models import model as PM
-    from repro_torch.optim import AdamW, cosine_schedule
-    cfg = get_config("smollm_135m")
-    steps, batch, seq = TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ
 
     def loss_and_grads(model, attention: str) -> float:
         model.zero_grad(set_to_none=True)
-        loss = PM.loss_fn(cfg, model, batches[0], attention=attention)
+        loss = PM.loss_fn(cfg, model, batch, attention=attention)
         loss.backward()
-        return float(loss)
+        return float(loss.detach())
 
-    n = cfg.n_layers
-    torch.cuda.empty_cache()
-    lm = PM.init_params(cfg, 0, device="cuda")
-    batches = _token_batches(cfg, steps + 3, batch, seq)
-    held = batches.pop()             # the loss is read on it, never trained
-
-    def held_loss() -> float:
-        with torch.no_grad():
-            return float(PM.loss_fn(cfg, lm, held))
-
-    # one step, kernels against the plain attention (the first is the
-    # warm-up: every kernel of the step loads here)
     twin = copy.deepcopy(lm)
+    torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
-    loss_k = loss_and_grads(lm, "kernel")
-    one = kernels.launch_counts()
+    with PlainCalls(fa, PA) as plain_calls:
+        loss_k = loss_and_grads(lm, "kernel")
+    launches = kernels.launch_counts()
+    kernel_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     loss_p = loss_and_grads(twin, "plain")
+    plain_peak = torch.cuda.max_memory_allocated()
     plain = dict(twin.named_parameters())
     errs = {}
     for name, p in lm.named_parameters():
         ref = plain[name].grad.double()
         errs[name] = float((p.grad.double() - ref).norm() /
                            ref.norm().clamp_min(1e-30))
-    worst = max(errs, key=errs.get)
     del twin, plain
     lm.zero_grad(set_to_none=True)
-    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
-    print(f"lm train step {cfg.name} batch={batch} seq={seq} "
-          f"bf16, flash kernels vs plain attention: loss {loss_k:.6f} vs "
-          f"{loss_p:.6f} (rel {loss_rel:.3e}, tol {TRAIN_LOSS_RTOL:g}); "
-          f"gradient leaves' relative Frobenius error max {errs[worst]:.3e} "
-          f"({worst}), median {statistics.median(errs.values()):.3e} (tol "
-          f"{TRAIN_GRAD_TOL:g}); launches in the step: flash_attention "
-          f"{one['flash_attention']} flash_attention_bwd "
-          f"{one['flash_attention_bwd']}", flush=True)
-    if one["flash_attention"] != 2 * n or one["flash_attention_bwd"] != n:
-        fail(f"train step launches: {one} (want flash_attention {2 * n}, "
-             f"flash_attention_bwd {n})")
-    if not (np.isfinite(loss_k) and loss_rel <= TRAIN_LOSS_RTOL and
-            errs[worst] <= TRAIN_GRAD_TOL):
-        fail("train step: the flash kernels' loss or gradients leave the "
-             "plain attention's bound")
+    torch.cuda.empty_cache()
+    return {"loss": loss_k, "loss_plain": loss_p,
+            "loss_rel": abs(loss_k - loss_p) / abs(loss_p), "errs": errs,
+            "launches": launches, "plain_calls": plain_calls.calls,
+            "peak": kernel_peak, "plain_peak": plain_peak}
 
-    # steps of make_train_step (the CLI's schedule)
-    opt = AdamW(lr=cosine_schedule(3e-3, warmup=max(steps // 20, 5),
-                                   total=steps))
+
+def train_steps(kernels, cfg, lm, batches: list, held: dict,
+                lr: float) -> dict:
+    """``len(batches)`` steps of ``make_train_step`` on ``lm``, one batch
+    each, at peak learning rate ``lr`` in the trainer CLI's schedule shape
+    (linear warm-up over max(steps // 20, 5) steps, cosine to the end),
+    data on the card, under :class:`PlainCalls`: the losses, each step's
+    flash launches (forward, backward), the wall seconds, the peak memory,
+    the loss on the held-out batch ``held`` before and after, and the
+    leaves without a finite nonzero gradient in the first step.  Also
+    returns ``step`` and ``state`` for further steps."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import attention as PA
+    from repro_torch.models import model as PM
+    from repro_torch.optim import AdamW, cosine_schedule
+    n = len(batches)
+    opt = AdamW(lr=cosine_schedule(lr, warmup=max(n // 20, 5), total=n))
     state = opt.init({k: p.detach() for k, p in lm.named_parameters()})
     step = make_train_step(cfg, opt)
-    per_step, losses = [], []
+
+    def held_loss() -> float:
+        with torch.no_grad():
+            return float(PM.loss_fn(cfg, lm, held))
+
     held0 = held_loss()
+    per_step, losses, first_bad = [], [], []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
-    tic = time.perf_counter()
-    for data in batches[:steps]:
-        before = kernels.launch_counts()
-        state, loss = step(lm, state, data)
-        after = kernels.launch_counts()
-        per_step.append((after["flash_attention"] - before["flash_attention"],
-                         after["flash_attention_bwd"] -
-                         before["flash_attention_bwd"]))
-        losses.append(loss)
-    torch.cuda.synchronize()
-    sec = time.perf_counter() - tic
-    total = kernels.launch_counts()
-    peak = torch.cuda.max_memory_allocated()
-    held1 = held_loss()
-    losses = [float(x) for x in losses]
-    ms = sec / steps * 1e3
-    tok_s = batch * seq * steps / sec
-    print(f"lm train {cfg.name} make_train_step batch={batch} "
-          f"seq={seq} steps={steps} {cfg.dtype} compute, fp32 master "
-          f"state, data on the card: ms_per_step={ms:.3f} tok_s={tok_s:.1f} "
-          f"max_memory_allocated={peak / 2 ** 30:.3f} GiB; loss first "
-          f"{losses[0]:.4f} last {losses[-1]:.4f}; on a held-out batch "
-          f"{held0:.4f} before the steps, {held1:.4f} after; flash launches "
-          f"per step (fwd, bwd) {sorted(set(per_step))}", flush=True)
-    if set(per_step) != {(2 * n, n)}:
-        fail(f"train steps' flash launches {per_step}: want ({2 * n}, {n}) "
-             "every step")
-    if not (np.isfinite(losses).all() and held1 < held0):
-        fail(f"train losses not finite, or the held-out batch's loss not "
-             f"falling ({held0} before, {held1} after): {losses}")
-    extra = iter(batches[steps:])
+    with PlainCalls(fa, PA) as plain_calls:
+        tic = time.perf_counter()
+        for i, batch in enumerate(batches):
+            before = kernels.launch_counts()
+            state, loss = step(lm, state, batch)
+            after = kernels.launch_counts()
+            per_step.append(tuple(after[k] - before[k] for k in (
+                "flash_attention", "flash_attention_bwd")))
+            losses.append(loss)
+            if i == 0:
+                first_bad = [k for k, p in lm.named_parameters()
+                             if not (torch.isfinite(p.grad).all() and
+                                     bool(p.grad.abs().max() > 0))]
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - tic
+    launches, peak = kernels.launch_counts(), torch.cuda.max_memory_allocated()
+    return {"sec": sec, "per_step": per_step,
+            "losses": [float(x) for x in losses], "peak": peak,
+            "launches": launches, "held0": held0, "held1": held_loss(),
+            "first_bad": first_bad, "plain_calls": plain_calls.calls,
+            "step": step, "state": state}
+
+
+def train_against_plain(kernels, card: str, cfg, label: str, data: list,
+                        held: dict, *, steps: int, lr: float, want: tuple,
+                        tokens: int, profile_steps: int,
+                        nonzero_prefix: str = "", note: str = "") -> dict:
+    """A training phase at full width from ``init_params(cfg, 0)``:
+    :func:`step_against_plain` on ``data[0]`` (the loss within
+    ``TRAIN_LOSS_RTOL``, every leaf within ``TRAIN_GRAD_TOL``, the flash
+    launches ``want`` = (forward, backward), no plain-version call), then
+    :func:`train_steps` on ``data[:steps]`` (``want`` launches every step,
+    no plain-version call, ms a step and tokens/s with ``tokens`` a step,
+    the peak memory, a finite loss, the held-out batch's loss falling:
+    each step trains on another batch, so the steps' own losses differ by
+    the batches' spread; with ``nonzero_prefix``, every leaf so named with
+    a finite nonzero first gradient), then a profile window of
+    ``profile_steps`` steps on the batches after them.  ``note`` ends the
+    first line."""
+    from repro_torch.models import model as PM
+    torch.cuda.empty_cache()
+    lm = PM.init_params(cfg, 0, device="cuda")
+    one = step_against_plain(kernels, cfg, lm, data[0])
+    errs = one["errs"]
+    worst = max(errs, key=errs.get)
+    scoped = {k: e for k, e in errs.items() if k.startswith(nonzero_prefix)}
+    scoped_worst = max(scoped, key=scoped.get)
+    got = tuple(one["launches"][k] for k in ("flash_attention",
+                                             "flash_attention_bwd"))
+    print(f"{label} step on {card}, flash kernels vs plain attention: loss "
+          f"{one['loss']:.6f} vs {one['loss_plain']:.6f} (rel "
+          f"{one['loss_rel']:.3e}, tol {TRAIN_LOSS_RTOL:g}); gradient "
+          f"leaves' relative Frobenius error max {errs[worst]:.3e} ({worst})"
+          + (f", {nonzero_prefix}* max {scoped[scoped_worst]:.3e} "
+             f"({scoped_worst})" if nonzero_prefix else "")
+          + f", median {statistics.median(errs.values()):.3e} over "
+          f"{len(errs)} leaves (tol {TRAIN_GRAD_TOL:g}); launches in the "
+          f"step (flash_attention, flash_attention_bwd) {got} (want {want}); "
+          f"plain-version calls {len(one['plain_calls'])}; "
+          f"max_memory_allocated kernel {one['peak'] / 2 ** 30:.3f} GiB, "
+          f"plain {one['plain_peak'] / 2 ** 30:.3f} GiB{note}", flush=True)
+    if got != tuple(want) or one["plain_calls"]:
+        fail(f"{label}: step launches {got}, plain calls "
+             f"{one['plain_calls']} (want {want}, none)")
+    if not (np.isfinite(one["loss"]) and one["loss_rel"] <= TRAIN_LOSS_RTOL
+            and errs[worst] <= TRAIN_GRAD_TOL):
+        fail(f"{label}: the flash kernels' loss or gradients leave the "
+             "plain attention's bound")
+
+    run = train_steps(kernels, cfg, lm, data[:steps], held, lr)
+    ms = run["sec"] / steps * 1e3
+    tok_s = tokens * steps / run["sec"]
+    bad = [k for k in run["first_bad"] if k.startswith(nonzero_prefix)]
+    n_scoped = sum(1 for k, _ in lm.named_parameters()
+                   if k.startswith(nonzero_prefix))
+    losses = run["losses"]
+    print(f"{label} make_train_step steps={steps} lr={lr:g} {cfg.dtype} "
+          f"compute, fp32 master state, data on the card, on {card}: "
+          f"ms_per_step={ms:.3f} tok_s={tok_s:.1f} max_memory_allocated="
+          f"{run['peak'] / 2 ** 30:.3f} GiB; losses "
+          f"{[round(x, 4) for x in losses]}; on a held-out batch "
+          f"{run['held0']:.4f} before the steps, {run['held1']:.4f} after; "
+          f"flash launches per step (fwd, bwd) {sorted(set(run['per_step']))}"
+          f"; plain-version calls {len(run['plain_calls'])}"
+          + (f"; {nonzero_prefix}* leaves with a finite nonzero first "
+             f"gradient {n_scoped - len(bad)} of {n_scoped}"
+             if nonzero_prefix else ""), flush=True)
+    if set(run["per_step"]) != {tuple(want)} or run["plain_calls"]:
+        fail(f"{label}: the steps' flash launches {run['per_step']} (want "
+             f"{want} every step), plain calls {run['plain_calls']}")
+    if nonzero_prefix and bad:
+        fail(f"{label}: leaves without a finite nonzero first gradient: "
+             f"{bad}")
+    if not (np.isfinite(losses).all() and run["held1"] < run["held0"]):
+        fail(f"{label}: losses not finite, or the held-out batch's loss not "
+             f"falling ({run['held0']} before, {run['held1']} after): "
+             f"{losses}")
+    step, state = run["step"], run["state"]
+    extra = iter(data[steps:])
 
     def one_step():
         nonlocal state
         state, _ = step(lm, state, next(extra))
 
-    prof = profile_window(f"lm train step batch {batch} seq {seq}, 2 "
-                          "steps", "step", one_step, units=2, calls=2,
+    prof = profile_window(f"{label}, {profile_steps} step(s), on {card}",
+                          "step", one_step, units=profile_steps,
+                          calls=profile_steps,
                           focus=("flash_fwd", "flash_bwd"))
-    del lm, state, batches
+    launches = {k: run["launches"][k] for k in ("flash_attention",
+                                                "flash_attention_bwd")}
+    del lm, state, step, run
     torch.cuda.empty_cache()
-    return {"ms_per_step": ms, "tok_s": tok_s, "peak_bytes": peak,
-            "losses": losses, "loss_rel": loss_rel,
-            "grad_err": errs[worst], "profile": prof,
-            "launches": {k: total[k] for k in ("flash_attention",
-                                               "flash_attention_bwd")}}
+    return {"ms_per_step": ms, "tok_s": tok_s, "losses": losses,
+            "loss_rel": one["loss_rel"], "grad_err": errs[worst],
+            "profile": prof, "per_step": got, "steps": steps,
+            "launches": launches}
+
+
+def whisper_train_data(cfg) -> tuple:
+    """7c5's batches on the card: the trainer's token stream (seed 0) at
+    ``WHISPER_TEXT`` tokens, frames as 7c2 draws them; ``(data, held)``,
+    the steps' and the profile's batches, then the held-out one."""
+    from repro_torch.data import SyntheticTokenStream, TokenStreamConfig
+    from repro_torch.launch import serve
+    batch, text, n = WHISPER_TRAIN_BATCH, WHISPER_TEXT, WHISPER_TRAIN_STEPS
+    stream = iter(SyntheticTokenStream(TokenStreamConfig(
+        vocab=cfg.vocab, seq_len=text, global_batch=batch, seed=0)))
+
+    def draw(i):
+        out = {k: torch.as_tensor(v, device="cuda")
+               for k, v in next(stream).items()}
+        out["embeds"] = serve.prompt_inputs(cfg, batch, text, 100 + i)[1]
+        return out
+
+    data = [draw(i) for i in range(n + 2)]
+    return data, draw(n + 2)
+
+
+def whisper_train_phase(kernels, card: str, peaks) -> dict:
+    """7c5: whisper-small trained at full width (fp32 master weights, bf16
+    compute; batch 8, the config's 1500 frames, 448 text tokens).  First
+    the backward kernel against its plain version at the training shapes
+    (the encoder's non-causal 1500 x 1500 in bf16 and fp32, the
+    cross-attention's 448 x 1500, a both-ragged GQA case at hd 128) and
+    the forward with its lse at the cross shape; then
+    :func:`train_against_plain` with ``WHISPER_TRAIN_STEPS`` steps at
+    ``WHISPER_TRAIN_LR``, every encoder leaf's first gradient finite and
+    nonzero, and a profile window of one step."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    cfg = get_config("whisper_small")
+    batch, text, frames = WHISPER_TRAIN_BATCH, WHISPER_TEXT, cfg.n_frames
+    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    bf16 = torch.bfloat16
+    torch.cuda.empty_cache()
+    rows = [
+        check_flash_bwd(fa, peaks, batch, h, hkv, frames, hd, bf16, 41,
+                        causal=False),
+        check_flash_bwd(fa, peaks, batch, h, hkv, frames, hd,
+                        torch.float32, 42, causal=False),
+        check_flash_bwd(fa, peaks, batch, h, hkv, text, hd, bf16, 43,
+                        skv=frames, causal=False),
+        check_flash_bwd(fa, peaks, 2, 4, 2, 33, 128, bf16, 44, skv=100,
+                        causal=False),
+    ]
+    fwd = check_flash(fa, peaks, batch, h, hkv, text, hd, bf16, 45,
+                      skv=frames, causal=False)
+    for row in (*rows, fwd):
+        print_row(row)
+    bad = [r["shape"] for r in (*rows, fwd) if not r["ok"]]
+    if bad:
+        fail(f"flash kernels at whisper's training shapes disagree with "
+             f"their plain versions: {bad}")
+    data, held = whisper_train_data(cfg)
+    # the plain encoder keeps B H F^2 fp32 scores and their exp a layer
+    reckoned = 2 * 4 * batch * h * frames ** 2 * cfg.encoder_layers
+    res = train_against_plain(
+        kernels, card, cfg,
+        f"whisper train {cfg.name} batch={batch} frames={frames} text={text}",
+        data, held, steps=WHISPER_TRAIN_STEPS, lr=WHISPER_TRAIN_LR,
+        # 12 encoder launches, 2 x 24 decoder (self, cross) under remat;
+        # one backward each
+        want=(cfg.encoder_layers + 2 * 2 * cfg.n_layers,
+              cfg.encoder_layers + 2 * cfg.n_layers),
+        tokens=batch * text, profile_steps=1, nonzero_prefix="encoder.",
+        note=f" (reckoned beforehand: the plain encoder's scores and their "
+             f"exp {reckoned / 2 ** 30:.1f} GiB; tok_s counts text tokens)")
+    return {"rows": rows, "forward": fwd, "per_step": res["per_step"],
+            "steps": res["steps"]}
+
+
+def train_phase(kernels, card: str) -> dict:
+    """Phase 7d: SmolLM-135M by :func:`train_against_plain`, ``TRAIN_STEPS``
+    steps at peak learning rate 3e-3 (the trainer CLI's) on the trainer's
+    stream, a profile window of 2 steps.  Returns its numbers and the
+    flash launches a step."""
+    from repro_torch.configs import get_config
+    cfg = get_config("smollm_135m")
+    n = cfg.n_layers
+    batches = _token_batches(cfg, TRAIN_STEPS + 3, TRAIN_BATCH, TRAIN_SEQ)
+    held = batches.pop()             # the loss is read on it, never trained
+    return train_against_plain(
+        kernels, card, cfg,
+        f"lm train {cfg.name} batch={TRAIN_BATCH} seq={TRAIN_SEQ}", batches,
+        held, steps=TRAIN_STEPS, lr=3e-3, want=(2 * n, n),
+        tokens=TRAIN_BATCH * TRAIN_SEQ, profile_steps=2)
 
 
 def train_cli_phase() -> dict:
     """Phase 7d, the CLI: ``python -m repro_torch.launch.train`` with
     ``TRAIN_CLI`` (full width, on the card) in subprocesses: run A
-    uninterrupted and run B crashing at step 25 (started together), then
-    B resumed as soon as it crashed.  ``[resume] step 20``, equal final lines, and the two
-    step-40 checkpoints (params, both moments, the step) bit-equal."""
+    uninterrupted and run B crashing at ``TRAIN_CLI_CRASH`` (started
+    together), then B resumed as soon as it crashed.  ``[resume] step
+    TRAIN_CLI_RESUME``, equal final lines, and the two last checkpoints
+    (params, both moments, the step) bit-equal."""
     import tempfile
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
@@ -3102,7 +3373,8 @@ def train_cli_phase() -> dict:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
         tic = time.perf_counter()
         a = start("--ckpt-dir", f"{tmp}/A")
-        b = start("--ckpt-dir", f"{tmp}/B", "--crash-at", "25")
+        b = start("--ckpt-dir", f"{tmp}/B", "--crash-at",
+                  str(TRAIN_CLI_CRASH))
         rc_b, _, err_b = finish(b)
         c = start("--ckpt-dir", f"{tmp}/B", "--resume")   # beside A's tail
         (rc_a, out_a, err_a), (rc_c, out_c, err_c) = finish(a), finish(c)
@@ -3110,8 +3382,10 @@ def train_cli_phase() -> dict:
         if rc_a != 0 or rc_c != 0:
             fail(f"train CLI failed: A rc={rc_a} {err_a[-1500:]} resumed "
                  f"rc={rc_c} {err_c[-1500:]}")
-        if rc_b == 0 or "injected crash at step 25" not in err_b:
-            fail(f"train CLI: run B did not crash at 25: rc={rc_b}")
+        if rc_b == 0 or \
+                f"injected crash at step {TRAIN_CLI_CRASH}" not in err_b:
+            fail(f"train CLI: run B did not crash at {TRAIN_CLI_CRASH}: "
+                 f"rc={rc_b}")
         for line in out_a.splitlines():
             print(f"train cli A: {line}")
         for line in out_c.splitlines():
@@ -3121,16 +3395,18 @@ def train_cli_phase() -> dict:
             lines = [x for x in out.splitlines() if x.startswith("final")]
             return lines[0] if lines else None
 
-        with np.load(f"{tmp}/A/step_00000040/arrays.npz") as fa, \
-                np.load(f"{tmp}/B/step_00000040/arrays.npz") as fb:
+        last = f"step_{int(TRAIN_CLI[1]):08d}/arrays.npz"
+        with np.load(f"{tmp}/A/{last}") as fa, \
+                np.load(f"{tmp}/B/{last}") as fb:
             keys = fa.files
             same = keys == fb.files and all(
                 np.array_equal(fa[key], fb[key]) for key in keys)
-    resumed = "[resume] step 20" in out_c
+    resumed = f"[resume] step {TRAIN_CLI_RESUME}" in out_c
     print(f"train cli crash-resume ({' '.join(TRAIN_CLI)}): {sec:.1f} s for "
-          f"3 runs; resumed at 20: {resumed}; final lines equal: "
-          f"{final(out_a) == final(out_c) is not None}; step-40 "
-          f"checkpoints bit-equal over {len(keys)} leaves: {same}",
+          f"3 runs; resumed at {TRAIN_CLI_RESUME}: {resumed}; final lines "
+          f"equal: {final(out_a) == final(out_c) is not None}; step-"
+          f"{TRAIN_CLI[1]} checkpoints bit-equal over {len(keys)} leaves: "
+          f"{same}",
           flush=True)
     if not (resumed and final(out_a) is not None and
             final(out_a) == final(out_c) and same):
@@ -3276,6 +3552,7 @@ def main() -> int:
     from repro_torch.kernels import fastmix as fm
     from repro_torch.kernels import gram as gm
 
+    clock = PhaseClock()
     # ---- 1. card, versions, TF32 off
     card = card_line()
     print(card, flush=True)
@@ -3294,13 +3571,16 @@ def main() -> int:
           f"{peaks[1] / 1e12:g} TFLOP/s fp32 (non-tensor), "
           f"{peaks[2] / 1e12:g} TFLOP/s bf16 (dense tensor cores)",
           flush=True)
+    clock.lap("1")
 
     # ---- 2. build every kernel from the checkout's sources
     sec = _build.build_all()
     print(f"build: {sec:.2f} s for {', '.join(_build.SOURCES)}", flush=True)
+    clock.lap("2")
 
     # ---- 2b. the static-analysis passes on the card, in-process
     analysis_phase()
+    clock.lap("2b")
 
     # ---- 3. each kernel against its plain version at the main path's shapes
     main_rows = {
@@ -3371,6 +3651,7 @@ def main() -> int:
            for r in (*main_rows.values(), *extra_rows) if not r["ok"]]
     if bad:
         fail(f"kernel disagrees with its plain version: {bad}")
+    clock.lap("3")
 
     # ---- 4. main path at the paper's w8a scale, fp32 on the card
     m, n, d, k, K, T = 50, 995, 300, 5, 8, 100
@@ -3434,6 +3715,7 @@ def main() -> int:
              f"one launch and launch the gossip kernel once per iteration: "
              f"{icounts}")
     breakdown(P, ops, topo, W0, U, K, T)
+    clock.lap("4")
 
     # ---- 4b. the dense-operator path: A_j = X_j^T X_j of the same data
     dense = P.StackedOperators(dense=(ops.data.mT @ ops.data).contiguous())
@@ -3457,6 +3739,7 @@ def main() -> int:
     if not (gap <= SUBSPACE_TOL and torch.isfinite(res.W).all()):
         fail(f"dense deepca cuda vs stacked subspace distance {gap}")
     del dense, res, ref
+    clock.lap("4b")
 
     # ---- 4c. the error-feedback wires at w8a scale
     fp8 = dict(k=k, T=T, K=K, U=U, wire_dtype="fp8", accelerated=True)
@@ -3514,6 +3797,7 @@ def main() -> int:
         fail("int8 deepca: non-finite or not converging")
     del res, ref, ref64, ops64, dres, ires
     w8a = (ops.mean_matrix().contiguous(), W0, U)
+    clock.lap("4c")
 
     # ---- 4d. past the resident gossip kernels' limit: m=256, the panels
     mb, Tb = 256, 30
@@ -3539,6 +3823,7 @@ def main() -> int:
     if not (gap <= SUBSPACE_TOL and torch.isfinite(res.W).all()):
         fail(f"m={mb} deepca cuda vs stacked subspace distance {gap}")
     del ops_b, res, ref
+    clock.lap("4d")
 
     # ---- 4e. time-varying graphs (the paper's Remark 3) at w8a scale: the
     # w8a data of 4 (ops, W0, U), two schedules of the paper's ER graph
@@ -3600,6 +3885,7 @@ def main() -> int:
     profile_window(f"schedule driver w8a {T} iterations (one window)",
                    "iteration", lambda: drv.run(ops, W0, T=T), units=T)
     del dense, ops64, res, ref
+    clock.lap("4e")
 
     # ---- 4f. run_batch: B w8a-scale problems through the problem axis
     B = 8
@@ -3645,6 +3931,7 @@ def main() -> int:
                    lambda: drivers["dynamic"][0].run_batch(
                        probs, W0, T=10, t0=list(range(B))), units=10)
     del probs, out, drivers, drv, dyn
+    clock.lap("4f")
 
     # ---- 4g. serve --workload pca at full width through the runtime layer
     # (config, telemetry, tracing, diagnostics with the health monitor,
@@ -3653,6 +3940,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     serve_numbers = serve_phase(P, kernels, fm, ops, W0, peaks)
     print(f"serve summary {json.dumps(serve_numbers)}", flush=True)
+    clock.lap("4g")
 
     # ---- 4h. streaming and serving at the w8a cells' shapes: the stream
     # request (tracker + queue), an abrupt change in fp32 and on the fp8
@@ -3668,12 +3956,14 @@ def main() -> int:
     streaming["fleet"] = fleet_phase(P, kernels, dev)
     print(f"streaming summary {json.dumps(streaming)}", flush=True)
     torch.cuda.empty_cache()
+    clock.lap("4h")
 
     # ---- 4i. fault tolerance and checkpoints at w8a scale: agents die
     # mid-run (m = 50 -> 48 -> 45), data form, dense and fp8; a resumed
     # segment and a ResilientLoop restart
     fault_phase(P, kernels, fm, ops, W0, U, dev, K=K, T=T)
     torch.cuda.empty_cache()
+    clock.lap("4i")
 
     # ---- 4j. the distributed substrate: one process per agent on the one
     # card (gloo, staged through host memory), the two gradient compressors
@@ -3683,6 +3973,7 @@ def main() -> int:
                             "per_rank_min": nums["cholqr2_min"]}
                     for label, nums in dist.items() if "cholqr2_min" in nums}
     torch.cuda.empty_cache()
+    clock.lap("4j")
 
     # ---- 5. f64 bench grid on the card (no kernel takes f64)
     bench = json.loads((ROOT / "BENCH_deepca.json").read_text())
@@ -3700,12 +3991,15 @@ def main() -> int:
         fail(f"f64 final tan {got} not within 2x of {want}")
     if any(c64.values()):
         fail(f"f64 entered a kernel: {c64}")
+    clock.lap("5")
 
     # ---- 5b. the port's bench script (quick grid) and bench_diff's verdict
     bench_rows(ROOT)
+    clock.lap("5b")
 
     # ---- 5c. the ported streaming and kernel benches, full grids
     ported_benches(ROOT)
+    clock.lap("5c")
 
     # ---- 6. a large configuration, data made on the card
     m, n, d, k, K, T = 64, 4096, 4096, 32, 8, 20
@@ -3740,6 +4034,7 @@ def main() -> int:
         fail(f"large deepca cuda vs stacked subspace distance {gap}")
     large = (big.mean_matrix().contiguous(), W0, U)
     del big, res, ref
+    clock.lap("6")
 
     # ---- 6b. the same size with dense operators A_j = X_j^T X_j
     torch.cuda.empty_cache()
@@ -3773,6 +4068,7 @@ def main() -> int:
     if gap > SUBSPACE_TOL:
         fail(f"large dense deepca cuda vs stacked subspace distance {gap}")
     del dense, res, ref
+    clock.lap("6b")
 
     # ---- 7. slice 3: power matmul and flash attention
     from repro_torch.kernels import flash_attention as fa
@@ -3820,6 +4116,7 @@ def main() -> int:
     bad = [r["name"] + " " + r["shape"] for r in slice3 if not r["ok"]]
     if bad:
         fail(f"kernel disagrees with its plain version: {bad}")
+    clock.lap("7")
 
     # ---- 7b. centralized PCA through the power-matmul kernel
     for label, (A, W0, U), T in (("w8a", w8a, 100), ("large", large, 20)):
@@ -3847,6 +4144,7 @@ def main() -> int:
         if gap > SUBSPACE_TOL:
             fail(f"centralized {label}: kernel run {gap} from the CPU run")
     del w8a, large, res, cpu
+    clock.lap("7b")
 
     # ---- 7c. LM serving at full width: SmolLM-135M, seeded weights
     from repro_torch.configs import get_config
@@ -3905,27 +4203,39 @@ def main() -> int:
         fail(f"lm serve: generated {tuple(res['tokens'].shape)}")
     lm_against_plain("lm", res, plain)
     del lm, res, plain
+    clock.lap("7c")
 
     # ---- 7c2. whisper-small served at full width: the encoder and the
     # cross-attention through the flash kernel's non-causal path
     whisper = whisper_phase(kernels, card)
+    clock.lap("7c2")
 
     # ---- 7c3. the dense-GQA configs at full width, bf16 weights
     dense_gqa = dense_gqa_phase(kernels, card)
+    clock.lap("7c3")
 
     # ---- 7c4. xlstm-350m at full width: the recurrent mixers, served,
     # held to the chunked forward and trained (no kernel on its path)
     xlstm_phase(kernels, card)
+    clock.lap("7c4")
+
+    # ---- 7c5. whisper-small trained at full width: the flash backward's
+    # non-causal path (the encoder, cross-attention at Sq != Skv) and the
+    # encoder's gradient through the decoder's cross-attentions
+    whisper_train = whisper_train_phase(kernels, card, peaks)
+    clock.lap("7c5")
 
     # ---- 7d. LM training at full width: make_train_step (the flash
     # kernels forward and backward), then the trainer CLI's crash-resume
-    train = train_phase(kernels)
+    train = train_phase(kernels, card)
     launches["flash_attention_bwd"] = train["launches"]["flash_attention_bwd"]
     train["cli"] = train_cli_phase()
+    clock.lap("7d")
 
     # ---- 7e. DeEPCA-compressed training: 4 ranks on the card, and the
     # stacked example
     train["compressed"] = compressed_phase(P, kernels)
+    clock.lap("7e")
 
     # ---- 8. the kernels line, then the contract line
     csrc = "src/repro_torch/kernels/csrc/"
@@ -3977,6 +4287,8 @@ def main() -> int:
                                      "problems"}
     if any(launches[name] <= 0 for name in main_rows if name not in off_path):
         fail(f"a kernel was not launched on its path: {launches}")
+    non_causal_keys = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                       "bound_by", "library_ms", "ok")
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": sources[name],
          "replaces": replaces[name], "launches": launches[name],
@@ -3996,14 +4308,21 @@ def main() -> int:
                  "per_prefill", "per_decode_step", "served_call")},
              "launches_dense_gqa": {arch: r["launches"]
                                     for arch, r in dense_gqa.items()},
-             "non_causal": [
-                 {key: r[key] for key in (
-                     "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
-                     "bound_by", "library_ms", "ok")}
-                 for r in non_causal],
-             "ms_with_lse": row["ms_with_lse"]}
+             "non_causal": [{key: r[key] for key in non_causal_keys}
+                            for r in non_causal],
+             "launches_whisper_train": {
+                 "per_step": whisper_train["per_step"][0],
+                 "steps": whisper_train["steps"]},
+             "whisper_train_forward": {key: whisper_train["forward"][key]
+                                       for key in non_causal_keys},
+             "ms_training_forward": row["ms_training_forward"]}
             if name == "flash_attention" else {}),
-         **({"launches_per": f"{TRAIN_STEPS} train steps of 7d"}
+         **({"launches_per": f"{TRAIN_STEPS} train steps of 7d",
+             "launches_whisper_train": {
+                 "per_step": whisper_train["per_step"][1],
+                 "steps": whisper_train["steps"]},
+             "non_causal": [{key: r[key] for key in non_causal_keys}
+                            for r in whisper_train["rows"]]}
             if name == "flash_attention_bwd" else {}),
          **{key: row[key] for key in ("per_round_bound_ms", "ms_excludes")
             if key in row}}

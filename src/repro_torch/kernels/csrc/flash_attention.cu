@@ -19,7 +19,16 @@
 //   o    = acc / (l == 0 ? 1 : l), cast to q's type;
 //   lse  = m + log l (of the scaled scores), fp32, when asked for: the
 //          training path saves it for the backward, the prefill does not
-//          ask and writes nothing more.
+//          ask and writes nothing more;
+//   o32  = the bf16 kernel's o before its cast, fp32, when asked for (the
+//          training path): the backward's D = rowsum(dO o) reads it.  D is
+//          the sum that dS = P (dP - D) subtracts; summed over a row, dS
+//          is 0 only as far as D is rowsum(P dP), and D from the bf16 o
+//          is off by one bf16 rounding of o.  dQ = dS K then carries that
+//          error times the mean of K's rows, which the residual stream of
+//          an encoder-decoder makes large (whisper-small's train step on
+//          an H100: its q and k projections' gradients 9% off the plain
+//          attention's with D from the bf16 o, 2% with o32).
 //
 // What bounds it on an H100: the work, 2 * B * H * Sq * Skv * HD flops for
 // the unmasked half of a causal score matrix, against reading q, k, v and
@@ -73,7 +82,8 @@
 //   registers.  The row sum l adds the fp32 p, before that rounding.
 //   Epilogue: acc / (l == 0 ? 1 : l), rounded to bf16, through the q
 //   tile's shared memory (free once its fragments are in registers) to
-//   16-byte stores.
+//   16-byte stores; o32, when asked for, straight from the accumulators
+//   (a quad writes a row's 32-byte sector), at o's element offsets.
 //   Shared memory: 8 KB of q and a 32 KB ring at HD 64, 16 KB and 64 KB at
 //   HD 128; three blocks an SM at HD 64 (registers capped), two at 128.
 //
@@ -287,8 +297,9 @@ template <int HD>
 __global__ void __launch_bounds__(kThreadsBf16, HD == 64 ? 3 : 1)
 flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                const bf16* __restrict__ v, bf16* __restrict__ o,
-               float* __restrict__ lse, int H, int Hkv, int Sq, int Skv,
-               int causal, float scale, Strides st) {
+               float* __restrict__ o32, float* __restrict__ lse, int H,
+               int Hkv, int Sq, int Skv, int causal, float scale,
+               Strides st) {
   constexpr int kTile = kBKV * HD;
   constexpr int kKB = HD / 16;          // k-steps of QK^T, n-pairs of PV
   constexpr int kON = HD / 8;           // output n-tiles of 8 columns
@@ -448,11 +459,17 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // m is the max of the unscaled scores: lse = m scale + log l
     if (lse != nullptr && t4 == 0 && q0 + r < Sq)
       lse[(long long)bh * Sq + q0 + r] = m[hh] * scale + logf(sum);
+    float* o32r = o32 != nullptr && q0 + r < Sq
+        ? o32 + b * st.o[0] + h * st.o[1] + (q0 + r) * st.o[2] + 2 * t4
+        : nullptr;
 #pragma unroll
-    for (int n = 0; n < kON; ++n)
+    for (int n = 0; n < kON; ++n) {
+      const float2 x = make_float2(acc[n][2 * hh] / denom,
+                                   acc[n][2 * hh + 1] / denom);
       *reinterpret_cast<__nv_bfloat162*>(sq + swz<HD>(r, n * 8) + 2 * t4) =
-          __floats2bfloat162_rn(acc[n][2 * hh] / denom,
-                                acc[n][2 * hh + 1] / denom);
+          __floats2bfloat162_rn(x.x, x.y);
+      if (o32r != nullptr) *reinterpret_cast<float2*>(o32r + n * 8) = x;
+    }
   }
   __syncwarp();
   constexpr int kChunks = HD / 8;
@@ -468,10 +485,9 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 template <int HD>
 cudaError_t launch_hd(int is_bf16, const void* q, const void* k,
-                      const void* v, void* o, float* lse, int B, int H,
-                      int Hkv, int Sq,
-                      int Skv, int causal, float scale, const Strides& st,
-                      cudaStream_t stream) {
+                      const void* v, void* o, float* o32, float* lse, int B,
+                      int H, int Hkv, int Sq, int Skv, int causal,
+                      float scale, const Strides& st, cudaStream_t stream) {
   const dim3 grid((Sq + kBQ - 1) / kBQ, B * H);
   if (is_bf16) {
     const size_t smem = smem_bytes_bf16<HD>();
@@ -480,8 +496,8 @@ cudaError_t launch_hd(int is_bf16, const void* q, const void* k,
         (int)smem);
     if (err != cudaSuccess) return err;
     flash_fwd_bf16<HD><<<grid, kThreadsBf16, smem, stream>>>(
-        (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, lse, H, Hkv,
-        Sq, Skv, causal, scale, st);
+        (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, o32, lse, H,
+        Hkv, Sq, Skv, causal, scale, st);
   } else {
     const size_t smem = smem_floats<HD>() * sizeof(float);
     cudaError_t err = cudaFuncSetAttribute(
@@ -506,25 +522,28 @@ extern "C" {
 // a dimension larger than 1 must be 16-byte aligned.  lse, when not null,
 // receives the fp32 log-sum-exp of each row's scaled scores, contiguous
 // (B, H, Sq): what the backward (flash_attention_bwd.cu) recomputes P
-// from.  Returns cudaError_t.
+// from.  o32, when not null (bf16 only), receives o before its cast to
+// bf16, fp32, at o's element strides: what the backward's D reads.
+// Returns cudaError_t.
 int flash_attention(const void* q, const void* k, const void* v, void* o,
-                    float* lse, int B, int H, int Hkv, int Sq, int Skv, int hd,
+                    float* o32, float* lse, int B, int H, int Hkv, int Sq,
+                    int Skv, int hd,
                     int causal, int is_bf16, float scale, long long q_sb,
                     long long q_sh, long long q_ss, long long k_sb,
                     long long k_sh, long long k_ss, long long v_sb,
                     long long v_sh, long long v_ss, long long o_sb,
                     long long o_sh, long long o_ss, void* stream) {
   if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv || Sq <= 0 || Skv < 0 ||
-      B * H > 65535)
+      B * H > 65535 || (o32 != nullptr && !is_bf16))
     return (int)cudaErrorInvalidValue;
   const Strides st = {{q_sb, q_sh, q_ss}, {k_sb, k_sh, k_ss},
                       {v_sb, v_sh, v_ss}, {o_sb, o_sh, o_ss}};
   cudaStream_t s = (cudaStream_t)stream;
   if (hd == 64)
-    return launch_hd<64>(is_bf16, q, k, v, o, lse, B, H, Hkv, Sq, Skv,
+    return launch_hd<64>(is_bf16, q, k, v, o, o32, lse, B, H, Hkv, Sq, Skv,
                          causal, scale, st, s);
   if (hd == 128)
-    return launch_hd<128>(is_bf16, q, k, v, o, lse, B, H, Hkv, Sq, Skv,
+    return launch_hd<128>(is_bf16, q, k, v, o, o32, lse, B, H, Hkv, Sq, Skv,
                           causal, scale, st, s);
   return (int)cudaErrorInvalidValue;
 }

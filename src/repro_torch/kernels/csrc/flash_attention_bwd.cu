@@ -13,7 +13,9 @@
 // Every operand and gradient is taken through its batch, head and
 // sequence strides (in elements), with HD at stride 1.  Query head h reads
 // kv head h / (H / Hkv).  Per (b, h), the FlashAttention-2 backward:
-//   D   = rowsum(dO o)                     (fp32, written to `delta`)
+//   D   = rowsum(dO o)                     (fp32, written to `delta`; o
+//         is fp32 for bf16 calls too: the forward's o32, before its cast,
+//         which the training path saves; see flash_attention.cu)
 //   s   = (q / sqrt(HD)) k^T;  P = exp(s - lse) where col < Skv and, when
 //         causal, row >= col on absolute indices (top-left), else 0
 //   dV  = P^T dO;  dP = dO V^T;  dS = P (dP - D)
@@ -60,7 +62,8 @@
 //   fragment of dQ += dS K (K by ldmatrix.trans), as the forward reuses P.
 //   The q and dO fragments are read by ldmatrix at each k-step (held, they
 //   would take 64 registers at HD 128).  dQ is scaled once, at the end.  D
-//   is summed from device memory in the prologue, two threads a row.  At
+//   is summed from device memory in the prologue, two threads a row, from
+//   the forward's fp32 o32.  At
 //   HD 64 the registers are capped for three blocks an SM (167, no
 //   spills): 5% faster on an H100 at the training shape than the 226 and
 //   two blocks the compiler picks unbounded.
@@ -476,7 +479,7 @@ __device__ __forceinline__ void a_fragment(unsigned (&a)[4],
 template <int HD>
 __global__ void __launch_bounds__(kTileThreads, HD == 64 ? 3 : 2)
 flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, const bf16* __restrict__ o,
+                  const bf16* __restrict__ v, const float* __restrict__ o,
                   const bf16* __restrict__ dout,
                   const float* __restrict__ lse, float* __restrict__ delta,
                   bf16* __restrict__ dq, int H, int Hkv, int Sq, int Skv,
@@ -502,7 +505,7 @@ flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* qb = q + b * st.q[0] + h * st.q[1];
   const bf16* kb = k + b * st.k[0] + hkv * st.k[1];
   const bf16* vb = v + b * st.v[0] + hkv * st.v[1];
-  const bf16* ob = o + b * st.o[0] + h * st.o[1];
+  const float* ob = o + b * st.o[0] + h * st.o[1];
   const bf16* dob = dout + b * st.d_o[0] + h * st.d_o[1];
   const long long rows = (long long)bh * Sq;
 
@@ -523,27 +526,27 @@ flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   cp_async_commit();
 
   {
-    // D = rowsum(dO o) from device memory: two threads a row, each half the
-    // row in 16-byte loads, then one shuffle (a fixed order)
+    // D = rowsum(dO o) from device memory, o the forward's fp32 o32: two
+    // threads a row, each half the row in 16-byte loads, then one shuffle
+    // (a fixed order)
     const int r = threadIdx.x >> 1, half = threadIdx.x & 1;
     float acc = 0.0f;
     if (q0 + r < Sq) {
       const bf16* pd = dob + (q0 + r) * st.d_o[2] + half * (HD / 2);
-      const bf16* po = ob + (q0 + r) * st.o[2] + half * (HD / 2);
+      const float* po = ob + (q0 + r) * st.o[2] + half * (HD / 2);
 #pragma unroll
       for (int c = 0; c < HD / 16; ++c) {
         const uint4 x = *reinterpret_cast<const uint4*>(pd + c * 8);
-        const uint4 y = *reinterpret_cast<const uint4*>(po + c * 8);
         const __nv_bfloat162* x2 =
             reinterpret_cast<const __nv_bfloat162*>(&x);
-        const __nv_bfloat162* y2 =
-            reinterpret_cast<const __nv_bfloat162*>(&y);
+        const float4 y0 = *reinterpret_cast<const float4*>(po + c * 8);
+        const float4 y1 = *reinterpret_cast<const float4*>(po + c * 8 + 4);
+        const float y[8] = {y0.x, y0.y, y0.z, y0.w, y1.x, y1.y, y1.z, y1.w};
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const float2 a = __bfloat1622float2(x2[j]);
-          const float2 bb = __bfloat1622float2(y2[j]);
-          acc = fmaf(a.x, bb.x, acc);
-          acc = fmaf(a.y, bb.y, acc);
+          acc = fmaf(a.x, y[2 * j], acc);
+          acc = fmaf(a.y, y[2 * j + 1], acc);
         }
       }
     }
@@ -903,7 +906,7 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return err;
   flash_bwd_dq_bf16<HD><<<dim3((Sq + kTileRows - 1) / kTileRows, B * H),
                           kTileThreads, smem_dq_bf16<HD>(), stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)o,
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const float*)o,
       (const bf16*)dout, lse, delta, (bf16*)dq, H, Hkv, Sq, Skv, causal,
       scale, st);
   err = cudaGetLastError();
@@ -963,8 +966,9 @@ extern "C" {
 
 // dq, dk, dv of o = attention(q, k, v) (flash_attention.cu's function) for
 // the incoming gradient dout: q, o, dout, dq (B, H, Sq, hd) and k, v, dk,
-// dv (B, Hkv, Skv, hd), all of one type (is_bf16 selects bf16, else fp32);
-// hd is 64 or 128 and H a multiple of Hkv.  lse is the forward's fp32
+// dv (B, Hkv, Skv, hd), all of one type (is_bf16 selects bf16, else fp32),
+// except o, fp32 either way (a bf16 call's is the forward's o32); hd is 64
+// or 128 and H a multiple of Hkv.  lse is the forward's fp32
 // (B, H, Sq), contiguous; delta an fp32 (B, H, Sq) scratch that receives
 // D = rowsum(dout o).  strides holds 24 values: the batch, head and
 // sequence strides in elements of q, k, v, o, dout, dq, dk, dv in that

@@ -13,9 +13,10 @@ operands take the tensor-core kernel, fp32 operands the CUDA-core one
 
 The gradient: when grad mode is on and an operand requires grad, CUDA
 operands go through :class:`FlashAttention`, whose forward launches the
-kernel with the fp32 row log-sum-exp ``lse`` saved and whose backward
-launches ``csrc/flash_attention_bwd.cu`` (dQ, dK, dV; deterministic, no
-atomics; one count of ``flash_attention_bwd`` per call, two grids).  The
+kernel with the fp32 row log-sum-exp ``lse`` saved (and, for bf16, the
+output before its cast, ``o32``) and whose backward launches
+``csrc/flash_attention_bwd.cu`` (dQ, dK, dV; deterministic, no atomics;
+one count of ``flash_attention_bwd`` per call, two grids).  The
 reference differentiates the same function with XLA (its training
 attention is ``_einsum_attention`` / ``_chunked_attention``, not its
 Pallas kernel).  :func:`flash_attention_backward_plain` is the backward's
@@ -37,8 +38,13 @@ and the product with ``v`` run in fp32; the result is cast to q's dtype.
 Query head ``h`` reads kv head ``h // (H // Hkv)``: ``jnp.repeat(k, rep,
 axis=1)`` in the reference, ``repeat_interleave`` here (not
 ``Tensor.repeat``, which tiles the heads in another order).  The backward
-recomputes ``P = exp(s - lse)`` in fp32, sums dK and dV over a kv head's
-query heads in fp32 and casts each gradient to its operand's dtype.  The
+recomputes ``P = exp(s - lse)`` in fp32, takes ``D = rowsum(dO o)`` from
+the forward's fp32 output (a bf16 call's ``o32``: D from the bf16 output
+would be off by its rounding, so that ``dS = P (dP - D)`` no longer sums
+to 0 over a row, and ``dQ = dS K`` carries that error times the mean of
+K's rows, which is large in whisper's decoder), sums dK and dV over a kv
+head's query heads in fp32 and casts each gradient to its operand's
+dtype.  The
 bf16 kernels run their products on the tensor cores: the forward rounds P
 to bf16 before ``P V``, the backward P before ``P^T dO`` and dS before
 ``dS K`` and ``dS^T q`` (``tests/test_torch_flash_attention.py`` emulates
@@ -113,11 +119,11 @@ def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> int:
     return h // hkv
 
 
-def _heads_last_out(q: torch.Tensor) -> torch.Tensor:
+def _heads_last_out(q: torch.Tensor, dtype=None) -> torch.Tensor:
     """An empty ``(B, H, Sq, hd)`` view of a ``(B, Sq, H, hd)``-contiguous
-    buffer, in q's dtype and on q's device."""
+    buffer, in ``dtype`` (default q's) and on q's device."""
     b, h, sq, hd = q.shape
-    return torch.empty(b, sq, h, hd, dtype=q.dtype,
+    return torch.empty(b, sq, h, hd, dtype=dtype or q.dtype,
                        device=q.device).transpose(1, 2)
 
 
@@ -230,7 +236,7 @@ def flash_attention_backward_plain(q: torch.Tensor, k: torch.Tensor,
 def _entry():
     fn = _build.load("flash_attention").flash_attention
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [
         ctypes.c_float] + [ctypes.c_longlong] * 12 + [ctypes.c_void_p]
     return fn
 
@@ -288,34 +294,55 @@ def _kernel_view(x: torch.Tensor) -> torch.Tensor:
         return x.contiguous()
 
 
-def _forward(q, k, v, causal: bool, with_lse: bool):
-    """One launch of the forward kernel; ``(out, lse or None)``."""
+def _forward(q, k, v, causal: bool, training: bool = False):
+    """One launch of the forward kernel: ``(out, o, lse)``.  ``training``
+    also keeps what the backward reads, else both are ``None``: the fp32
+    row log-sum-exp ``lse`` and ``o``, the output that ``D = rowsum(dO
+    o)`` takes (bf16 operands' fp32 ``o32``, written before the cast to
+    bf16; fp32 operands' ``out`` itself)."""
     b, h, sq, hd = q.shape
     out = _heads_last_out(q)
+    o32 = _heads_last_out(q, torch.float32) \
+        if training and q.dtype == torch.bfloat16 else None
     lse = torch.empty(b, h, sq, dtype=torch.float32, device=q.device) \
-        if with_lse else None
+        if training else None
+    o = (out if o32 is None else o32) if training else None
     if out.numel() == 0:
-        return out, lse
+        return out, o, lse
     strides = [s for x in (q, k, v, out) for s in _strides(x)]
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                   lse.data_ptr() if with_lse else None,
+                   o32.data_ptr() if o32 is not None else None,
+                   lse.data_ptr() if training else None,
                    b, h, k.shape[1], sq, k.shape[2], hd, int(bool(causal)),
                    int(q.dtype == torch.bfloat16), 1.0 / hd ** 0.5, *strides,
                    stream)
     _build.check("flash_attention", err)
     LAUNCHES["flash_attention"] += 1
-    return out, lse
+    return out, o, lse
+
+
+def forward_for_backward(q, k, v, causal: bool):
+    """Training's forward: one launch that keeps what the backward reads,
+    ``(out, o, lse)`` (``o`` bf16 operands' fp32 ``o32``, fp32 operands'
+    ``out``)."""
+    return _forward(q, k, v, causal, training=True)
 
 
 def flash_attention_backward(q, k, v, o, lse, do, *, causal: bool = True):
     """``(dq, dk, dv)`` by the backward kernel (CUDA operands): the
     wrapper of ``csrc/flash_attention_bwd.cu``, one count per call (the C
     entry launches its dQ grid, then its dK/dV grid).  ``lse`` is the
-    forward's fp32 ``(B, H, Sq)``; ``do`` may be any view of a ``(B, H,
-    Sq, hd)`` gradient."""
+    forward's fp32 ``(B, H, Sq)``; ``o`` its output in fp32 (bf16
+    operands' ``o32``, as :func:`forward_for_backward` keeps it); ``do``
+    may be any view of a ``(B, H, Sq, hd)`` gradient."""
     _check_shapes(q, k, v)
-    _check_kernel_operands(q, k, v, o, do)
+    _check_kernel_operands(q, k, v, do)
+    if o.shape != q.shape or o.device != q.device or \
+            o.dtype != torch.float32:
+        raise ValueError(f"o must be the forward's {tuple(q.shape)} output "
+                         f"on {q.device} in fp32; got {tuple(o.shape)} "
+                         f"{o.dtype} on {o.device}")
     do = _kernel_view(do)
     b, h, sq, hd = q.shape
     if lse.shape != (b, h, sq) or lse.dtype != torch.float32 or \
@@ -343,20 +370,21 @@ def flash_attention_backward(q, k, v, o, lse, do, *, causal: bool = True):
 
 class FlashAttention(torch.autograd.Function):
     """The kernel with its gradient: forward launches
-    ``csrc/flash_attention.cu`` and saves ``(q, k, v, out, lse)``; backward
-    launches ``csrc/flash_attention_bwd.cu``."""
+    ``csrc/flash_attention.cu`` and saves ``(q, k, v, o, lse)`` (``o`` as
+    :func:`forward_for_backward` keeps it); backward launches
+    ``csrc/flash_attention_bwd.cu``."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool):
-        out, lse = _forward(q, k, v, causal, with_lse=True)
-        ctx.save_for_backward(q, k, v, out, lse)
+        out, o, lse = forward_for_backward(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal = causal
         return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_backward(q, k, v, out, lse, do,
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, o, lse, do,
                                               causal=ctx.causal)
         return dq, dk, dv, None
 
@@ -380,7 +408,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _check_kernel_operands(q, k, v)
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
         return FlashAttention.apply(q, k, v, bool(causal))
-    return _forward(q, k, v, causal, with_lse=False)[0]
+    return _forward(q, k, v, causal)[0]
 
 
 def flash_attention_single(q: torch.Tensor, k: torch.Tensor,

@@ -24,8 +24,25 @@ def _grads(params) -> Dict[str, torch.Tensor]:
             for k, p in params.named_parameters()}
 
 
+def check_batch(cfg: ArchConfig, batch: Dict[str, torch.Tensor]) -> None:
+    """Raise ``ValueError`` unless an encoder-decoder's ``batch`` holds
+    (B, F, d) frame ``embeds`` beside its (B, S) ``tokens`` (whisper: F =
+    ``cfg.n_frames``, 1500 at full size)."""
+    if not cfg.is_encdec:
+        return
+    b = batch["tokens"].shape[0]
+    embeds = batch.get("embeds")
+    if embeds is None or embeds.dim() != 3 or embeds.shape[0] != b or \
+            embeds.shape[2] != cfg.d_model:
+        got = None if embeds is None else tuple(embeds.shape)
+        raise ValueError(f"{cfg.name}: an encoder-decoder's batch needs "
+                         f"frame embeds (B={b}, F, d={cfg.d_model}); got "
+                         f"{got}")
+
+
 def _loss_and_grads(cfg: ArchConfig, params, batch) -> torch.Tensor:
     """The loss of ``batch``; the gradients land in ``p.grad``."""
+    check_batch(cfg, batch)
     params.zero_grad(set_to_none=True)
     loss = loss_fn(cfg, params, batch)
     loss.backward()
@@ -39,7 +56,11 @@ def make_train_step(cfg: ArchConfig, opt: AdamW):
     reference donates its params and returns them); ``opt_state`` an
     :class:`~repro_torch.optim.AdamWState` keyed by parameter name, its
     moments updated in place; ``batch`` a dict of int ``tokens`` and
-    ``labels`` (B, S) on the params' device.
+    ``labels`` (B, S) on the params' device and, for an encoder-decoder
+    (whisper), the frame embeddings ``embeds`` (B, n_frames, d), which the
+    encoder reads (:func:`check_batch`).  Every parameter the loss reaches
+    gets its gradient, the encoder's through each decoder layer's
+    cross-attention.
     """
     def train_step(params, opt_state: AdamWState,
                    batch: Dict[str, torch.Tensor]

@@ -17,6 +17,10 @@ kernels take 64 and 128)::
 
 ``--arch xlstm_350m`` trains the recurrent mixers (no kernel of the port
 on its path); its ``--seq`` keeps the chunk rule (``ValueError`` first).
+An encoder-decoder (``--arch whisper_small``) is refused with a
+``ValueError``: the stream draws tokens only, and the reference's trainer
+has no frame stream either; whisper trains through
+:func:`~.steps.make_train_step` with ``batch["embeds"]``.
 
 Checkpoints hold ``(params, opt_state)`` in the reference's tree layout
 (``convert.lm_params_to_reference``: layer weights stacked over the
@@ -71,6 +75,10 @@ def load_checkpoint_tree(cfg, tree: tuple, params, opt_state: AdamWState
 
 def build(args):
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
+    if cfg.is_encdec:
+        raise ValueError(f"{cfg.name}: the trainer's stream has no frames for "
+                         "the encoder; train an encoder-decoder through "
+                         "launch.steps.make_train_step with batch['embeds']")
     opt = AdamW(lr=cosine_schedule(args.lr, warmup=max(args.steps // 20, 5),
                                    total=args.steps))
     check_sequence(cfg, args.seq)            # before anything is allocated

@@ -190,9 +190,10 @@ def _emulate_bf16_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scores, ``p = 2^(s c - m c)`` with ``c = fp32(fp32(1/sqrt(hd)) *
     fp32(log2 e))`` and one rounding for the FFMA, the row sum of the fp32
     p, P rounded to bf16 before an fp32-accumulated P V, then
-    ``acc / (l == 0 ? 1 : l)`` rounded to bf16.  64-column kv tiles,
-    ascending; tiles past the diagonal change nothing (their p is 0 and
-    their alpha 1), so they are not skipped here."""
+    ``acc / (l == 0 ? 1 : l)`` in fp32 (the kernel's ``o32``; its output
+    is that rounded to bf16).  64-column kv tiles, ascending; tiles past
+    the diagonal change nothing (their p is 0 and their alpha 1), so they
+    are not skipped here."""
     rep = q.shape[1] // k.shape[1]
     hd, sq, skv = q.shape[-1], q.shape[2], k.shape[2]
     c = np.float32(np.float32(1.0 / hd ** 0.5) *
@@ -215,7 +216,7 @@ def _emulate_bf16_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         l = alpha * l + p.sum(dim=-1, keepdim=True)
         acc = alpha * acc + p.bfloat16().float() @ vf[:, :, kv0:kv0 + 64]
         m = m_new
-    return (acc / torch.where(l == 0, torch.ones_like(l), l)).bfloat16()
+    return acc / torch.where(l == 0, torch.ones_like(l), l)
 
 
 @pytest.mark.parametrize("hd", [64, 128])
@@ -230,7 +231,7 @@ def test_bf16_kernel_rounding_within_tolerance_of_plain(sq, skv, causal, hd):
     q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
         np.float32)).bfloat16()
         for shape in ((1, 9, sq, hd), (1, 3, skv, hd), (1, 3, skv, hd)))
-    got = _emulate_bf16_kernel(q, k, v, causal)
+    got = _emulate_bf16_kernel(q, k, v, causal).bfloat16()
     want = fa.flash_attention_plain(q, k, v, causal=causal)
     np.testing.assert_allclose(got.float().numpy(), want.float().numpy(),
                                rtol=TOL["bfloat16"], atol=TOL["bfloat16"])
@@ -341,9 +342,9 @@ BWD_BF16_TOL = 1e-2
 LOG2E = np.float32(1.4426950408889634)
 
 
-def _emulate_bf16_backward(q, k, v, o, lse, do):
-    """The causal bf16 backward kernel's arithmetic in torch, batch by
-    batch: fp32 dots of the bf16 operands (s on the unscaled q), ``P =
+def _emulate_bf16_backward(q, k, v, o, lse, do, causal=True):
+    """The bf16 backward kernel's arithmetic in torch (causal unless
+    ``causal=False``), batch by batch: fp32 dots of the bf16 operands (s on the unscaled q), ``P =
     2^(s c - lse log2 e)`` with ``c = fp32(fp32(1/sqrt(hd)) * fp32(log2
     e))`` and one rounding for the FFMA, ``D = rowsum(dO o)`` and ``dS = P
     (dP - D)`` in fp32; P rounded to bf16 before ``P^T dO``, dS before ``dS
@@ -362,7 +363,8 @@ def _emulate_bf16_backward(q, k, v, o, lse, do):
         kf, vf = (x[i].float().repeat_interleave(rep, dim=0) for x in (k, v))
         lse2 = (lse[i] * LOG2E).double()[..., None]
         p = torch.exp2(((qf @ kf.mT).double() * c - lse2).float())
-        p = p.masked_fill(above, 0.0)
+        if causal:
+            p = p.masked_fill(above, 0.0)
         ds = p * (dof @ vf.mT - (dof * of).sum(dim=-1, keepdim=True))
         pb, dsb = p.bfloat16().float(), ds.bfloat16().float()
         grads[0][i] = ((dsb @ kf) * scale).bfloat16()

@@ -64,7 +64,8 @@ def test_import_leaves_jax_and_reference_out():
     str(p.relative_to(ROOT)) for p in [
         *PORT.rglob("*.py"), ROOT / "chip_smoke.py",
         *(ROOT / "scripts").glob("bench_torch_*.py"),
-        ROOT / "scripts" / "probe_profiler_drops.py",
+        *(ROOT / "scripts").glob("probe_*.py"),
+        *(ROOT / "scripts").glob("time_*.py"),
         *(ROOT / "examples").glob("*_torch.py")]))
 def test_no_jax_or_reference_import(path):
     tree = ast.parse((ROOT / path).read_text())
@@ -359,11 +360,11 @@ ENTRIES = ("apply_track", "cholqr2", "fastmix", "fastmix_apply",
 #: per-slice round counts; ``apply_track`` the problem count) and the
 #: panel kernels' output rows beside the tile width; ``cholqr2``
 #: takes the group of elements that shares a rescue flag (one problem).
-#: ``flash_attention`` takes the optional lse output; its backward takes
-#: its 24 strides as one host array.
+#: ``flash_attention`` takes the optional fp32 output (o32) and lse; its
+#: backward takes its 24 strides as one host array.
 ARITY = {"apply_track": 26, "cholqr2": 11, "fastmix": 22,
          "fastmix_apply": 16, "fastmix_ef": 23, "fastmix_poly": 16,
-         "flash_attention": 27, "flash_attention_bwd": 21, "gram": 7,
+         "flash_attention": 28, "flash_attention_bwd": 21, "gram": 7,
          "power_matmul": 9}
 
 
