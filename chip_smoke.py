@@ -155,8 +155,19 @@ line); any failure raises and the exit code is non-zero:
    width with bf16 weights (cut: fp32 masters do not fit): phi3-medium-14b
    served (batch 4, prompt 512, 8 tokens) and yi-34b (batch 1, prompt
    128, 4 tokens), each against the plain attention with its peak
-   memory, and qwen1.5-110b's parameter count (207 GiB in bf16: it does
-   not fit); 7c4. xlstm-350m at full width (fp32 master weights, bf16
+   memory (serving's, and the init's apart), then llama4-scout-17b-a16e (the MoE FFN: 16 experts of 8192,
+   top-1, a shared expert) at the published width cut to 4 of 48 layers
+   (batch 4, prompt 512, 8 tokens; exactly 4 flash launches in the served
+   call): each layer's expert choices recorded in both runs, the share of
+   the prefill's (token, layer) choices that differ held to
+   ``MOE_ROUTE_DIFF_LIMIT``, the logits compared on the rows whose last
+   position routed alike in every layer, each layer's dropped share,
+   profile windows of a prefill (flash's and the expert products' device
+   shares) and of decode steps, and one MoE layer in fp32 at the
+   published width (2048 tokens pushed toward one expert, so that it
+   overflows) through the scatter dispatch against a masked dense
+   evaluation; and qwen1.5-110b's parameter count (207 GiB in bf16: it
+   does not fit); 7c4. xlstm-350m at full width (fp32 master weights, bf16
    compute; 21 mLSTM and 3 sLSTM blocks, no FFN, no attention): served
    (batch 8, prompt 512 = 4 chunks, 32 greedy tokens) with a decode
    step's and one sLSTM and one mLSTM layer's prefill profile windows,
@@ -215,6 +226,7 @@ It imports nothing of JAX and nothing of the JAX package ``repro``.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import os
 import shutil
@@ -1332,13 +1344,33 @@ def window_device_ops(events):
     return rows, lost, orphans
 
 
+def range_device_us(events, name: str) -> float:
+    """Device microseconds of the work launched inside the host ranges
+    called ``name`` (``record_function``) of a profiled session's
+    ``events``, matched by correlation id as :func:`window_device_ops`
+    matches the window's."""
+    cuda = torch.autograd.DeviceType.CUDA
+    spans = [(e.time_range.start, e.time_range.end) for e in events
+             if e.name == name and e.device_type != cuda]
+    ids = {e.id for e in events if e.device_type != cuda
+           and e.name.startswith("cu")
+           and any(lo <= e.time_range.start <= hi for lo, hi in spans)}
+    return sum(e.time_range.end - e.time_range.start for e in events
+               if e.device_type == cuda and e.id in ids
+               and not getattr(e, "is_user_annotation", False)
+               and e.name != name)
+
+
 def profile_window(label: str, unit: str, fn, units: int,
-                   calls: int = 1, focus: str = "") -> dict:
+                   calls: int = 1, focus: str = "",
+                   ranges: tuple = ()) -> dict:
     """Device busy share, device ops and top kernels per ``unit`` over
     ``calls`` calls of ``fn`` (``units`` units in all) under the profiler
     (the host is slower there: the idle share is an upper bound).  With
     ``focus`` (a name or several), also the device time per ``unit`` of
-    the kernels whose name holds it, and their share of the busy time.
+    the kernels whose name holds it, and their share of the busy time;
+    with ``ranges`` (``record_function`` names that ``fn`` opens) the
+    same for the work launched inside each range.
     A device op is a kernel, copy or memset launched by the measured
     calls; one whose device record the profiler dropped is counted from
     its launch and reported (its time is then missing from the busy
@@ -1365,10 +1397,12 @@ def profile_window(label: str, unit: str, fn, units: int,
           f"{launches / units:.1f} (device records dropped by the "
           f"profiler: {lost}; unmatched: {orphans})", flush=True)
     shares = {}
-    for name in ((focus,) if isinstance(focus, str) else focus):
+    events = prof.events()
+    for name in (*((focus,) if isinstance(focus, str) else focus), *ranges):
         if not name:
             continue
-        mine = sum(r[0] for r in rows if name in r[2]) / 1e6
+        mine = (range_device_us(events, name) if name in ranges else
+                sum(r[0] for r in rows if name in r[2])) / 1e6
         shares[name] = {"device_ms": mine * 1e3 / units,
                         "share": mine / max(busy, 1e-12)}
         print(f"profile   {name}: device_ms_per_{unit}="
@@ -2618,21 +2652,25 @@ def _token_batches(cfg, n: int, batch: int, seq: int) -> list:
              for k, v in next(it).items()} for _ in range(n)]
 
 
-def lm_against_plain(label: str, res: dict, plain: dict) -> dict:
+def lm_against_plain(label: str, res: dict, plain: dict,
+                     rows=None) -> dict:
     """A served call (``serve_lm``'s result) against the same call with
     ``attention="plain"``: the prefill's last-token logits finite and
     within ``LM_BF16_TOL * max|logits|``, and the first greedy token equal
-    on every row whose top-2 gap exceeds twice the difference.  Prints one
-    line; fails on a disagreement."""
-    got, want = res["first_logits"].float(), plain["first_logits"].float()
+    on every row whose top-2 gap exceeds twice the difference; with
+    ``rows`` (a (B,) bool mask) on those rows only.  Prints one line;
+    fails on a disagreement."""
+    sel = slice(None) if rows is None else rows
+    got = res["first_logits"][sel].float()
+    want = plain["first_logits"][sel].float()
+    tokens, plain_tokens = res["tokens"][sel], plain["tokens"][sel]
     diff = float((got - want).abs().max())
     tol = LM_BF16_TOL * float(want.abs().max())
-    agree = float((res["tokens"] == plain["tokens"]).float().mean())
+    agree = float((tokens == plain_tokens).float().mean())
     top2 = want.topk(2, dim=-1).values
     decisive = (top2[:, 0] - top2[:, 1]) > 2 * diff
-    first_same = bool((res["tokens"][:, 0] == plain["tokens"][:, 0])
-                      [decisive].all())
-    batch, gen = res["tokens"].shape
+    first_same = bool((tokens[:, 0] == plain_tokens[:, 0])[decisive].all())
+    batch, gen = tokens.shape
     print(f"{label} kernel vs plain attention: prefill_ms plain "
           f"{plain['prefill_ms']:.3f}; last-token logits max abs diff "
           f"{diff:.4e} (tol {tol:.4e} = {LM_BF16_TOL:g} x max|logits|); "
@@ -2733,43 +2771,237 @@ def whisper_phase(kernels, card: str) -> dict:
     return out
 
 
-#: 7c3's requests: (arch, batch, prompt, greedy tokens)
-DENSE_GQA_REQUESTS = (("phi3_medium_14b", 4, 512, 8), ("yi_34b", 1, 128, 4))
+#: 7c3's requests: (arch, layers kept (None: all; a cut), batch, prompt,
+#: greedy tokens).  llama4-scout keeps 4 of its 48 layers at the published
+#: width (20.26 GiB of bf16 weights; all 48 are 201 GiB)
+GQA_REQUESTS = (("phi3_medium_14b", None, 4, 512, 8),
+                ("yi_34b", None, 1, 128, 4),
+                ("llama4_scout_17b_a16e", 4, 4, 512, 8))
+#: llama4's served call, the flash kernel against the plain attention: the
+#: largest share of (token, layer) top-1 choices of the prefill that may
+#: differ between the two runs.  Fixed before the first card run
+#: (PERF.md section 6, llama4-scout): the two attentions differ by a bf16
+#: rounding of P (FLASH_TOL), which moves a router logit by about 1e-3 of
+#: its spread, and flips a choice only where the top-2 gap is that small:
+#: predicted under 1% of the choices; a choice that flips changes that
+#: token's later layers.  A wrong attention moves many more.  The card
+#: read 0.0193 (NVIDIA H100 80GB HBM3, 700 W; PERF.md section 5): at init
+#: a row's tokens share their attention output and route alike.
+MOE_ROUTE_DIFF_LIMIT = 0.05
+#: The MoE dispatch check (one layer at the published width, fp32, on the
+#: card): tokens, the push of every token toward expert 0 (in units of
+#: the router column's direction, so that expert 0 overflows its
+#: capacity), and the bound on the scatter dispatch against the masked
+#: dense evaluation, relative to max|out|
+MOE_DISPATCH_TOKENS, MOE_DISPATCH_SKEW, MOE_DISPATCH_TOL = 2048, 1.5, 1e-4
+
+
+class RoutingLog:
+    """Keeps the experts the MoE router (``models.moe.route``) chose, (T,
+    k) per call, while entered (a reference to the router's own output:
+    no device op)."""
+
+    def __init__(self, moe):
+        self.moe, self.calls = moe, []
+
+    def __enter__(self):
+        self.real = self.moe.route
+
+        def logged(*a, **kw):
+            out = self.real(*a, **kw)
+            self.calls.append(out[2])
+            return out
+        self.moe.route = logged
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.real
+
+
+def moe_against_plain(label: str, cfg, res: dict, plain: dict,
+                      kernel_routes: list, plain_routes: list) -> dict:
+    """llama4's served call against the plain attention's: the share of
+    the prefill's (token, layer) choices that differ, held to
+    ``MOE_ROUTE_DIFF_LIMIT``, then :func:`lm_against_plain` on the rows
+    whose last position routed alike in every layer (a top-1 router is
+    discontinuous: a row routed otherwise has other logits); each layer's
+    dropped share of the prefill printed."""
+    from repro_torch.models.moe import capacity
+    batch = res["tokens"].shape[0]
+    layers = cfg.n_layers
+    if len(kernel_routes) < layers or len(plain_routes) < layers:
+        fail(f"{label}: {len(kernel_routes)} / {len(plain_routes)} router "
+             f"calls, want at least {layers} (the prefill)")
+    k_pre = torch.stack(kernel_routes[:layers])      # (L, B * S, k)
+    p_pre = torch.stack(plain_routes[:layers])
+    differ = (k_pre != p_pre).any(dim=-1)            # (L, B * S)
+    share = float(differ.float().mean())
+    alike = ~differ.view(layers, batch, -1)[:, :, -1].any(dim=0)  # (B,)
+    t = k_pre.shape[1]
+    cap = capacity(cfg, t)
+    counts = torch.stack([torch.bincount(c.reshape(-1),
+                                         minlength=cfg.n_experts)
+                          for c in k_pre])
+    dropped = ((counts - cap).clamp(min=0).sum(dim=1).float()
+               / (t * cfg.moe_top_k)).tolist()
+    print(f"{label} routing, kernel vs plain attention: "
+          f"{int(differ.sum())} of {differ.numel()} (token, layer) choices "
+          f"of the prefill differ, share {share:.6f} (limit "
+          f"{MOE_ROUTE_DIFF_LIMIT}); rows whose last position routed alike "
+          f"in all {layers} layers: {int(alike.sum())} of {batch}; "
+          f"prefill capacity {cap} a expert for {t} tokens, dropped share "
+          f"per layer {[round(x, 6) for x in dropped]}", flush=True)
+    if share > MOE_ROUTE_DIFF_LIMIT or not bool(alike.any()):
+        fail(f"{label}: routing under the kernel and the plain attention "
+             f"differs on {share:.4f} of the choices (limit "
+             f"{MOE_ROUTE_DIFF_LIMIT}) or on every row")
+    return {"route_diff_share": share, "rows_alike": int(alike.sum()),
+            "capacity": cap, "dropped_share": dropped,
+            **lm_against_plain(label, res, plain, rows=alike)}
+
+
+def moe_dispatch_check(cfg, card: str) -> dict:
+    """One MoE layer of ``cfg`` at its width in fp32 on the card, seeded,
+    on ``MOE_DISPATCH_TOKENS`` random tokens pushed toward expert 0 (so
+    that it overflows): the scatter dispatch (``moe_forward``) against the
+    masked dense evaluation (``moe_masked_dense``: each expert's first
+    ``capacity`` assignments by ``nonzero``), within
+    ``MOE_DISPATCH_TOL * max|out|``, with drops > 0; both timed."""
+    from repro_torch.models import moe as PMoE
+    torch.cuda.empty_cache()
+    layer = PMoE.MoE(cfg, device="cuda")
+    layer.init(torch.Generator(device="cuda").manual_seed(0))
+    p = {name: w.detach() for name, w in layer.named_parameters()
+         if "." not in name}
+    p["shared"] = {name: w.detach()
+                   for name, w in layer.shared.named_parameters()}
+    g = torch.Generator(device="cuda").manual_seed(1)
+    r0 = p["router"][:, 0]
+    x = torch.randn(1, MOE_DISPATCH_TOKENS, cfg.d_model, generator=g,
+                    device="cuda") + MOE_DISPATCH_SKEW * r0 / r0.norm()
+    with torch.no_grad():
+        _, _, chosen = PMoE.route(cfg, p["router"], x[0])
+        cap = PMoE.capacity(cfg, MOE_DISPATCH_TOKENS)
+        counts = torch.bincount(chosen.reshape(-1), minlength=cfg.n_experts)
+        drops = int((counts - cap).clamp(min=0).sum())
+        got, _ = PMoE.moe_forward(cfg, p, x)
+        want = PMoE.moe_masked_dense(cfg, p, x)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        tol = MOE_DISPATCH_TOL * float(want.abs().max())
+        ms = time_ms(lambda: PMoE.moe_forward(cfg, p, x), reps=3,
+                     trials=3)[0]
+        dense_ms = time_ms(lambda: PMoE.moe_masked_dense(cfg, p, x),
+                           reps=3, trials=3)[0]
+    print(f"moe dispatch {cfg.name} (one layer, fp32, d={cfg.d_model}, "
+          f"{cfg.n_experts} experts of {cfg.expert_ff}, top-"
+          f"{cfg.moe_top_k}, {MOE_DISPATCH_TOKENS} tokens, capacity {cap}) "
+          f"on {card}: dropped assignments {drops}, the largest expert "
+          f"{int(counts.max())}; scatter dispatch vs masked dense max abs "
+          f"diff {err:.4e} (tol {tol:.4e} = {MOE_DISPATCH_TOL:g} x "
+          f"max|out|); ms dispatch {ms:.3f}, masked dense {dense_ms:.3f}",
+          flush=True)
+    if not (drops > 0 and torch.isfinite(got).all() and err <= tol):
+        fail(f"moe dispatch: {drops} drops, max abs diff {err:.4e} against "
+             f"the masked dense evaluation (tol {tol:.4e})")
+    del layer, p, x, got, want
+    torch.cuda.empty_cache()
+    return {"drops": drops, "capacity": cap, "max_abs_diff": err,
+            "tol": tol, "ms": ms, "masked_dense_ms": dense_ms}
+
+
+def moe_profiles(cfg, lm, tokens, max_seq: int, card: str) -> dict:
+    """Profile windows of one llama4 prefill (flash's and the expert
+    products' device shares: ``models.moe.experts`` under a
+    ``record_function`` range for the window only) and of 5 decode
+    steps (device ops a step)."""
+    from torch.profiler import record_function
+
+    from repro_torch.models import model as PM
+    from repro_torch.models import moe as PMoE
+    state = {}
+    real = PMoE.experts
+
+    def ranged(*a, **kw):
+        with record_function("moe.experts"):
+            return real(*a, **kw)
+
+    def prefill():
+        state["cache"] = PM.prefill(cfg, lm, tokens, max_seq=max_seq)[1]
+
+    def decode():        # the same cache slot every call (pos stays)
+        PM.decode_step(cfg, lm, state["cache"], tokens[:, :1])
+
+    batch, prompt_len = tokens.shape
+    PMoE.experts = ranged
+    try:
+        out = {"prefill": profile_window(
+            f"{cfg.name} prefill batch {batch} prompt {prompt_len}, "
+            f"{cfg.n_layers} layers, 1 call, on {card}", "prefill",
+            prefill, units=1, calls=1, focus="flash_fwd",
+            ranges=("moe.experts",))}
+    finally:
+        PMoE.experts = real
+    out["decode"] = profile_window(
+        f"{cfg.name} decode batch {batch}, 5 steps, on {card}", "step",
+        decode, units=5, calls=5)
+    return out
 
 
 def dense_gqa_phase(kernels, card: str) -> dict:
-    """7c3: the dense-GQA configs at full width, seeded, with bf16 weights
+    """7c3: the GQA configs at full width, seeded, with bf16 weights
     (``init_params(..., dtype=torch.bfloat16)``; a cut: fp32 masters plus
     the once-per-call bf16 cast would need 58.6 + 29.3 GB for phi3 and
-    137.6 + 68.8 GB for yi): each request served with exactly one flash
-    launch a layer per prefill and none per decode step, against the
-    plain attention, with its peak memory; each model freed before the
-    next.  qwen1.5-110b (207 GiB in bf16) does not fit the card: its
-    parameter count only."""
+    137.6 + 68.8 GB for yi), each request of ``GQA_REQUESTS`` with its
+    layer cut: served with exactly one flash launch a layer per prefill
+    and none per decode step, against the plain attention, with the peak
+    memory of the serving (from the warm-up on) and of the init; each
+    model freed before the next.  llama4-scout (the MoE FFN)
+    also records each layer's expert choices in both runs
+    (:func:`moe_against_plain`), profiles a prefill and decode steps
+    (:func:`moe_profiles`) and holds one MoE layer's dispatch to the
+    masked dense evaluation (:func:`moe_dispatch_check`).  qwen1.5-110b
+    (207 GiB in bf16) does not fit the card: its parameter count only."""
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
     from repro_torch.models import model as PM
+    from repro_torch.models import moe as PMoE
     out = {}
-    for arch, batch, prompt_len, gen in DENSE_GQA_REQUESTS:
+    for arch, layers, batch, prompt_len, gen in GQA_REQUESTS:
+        tic = time.perf_counter()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         cfg = get_config(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        moe = any(spec.ffn == "moe" for spec in cfg.pattern)
         lm, init_s = run_timed(PM.init_params, cfg, 0, dtype=torch.bfloat16)
         n_params = sum(p.numel() for p in lm.parameters())
+        # the init's fp32 draws peak above the served call's memory
+        init_peak = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         tokens = serve.prompt_tokens(cfg, batch, prompt_len, 0)
         serve.serve_lm(cfg, lm, tokens, 2)                      # warm-up
         kernels.reset_launch_counts()
-        res = serve.serve_lm(cfg, lm, tokens, gen)
+        with RoutingLog(PMoE) as routes:
+            res = serve.serve_lm(cfg, lm, tokens, gen)
         served = kernels.launch_counts()["flash_attention"]
         peak = torch.cuda.max_memory_allocated()
+        cut = "" if layers is None else \
+            f"; cut: {layers} of {get_config(arch).n_layers} layers"
+        moe_note = "" if not moe else \
+            (f", {cfg.n_experts} experts of {cfg.expert_ff} top-"
+             f"{cfg.moe_top_k} + {cfg.n_shared_experts} shared")
         print(f"lm serve {cfg.name} ({n_params / 1e9:.3f}B params, bf16 "
               f"weights {n_params * 2 / 2 ** 30:.2f} GiB (cut: bf16, not "
-              f"fp32 masters), init {init_s:.2f} s; H={cfg.n_heads} "
-              f"Hkv={cfg.n_kv_heads} hd={cfg.head_dim}) batch={batch} "
+              f"fp32 masters{cut}), init {init_s:.2f} s; H={cfg.n_heads} "
+              f"Hkv={cfg.n_kv_heads} hd={cfg.head_dim}{moe_note}) "
+              f"batch={batch} "
               f"prompt={prompt_len} gen={gen} bf16 on {card}: prefill_ms="
               f"{res['prefill_ms']:.3f} decode_ms_per_token="
               f"{res['decode_ms_per_token']:.3f} tok_s={res['tok_s']:.1f} "
-              f"max_memory_allocated={peak / 2 ** 30:.3f} GiB; flash "
+              f"max_memory_allocated={peak / 2 ** 30:.3f} GiB (the init's "
+              f"{init_peak / 2 ** 30:.3f}); flash "
               f"launches in the served call {served} (want "
               f"{cfg.n_layers}: one a layer per prefill, none per decode "
               f"step)", flush=True)
@@ -2778,13 +3010,26 @@ def dense_gqa_phase(kernels, card: str) -> dict:
                  f"want {cfg.n_layers}")
         if res["tokens"].shape != (batch, gen):
             fail(f"{cfg.name}: generated {tuple(res['tokens'].shape)}")
-        plain = serve.serve_lm(cfg, lm, tokens, gen, attention="plain")
+        with RoutingLog(PMoE) as plain_routes:
+            plain = serve.serve_lm(cfg, lm, tokens, gen, attention="plain")
+        label = f"lm {cfg.name}"
+        agreement = moe_against_plain(
+            label, cfg, res, plain, routes.calls, plain_routes.calls) \
+            if moe else lm_against_plain(label, res, plain)
         out[arch] = {"launches": served, "prefill_ms": res["prefill_ms"],
                      "decode_ms_per_token": res["decode_ms_per_token"],
                      "peak_gib": peak / 2 ** 30,
-                     **lm_against_plain(f"lm {cfg.name}", res, plain)}
-        del lm, res, plain
+                     "init_peak_gib": init_peak / 2 ** 30, **agreement}
+        del res, plain, routes, plain_routes
+        if moe:
+            out[arch]["profile"] = moe_profiles(cfg, lm, tokens,
+                                                prompt_len + gen, card)
+        del lm
         torch.cuda.empty_cache()
+        if moe:
+            out[arch]["dispatch"] = moe_dispatch_check(cfg, card)
+        print(f"lm {cfg.name} request wall_s={time.perf_counter() - tic:.1f}",
+              flush=True)
     cfg = get_config("qwen1_5_110b")
     n = cfg.param_count()
     total = torch.cuda.get_device_properties(0).total_memory
@@ -4099,11 +4344,15 @@ def main() -> int:
     ]
     main_rows["flash_attention_bwd"] = check_flash_bwd(
         fa, peaks, 8, 9, 3, 512, 64, torch.bfloat16, 31)
+    # llama4-scout's prefill (7c3): B=4, H=40, Hkv=8, S=512, hd 128
+    llama4_row = check_flash(fa, peaks, 4, 40, 8, 512, 128, torch.bfloat16,
+                             29)
     new_rows = [
         check_power_matmul(pm, peaks, large[0], large[1], "(large mean)"),
         check_flash(fa, peaks, 8, 9, 3, 512, 64, torch.float32, 22),
         check_flash(fa, peaks, 1, 9, 3, 4096, 64, torch.bfloat16, 23),
         check_flash(fa, peaks, 1, 9, 3, 4096, 128, torch.bfloat16, 24),
+        llama4_row,
         *non_causal,
         check_flash_bwd(fa, peaks, 1, 9, 3, 4096, 128, torch.bfloat16, 36),
         check_flash_bwd(fa, peaks, 1, 9, 3, 1000, 64, torch.bfloat16, 34),
@@ -4307,7 +4556,14 @@ def main() -> int:
              "launches_whisper": {key: whisper[key] for key in (
                  "per_prefill", "per_decode_step", "served_call")},
              "launches_dense_gqa": {arch: r["launches"]
-                                    for arch, r in dense_gqa.items()},
+                                    for arch, r in dense_gqa.items()
+                                    if arch != "llama4_scout_17b_a16e"},
+             "launches_llama4": {
+                 "served_call": dense_gqa["llama4_scout_17b_a16e"][
+                     "launches"],
+                 "shape": llama4_row["shape"],
+                 **{key: llama4_row[key] for key in non_causal_keys
+                    if key != "shape"}},
              "non_causal": [{key: r[key] for key in non_causal_keys}
                             for r in non_causal],
              "launches_whisper_train": {

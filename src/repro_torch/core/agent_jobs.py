@@ -103,8 +103,9 @@ def deepca_runs(tr: Transport, data, cases) -> list:
     ``data``: the stacked ``(m, n, d)`` rows (a source, see
     :func:`local_rows`).  A case is a dict with ``topology``, ``k``,
     ``K``, ``T``, ``W0`` and optionally ``form`` (``"data"`` or
-    ``"dense"``), ``dtype``, ``schedule`` (a recipe) and ``warmup``
-    (iterations run first, untimed).  Per case and rank: the launches of
+    ``"dense"``), ``dtype``, ``schedule`` (a recipe), ``warmup``
+    (iterations run first, untimed) and ``momentum`` (the accelerated
+    power iterations with that beta).  Per case and rank: the launches of
     run's iterations (counted up to the gathers, which launch nothing),
     its :func:`rank_stats`, the step-cache kinds, and on rank 0 the
     gathered ``W`` and ``S``.
@@ -120,7 +121,9 @@ def deepca_runs(tr: Transport, data, cases) -> list:
         def make(T):
             return DistributedDeEPCA(
                 case["topology"], k=case["k"], K=case["K"], T=T,
-                operator_kind=kind, group=tr)
+                operator_kind=kind, group=tr,
+                accelerated="momentum" in case,
+                momentum=case.get("momentum", 0.0))
 
         sched = schedule_from(case.get("schedule"))
         if case.get("warmup"):

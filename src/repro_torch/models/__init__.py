@@ -1,8 +1,10 @@
 """LM scaffold of the port: dense GQA models (SmolLM-135M, yi, phi3,
 qwen1.5, the encoder-decoder whisper-small) with the hand-written
 flash-attention kernel on the prefill and, with its backward kernel, on
-the training loss; and the recurrent xLSTM (mLSTM and sLSTM mixers,
-``ssm.py``), which runs no kernel of the port."""
+the training loss; the recurrent xLSTM (mLSTM and sLSTM mixers,
+``ssm.py``), which runs no kernel of the port; and llama4-scout's
+mixture-of-experts FFN (``moe.py``: torch index ops and batched products,
+no kernel of the port; its attention takes the flash kernel)."""
 from .config import (SHAPES, ArchConfig, BlockSpec, ShapeSpec,
                      model_flops_per_token)
 from .layers import cross_entropy

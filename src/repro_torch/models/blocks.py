@@ -2,14 +2,15 @@
 mixer (causal ``"attn"`` or bidirectional ``"attn_bidir"`` attention, the
 SSD mixers ``"mamba"`` and ``"mlstm"``, or ``"slstm"``), then, with
 ``cross``, pre-norm cross-attention over the encoder's output, then, unless
-the FFN is ``"none"``, pre-norm dense FFN.
+the FFN is ``"none"``, pre-norm FFN: dense SwiGLU or the mixture of
+experts (``"moe"``, :mod:`.moe`).
 
-MLA attention and the MoE FFN raise ``NotImplementedError`` naming the
-ROADMAP item that ports them.
+MLA attention raises ``NotImplementedError`` naming the ROADMAP item that
+ports it.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -17,22 +18,22 @@ from torch import nn
 from .._device import resolve_device
 from .attention import Attention, attn_forward
 from .config import ArchConfig, BlockSpec
-from .layers import dense_init, ffn_forward, rms_norm
+from .layers import FFN, ffn_forward, rms_norm
+from .moe import MoE, moe_forward
 from .ssm import (SLSTM, SSD, slstm_cache_init, slstm_forward,
                   ssd_cache_init, ssd_forward)
 
 _NOT_PORTED = {
     "mla": "DeepSeek MLA attention",
-    "moe": "the mixture-of-experts FFN",
 }
 ATTENTION = ("attn", "attn_bidir")
 MIXERS = ATTENTION + ("mamba", "mlstm", "slstm")
-FFNS = ("dense", "none")
+FFNS = ("dense", "moe", "none")
 
 
 def check_spec(spec: BlockSpec) -> None:
     """Raise ``NotImplementedError`` for a block the port does not run yet
-    (MLA, MoE) and ``ValueError`` for an unknown kind."""
+    (MLA) and ``ValueError`` for an unknown kind."""
     for kind in (spec.mixer, spec.ffn):
         if kind in _NOT_PORTED:
             raise NotImplementedError(
@@ -42,31 +43,14 @@ def check_spec(spec: BlockSpec) -> None:
         raise ValueError(f"unknown block spec {spec}")
 
 
-class FFN(nn.Module):
-    """SwiGLU weights: ``wi_gate``, ``wi_up`` (d, ff) and ``wo`` (ff, d)."""
-
-    def __init__(self, d: int, ff: int, *, device=None, dtype=torch.float32):
-        super().__init__()
-        kw = dict(device=device, dtype=dtype)
-        self.wi_gate = nn.Parameter(torch.empty(d, ff, **kw))
-        self.wi_up = nn.Parameter(torch.empty(d, ff, **kw))
-        self.wo = nn.Parameter(torch.empty(ff, d, **kw))
-
-    @torch.no_grad()
-    def init(self, generator: torch.Generator) -> None:
-        for name in ("wi_gate", "wi_up", "wo"):
-            w = getattr(self, name)
-            w.copy_(dense_init(*w.shape, generator=generator,
-                               device=w.device, dtype=w.dtype))
-
-
 class Block(nn.Module):
     """``norm1`` and the ``mixer`` of ``spec.mixer``'s kind
     (:class:`~.attention.Attention`, :class:`~.ssm.SSD` or
     :class:`~.ssm.SLSTM`), with ``spec.cross`` the cross-attention
     ``cross`` and its ``norm_cross``, then, unless ``spec.ffn`` is
-    ``"none"``, ``norm2`` and the dense ``ffn``; the norm scales are
-    offsets from 1 (zeros at init)."""
+    ``"none"``, ``norm2`` and the ``ffn`` (:class:`~.layers.FFN`, or for
+    ``"moe"`` :class:`~.moe.MoE`); the norm scales are offsets from 1
+    (zeros at init)."""
 
     def __init__(self, cfg: ArchConfig, spec: BlockSpec, *, device=None,
                  dtype=torch.float32):
@@ -85,7 +69,8 @@ class Block(nn.Module):
             self.norm_cross = nn.Parameter(torch.zeros(cfg.d_model, **kw))
         if spec.ffn != "none":
             self.norm2 = nn.Parameter(torch.zeros(cfg.d_model, **kw))
-            self.ffn = FFN(cfg.d_model, cfg.d_ff, **kw)
+            self.ffn = MoE(cfg, **kw) if spec.ffn == "moe" else \
+                FFN(cfg.d_model, cfg.d_ff, **kw)
 
     @torch.no_grad()
     def init(self, generator: torch.Generator) -> None:
@@ -120,13 +105,16 @@ def block_forward(cfg: ArchConfig, spec: BlockSpec, p, x: torch.Tensor, *,
                   cache: Optional[dict] = None,
                   encoder_out: Optional[torch.Tensor] = None,
                   attention: str = "kernel"
-                  ) -> Tuple[torch.Tensor, Optional[dict]]:
+                  ) -> Tuple[torch.Tensor, Optional[dict],
+                             Union[torch.Tensor, float]]:
     """One block of kind ``spec`` on x (B, S, d); ``p`` maps ``norm1``,
     ``mixer``, [``norm_cross``, ``cross``,] [``norm2``, ``ffn``] to
     (nested) weights; ``cache`` is the block's :func:`block_cache_init`
     entry; ``encoder_out`` (B, F, d) is what ``cross`` attends.  Returns
-    ``(x, new_cache)``; the reference's third output, the MoE auxiliary
-    loss, is always zero for the blocks ported here and is left out."""
+    ``(x, new_cache, aux)`` as the reference does: ``aux`` the MoE FFN's
+    fp32 load-balancing loss, and for any other block the number 0.0 (no
+    device op)."""
+    aux = 0.0
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     new_cache = None
     if spec.mixer in ATTENTION:
@@ -159,5 +147,9 @@ def block_forward(cfg: ArchConfig, spec: BlockSpec, p, x: torch.Tensor, *,
         x = x + out
     if spec.ffn != "none":
         h = rms_norm(x, p["norm2"], cfg.norm_eps)
-        x = x + ffn_forward(p["ffn"], h)
-    return x, new_cache
+        if spec.ffn == "moe":
+            out, aux = moe_forward(cfg, p["ffn"], h)
+        else:
+            out = ffn_forward(p["ffn"], h)
+        x = x + out
+    return x, new_cache, aux

@@ -9,6 +9,7 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+from torch import nn
 
 
 def truncated_normal(shape, scale: float, *, generator: torch.Generator,
@@ -78,6 +79,24 @@ def sinusoidal_positions(seq: int, d: int, offset: int = 0,
 
 
 # ---------------------------------------------------------------- SwiGLU FFN
+class FFN(nn.Module):
+    """SwiGLU weights: ``wi_gate``, ``wi_up`` (d, ff) and ``wo`` (ff, d)."""
+
+    def __init__(self, d: int, ff: int, *, device=None, dtype=torch.float32):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.wi_gate = nn.Parameter(torch.empty(d, ff, **kw))
+        self.wi_up = nn.Parameter(torch.empty(d, ff, **kw))
+        self.wo = nn.Parameter(torch.empty(ff, d, **kw))
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator) -> None:
+        for name in ("wi_gate", "wi_up", "wo"):
+            w = getattr(self, name)
+            w.copy_(dense_init(*w.shape, generator=generator,
+                               device=w.device, dtype=w.dtype))
+
+
 def ffn_forward(p, x: torch.Tensor) -> torch.Tensor:
     """SwiGLU: ``(silu(x W_gate) * (x W_up)) W_o``, silu in fp32; ``p``
     maps ``wi_gate``, ``wi_up``, ``wo`` to weights, cast to x's dtype."""

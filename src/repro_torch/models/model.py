@@ -1,6 +1,7 @@
 """LM assembly: init / cache / forward / loss / prefill / decode (the
 reference's ``repro/models/model.py`` for dense GQA models, decoder-only
-or encoder-decoder, and the recurrent xLSTM / SSD models).
+or encoder-decoder, the recurrent xLSTM / SSD models, and GQA with the
+mixture-of-experts FFN, llama4-scout).
 
 The reference scans over stacked pattern groups; here a Python loop runs
 the layers in order (layer ``g * len(pattern) + i`` is group ``g`` of
@@ -28,7 +29,7 @@ here the frames are encoded whenever ``embeds`` are given, and only
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 import torch.utils.checkpoint
@@ -42,6 +43,9 @@ from .layers import (cross_entropy, rms_norm, sinusoidal_positions,
 from .ssm import chunk_size
 
 CAST_PARAMS_ONCE = True
+#: The weight of the layers' summed MoE load-balancing loss in
+#: :func:`loss_fn` (the reference's ``AUX_LOSS_WEIGHT``).
+AUX_LOSS_WEIGHT = 0.01
 #: The parameters the reference stacks by pattern group: every leaf under
 #: them has two or more dimensions there, so its cast takes them all.
 _STACKED = ("layers.", "encoder.layers.")
@@ -205,8 +209,8 @@ def _encode(cfg: ArchConfig, tree: dict, frames: torch.Tensor,
     positions = make_positions(cfg, b, f, device=x.device)
     layers = tree["encoder"]["layers"]
     for i in range(cfg.encoder_layers):
-        x, _ = block_forward(cfg, ENCODER_SPEC, layers[str(i)], x,
-                             positions=positions, attention=attention)
+        x, _, _ = block_forward(cfg, ENCODER_SPEC, layers[str(i)], x,
+                                positions=positions, attention=attention)
     return rms_norm(x, tree["encoder"]["final_norm"], cfg.norm_eps)
 
 
@@ -222,8 +226,23 @@ def forward(cfg: ArchConfig, params: LM, tokens: torch.Tensor, *,
     cache's ``encoder_out``.  ``attention`` picks the attention path
     (``"kernel"`` or ``"plain"``).  ``remat`` (training, no cache)
     recomputes each decoder layer in the backward instead of keeping its
-    activations.  The reference's third output, the MoE auxiliary loss, is
-    always zero here and is left out."""
+    activations.  The reference's third output, the layers' summed MoE
+    auxiliary loss, is left out here: :func:`loss_fn` takes it from
+    :func:`_forward`."""
+    logits, new_cache, _ = _forward(
+        cfg, params, tokens, embeds=embeds, cache=cache,
+        last_only=last_only, remat=remat, attention=attention)
+    return logits, new_cache
+
+
+def _forward(cfg: ArchConfig, params: LM, tokens: torch.Tensor, *,
+             embeds: Optional[torch.Tensor], cache: Optional[dict],
+             last_only: bool, remat: bool, attention: str
+             ) -> Tuple[torch.Tensor, Optional[dict],
+                        Union[torch.Tensor, float]]:
+    """:func:`forward` with the reference's third output: ``(logits,
+    new_cache, aux)``, aux the sum of the MoE layers' fp32 auxiliary
+    losses (the number 0.0 for a model without MoE layers)."""
     check_config(cfg)
     if remat and cache is not None:
         raise ValueError("remat is for training: no cache")
@@ -245,19 +264,22 @@ def forward(cfg: ArchConfig, params: LM, tokens: torch.Tensor, *,
                              "the frame embeds (embeds=)")
 
     new_layers = []
+    aux = 0.0
     for i in range(cfg.n_layers):
         p = tree["layers"][str(i)]
         spec = layer_spec(cfg, i)
         if remat:
-            x = torch.utils.checkpoint.checkpoint(
+            x, a = torch.utils.checkpoint.checkpoint(
                 _train_block, cfg, spec, p, x, positions, encoder_out,
                 attention, use_reentrant=False)
-            continue
-        c = cache["layers"][i] if cache is not None else None
-        x, nc = block_forward(cfg, spec, p, x, positions=positions, pos=pos,
-                              cache=c, encoder_out=encoder_out,
-                              attention=attention)
-        new_layers.append(nc)
+        else:
+            c = cache["layers"][i] if cache is not None else None
+            x, nc, a = block_forward(cfg, spec, p, x, positions=positions,
+                                     pos=pos, cache=c,
+                                     encoder_out=encoder_out,
+                                     attention=attention)
+            new_layers.append(nc)
+        aux = aux + a
 
     x = rms_norm(x, tree["final_norm"], cfg.norm_eps)
     if last_only:
@@ -271,15 +293,18 @@ def forward(cfg: ArchConfig, params: LM, tokens: torch.Tensor, *,
             new_cache["encoder_out"] = cache["encoder_out"]
             if embeds is not None:
                 cache["encoder_out"].copy_(encoder_out)
-    return logits, new_cache
+    return logits, new_cache, aux
 
 
 def _train_block(cfg: ArchConfig, spec: BlockSpec, p: dict, x: torch.Tensor,
                  positions: torch.Tensor,
                  encoder_out: Optional[torch.Tensor],
-                 attention: str) -> torch.Tensor:
-    return block_forward(cfg, spec, p, x, positions=positions,
-                         encoder_out=encoder_out, attention=attention)[0]
+                 attention: str) -> Tuple[torch.Tensor,
+                                          Union[torch.Tensor, float]]:
+    """One decoder layer under remat: ``(x, aux)``."""
+    x, _, aux = block_forward(cfg, spec, p, x, positions=positions,
+                              encoder_out=encoder_out, attention=attention)
+    return x, aux
 
 
 def loss_fn(cfg: ArchConfig, params: LM, batch: Dict[str, torch.Tensor], *,
@@ -288,13 +313,18 @@ def loss_fn(cfg: ArchConfig, params: LM, batch: Dict[str, torch.Tensor], *,
     entropy, in fp32, of :func:`forward` with ``remat`` on.  batch:
     ``tokens`` and ``labels`` (B, S) int, and for an encoder-decoder
     ``embeds``.  The logits are in the compute dtype (bf16 when
-    ``cfg.dtype`` is, after the ``CAST_PARAMS_ONCE`` cast).  The reference
-    adds ``AUX_LOSS_WEIGHT`` times the MoE auxiliary loss, which is zero
-    for the dense blocks ported here."""
-    logits, _ = forward(cfg, params, batch["tokens"],
-                        embeds=batch.get("embeds"), remat=True,
-                        attention=attention)
-    return cross_entropy(logits, batch["labels"])
+    ``cfg.dtype`` is, after the ``CAST_PARAMS_ONCE`` cast).  A model with
+    MoE layers adds ``AUX_LOSS_WEIGHT`` times their summed load-balancing
+    loss, as the reference does (its router's gradient at top-1 comes
+    from that term alone: the renormalised gate is ``p / p``)."""
+    logits, _, aux = _forward(cfg, params, batch["tokens"],
+                              embeds=batch.get("embeds"), cache=None,
+                              last_only=False, remat=True,
+                              attention=attention)
+    loss = cross_entropy(logits, batch["labels"])
+    if isinstance(aux, torch.Tensor):           # a model with MoE layers
+        loss = loss + AUX_LOSS_WEIGHT * aux
+    return loss
 
 
 @torch.no_grad()

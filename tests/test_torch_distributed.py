@@ -14,7 +14,8 @@ Tolerances: ``DistributedDeEPCA`` against the reference's stacked
 against stacked); the ``"distributed"`` engine's ``mix`` against the
 reference's stacked mix: fp32 2e-4, ``ring(2)`` 1e-5, the f64 dense round
 1e-12; the dropout schedule against the reference's ``DistributedDeEPCA``
-in f64: 1e-10.
+in f64: 1e-10; the accelerated (momentum) ``DistributedDeEPCA`` against
+the reference's stacked accelerated ``deepca``, f64: 1e-10 (read 8.1e-16).
 """
 import os
 import subprocess
@@ -43,6 +44,8 @@ TOPOS = {"ring": lambda lib: lib.ring(8),
          "er": lambda lib: lib.erdos_renyi(8, p=0.6, seed=4)}
 DTYPES = ("float64", "float32")
 STEPS = 6
+#: the accelerated case's beta (the reference's default)
+MOMENTUM = 0.25
 
 
 def _dropout(lib):
@@ -74,6 +77,9 @@ def spawned(tmp_path_factory):
         env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     runs = [dict(topology=TOPOS[name](P), k=KK, K=5, T=12, W0=W0,
                  form="dense", dtype=dt) for name in TOPOS for dt in DTYPES]
+    runs += [dict(topology=TOPOS[name](P), k=KK, K=5, T=12, W0=W0,
+                  form="dense", dtype="float64", momentum=MOMENTUM)
+             for name in ("ring", "er")]
     runs.append(dict(topology=P.ring(8), k=KK, K=6, T=12, W0=W0,
                      form="dense", dtype="float64", schedule=_dropout(P)))
     mixes = [dict(kind="mix", topology=TOPOS[name](P), S=S32, K=6)
@@ -96,13 +102,14 @@ def spawned(tmp_path_factory):
                           tmp / "W.npy")}
 
 
-def _ref_deepca(X, W0, name, dtype, data_form=False):
+def _ref_deepca(X, W0, name, dtype, data_form=False, momentum=None):
     with jax.enable_x64(dtype == "float64"):
         Xj = jnp.asarray(X, dtype)
         ops = R.StackedOperators(data=Xj) if data_form else \
             R.StackedOperators(dense=jnp.einsum("mnd,mne->mde", Xj, Xj))
         res = R.deepca(ops, TOPOS[name](R), jnp.asarray(W0, dtype), k=KK,
-                       T=12, K=5, backend="stacked")
+                       T=12, K=5, backend="stacked",
+                       accelerated=momentum is not None, momentum=momentum)
         return np.asarray(res.W)
 
 
@@ -115,6 +122,21 @@ def test_distributed_deepca_matches_the_reference(spawned, name, dtype):
     assert got.dtype == np.dtype(dtype) and got.shape == (M, D, KK)
     tol = 1e-10 if dtype == "float64" else 2e-3
     assert float(np.max(np.abs(got - want))) < tol, (name, dtype)
+
+
+@pytest.mark.parametrize("name", ["ring", "er"])
+def test_accelerated_distributed_deepca_matches_the_reference(spawned, name):
+    """The momentum-accelerated power iterations (``accelerated=True``,
+    beta ``MOMENTUM``: the QR input is ``S_new - beta W_prev``) on the
+    ranks against the reference's stacked accelerated ``deepca``, f64."""
+    i = 2 * len(TOPOS) + ["ring", "er"].index(name)
+    assert spawned["runs"][i]["momentum"] == MOMENTUM
+    got = spawned["deepca"][0][i]["W"].numpy()
+    want = _ref_deepca(spawned["X"], spawned["W0"], name, "float64",
+                       momentum=MOMENTUM)
+    plain = _ref_deepca(spawned["X"], spawned["W0"], name, "float64")
+    assert float(np.max(np.abs(want - plain))) > 1e-6   # momentum acts
+    assert float(np.max(np.abs(got - want))) < 1e-10, name
 
 
 @pytest.mark.parametrize("name", list(TOPOS))

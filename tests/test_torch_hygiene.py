@@ -48,7 +48,8 @@ def test_import_leaves_jax_and_reference_out():
         "repro_torch.compression.deepca_powersgd, "
         "repro_torch.compression.sharded, repro_torch.optim, "
         "repro_torch.optim.adamw, repro_torch.launch.train, "
-        "repro_torch.models.model\n"
+        "repro_torch.models.model, repro_torch.models.moe, "
+        "repro_torch.configs.llama4_scout_17b_a16e\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "from repro_torch.kernels import _build\n"
@@ -108,9 +109,10 @@ def test_lm_entry_points_default_to_the_card():
             PM.init_params(cfg, 0)
         with pytest.raises((RuntimeError, AssertionError)):
             PM.init_cache(cfg, 1, 4)
-        with pytest.raises((RuntimeError, AssertionError)):
-            serve.main(["--reduced", "--batch", "1", "--prompt-len", "2",
-                        "--gen", "1"])
+        for arch in ("smollm_135m", "llama4_scout_17b_a16e"):
+            with pytest.raises((RuntimeError, AssertionError)):
+                serve.main(["--arch", arch, "--reduced", "--batch", "1",
+                            "--prompt-len", "2", "--gen", "1"])
 
 
 def test_recurrent_caches_default_to_the_card():

@@ -39,7 +39,9 @@ within 1e-2 relative of a central difference; the bf16 gradient through
 ``FlashAttention`` within 1e-2 of max|ref| of the exact one where the kv
 rows share a mean; a cut whisper-small train step (2 + 2 layers at full
 width) within chip_smoke's train-step bounds of the plain attention's:
-the loss 5e-3 relative, each gradient leaf 5e-2 relative Frobenius.
+the loss 5e-3 relative, each gradient leaf 5e-2 relative Frobenius; one
+MoE layer's scatter dispatch (fp32, with capacity drops) within 1e-4 *
+max|out| of the masked dense evaluation.
 """
 import ctypes
 import subprocess
@@ -1925,3 +1927,41 @@ def test_distributed_ranks_share_the_card(sm90):
             assert not any(ln[key] for key in (
                 "fastmix", "fastmix_track", "fastmix_poly", "apply_track"))
             assert st["staged"] == (st["transport"] == "gloo")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("top_k", [1, 2])
+def test_moe_dispatch_equals_the_masked_dense_evaluation_on_card(sm90,
+                                                                 top_k):
+    """One MoE layer at a small width (d 256, 8 experts of 512, one shared
+    expert) in fp32 on the card, 512 tokens pushed toward expert 0 so that
+    it overflows its capacity: the scatter dispatch (``moe_forward``: the
+    index ops on the card) within 1e-4 * max|out| of the masked dense
+    evaluation (each expert's first ``capacity`` assignments found by
+    ``nonzero``), and the auxiliary loss finite."""
+    from repro_torch.models import moe as PMoE
+    from repro_torch.models.config import ArchConfig, BlockSpec
+    cfg = ArchConfig(name="moe-small", family="moe", n_layers=1,
+                     d_model=256, n_heads=4, n_kv_heads=2, head_dim=64,
+                     d_ff=512, vocab=256,
+                     pattern=(BlockSpec("attn", "moe"),), n_experts=8,
+                     n_shared_experts=1, moe_top_k=top_k, moe_ff=512)
+    layer = PMoE.MoE(cfg, device="cuda")
+    layer.init(torch.Generator(device="cuda").manual_seed(0))
+    p = {name: w.detach() for name, w in layer.named_parameters()
+         if "." not in name}
+    p["shared"] = {name: w.detach()
+                   for name, w in layer.shared.named_parameters()}
+    g = torch.Generator(device="cuda").manual_seed(1)
+    r0 = p["router"][:, 0]
+    x = torch.randn(2, 256, 256, generator=g, device="cuda") + \
+        1.5 * r0 / r0.norm()
+    with torch.no_grad():
+        _, _, chosen = PMoE.route(cfg, p["router"], x.reshape(-1, 256))
+        counts = torch.bincount(chosen.reshape(-1), minlength=8)
+        assert int(counts.max()) > PMoE.capacity(cfg, 512)
+        got, aux = PMoE.moe_forward(cfg, p, x)
+        want = PMoE.moe_masked_dense(cfg, p, x)
+    assert got.device.type == "cuda" and torch.isfinite(aux)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-4 * float(want.abs().max()))

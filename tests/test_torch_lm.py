@@ -91,9 +91,9 @@ def test_registry_raises_for_unported_ids():
         PC.get_config("gpt-5")
 
 
-@pytest.mark.parametrize("spec", [BlockSpec("attn_bidir", "moe"),
+@pytest.mark.parametrize("spec", [BlockSpec("mla", "moe"),
                                   BlockSpec("mla", "dense"),
-                                  BlockSpec("attn", "moe"),
+                                  BlockSpec("mla", "none"),
                                   BlockSpec("mla", "dense", cross=True)])
 def test_other_blocks_raise_not_implemented(spec):
     cfg = dataclasses.replace(PC.get_reduced("smollm_135m"), pattern=(spec,))
