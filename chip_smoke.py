@@ -166,9 +166,19 @@ line); any failure raises and the exit code is non-zero:
    shares) and of decode steps, and one MoE layer in fp32 at the
    published width (2048 tokens pushed toward one expert, so that it
    overflows) through the scatter dispatch against a masked dense
-   evaluation; and qwen1.5-110b's parameter count (207 GiB in bf16: it
-   does not fit); 7c4. xlstm-350m at full width (fp32 master weights, bf16
-   compute; 21 mLSTM and 3 sLSTM blocks, no FFN, no attention): served
+   evaluation; then deepseek-v2-236b (MLA, a dense layer 0, the MoE FFN:
+   160 experts of 1536, top-6, 2 shared) at the published width cut to 4
+   of 60 layers (layer 0 and 3 MoE layers; batch 4, prompt 512, 8
+   tokens): exactly one flash launch at (192, 128) a layer per prefill
+   (MLA's expanded form) and none per decode step (the absorbed form
+   against the latent cache), the same routing, logits, profile and
+   dispatch checks with the share of differing top-6 *sets* held to
+   ``MLA_ROUTE_DIFF_LIMIT``, and one fp32 MLA layer at the published
+   width whose absorbed decode of a token matches the expanded forward
+   (``MLA_ABSORBED_TOL``); and qwen1.5-110b's parameter count (207 GiB in
+   bf16: it does not fit); 7c4. xlstm-350m at full width (fp32 master
+   weights, bf16 compute; 21 mLSTM and 3 sLSTM blocks, no FFN, no
+   attention): served
    (batch 8, prompt 512 = 4 chunks, 32 greedy tokens) with a decode
    step's and one sLSTM and one mLSTM layer's prefill profile windows,
    an fp32 copy's 128 teacher-forced decode steps after a 512-token
@@ -180,7 +190,9 @@ line); any failure raises and the exit code is non-zero:
    and 3 ``make_train_step`` steps on one batch
    (batch 8, seq 512: finite, falling loss), then one step profiled at
    128 tokens; no kernel of the port lies
-   on this path, so every launch count must stay 0; the flash backward kernel
+   on this path, so every launch count must stay 0; the flash forward at
+   MLA's split head dims (q and k 192, v 128) at deepseek's prefill shape
+   (B=4, H=Hkv=128, S=512, causal) in bf16 and fp32; the flash backward kernel
    (dq, dk, dv) against its plain version at the training shape (B=8,
    H=9, Hkv=3, S=512, hd 64, bf16), at B=1, S=4096, hd 128 in bf16, and
    at lengths that are not multiples of its tiles (bf16; fp32 at hd 128),
@@ -904,16 +916,23 @@ def check_power_matmul(pm, peaks, a, w, label: str) -> dict:
 
 
 def check_flash(fa, peaks, b: int, h: int, hkv: int, s: int, hd: int,
-                dtype, seed: int, *, skv=None, causal: bool = True) -> dict:
+                dtype, seed: int, *, skv=None, causal: bool = True,
+                hd_v=None) -> dict:
     """q, k, v in the LM's layout: (B, S, heads, hd) tensors transposed to
     (B, heads, S, hd) views, as ``sdpa`` hands them to the wrapper; q has
     ``s`` rows, k and v ``skv`` (default ``s``).  Non-causal calls are
-    whisper's: the encoder (Sq == Skv) and cross-attention (Sq != Skv)."""
+    whisper's: the encoder (Sq == Skv) and cross-attention (Sq != Skv).
+    With ``hd_v`` (MLA's split dims) v is the last ``hd_v`` columns of a
+    (B, S, heads, 2 hd_v) expansion, as ``mla_forward`` passes it."""
     sq, skv = s, s if skv is None else skv
+    hd_v = hd if hd_v is None else hd_v
     g = torch.Generator(device="cuda").manual_seed(seed)
     q = torch.randn(b, sq, h, hd, generator=g, device="cuda").to(dtype)
-    k, v = (torch.randn(b, skv, hkv, hd, generator=g, device="cuda")
-            .to(dtype) for _ in range(2))
+    k = torch.randn(b, skv, hkv, hd, generator=g, device="cuda").to(dtype)
+    v = torch.randn(b, skv, hkv, hd_v, generator=g, device="cuda").to(dtype) \
+        if hd_v == hd else torch.randn(
+            b, skv, hkv, 2 * hd_v, generator=g, device="cuda").to(
+            dtype)[..., hd_v:]
     q, k, v = (x.transpose(1, 2) for x in (q, k, v))
     got = fa.flash_attention(q, k, v, causal=causal)
     want = fa.flash_attention_plain(q, k, v, causal=causal)
@@ -925,8 +944,9 @@ def check_flash(fa, peaks, b: int, h: int, hkv: int, s: int, hd: int,
     del got, want
     mask = "causal" if causal else "non-causal"
     lengths = f"S={sq}" if sq == skv else f"Sq={sq} Skv={skv}"
-    row = {"name": "flash_attention",
-           "shape": f"B={b} H={h} Hkv={hkv} {lengths} hd={hd} {mask} "
+    dims = f"hd={hd}" if hd_v == hd else f"hd={hd} hd_v={hd_v}"
+    row = {"name": "flash_attention" if hd_v == hd else "flash_attention_mla",
+           "shape": f"B={b} H={h} Hkv={hkv} {lengths} {dims} {mask} "
                     f"{name} (strided, the LM's layout)",
            "max_abs_err": err, "tol": tol, "ok": ok, "causal": causal}
     row["ms"], row["host_us"] = time_ms(
@@ -947,11 +967,12 @@ def check_flash(fa, peaks, b: int, h: int, hkv: int, s: int, hd: int,
             q, kr, vr, is_causal=causal))[0]
     row["library"] = ("F.scaled_dot_product_attention(q, k, v repeated, "
                       f"is_causal={causal})")
-    nbytes = q.element_size() * (2 * b * h * sq * hd + 2 * b * hkv * skv * hd)
-    # QK^T and PV over the scores the function needs: the unmasked half
-    # when causal (Sq == Skv), the whole Sq x Skv matrix when not
-    flops = 2.0 * b * h * sq * sq * hd if causal else \
-        4.0 * b * h * sq * skv * hd
+    nbytes = q.element_size() * (b * h * sq * (hd + hd_v)
+                                 + b * hkv * skv * (hd + hd_v))
+    # QK^T (hd) and PV (hd_v) over the scores the function needs: the
+    # unmasked half when causal (Sq == Skv), the whole Sq x Skv when not
+    flops = 1.0 * b * h * sq * sq * (hd + hd_v) if causal else \
+        2.0 * b * h * sq * skv * (hd + hd_v)
     row["bound_ms"], row["bound_by"] = bound(
         nbytes, flops, peaks, "bf16" if dtype == torch.bfloat16 else "fp32")
     return row
@@ -2773,10 +2794,13 @@ def whisper_phase(kernels, card: str) -> dict:
 
 #: 7c3's requests: (arch, layers kept (None: all; a cut), batch, prompt,
 #: greedy tokens).  llama4-scout keeps 4 of its 48 layers at the published
-#: width (20.26 GiB of bf16 weights; all 48 are 201 GiB)
+#: width (20.26 GiB of bf16 weights; all 48 are 201 GiB); deepseek-v2 4 of
+#: 60, layer 0 (a dense FFN of 12288) and 3 MoE layers (24.8 GiB of bf16
+#: weights; all 60 are 439 GiB)
 GQA_REQUESTS = (("phi3_medium_14b", None, 4, 512, 8),
                 ("yi_34b", None, 1, 128, 4),
-                ("llama4_scout_17b_a16e", 4, 4, 512, 8))
+                ("llama4_scout_17b_a16e", 4, 4, 512, 8),
+                ("deepseek_v2_236b", 4, 4, 512, 8))
 #: llama4's served call, the flash kernel against the plain attention: the
 #: largest share of (token, layer) top-1 choices of the prefill that may
 #: differ between the two runs.  Fixed before the first card run
@@ -2788,6 +2812,19 @@ GQA_REQUESTS = (("phi3_medium_14b", None, 4, 512, 8),
 #: read 0.0193 (NVIDIA H100 80GB HBM3, 700 W; PERF.md section 5): at init
 #: a row's tokens share their attention output and route alike.
 MOE_ROUTE_DIFF_LIMIT = 0.05
+#: deepseek-v2's served call, the same share for its top-6 *sets* over 160
+#: experts.  Fixed before the first card run (PERF.md section 6, deepseek): a
+#: set changes only where the 6th and 7th probabilities lie within the
+#: attentions' bf16 difference, and that gap (about 0.076 sigma) is some
+#: 6.6x narrower than llama4's top-1-of-16 (0.5 sigma), so about 0.13 is
+#: expected from llama4's 0.0193; a wrong attention changes nearly every set
+MLA_ROUTE_DIFF_LIMIT = 0.25
+#: One fp32 MLA layer at deepseek-v2's published width, seeded: (batch,
+#: prompt) prefilled into the latent cache, then the absorbed decode of the
+#: next token against the expanded forward over prompt + 1, within
+#: MLA_ABSORBED_TOL * max|out| (fixed before the first card run: fp32 sums
+#: of 512 to 5120 terms in two association orders, about 1e-6 expected)
+MLA_ABSORBED_SHAPE, MLA_ABSORBED_TOL = (2, 64), 1e-4
 #: The MoE dispatch check (one layer at the published width, fp32, on the
 #: card): tokens, the push of every token toward expert 0 (in units of
 #: the router column's direction, so that expert 0 overflows its
@@ -2819,21 +2856,25 @@ class RoutingLog:
 
 
 def moe_against_plain(label: str, cfg, res: dict, plain: dict,
-                      kernel_routes: list, plain_routes: list) -> dict:
-    """llama4's served call against the plain attention's: the share of
-    the prefill's (token, layer) choices that differ, held to
-    ``MOE_ROUTE_DIFF_LIMIT``, then :func:`lm_against_plain` on the rows
-    whose last position routed alike in every layer (a top-1 router is
-    discontinuous: a row routed otherwise has other logits); each layer's
-    dropped share of the prefill printed."""
+                      kernel_routes: list, plain_routes: list,
+                      limit: float) -> dict:
+    """A MoE model's served call against the plain attention's: the share
+    of the prefill's (token, MoE layer) expert sets that differ, held to
+    ``limit``, then :func:`lm_against_plain` on the rows whose last
+    position routed alike in every MoE layer (a router is discontinuous: a
+    row routed otherwise has other logits); each MoE layer's dropped share
+    of the prefill printed."""
+    from repro_torch.models.model import layer_spec
     from repro_torch.models.moe import capacity
     batch = res["tokens"].shape[0]
-    layers = cfg.n_layers
+    layers = sum(layer_spec(cfg, i).ffn == "moe"
+                 for i in range(cfg.scan_layers))
     if len(kernel_routes) < layers or len(plain_routes) < layers:
         fail(f"{label}: {len(kernel_routes)} / {len(plain_routes)} router "
              f"calls, want at least {layers} (the prefill)")
-    k_pre = torch.stack(kernel_routes[:layers])      # (L, B * S, k)
-    p_pre = torch.stack(plain_routes[:layers])
+    # (L, B * S, k), each token's chosen set in ascending expert order
+    k_pre = torch.stack(kernel_routes[:layers]).sort(dim=-1).values
+    p_pre = torch.stack(plain_routes[:layers]).sort(dim=-1).values
     differ = (k_pre != p_pre).any(dim=-1)            # (L, B * S)
     share = float(differ.float().mean())
     alike = ~differ.view(layers, batch, -1)[:, :, -1].any(dim=0)  # (B,)
@@ -2845,16 +2886,17 @@ def moe_against_plain(label: str, cfg, res: dict, plain: dict,
     dropped = ((counts - cap).clamp(min=0).sum(dim=1).float()
                / (t * cfg.moe_top_k)).tolist()
     print(f"{label} routing, kernel vs plain attention: "
-          f"{int(differ.sum())} of {differ.numel()} (token, layer) choices "
-          f"of the prefill differ, share {share:.6f} (limit "
-          f"{MOE_ROUTE_DIFF_LIMIT}); rows whose last position routed alike "
-          f"in all {layers} layers: {int(alike.sum())} of {batch}; "
-          f"prefill capacity {cap} a expert for {t} tokens, dropped share "
-          f"per layer {[round(x, 6) for x in dropped]}", flush=True)
-    if share > MOE_ROUTE_DIFF_LIMIT or not bool(alike.any()):
+          f"{int(differ.sum())} of {differ.numel()} (token, MoE layer) "
+          f"top-{cfg.moe_top_k} sets of the prefill differ, share "
+          f"{share:.6f} (limit {limit}); rows whose last position routed "
+          f"alike in all {layers} MoE layers: {int(alike.sum())} of "
+          f"{batch}; prefill capacity {cap} a expert for {t} tokens, "
+          f"dropped share per MoE layer {[round(x, 6) for x in dropped]}",
+          flush=True)
+    if share > limit or not bool(alike.any()):
         fail(f"{label}: routing under the kernel and the plain attention "
-             f"differs on {share:.4f} of the choices (limit "
-             f"{MOE_ROUTE_DIFF_LIMIT}) or on every row")
+             f"differs on {share:.4f} of the choices (limit {limit}) or on "
+             f"every row")
     return {"route_diff_share": share, "rows_alike": int(alike.sum()),
             "capacity": cap, "dropped_share": dropped,
             **lm_against_plain(label, res, plain, rows=alike)}
@@ -2948,6 +2990,60 @@ def moe_profiles(cfg, lm, tokens, max_seq: int, card: str) -> dict:
     return out
 
 
+def mla_absorbed_check(cfg, card: str) -> dict:
+    """One MLA layer of ``cfg`` at its width in fp32 on the card, seeded:
+    ``MLA_ABSORBED_SHAPE``'s prompt prefilled into an fp32 latent cache
+    (the expanded form, the (192, 128) fp32 flash kernel), then the next
+    token's absorbed decode against the expanded forward over all of them,
+    within ``MLA_ABSORBED_TOL * max|out|``; both timed."""
+    from repro_torch.models import attention as PA
+    torch.cuda.empty_cache()
+    layer = PA.MLA(cfg, device="cuda")
+    layer.init(torch.Generator(device="cuda").manual_seed(0))
+    p = {name: w.detach() for name, w in layer.named_parameters()}
+    batch, s = MLA_ABSORBED_SHAPE
+    g = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn(batch, s + 1, cfg.d_model, generator=g, device="cuda")
+    pos = torch.arange(s + 1, dtype=torch.int32, device="cuda")[None]
+    pos = pos.expand(batch, s + 1)
+    cache = {"ckv": torch.zeros(batch, s + 1, cfg.kv_lora_rank,
+                                device="cuda"),
+             "k_pe": torch.zeros(batch, s + 1, cfg.qk_rope_dim,
+                                 device="cuda")}
+
+    def decode():
+        return PA.mla_forward(cfg, p, x[:, s:], positions=pos[:, s:],
+                              cache={**cache, "pos": s})[0]
+
+    with torch.no_grad():
+        full, _ = PA.mla_forward(cfg, p, x, positions=pos)
+        PA.mla_forward(cfg, p, x[:, :s], positions=pos[:, :s],
+                       cache={**cache, "pos": 0})
+        last = decode()
+        torch.cuda.synchronize()
+        err = float((last[:, 0] - full[:, s]).abs().max())
+        tol = MLA_ABSORBED_TOL * float(full[:, s].abs().max())
+        expanded_ms = time_ms(lambda: PA.mla_forward(cfg, p, x,
+                                                     positions=pos),
+                              reps=3, trials=3)[0]
+        decode_ms = time_ms(decode, reps=3, trials=3)[0]
+    print(f"mla absorbed {cfg.name} (one layer, fp32, d={cfg.d_model}, "
+          f"H={cfg.n_heads}, kv_lora {cfg.kv_lora_rank}, qk "
+          f"{cfg.qk_nope_dim} + {cfg.qk_rope_dim}, v {cfg.v_head_dim}; "
+          f"batch {batch}, {s} prompt tokens) on {card}: the absorbed decode "
+          f"of token {s + 1} vs the expanded forward over {s + 1} max abs "
+          f"diff {err:.4e} (tol {tol:.4e} = {MLA_ABSORBED_TOL:g} x "
+          f"max|out|); ms expanded {expanded_ms:.3f}, absorbed decode "
+          f"{decode_ms:.3f}", flush=True)
+    if not (torch.isfinite(last).all() and err <= tol):
+        fail(f"mla absorbed decode: max abs diff {err:.4e} from the "
+             f"expanded form (tol {tol:.4e})")
+    del layer, p, x, full, last, cache
+    torch.cuda.empty_cache()
+    return {"max_abs_diff": err, "tol": tol, "expanded_ms": expanded_ms,
+            "decode_ms": decode_ms}
+
+
 def dense_gqa_phase(kernels, card: str) -> dict:
     """7c3: the GQA configs at full width, seeded, with bf16 weights
     (``init_params(..., dtype=torch.bfloat16)``; a cut: fp32 masters plus
@@ -2960,8 +3056,12 @@ def dense_gqa_phase(kernels, card: str) -> dict:
     also records each layer's expert choices in both runs
     (:func:`moe_against_plain`), profiles a prefill and decode steps
     (:func:`moe_profiles`) and holds one MoE layer's dispatch to the
-    masked dense evaluation (:func:`moe_dispatch_check`).  qwen1.5-110b
-    (207 GiB in bf16) does not fit the card: its parameter count only."""
+    masked dense evaluation (:func:`moe_dispatch_check`); so does
+    deepseek-v2 (MLA), whose flash launches are all at (192, 128), one a
+    layer per prefill and none per decode step, and whose absorbed decode
+    is held to the expanded form (:func:`mla_absorbed_check`).
+    qwen1.5-110b (207 GiB in bf16) does not fit the card: its parameter
+    count only."""
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
     from repro_torch.models import model as PM
@@ -2975,6 +3075,7 @@ def dense_gqa_phase(kernels, card: str) -> dict:
         if layers is not None:
             cfg = dataclasses.replace(cfg, n_layers=layers)
         moe = any(spec.ffn == "moe" for spec in cfg.pattern)
+        mla = any(spec.mixer == "mla" for spec in cfg.pattern)
         lm, init_s = run_timed(PM.init_params, cfg, 0, dtype=torch.bfloat16)
         n_params = sum(p.numel() for p in lm.parameters())
         # the init's fp32 draws peak above the served call's memory
@@ -2982,10 +3083,22 @@ def dense_gqa_phase(kernels, card: str) -> dict:
         torch.cuda.reset_peak_memory_stats()
         tokens = serve.prompt_tokens(cfg, batch, prompt_len, 0)
         serve.serve_lm(cfg, lm, tokens, 2)                      # warm-up
+        steps = {}
+        if mla:         # the (192, 128) launches a prefill and a decode step
+            kernels.reset_launch_counts()
+            _, cache = PM.prefill(cfg, lm, tokens, max_seq=prompt_len + gen)
+            steps["per_prefill"] = kernels.launch_counts()[
+                "flash_attention_mla"]
+            kernels.reset_launch_counts()
+            PM.decode_step(cfg, lm, cache, tokens[:, :1])
+            steps["per_decode_step"] = kernels.launch_counts()[
+                "flash_attention"]
+            del cache
         kernels.reset_launch_counts()
         with RoutingLog(PMoE) as routes:
             res = serve.serve_lm(cfg, lm, tokens, gen)
-        served = kernels.launch_counts()["flash_attention"]
+        counts = kernels.launch_counts()
+        served = counts["flash_attention"]
         peak = torch.cuda.max_memory_allocated()
         cut = "" if layers is None else \
             f"; cut: {layers} of {get_config(arch).n_layers} layers"
@@ -3008,14 +3121,30 @@ def dense_gqa_phase(kernels, card: str) -> dict:
         if served != cfg.n_layers:
             fail(f"{cfg.name}: {served} flash launches in the served call, "
                  f"want {cfg.n_layers}")
+        if mla:
+            print(f"lm {cfg.name} flash launches at (192, 128): "
+                  f"{counts['flash_attention_mla']} in the served call, "
+                  f"{steps['per_prefill']} a prefill (want "
+                  f"{cfg.n_layers}: MLA's expanded form, layer 0's "
+                  f"included), {steps['per_decode_step']} a decode step "
+                  f"(want 0: the absorbed form)", flush=True)
+            if counts["flash_attention_mla"] != cfg.n_layers or \
+                    steps["per_prefill"] != cfg.n_layers or \
+                    steps["per_decode_step"] != 0:
+                fail(f"{cfg.name}: flash launches at (192, 128) "
+                     f"{counts['flash_attention_mla']} served, {steps}")
         if res["tokens"].shape != (batch, gen):
             fail(f"{cfg.name}: generated {tuple(res['tokens'].shape)}")
         with RoutingLog(PMoE) as plain_routes:
             plain = serve.serve_lm(cfg, lm, tokens, gen, attention="plain")
         label = f"lm {cfg.name}"
         agreement = moe_against_plain(
-            label, cfg, res, plain, routes.calls, plain_routes.calls) \
+            label, cfg, res, plain, routes.calls, plain_routes.calls,
+            MLA_ROUTE_DIFF_LIMIT if mla else MOE_ROUTE_DIFF_LIMIT) \
             if moe else lm_against_plain(label, res, plain)
+        if mla:
+            agreement.update(launches_mla=counts["flash_attention_mla"],
+                             **steps)
         out[arch] = {"launches": served, "prefill_ms": res["prefill_ms"],
                      "decode_ms_per_token": res["decode_ms_per_token"],
                      "peak_gib": peak / 2 ** 30,
@@ -3028,6 +3157,8 @@ def dense_gqa_phase(kernels, card: str) -> dict:
         torch.cuda.empty_cache()
         if moe:
             out[arch]["dispatch"] = moe_dispatch_check(cfg, card)
+        if mla:
+            out[arch]["absorbed"] = mla_absorbed_check(cfg, card)
         print(f"lm {cfg.name} request wall_s={time.perf_counter() - tic:.1f}",
               flush=True)
     cfg = get_config("qwen1_5_110b")
@@ -4347,6 +4478,12 @@ def main() -> int:
     # llama4-scout's prefill (7c3): B=4, H=40, Hkv=8, S=512, hd 128
     llama4_row = check_flash(fa, peaks, 4, 40, 8, 512, 128, torch.bfloat16,
                              29)
+    # deepseek-v2's MLA prefill (7c3): the (192, 128) instance at B=4,
+    # H=Hkv=128, S=512, causal, bf16 (the main row) and fp32
+    main_rows["flash_attention_mla"] = check_flash(
+        fa, peaks, 4, 128, 128, 512, 192, torch.bfloat16, 37, hd_v=128)
+    mla_f32_row = check_flash(fa, peaks, 4, 128, 128, 512, 192,
+                              torch.float32, 38, hd_v=128)
     new_rows = [
         check_power_matmul(pm, peaks, large[0], large[1], "(large mean)"),
         check_flash(fa, peaks, 8, 9, 3, 512, 64, torch.float32, 22),
@@ -4359,7 +4496,8 @@ def main() -> int:
         check_flash_bwd(fa, peaks, 2, 9, 3, 333, 128, torch.float32, 35),
     ]
     slice3 = (main_rows["power_matmul"], main_rows["flash_attention"],
-              main_rows["flash_attention_bwd"], *new_rows)
+              main_rows["flash_attention_bwd"],
+              main_rows["flash_attention_mla"], mla_f32_row, *new_rows)
     for row in slice3:
         print_row(row)
     bad = [r["name"] + " " + r["shape"] for r in slice3 if not r["ok"]]
@@ -4461,6 +4599,8 @@ def main() -> int:
 
     # ---- 7c3. the dense-GQA configs at full width, bf16 weights
     dense_gqa = dense_gqa_phase(kernels, card)
+    launches["flash_attention_mla"] = dense_gqa["deepseek_v2_236b"][
+        "launches_mla"]
     clock.lap("7c3")
 
     # ---- 7c4. xlstm-350m at full width: the recurrent mixers, served,
@@ -4500,6 +4640,7 @@ def main() -> int:
                "fastmix_ef": csrc + "fastmix_ef.cu",
                "power_matmul": csrc + "power_matmul.cu",
                "flash_attention": csrc + "flash_attention.cu",
+               "flash_attention_mla": csrc + "flash_attention.cu",
                "flash_attention_bwd": csrc + "flash_attention_bwd.cu"}
     # the P_K(L) build is the first half of both no-wire FastMix kernels
     replaces = {"fastmix_track": "src/repro/kernels/fastmix.py:484",
@@ -4517,6 +4658,11 @@ def main() -> int:
                 "fastmix_ef": "src/repro/kernels/fastmix.py:401",
                 "power_matmul": "src/repro/kernels/power_matmul.py:71",
                 "flash_attention": "src/repro/kernels/flash_attention.py:96",
+                # the same Pallas kernel's function at MLA's split head
+                # dims (the reference's MLA prefill reaches it by way of
+                # src/repro/models/attention.py:329-331's sdpa)
+                "flash_attention_mla": "src/repro/kernels/flash_attention."
+                                       "py:96",
                 # no Pallas backward exists: the reference differentiates
                 # its training attention (models/attention.py:77, :90) by
                 # XLA; this is the gradient of row :96's function
@@ -4557,7 +4703,8 @@ def main() -> int:
                  "per_prefill", "per_decode_step", "served_call")},
              "launches_dense_gqa": {arch: r["launches"]
                                     for arch, r in dense_gqa.items()
-                                    if arch != "llama4_scout_17b_a16e"},
+                                    if arch not in ("llama4_scout_17b_a16e",
+                                                    "deepseek_v2_236b")},
              "launches_llama4": {
                  "served_call": dense_gqa["llama4_scout_17b_a16e"][
                      "launches"],
@@ -4573,6 +4720,16 @@ def main() -> int:
                                        for key in non_causal_keys},
              "ms_training_forward": row["ms_training_forward"]}
             if name == "flash_attention" else {}),
+         **({"launches_per": "deepseek-v2's served call of 7c3 (4 of 60 "
+                             "layers, one a prefill layer, none a decode "
+                             "step)",
+             "launches_prefill": dense_gqa["deepseek_v2_236b"][
+                 "per_prefill"],
+             "launches_decode_step": dense_gqa["deepseek_v2_236b"][
+                 "per_decode_step"],
+             "fp32": {key: mla_f32_row[key] for key in non_causal_keys},
+             "ms_training_forward": row["ms_training_forward"]}
+            if name == "flash_attention_mla" else {}),
          **({"launches_per": f"{TRAIN_STEPS} train steps of 7d",
              "launches_whisper_train": {
                  "per_step": whisper_train["per_step"][1],

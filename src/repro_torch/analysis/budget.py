@@ -215,7 +215,7 @@ def launches(sms: int = registry.DEFAULT_SMS) -> List[Launch]:
         for bf16 in (True, False):
             fam = "flash_fwd_bf16" if bf16 else "flash_fwd_f32"
             spec = registry.kernel_spec(fam)
-            args = (hd,)
+            args = (hd, hd)
             t = registry.rule(spec.threads, args)
             out.append(Launch(fam, args, t, t, fa.forward_smem(hd, bf16),
                               f"flash forward hd={hd} S={S}", main=main))
@@ -226,6 +226,14 @@ def launches(sms: int = registry.DEFAULT_SMS) -> List[Launch]:
                 out.append(Launch(fam, args, t, t, dyn,
                                   f"flash backward {grid} hd={hd} S={S}",
                                   main=main))
+    for hd, hd_v, S in registry.FLASH_SPLIT_SHAPES:
+        for bf16 in (True, False):
+            fam = "flash_fwd_bf16" if bf16 else "flash_fwd_f32"
+            args = (hd, hd_v)
+            t = registry.rule(registry.kernel_spec(fam).threads, args)
+            out.append(Launch(fam, args, t, t,
+                              fa.forward_smem(hd, bf16, hd_v),
+                              f"flash forward hd={hd} hd_v={hd_v} S={S}"))
     return out
 
 

@@ -462,7 +462,10 @@ KERNELS: Tuple[KernelSpec, ...] = (
         "gram.gram_smem"),
     KernelSpec(
         "flash_fwd_f32", "flash_attention.cu", "kThreadsF32",
-        ("flash_attention",), 256, 0, 112,
+        ("flash_attention",), 256, 0,
+        # (192, 128), MLA's: 126 registers on an H100, no spills; its 145
+        # KB of shared memory hold one block an SM whatever the registers
+        lambda a: 128 if a[0] == 192 else 112,
         "flash_attention.forward_smem"),
     KernelSpec(
         "flash_fwd_bf16", "flash_attention.cu",
@@ -508,7 +511,8 @@ def kernel_spec(family: str) -> KernelSpec:
 #: FastMix ``(m, n = d k)``: w8a, m = 64 at d k = 4096 and 4096 x 32,
 #: and the panel path's agent counts; the ``P_K(L)`` builds ``m``;
 #: apply-track ``(m, d, k)``; ``cholqr2`` ``(B, d, k)``; the power matmul
-#: ``(d, k)``; flash ``(hd, S)`` at the LM's B = 8, H = 9, Hkv = 3; the
+#: ``(d, k)``; flash ``(hd, S)`` at the LM's B = 8, H = 9, Hkv = 3 (the
+#: forward's template arguments ``(hd, hd)``); the
 #: Gram ``(B, n, d)``.
 FASTMIX_SHAPES: Tuple[Tuple[int, int], ...] = (
     (50, 1500), (64, 4096), (64, 131072), (256, 1500), (512, 1500),
@@ -521,5 +525,8 @@ CHOLQR2_SHAPES: Tuple[Tuple[int, int, int], ...] = (
 POWER_SHAPES: Tuple[Tuple[int, int], ...] = ((300, 5), (4096, 32))
 FLASH_SHAPES: Tuple[Tuple[int, int], ...] = (
     (64, 512), (64, 4096), (128, 512), (128, 4096))
+#: the forward's split-dim instances ``(hd, hd_v, S)``: MLA's prefill
+#: (deepseek-v2, B = 4, H = Hkv = 128), q and k at 192, v at 128
+FLASH_SPLIT_SHAPES: Tuple[Tuple[int, int, int], ...] = ((192, 128, 512),)
 GRAM_SHAPES: Tuple[Tuple[int, int, int], ...] = (
     (50, 995, 300), (64, 4096, 32))

@@ -11,11 +11,11 @@ import importlib
 from ..models.config import ArchConfig
 
 ARCH_IDS = ["smollm_135m", "yi_34b", "phi3_medium_14b", "qwen1_5_110b",
-            "whisper_small", "xlstm_350m", "llama4_scout_17b_a16e"]
+            "whisper_small", "xlstm_350m", "llama4_scout_17b_a16e",
+            "deepseek_v2_236b"]
 
 #: the reference's ids that the port does not run yet
 NOT_PORTED = [
-    "deepseek_v2_236b",
     "qwen2_vl_72b",
     "jamba_1_5_large_398b",
 ]

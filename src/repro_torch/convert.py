@@ -72,7 +72,10 @@ def lm_named_from_reference(tree, cfg, device=None) -> dict:
     ``g * len(cfg.pattern) + i`` (``layers.<l>.mixer.wq``, ...).  An
     encoder-decoder's ``tree["encoder"]["groups"][0]`` stacks its
     ``cfg.encoder_layers`` blocks (``encoder.layers.<l>.*``) and
-    ``tree["encoder"]["final_norm"]`` is ``encoder.final_norm``.  Numpy
+    ``tree["encoder"]["final_norm"]`` is ``encoder.final_norm``.  A
+    DeepSeek ``tree["layer0"]`` (one block, unstacked) becomes
+    ``layer0.*``, and its groups stack ``cfg.n_groups`` =
+    ``cfg.scan_layers`` repeats.  Numpy
     leaves become tensors on ``device`` (``None``: the card), values
     bit-identical; tensor leaves stay where they are and each layer's
     entry is a view of its stack.
@@ -96,6 +99,15 @@ def lm_named_from_reference(tree, cfg, device=None) -> dict:
         for g in range(n):
             out[f"{prefix}.{g * width + i}{path}"] = stack[g]
 
+    def flat(path: str, node) -> None:
+        if isinstance(node, dict):
+            for key, child in node.items():
+                flat(f"{path}.{key}", child)
+        else:
+            out[path] = leaf(node)
+
+    if "layer0" in tree:
+        flat("layer0", tree["layer0"])
     for i, slot in enumerate(tree["groups"]):
         walk("layers", "", slot, i, cfg.n_groups, len(cfg.pattern))
     if "encoder" in tree:
@@ -110,10 +122,10 @@ def lm_params_to_reference(params, cfg) -> dict:
     """The inverse of :func:`lm_named_from_reference`: an :class:`LM` (or
     a ``{parameter name: tensor}`` dict such as its gradients or AdamW
     moments) in the reference's tree layout, ``{"embed", "final_norm"[,
-    "lm_head"], "groups": (slot 0, ...)[, "encoder": {"groups": (slot,),
-    "final_norm"}]}`` with every layer weight stacked over
+    "lm_head"][, "layer0"], "groups": (slot 0, ...)[, "encoder": {"groups":
+    (slot,), "final_norm"}]}`` with every weight of ``layers`` stacked over
     ``cfg.n_groups`` (the encoder's over ``cfg.encoder_layers``;
-    ``torch.stack``: a copy, detached).  A
+    ``torch.stack``: a copy, detached) and ``layer0``'s nested as it is.  A
     checkpoint of this tree is one the reference's ``restore`` reads, and
     its leaf keys and shapes are the ones the reference's compressors
     see."""
@@ -138,6 +150,13 @@ def lm_params_to_reference(params, cfg) -> dict:
                 for g in range(n)])
         return slot
 
+    for name in named:
+        if name.startswith("layer0."):
+            node = out.setdefault("layer0", {})
+            *path, last = name.split(".")[1:]
+            for key in path:
+                node = node.setdefault(key, {})
+            node[last] = named[name].detach()
     width = len(cfg.pattern)
     out["groups"] = tuple(stacked_slot("layers", i, cfg.n_groups, width)
                           for i in range(width))

@@ -6,13 +6,15 @@
 // together with the head broadcast and vmaps of its batched wrapper
 // src/repro/kernels/ops.py::flash_attention (:79).
 //
-// What it computes: q (B, H, Sq, HD), k and v (B, Hkv, Skv, HD), all fp32
-// or all bf16  ->  o (B, H, Sq, HD) in q's type.  Every operand is taken
+// What it computes: q and k (B, H, Sq, HD) and (B, Hkv, Skv, HD), v (B, Hkv,
+// Skv, HDV), all fp32 or all bf16  ->  o (B, H, Sq, HDV) in q's type; (HD,
+// HDV) is (64, 64), (128, 128) or, for DeepSeek's MLA prefill (qk = nope
+// 128 + rope 64 a head, v 128), (192, 128).  Every operand is taken
 // through its batch, head and sequence strides (in elements), with HD at
 // stride 1.  Query head h reads kv head h / (H / Hkv) (jnp.repeat(k, H /
 // Hkv, axis=1) in the reference), indexed directly instead of
 // materialising the repeat.  Per (b, h), in fp32:
-//   s    = scaled q . k^T;  masked to -1e30 unless col < Skv and, when
+//   s    = q . k^T / sqrt(HD);  masked to -1e30 unless col < Skv and, when
 //          causal, row >= col on absolute indices (aligned top-left)
 //   per kv tile, ascending:  m' = max(m, rowmax s);  a = exp(m - m');
 //          p = exp(s - m');  l = a l + rowsum p;  acc = a acc + p v
@@ -40,7 +42,10 @@
 // tile is read, the mask touches only the tile that crosses Skv, and all
 // q tiles of a head cost the same, so the launch order below changes
 // nothing there.  A decode step's cross-attention (Sq = 1) is one block a
-// (b, h) walking every kv tile.
+// (b, h) walking every kv tile.  At (192, 128) the scores take HD = 192
+// and P V takes HDV = 128: 2 * B * H * Sq * Skv * (HD + HDV) / 2 flops
+// causal; MLA's prefill (B = 4, H = Hkv = 128, S = 512) is some 580 flops
+// per byte, so the tensor cores' rate bounds it.
 //
 // Two kernels, one per input type.
 //
@@ -86,14 +91,22 @@
 //   (a quad writes a row's 32-byte sector), at o's element offsets.
 //   Shared memory: 8 KB of q and a 32 KB ring at HD 64, 16 KB and 64 KB at
 //   HD 128; three blocks an SM at HD 64 (registers capped), two at 128.
+//   At (192, 128) q is 24 KB, the K ring 48 KB and the V ring 32 KB (104
+//   KB, two blocks an SM), and the q tile's fragments stay in shared
+//   memory, read by ldmatrix at each k-step of every kv tile: held in
+//   registers as at HD <= 128 they would take 48 more a thread on top of
+//   the 64 of the 128-column accumulator and the 32 of the scores, past
+//   the 255 a thread may have.  The epilogue's bf16 rows (HDV wide) reuse
+//   the q tile, which is HD wide, once every warp has left the loop.
 //
 // fp32 (flash_fwd_f32): no tensor-core path keeps IEEE fp32 dots (TF32
 // would not), so fp32 keeps CUDA-core FMAs, in the reference's order: q
 // scaled in fp32 before the dot, expf.  One block of 256 threads per
 // (64-row q tile, b * H + h); the scaled q tile and 64-row K and V tiles
 // are staged in shared memory; a thread owns 4 rows x 4 score columns (16
-// threads per row, row reductions by warp shuffles) and 4 rows x HD / 16
-// output columns.
+// threads per row, row reductions by warp shuffles) and 4 rows x HDV / 16
+// output columns.  At (192, 128) the block takes 145 KB: q and k tiles
+// with rows padded to 193, v of 64 x 128 and the 64 x 65 score tile.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
@@ -116,25 +129,49 @@ constexpr int kLanesPerRow = 16;        // threads sharing one row group
 constexpr int kRowsPerThread = 4;       // kBQ / (kThreads / kLanesPerRow)
 constexpr int kColsPerThread = kBKV / kLanesPerRow;   // 4 score columns
 
-template <int HD>
+template <int HD, int HDV>
 constexpr size_t smem_floats() {
-  // q (kBQ x HD+1), k (kBKV x HD+1), v (kBKV x HD), p (kBQ x kBKV+1)
+  // q (kBQ x HD+1), k (kBKV x HD+1), v (kBKV x HDV), p (kBQ x kBKV+1)
   return (size_t)kBQ * (HD + 1) + (size_t)kBKV * (HD + 1) +
-         (size_t)kBKV * HD + (size_t)kBQ * (kBKV + 1);
+         (size_t)kBKV * HDV + (size_t)kBQ * (kBKV + 1);
 }
 
-template <int HD>
+// Stage rows [row0, row0 + 64) of a (rows, W) fp32 operand with row stride
+// `stride` into a [64][ld] shared tile, times `mul`; rows at or past n_rows
+// are zero (never NaN).  Where W divides the block, a thread keeps one
+// column and steps 256 / W rows at a time; else it walks the tile's
+// elements (W = 192).
+template <int W>
+__device__ __forceinline__ void stage_rows(float* dst, int ld,
+                                           const float* src, long long stride,
+                                           int row0, int n_rows, float mul) {
+  if constexpr (kThreadsF32 % W == 0) {
+    constexpr int kRowStep = kThreadsF32 / W;
+    const int c = threadIdx.x % W, r0 = threadIdx.x / W;
+    const float* p = src + (row0 + r0) * stride + c;
+    for (int r = r0; r < kBQ; r += kRowStep, p += kRowStep * stride)
+      dst[r * ld + c] = row0 + r < n_rows ? *p * mul : 0.0f;
+  } else {
+    for (int i = threadIdx.x; i < kBQ * W; i += kThreadsF32) {
+      const int r = i / W, c = i % W;
+      dst[r * ld + c] =
+          row0 + r < n_rows ? src[(row0 + r) * stride + c] * mul : 0.0f;
+    }
+  }
+}
+
+template <int HD, int HDV>
 __global__ void __launch_bounds__(kThreadsF32)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ o,
               float* __restrict__ lse, int H, int Hkv, int Sq, int Skv,
               int causal, float scale, Strides st) {
-  constexpr int kOut = HD / kLanesPerRow;           // output columns a thread
+  constexpr int kOut = HDV / kLanesPerRow;          // output columns a thread
   extern __shared__ float smem[];
   float* qs = smem;                                 // [kBQ][HD + 1]
   float* ks = qs + kBQ * (HD + 1);                  // [kBKV][HD + 1]
-  float* vs = ks + kBKV * (HD + 1);                 // [kBKV][HD]
-  float* ps = vs + kBKV * HD;                       // [kBQ][kBKV + 1]
+  float* vs = ks + kBKV * (HD + 1);                 // [kBKV][HDV]
+  float* ps = vs + kBKV * HDV;                      // [kBQ][kBKV + 1]
 
   const int bh = blockIdx.y;
   const int b = bh / H, h = bh % H;
@@ -149,14 +186,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int tc = threadIdx.x % kLanesPerRow;        // column lane
   const int r0 = tr * kRowsPerThread;
 
-  // staging: a thread keeps one column and steps kRowStep rows at a time
-  constexpr int kRowStep = kThreadsF32 / HD;
-  const int c0 = threadIdx.x % HD, r00 = threadIdx.x / HD;
-  {
-    const float* src = qb + (q0 + r00) * st.q[2] + c0;
-    for (int r = r00; r < kBQ; r += kRowStep, src += kRowStep * st.q[2])
-      qs[r * (HD + 1) + c0] = q0 + r < Sq ? *src * scale : 0.0f;
-  }
+  stage_rows<HD>(qs, HD + 1, qb, st.q[2], q0, Sq, scale);
 
   float m[kRowsPerThread], l[kRowsPerThread];
   float acc[kRowsPerThread][kOut];
@@ -178,16 +208,8 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   for (int t = 0; t < n_tiles; ++t) {
     const int kv0 = t * kBKV;
     __syncthreads();                    // the previous tile's readers are done
-    {
-      const float* ksrc = kb + (kv0 + r00) * st.k[2] + c0;
-      const float* vsrc = vb + (kv0 + r00) * st.v[2] + c0;
-      for (int r = r00; r < kBKV; r += kRowStep, ksrc += kRowStep * st.k[2],
-               vsrc += kRowStep * st.v[2]) {
-        const bool in = kv0 + r < Skv;  // padding rows are zero, never NaN
-        ks[r * (HD + 1) + c0] = in ? *ksrc : 0.0f;
-        vs[r * HD + c0] = in ? *vsrc : 0.0f;
-      }
-    }
+    stage_rows<HD>(ks, HD + 1, kb, st.k[2], kv0, Skv, 1.0f);
+    stage_rows<HDV>(vs, HDV, vb, st.v[2], kv0, Skv, 1.0f);
     __syncthreads();
 
     float s[kRowsPerThread][kColsPerThread];
@@ -250,7 +272,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
       for (int i = 0; i < kRowsPerThread; ++i) pv[i] = ps[(r0 + i) * (kBKV + 1) + c];
 #pragma unroll
       for (int j = 0; j < kOut; ++j) {
-        const float vv = vs[c * HD + tc + j * kLanesPerRow];
+        const float vv = vs[c * HDV + tc + j * kLanesPerRow];
 #pragma unroll
         for (int i = 0; i < kRowsPerThread; ++i)
           acc[i][j] = __fmaf_rn(pv[i], vv, acc[i][j]);
@@ -283,30 +305,37 @@ static_assert(kThreadsBf16 == kTileThreads && kBKV == kTileRows &&
 
 constexpr int kStages = 2;              // K/V ring depth
 
-template <int HD>
+template <int HD, int HDV>
 constexpr size_t smem_bytes_bf16() {
-  // q [kBQ][HD], then K and V rings of kStages [kBKV][HD] stages each
-  return (size_t)(kBQ * HD + 2 * kStages * kBKV * HD) * sizeof(bf16);
+  // q [kBQ][HD], then the K ring of kStages [kBKV][HD] stages and the V
+  // ring of kStages [kBKV][HDV]
+  return (size_t)(kBQ * HD + kStages * kBKV * (HD + HDV)) * sizeof(bf16);
 }
 
 // At HD 64, three blocks an SM (at most 170 registers a thread; 164, no
 // spills): on an H100 SXM this is faster, most at the LM prefill's shape,
 // than the 180 registers and two blocks the compiler picks unbounded.  HD
-// 128 needs some 250 registers (two blocks).
-template <int HD>
+// 128 needs some 250 registers (two blocks); so does (192, 128), its q
+// fragments read from shared memory.
+template <int HD, int HDV>
 __global__ void __launch_bounds__(kThreadsBf16, HD == 64 ? 3 : 1)
 flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                const bf16* __restrict__ v, bf16* __restrict__ o,
                float* __restrict__ o32, float* __restrict__ lse, int H,
                int Hkv, int Sq, int Skv, int causal, float scale,
                Strides st) {
-  constexpr int kTile = kBKV * HD;
-  constexpr int kKB = HD / 16;          // k-steps of QK^T, n-pairs of PV
-  constexpr int kON = HD / 8;           // output n-tiles of 8 columns
+  constexpr int kTile = kBKV * HD;      // a K stage
+  constexpr int kTileV = kBKV * HDV;    // a V stage
+  constexpr int kKB = HD / 16;          // k-steps of QK^T
+  constexpr int kVB = HDV / 16;         // n-pairs of PV
+  constexpr int kON = HDV / 8;          // output n-tiles of 8 columns
+  // the q tile's A fragments in registers for the whole kv loop, or (HD
+  // 192) read from shared memory at each k-step
+  constexpr bool kQRegs = HD <= 128;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* sq = reinterpret_cast<bf16*>(smem_raw);     // [kBQ][HD]
   bf16* sk = sq + kBQ * HD;                         // [kStages][kBKV][HD]
-  bf16* sv = sk + kStages * kTile;                  // [kStages][kBKV][HD]
+  bf16* sv = sk + kStages * kTile;                  // [kStages][kBKV][HDV]
 
   // blocks launch in linear order; the i-th takes q tile (from the last)
   // i / (B H) of (b, h) = i mod (B H): every head's heaviest tile first
@@ -334,13 +363,13 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int j = 0; j < kStages - 1; ++j) {
     if (j < n_tiles) {
       load_tile<HD>(sk + j * kTile, kb, st.k[2], j * kBKV, Skv);
-      load_tile<HD>(sv + j * kTile, vb, st.v[2], j * kBKV, Skv);
+      load_tile<HDV>(sv + j * kTileV, vb, st.v[2], j * kBKV, Skv);
     }
     cp_async_commit();
   }
 
   const float scale_log2 = scale * kLog2e;
-  unsigned qf[kKB][4];                  // the q tile's A fragments
+  unsigned qf[kQRegs ? kKB : 1][4];     // the q tile's A fragments
   float acc[kON][4];
 #pragma unroll
   for (int n = 0; n < kON; ++n)
@@ -354,19 +383,22 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int tn = t + kStages - 1;     // the tile this iteration prefetches
     if (tn < n_tiles) {
       load_tile<HD>(sk + (tn % kStages) * kTile, kb, st.k[2], tn * kBKV, Skv);
-      load_tile<HD>(sv + (tn % kStages) * kTile, vb, st.v[2], tn * kBKV, Skv);
+      load_tile<HDV>(sv + (tn % kStages) * kTileV, vb, st.v[2], tn * kBKV,
+                     Skv);
     }
     cp_async_commit();
     cp_async_wait<kStages - 1>();       // tile t has landed
     __syncthreads();
-    if (t == 0) {
+    if constexpr (kQRegs) {
+      if (t == 0) {
 #pragma unroll
-      for (int kk = 0; kk < kKB; ++kk)
-        ldmatrix_x4(qf[kk], smem_u32(sq + swz<HD>(wr + li + (lj & 1) * 8,
-                                                  kk * 16 + (lj >> 1) * 8)));
+        for (int kk = 0; kk < kKB; ++kk)
+          ldmatrix_x4(qf[kk], smem_u32(sq + swz<HD>(wr + li + (lj & 1) * 8,
+                                                    kk * 16 + (lj >> 1) * 8)));
+      }
     }
     const bf16* ks = sk + (t % kStages) * kTile;
-    const bf16* vs = sv + (t % kStages) * kTile;
+    const bf16* vs = sv + (t % kStages) * kTileV;
 
     // S = Q K^T: 16 rows x 64 columns a warp, as 8 n-tiles of 8 columns
     float s[kBKV / 8][4];
@@ -376,13 +408,21 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int e = 0; e < 4; ++e) s[n][e] = 0.0f;
 #pragma unroll
     for (int kk = 0; kk < kKB; ++kk) {
+      unsigned qa[4];
+      if constexpr (kQRegs) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) qa[e] = qf[kk][e];
+      } else {
+        ldmatrix_x4(qa, smem_u32(sq + swz<HD>(wr + li + (lj & 1) * 8,
+                                              kk * 16 + (lj >> 1) * 8)));
+      }
 #pragma unroll
       for (int np = 0; np < kBKV / 16; ++np) {
         unsigned r[4];
         ldmatrix_x4(r, smem_u32(ks + swz<HD>(np * 16 + li + (lj >> 1) * 8,
                                              kk * 16 + (lj & 1) * 8)));
-        mma_bf16(s[2 * np], qf[kk], r[0], r[1]);
-        mma_bf16(s[2 * np + 1], qf[kk], r[2], r[3]);
+        mma_bf16(s[2 * np], qa, r[0], r[1]);
+        mma_bf16(s[2 * np + 1], qa, r[2], r[3]);
       }
     }
 
@@ -435,10 +475,10 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                               pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
                               pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
 #pragma unroll
-      for (int np = 0; np < kKB; ++np) {
+      for (int np = 0; np < kVB; ++np) {
         unsigned r[4];
-        ldmatrix_x4_trans(r, smem_u32(vs + swz<HD>(kk * 16 + li + (lj & 1) * 8,
-                                                   np * 16 + (lj >> 1) * 8)));
+        ldmatrix_x4_trans(r, smem_u32(vs + swz<HDV>(kk * 16 + li + (lj & 1) * 8,
+                                                    np * 16 + (lj >> 1) * 8)));
         mma_bf16(acc[2 * np], pa, r[0], r[1]);
         mma_bf16(acc[2 * np + 1], pa, r[2], r[3]);
       }
@@ -466,45 +506,45 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int n = 0; n < kON; ++n) {
       const float2 x = make_float2(acc[n][2 * hh] / denom,
                                    acc[n][2 * hh + 1] / denom);
-      *reinterpret_cast<__nv_bfloat162*>(sq + swz<HD>(r, n * 8) + 2 * t4) =
+      *reinterpret_cast<__nv_bfloat162*>(sq + swz<HDV>(r, n * 8) + 2 * t4) =
           __floats2bfloat162_rn(x.x, x.y);
       if (o32r != nullptr) *reinterpret_cast<float2*>(o32r + n * 8) = x;
     }
   }
   __syncwarp();
-  constexpr int kChunks = HD / 8;
+  constexpr int kChunks = HDV / 8;
 #pragma unroll
   for (int i = 0; i < 16 * kChunks / 32; ++i) {
     const int idx = lane + i * 32;
     const int r = wr + idx / kChunks, c = idx % kChunks;
     if (q0 + r < Sq)
       *reinterpret_cast<uint4*>(ob + (q0 + r) * st.o[2] + c * 8) =
-          *reinterpret_cast<const uint4*>(sq + swz<HD>(r, c * 8));
+          *reinterpret_cast<const uint4*>(sq + swz<HDV>(r, c * 8));
   }
 }
 
-template <int HD>
+template <int HD, int HDV>
 cudaError_t launch_hd(int is_bf16, const void* q, const void* k,
                       const void* v, void* o, float* o32, float* lse, int B,
                       int H, int Hkv, int Sq, int Skv, int causal,
                       float scale, const Strides& st, cudaStream_t stream) {
   const dim3 grid((Sq + kBQ - 1) / kBQ, B * H);
   if (is_bf16) {
-    const size_t smem = smem_bytes_bf16<HD>();
+    const size_t smem = smem_bytes_bf16<HD, HDV>();
     cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_bf16<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_fwd_bf16<HD, HDV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return err;
-    flash_fwd_bf16<HD><<<grid, kThreadsBf16, smem, stream>>>(
+    flash_fwd_bf16<HD, HDV><<<grid, kThreadsBf16, smem, stream>>>(
         (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, o32, lse, H,
         Hkv, Sq, Skv, causal, scale, st);
   } else {
-    const size_t smem = smem_floats<HD>() * sizeof(float);
+    const size_t smem = smem_floats<HD, HDV>() * sizeof(float);
     cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_f32<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_fwd_f32<HD, HDV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return err;
-    flash_fwd_f32<HD><<<grid, kThreadsF32, smem, stream>>>(
+    flash_fwd_f32<HD, HDV><<<grid, kThreadsF32, smem, stream>>>(
         (const float*)q, (const float*)k, (const float*)v, (float*)o, lse, H,
         Hkv, Sq, Skv, causal, scale, st);
   }
@@ -515,10 +555,12 @@ cudaError_t launch_hd(int is_bf16, const void* q, const void* k,
 
 extern "C" {
 
-// o = attention(q, k, v) for q, o (B, H, Sq, hd) and k, v (B, Hkv, Skv, hd),
-// all of one type (is_bf16 selects bf16, else fp32); hd is 64 or 128 and H
-// a multiple of Hkv.  Each operand comes with its batch, head and sequence
-// strides in elements (hd at stride 1); every pointer and every stride of
+// o = attention(q, k, v) for q (B, H, Sq, hd), k (B, Hkv, Skv, hd), v (B,
+// Hkv, Skv, hd_v) and o (B, H, Sq, hd_v), all of one type (is_bf16 selects
+// bf16, else fp32); (hd, hd_v) is (64, 64), (128, 128) or (192, 128), the
+// scale 1 / sqrt(hd), and H a multiple of Hkv.  Each operand comes with
+// its batch, head and sequence strides in elements (hd at stride 1);
+// every pointer and every stride of
 // a dimension larger than 1 must be 16-byte aligned.  lse, when not null,
 // receives the fp32 log-sum-exp of each row's scaled scores, contiguous
 // (B, H, Sq): what the backward (flash_attention_bwd.cu) recomputes P
@@ -527,7 +569,7 @@ extern "C" {
 // Returns cudaError_t.
 int flash_attention(const void* q, const void* k, const void* v, void* o,
                     float* o32, float* lse, int B, int H, int Hkv, int Sq,
-                    int Skv, int hd,
+                    int Skv, int hd, int hd_v,
                     int causal, int is_bf16, float scale, long long q_sb,
                     long long q_sh, long long q_ss, long long k_sb,
                     long long k_sh, long long k_ss, long long v_sb,
@@ -539,12 +581,15 @@ int flash_attention(const void* q, const void* k, const void* v, void* o,
   const Strides st = {{q_sb, q_sh, q_ss}, {k_sb, k_sh, k_ss},
                       {v_sb, v_sh, v_ss}, {o_sb, o_sh, o_ss}};
   cudaStream_t s = (cudaStream_t)stream;
-  if (hd == 64)
-    return launch_hd<64>(is_bf16, q, k, v, o, o32, lse, B, H, Hkv, Sq, Skv,
-                         causal, scale, st, s);
-  if (hd == 128)
-    return launch_hd<128>(is_bf16, q, k, v, o, o32, lse, B, H, Hkv, Sq, Skv,
-                          causal, scale, st, s);
+  if (hd == 64 && hd_v == 64)
+    return launch_hd<64, 64>(is_bf16, q, k, v, o, o32, lse, B, H, Hkv, Sq,
+                             Skv, causal, scale, st, s);
+  if (hd == 128 && hd_v == 128)
+    return launch_hd<128, 128>(is_bf16, q, k, v, o, o32, lse, B, H, Hkv, Sq,
+                               Skv, causal, scale, st, s);
+  if (hd == 192 && hd_v == 128)
+    return launch_hd<192, 128>(is_bf16, q, k, v, o, o32, lse, B, H, Hkv, Sq,
+                               Skv, causal, scale, st, s);
   return (int)cudaErrorInvalidValue;
 }
 

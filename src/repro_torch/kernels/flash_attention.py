@@ -9,7 +9,10 @@ kernel, one launch for the whole ``(B, H)`` grid; on a CPU tensor it runs
 :func:`flash_attention_plain`, the kernel's plain-torch version, which
 autograd differentiates directly.  Any other device raises.  bf16
 operands take the tensor-core kernel, fp32 operands the CUDA-core one
-(IEEE fp32 dots).
+(IEEE fp32 dots).  q and k share a head dim, v may have its own: the
+kernel takes the pairs :data:`KERNEL_HEAD_DIM_PAIRS`, (64, 64) and (128,
+128) for GQA and (192, 128) for DeepSeek's MLA prefill (qk nope 128 +
+rope 64, v 128).
 
 The gradient: when grad mode is on and an operand requires grad, CUDA
 operands go through :class:`FlashAttention`, whose forward launches the
@@ -22,7 +25,9 @@ attention is ``_einsum_attention`` / ``_chunked_attention``, not its
 Pallas kernel).  :func:`flash_attention_backward_plain` is the backward's
 formulas in plain torch, the kernel's oracle; nothing on the card's path
 calls it.  Nothing falls back: an operand the kernels do not take raises,
-with or without grad.
+with or without grad.  The backward kernel takes one head dim, 64 or 128:
+a grad call at (192, 128) on the card raises (ROADMAP queue 1 item
+13b-4c).
 
 Layout: the operands may be strided views (the LM passes its ``(B, S, H,
 hd)`` projections transposed to ``(B, H, S, hd)``); the kernels read them
@@ -30,7 +35,8 @@ through their strides, with hd at stride 1.  The output and the gradients
 are ``(B, S, heads, hd)``-contiguous buffers returned as their ``(B,
 heads, S, hd)`` views, so that merging the heads afterwards is free.
 
-Semantics (both versions): the scores are ``(fp32(q) / sqrt(hd)) k^T``,
+Semantics (both versions): the scores are ``(fp32(q) / sqrt(hd)) k^T``
+with hd q's (and k's) head dim,
 masked to ``-1e30`` unless ``col < Skv`` and, when causal, ``row >= col``
 on absolute indices, aligned top-left (``ref.attention_ref`` aligns its
 causal mask bottom-right; the two agree only when ``Sq == Skv``).  Softmax
@@ -59,9 +65,15 @@ import torch
 from . import _build
 
 #: Kernel launches by this module's wrapper (reset by the caller).
-LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0}
+#: ``flash_attention_mla`` counts the forward's launches at (192, 128),
+#: which ``flash_attention`` counts too.
+LAUNCHES = {"flash_attention": 0, "flash_attention_mla": 0,
+            "flash_attention_bwd": 0}
 
 _NEG_INF = -1e30
+#: (q and k's head dim, v's) of the forward kernel's instances
+KERNEL_HEAD_DIM_PAIRS = ((64, 64), (128, 128), (192, 128))
+#: the head dims of the backward kernel (q, k and v alike)
 KERNEL_HEAD_DIMS = (64, 128)
 _MAX_BH = 65535             # the kernel puts B * H on grid.y
 _Q_CHUNK = 1024             # query rows per step of the plain version
@@ -72,16 +84,16 @@ TILE_ROWS = 64
 STAGES = 2
 
 
-def forward_smem(hd: int, bf16: bool) -> int:
-    """Dynamic shared bytes of a forward block at head dim ``hd``
-    (``csrc/flash_attention.cu``): bf16 (``smem_bytes_bf16``) the q tile
-    and :data:`STAGES`-deep K and V rings of 64 x hd bf16; fp32
-    (``smem_floats``) q and k tiles with rows padded to hd + 1, v, and the
-    64 x 65 score tile."""
-    r = TILE_ROWS
+def forward_smem(hd: int, bf16: bool, hd_v: int = None) -> int:
+    """Dynamic shared bytes of a forward block at q and k's head dim
+    ``hd`` and v's ``hd_v`` (default ``hd``) (``csrc/flash_attention.cu``):
+    bf16 (``smem_bytes_bf16``) the q tile and :data:`STAGES`-deep rings of
+    64 x hd K and 64 x hd_v V tiles; fp32 (``smem_floats``) q and k tiles
+    with rows padded to hd + 1, v, and the 64 x 65 score tile."""
+    r, hd_v = TILE_ROWS, hd if hd_v is None else hd_v
     if bf16:
-        return 2 * (r * hd + 2 * STAGES * r * hd)
-    return 4 * (2 * r * (hd + 1) + r * hd + r * (r + 1))
+        return 2 * (r * hd + STAGES * r * (hd + hd_v))
+    return 4 * (2 * r * (hd + 1) + r * hd_v + r * (r + 1))
 
 
 def backward_smem(hd: int, bf16: bool) -> tuple:
@@ -102,11 +114,13 @@ def backward_smem(hd: int, bf16: bool) -> tuple:
 
 
 def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> int:
-    """Validate ``(B, H, Sq, hd)`` / ``(B, Hkv, Skv, hd)``; returns H/Hkv."""
-    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
-        raise ValueError(f"q must be (B, H, Sq, hd) and k, v (B, Hkv, Skv, "
-                         f"hd); got q {tuple(q.shape)}, k {tuple(k.shape)}, "
-                         f"v {tuple(v.shape)}")
+    """Validate ``(B, H, Sq, hd)`` / ``(B, Hkv, Skv, hd)`` / ``(B, Hkv,
+    Skv, hd_v)``; returns H/Hkv."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or \
+            k.shape[:3] != v.shape[:3]:
+        raise ValueError(f"q must be (B, H, Sq, hd), k (B, Hkv, Skv, hd) and "
+                         f"v (B, Hkv, Skv, hd_v); got q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
     b, h, _, hd = q.shape
     if k.shape[0] != b or k.shape[3] != hd:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} "
@@ -119,12 +133,14 @@ def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> int:
     return h // hkv
 
 
-def _heads_last_out(q: torch.Tensor, dtype=None) -> torch.Tensor:
+def _heads_last_out(q: torch.Tensor, dtype=None,
+                    hd: int = None) -> torch.Tensor:
     """An empty ``(B, H, Sq, hd)`` view of a ``(B, Sq, H, hd)``-contiguous
-    buffer, in ``dtype`` (default q's) and on q's device."""
-    b, h, sq, hd = q.shape
-    return torch.empty(b, sq, h, hd, dtype=dtype or q.dtype,
-                       device=q.device).transpose(1, 2)
+    buffer, in ``dtype`` (default q's) and on q's device; ``hd`` defaults
+    to q's (the output takes v's)."""
+    b, h, sq, hd_q = q.shape
+    return torch.empty(b, sq, h, hd_q if hd is None else hd,
+                       dtype=dtype or q.dtype, device=q.device).transpose(1, 2)
 
 
 def _strides(x: torch.Tensor):
@@ -153,9 +169,10 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     in chunks (memory stays O(chunk x Skv) per head); within a chunk it is
     one full softmax, not an online one.  ``q_offset`` shifts the query
     rows' absolute indices for the causal mask (the kernel takes 0).  The
-    result is laid out as the kernel's is.  With ``return_lse`` also the
-    fp32 ``(B, H, Sq)`` row log-sum-exp of the scaled scores, ``m + log
-    l``, as the kernel saves it for the backward."""
+    result, (B, H, Sq, hd_v), is laid out as the kernel's is.  With
+    ``return_lse`` also the fp32 ``(B, H, Sq)`` row log-sum-exp of the
+    scaled scores, ``m + log l``, as the kernel saves it for the
+    backward."""
     rep = _check_shapes(q, k, v)
     hd = q.shape[-1]
     sq, skv = q.shape[2], k.shape[2]
@@ -164,7 +181,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     k32 = k.float().repeat_interleave(rep, dim=1)
     v32 = v.float().repeat_interleave(rep, dim=1)
     cols = torch.arange(skv, device=q.device)
-    out = _heads_last_out(q)
+    out = _heads_last_out(q, hd=v.shape[-1])
     lse = []
     for r0 in range(0, sq, _Q_CHUNK):
         qs = q[:, :, r0:r0 + _Q_CHUNK].float() * scale
@@ -211,7 +228,8 @@ def flash_attention_backward_plain(q: torch.Tensor, k: torch.Tensor,
     cols = torch.arange(skv, device=q.device)
     dq = _heads_last_out(q)
     dk32 = torch.zeros(b, h, skv, hd, dtype=torch.float32, device=q.device)
-    dv32 = torch.zeros_like(dk32)
+    dv32 = torch.zeros(b, h, skv, v.shape[-1], dtype=torch.float32,
+                       device=q.device)
     for r0 in range(0, sq, _Q_CHUNK):
         r1 = min(r0 + _Q_CHUNK, sq)
         qs = q[:, :, r0:r1].float() * scale
@@ -227,7 +245,7 @@ def flash_attention_backward_plain(q: torch.Tensor, k: torch.Tensor,
 
     def grouped(x32, like):
         out = _heads_last_out(like)
-        out.copy_(x32.view(b, hkv, rep, skv, hd).sum(dim=2))
+        out.copy_(x32.view(b, hkv, rep, skv, like.shape[-1]).sum(dim=2))
         return out
 
     return dq, grouped(dk32, k), grouped(dv32, v)
@@ -236,7 +254,7 @@ def flash_attention_backward_plain(q: torch.Tensor, k: torch.Tensor,
 def _entry():
     fn = _build.load("flash_attention").flash_attention
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [
         ctypes.c_float] + [ctypes.c_longlong] * 12 + [ctypes.c_void_p]
     return fn
 
@@ -263,8 +281,9 @@ def backward_occupancy(hd: int):
 
 
 def _check_kernel_operands(*xs: torch.Tensor) -> None:
-    """Raise unless the tensors are what the kernels take: CUDA, one
-    device, all fp32 or all bf16, hd 64 or 128, B * H within the grid."""
+    """Raise unless the tensors ``q, k, v[, ...]`` are what the kernels
+    take: CUDA, one device, all fp32 or all bf16, (q's hd, v's hd) one of
+    :data:`KERNEL_HEAD_DIM_PAIRS`, B * H within the grid."""
     q = xs[0]
     if len({x.device for x in xs}) != 1 or q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu tensors on "
@@ -275,9 +294,10 @@ def _check_kernel_operands(*xs: torch.Tensor) -> None:
         raise TypeError(f"flash_attention kernel takes q, k, v all fp32 or "
                         f"all bf16; got {[x.dtype for x in xs]}")
     b, h, _, hd = q.shape
-    if hd not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"flash_attention kernel supports head_dim "
-                         f"{KERNEL_HEAD_DIMS}, got {hd}")
+    if (hd, xs[2].shape[-1]) not in KERNEL_HEAD_DIM_PAIRS:
+        raise ValueError(f"flash_attention kernel supports (head_dim, v's "
+                         f"head_dim) {KERNEL_HEAD_DIM_PAIRS}, got "
+                         f"{(hd, xs[2].shape[-1])}")
     if b * h > _MAX_BH:
         raise ValueError(f"flash_attention kernel takes B * H <= {_MAX_BH}, "
                          f"got {b * h}")
@@ -301,8 +321,9 @@ def _forward(q, k, v, causal: bool, training: bool = False):
     o)`` takes (bf16 operands' fp32 ``o32``, written before the cast to
     bf16; fp32 operands' ``out`` itself)."""
     b, h, sq, hd = q.shape
-    out = _heads_last_out(q)
-    o32 = _heads_last_out(q, torch.float32) \
+    hd_v = v.shape[-1]
+    out = _heads_last_out(q, hd=hd_v)
+    o32 = _heads_last_out(q, torch.float32, hd_v) \
         if training and q.dtype == torch.bfloat16 else None
     lse = torch.empty(b, h, sq, dtype=torch.float32, device=q.device) \
         if training else None
@@ -314,11 +335,13 @@ def _forward(q, k, v, causal: bool, training: bool = False):
     err = _entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                    o32.data_ptr() if o32 is not None else None,
                    lse.data_ptr() if training else None,
-                   b, h, k.shape[1], sq, k.shape[2], hd, int(bool(causal)),
-                   int(q.dtype == torch.bfloat16), 1.0 / hd ** 0.5, *strides,
-                   stream)
+                   b, h, k.shape[1], sq, k.shape[2], hd, hd_v,
+                   int(bool(causal)), int(q.dtype == torch.bfloat16),
+                   1.0 / hd ** 0.5, *strides, stream)
     _build.check("flash_attention", err)
     LAUNCHES["flash_attention"] += 1
+    if hd != hd_v:
+        LAUNCHES["flash_attention_mla"] += 1
     return out, o, lse
 
 
@@ -335,8 +358,10 @@ def flash_attention_backward(q, k, v, o, lse, do, *, causal: bool = True):
     entry launches its dQ grid, then its dK/dV grid).  ``lse`` is the
     forward's fp32 ``(B, H, Sq)``; ``o`` its output in fp32 (bf16
     operands' ``o32``, as :func:`forward_for_backward` keeps it); ``do``
-    may be any view of a ``(B, H, Sq, hd)`` gradient."""
+    may be any view of a ``(B, H, Sq, hd)`` gradient.  q, k and v share
+    one head dim, 64 or 128."""
     _check_shapes(q, k, v)
+    _check_backward_head_dims(q, v)
     _check_kernel_operands(q, k, v, do)
     if o.shape != q.shape or o.device != q.device or \
             o.dtype != torch.float32:
@@ -368,6 +393,15 @@ def flash_attention_backward(q, k, v, o, lse, do, *, causal: bool = True):
     return dq, dk, dv
 
 
+def _check_backward_head_dims(q: torch.Tensor, v: torch.Tensor) -> None:
+    """Raise unless the backward kernel takes q's and v's head dims."""
+    if v.shape[-1] != q.shape[-1] or q.shape[-1] not in KERNEL_HEAD_DIMS:
+        raise ValueError(
+            f"the flash backward kernel takes one head dim {KERNEL_HEAD_DIMS} "
+            f"for q, k and v; got q's {q.shape[-1]} and v's {v.shape[-1]} "
+            "(the backward at (192, 128) is ROADMAP queue 1 item 13b-4c)")
+
+
 class FlashAttention(torch.autograd.Function):
     """The kernel with its gradient: forward launches
     ``csrc/flash_attention.cu`` and saves ``(q, k, v, o, lse)`` (``o`` as
@@ -391,15 +425,16 @@ class FlashAttention(torch.autograd.Function):
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
-    """Batched GQA attention: q (B, H, Sq, hd), k and v (B, Hkv, Skv, hd)
-    with H % Hkv == 0 -> (B, H, Sq, hd) in q's dtype, a view of a
-    ``(B, Sq, H, hd)``-contiguous buffer.
+    """Batched GQA attention: q (B, H, Sq, hd), k (B, Hkv, Skv, hd) and v
+    (B, Hkv, Skv, hd_v) with H % Hkv == 0 -> (B, H, Sq, hd_v) in q's
+    dtype, a view of a ``(B, Sq, H, hd_v)``-contiguous buffer.
 
-    CUDA operands must be all fp32 or all bf16, on one device, with hd 64
-    or 128 at stride 1 and 16-byte aligned pointers and strides.  With grad
-    mode on and an operand requiring grad they go through
-    :class:`FlashAttention` (the result has its ``grad_fn``); otherwise one
-    forward launch, without ``lse``.
+    CUDA operands must be all fp32 or all bf16, on one device, with (hd,
+    hd_v) one of :data:`KERNEL_HEAD_DIM_PAIRS`, hd at stride 1 and 16-byte
+    aligned pointers and strides.  With grad mode on and an operand
+    requiring grad they go through :class:`FlashAttention` (the result has
+    its ``grad_fn``), which needs hd == hd_v (a grad call at (192, 128)
+    raises); otherwise one forward launch, without ``lse``.
     """
     _check_shapes(q, k, v)
     devs = {x.device for x in (q, k, v)}
@@ -407,6 +442,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return flash_attention_plain(q, k, v, causal=causal)
     _check_kernel_operands(q, k, v)
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        _check_backward_head_dims(q, v)
         return FlashAttention.apply(q, k, v, bool(causal))
     return _forward(q, k, v, causal)[0]
 

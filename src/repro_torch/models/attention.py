@@ -1,7 +1,7 @@
-"""Attention mixer: grouped-query attention (causal, bidirectional or
-cross).
+"""Attention mixers: grouped-query attention (causal, bidirectional or
+cross) and DeepSeek-V2's multi-head latent attention (MLA).
 
-The reference's ``repro/models/attention.py``, GQA only.  Score paths:
+The reference's ``repro/models/attention.py``.  Score paths:
 
 * the **causal prefill** and the training forward (``q_offset == 0``,
   Sq == Skv, any length) go through
@@ -22,12 +22,18 @@ The reference's ``repro/models/attention.py``, GQA only.  Score paths:
 * a single decode token attends the whole (B, Hkv, S_max, hd) self-
   attention cache in :func:`_decode_attention`, torch ops (the
   reference's ``DECODE_GROUPED = False`` path: not a Pallas kernel there
-  either).
+  either);
+* MLA's prefill and training forward (:func:`mla_forward`, the expanded
+  form) take the causal path above with split head dims, q and k at nope
+  + rope (192 published) and v at ``v_head_dim`` (128): the flash
+  kernel's (192, 128) instance on the card.  Its decode (the absorbed
+  form) scores a token against the latent cache with torch ops, as the
+  reference's einsums do.
 
 ``attention="kernel"`` (the default) or ``"plain"`` picks the path
 explicitly, for comparisons; nothing picks on failure.  The reference's
 ``models/partitioning.py`` is not ported: on one device its ``constrain``
-is the identity.  MLA (``mla_forward``) raises ``NotImplementedError``.
+is the identity.
 """
 from __future__ import annotations
 
@@ -38,7 +44,7 @@ from torch import nn
 
 from ..kernels.flash_attention import flash_attention, flash_attention_plain
 from .config import ArchConfig
-from .layers import apply_rope, dense_init
+from .layers import apply_rope, dense_init, rms_norm
 
 _NEG = -1e30
 ATTENTION_PATHS = ("kernel", "plain")
@@ -169,6 +175,118 @@ def _decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return p.to(ct) @ v.to(ct)
 
 
-def mla_forward(*args, **kwargs):
-    raise NotImplementedError(
-        "DeepSeek MLA attention is not ported yet (ROADMAP queue 1 item 13b)")
+class MLA(nn.Module):
+    """DeepSeek-V2's latent attention projections, ``(d_in, d_out)``:
+    ``q_down`` (d, q_lora), ``q_norm`` (q_lora,), ``q_up`` (q_lora, H (nope
+    + rope)), ``kv_down`` (d, kv_lora + rope), ``kv_norm`` (kv_lora,),
+    ``kv_up`` (kv_lora, H (nope + v)) and ``wo`` (H v, d): the reference's
+    ``mla_init`` keys."""
+
+    def __init__(self, cfg: ArchConfig, *, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        d, h = cfg.d_model, cfg.n_heads
+        qk = cfg.qk_nope_dim + cfg.qk_rope_dim
+        kw = dict(device=device, dtype=dtype)
+        self.q_down = nn.Parameter(torch.empty(d, cfg.q_lora_rank, **kw))
+        self.q_norm = nn.Parameter(torch.zeros(cfg.q_lora_rank, **kw))
+        self.q_up = nn.Parameter(torch.empty(cfg.q_lora_rank, h * qk, **kw))
+        self.kv_down = nn.Parameter(torch.empty(
+            d, cfg.kv_lora_rank + cfg.qk_rope_dim, **kw))
+        self.kv_norm = nn.Parameter(torch.zeros(cfg.kv_lora_rank, **kw))
+        self.kv_up = nn.Parameter(torch.empty(
+            cfg.kv_lora_rank, h * (cfg.qk_nope_dim + cfg.v_head_dim), **kw))
+        self.wo = nn.Parameter(torch.empty(h * cfg.v_head_dim, d, **kw))
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator) -> None:
+        """The reference's ``mla_init``: truncated-normal projections with
+        scale ``d_in ** -0.5``, zero norm scales."""
+        for name in ("q_down", "q_up", "kv_down", "kv_up", "wo"):
+            w = getattr(self, name)
+            w.copy_(dense_init(*w.shape, generator=generator,
+                               device=w.device, dtype=w.dtype))
+
+
+def mla_forward(cfg: ArchConfig, p, x: torch.Tensor, *,
+                positions: torch.Tensor, cache: Optional[dict] = None,
+                attention: str = "kernel"
+                ) -> Tuple[torch.Tensor, Optional[dict]]:
+    """DeepSeek-V2 multi-head latent attention (the reference's
+    ``mla_forward``).  x: (B, S, d); ``p`` maps :class:`MLA`'s names to
+    weights.  cache: ``{"ckv": (B, S_max, kv_lora), "k_pe": (B, S_max,
+    rope), "pos": int}``; the step's normalised latent and its rotated key
+    are written into it at ``pos`` in place.
+
+    Prefill and training take the expanded form: ``kv_up`` expands the
+    latent into per-head ``k_nope`` and v, k is ``[k_nope, k_pe]`` with
+    the one rope key broadcast over the heads, and :func:`sdpa` attends
+    causally with the scale ``(nope + rope) ** -0.5`` of q's head dim; v
+    goes in as its strided slice of the expansion (hd at stride 1, no
+    copy).  A single token with a cache (decode) takes the absorbed form
+    (:func:`_absorbed_decode`) against the whole latent cache.  Returns
+    ``(out, {"ckv", "k_pe"} or None)``."""
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    r, nope, rope_d, vd = (cfg.kv_lora_rank, cfg.qk_nope_dim,
+                           cfg.qk_rope_dim, cfg.v_head_dim)
+    dt = x.dtype
+    cq = rms_norm(x @ p["q_down"].to(dt), p["q_norm"], cfg.norm_eps)
+    q = (cq @ p["q_up"].to(dt)).view(b, s, h, nope + rope_d)
+    q_nope = q[..., :nope]
+    q_pe = apply_rope(q[..., nope:], positions, cfg.rope_theta)
+    ckv_full = x @ p["kv_down"].to(dt)
+    ckv = rms_norm(ckv_full[..., :r], p["kv_norm"], cfg.norm_eps)
+    k_pe = apply_rope(ckv_full[..., None, r:], positions,
+                      cfg.rope_theta)[:, :, 0]
+    kv_up = p["kv_up"].to(dt)
+
+    new_cache = None
+    if cache is not None:
+        pos = int(cache["pos"])
+        cc, cp = cache["ckv"], cache["k_pe"]
+        if pos + s > cc.shape[1]:
+            raise ValueError(f"cache of {cc.shape[1]} positions cannot take "
+                             f"{s} more at position {pos}")
+        cc[:, pos:pos + s] = ckv.to(cc.dtype)
+        cp[:, pos:pos + s] = k_pe.to(cp.dtype)
+        new_cache = {"ckv": cc, "k_pe": cp}
+    if cache is not None and s == 1:
+        w_up = kv_up.view(r, h, nope + vd)
+        out = _absorbed_decode(q_nope, q_pe, cc, cp, w_up[..., :nope],
+                               w_up[..., nope:], pos,
+                               (nope + rope_d) ** -0.5)
+    else:
+        kv = (ckv @ kv_up).view(b, s, h, nope + vd)
+        k = torch.cat([kv[..., :nope],
+                       k_pe[:, :, None, :].expand(b, s, h, rope_d)], dim=-1)
+        qq = torch.cat([q_nope, q_pe], dim=-1)
+        out = sdpa(qq.transpose(1, 2), k.transpose(1, 2),
+                   kv[..., nope:].transpose(1, 2), causal=True,
+                   attention=attention).transpose(1, 2)
+    out = out.reshape(b, s, h * vd).to(dt)
+    return out @ p["wo"].to(dt), new_cache
+
+
+def _absorbed_decode(q_nope: torch.Tensor, q_pe: torch.Tensor,
+                     cc: torch.Tensor, cp: torch.Tensor, w_uk: torch.Tensor,
+                     w_uv: torch.Tensor, pos: int,
+                     scale: float) -> torch.Tensor:
+    """MLA's decode against the latent cache, the reference's einsums:
+    ``q_lat = q_nope w_uk`` (B, 1, H, kv_lora); scores ``q_lat ckv^T +
+    q_pe k_pe^T`` in the operands' common type, then fp32 times
+    ``scale``, masked past ``pos``; softmax in fp32, the probabilities
+    cast to q's dtype; ``o_lat = P ckv`` and ``o_lat w_uv`` (B, 1, H, v).
+    q_nope (B, 1, H, nope), q_pe (B, 1, H, rope), cc (B, S_max, kv_lora),
+    cp (B, S_max, rope), w_uk (kv_lora, H, nope), w_uv (kv_lora, H, v)."""
+    dt = q_nope.dtype
+    q_lat = torch.einsum("bshn,rhn->bshr", q_nope, w_uk)
+    ct = torch.promote_types(dt, cc.dtype)
+    sc = (torch.einsum("bshr,bkr->bhsk", q_lat.to(ct), cc.to(ct))
+          + torch.einsum("bshp,bkp->bhsk", q_pe.to(ct), cp.to(ct))
+          ).float() * scale
+    valid = torch.arange(cc.shape[1], device=cc.device) <= pos
+    pr = torch.softmax(sc.masked_fill(~valid, _NEG), dim=-1).to(dt)
+    o_lat = torch.einsum("bhsk,bkr->bshr", pr.to(ct), cc.to(ct))
+    ct = torch.promote_types(o_lat.dtype, w_uv.dtype)
+    return torch.einsum("bshr,rhv->bshv", o_lat.to(ct), w_uv.to(ct))

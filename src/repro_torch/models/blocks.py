@@ -1,12 +1,10 @@
 """Residual block (the reference's ``repro/models/blocks.py``): pre-norm
-mixer (causal ``"attn"`` or bidirectional ``"attn_bidir"`` attention, the
-SSD mixers ``"mamba"`` and ``"mlstm"``, or ``"slstm"``), then, with
-``cross``, pre-norm cross-attention over the encoder's output, then, unless
-the FFN is ``"none"``, pre-norm FFN: dense SwiGLU or the mixture of
-experts (``"moe"``, :mod:`.moe`).
-
-MLA attention raises ``NotImplementedError`` naming the ROADMAP item that
-ports it.
+mixer (causal ``"attn"`` or bidirectional ``"attn_bidir"`` attention,
+DeepSeek's latent attention ``"mla"``, the SSD mixers ``"mamba"`` and
+``"mlstm"``, or ``"slstm"``), then, with ``cross``, pre-norm
+cross-attention over the encoder's output, then, unless the FFN is
+``"none"``, pre-norm FFN: dense SwiGLU or the mixture of experts
+(``"moe"``, :mod:`.moe`).
 """
 from __future__ import annotations
 
@@ -16,50 +14,45 @@ import torch
 from torch import nn
 
 from .._device import resolve_device
-from .attention import Attention, attn_forward
+from .attention import MLA, Attention, attn_forward, mla_forward
 from .config import ArchConfig, BlockSpec
 from .layers import FFN, ffn_forward, rms_norm
 from .moe import MoE, moe_forward
 from .ssm import (SLSTM, SSD, slstm_cache_init, slstm_forward,
                   ssd_cache_init, ssd_forward)
 
-_NOT_PORTED = {
-    "mla": "DeepSeek MLA attention",
-}
 ATTENTION = ("attn", "attn_bidir")
-MIXERS = ATTENTION + ("mamba", "mlstm", "slstm")
+MIXERS = ATTENTION + ("mla", "mamba", "mlstm", "slstm")
 FFNS = ("dense", "moe", "none")
 
 
 def check_spec(spec: BlockSpec) -> None:
-    """Raise ``NotImplementedError`` for a block the port does not run yet
-    (MLA) and ``ValueError`` for an unknown kind."""
-    for kind in (spec.mixer, spec.ffn):
-        if kind in _NOT_PORTED:
-            raise NotImplementedError(
-                f"{_NOT_PORTED[kind]} is not ported yet (ROADMAP queue 1 "
-                "item 13b)")
+    """Raise ``ValueError`` for an unknown kind."""
     if spec.mixer not in MIXERS or spec.ffn not in FFNS:
         raise ValueError(f"unknown block spec {spec}")
 
 
 class Block(nn.Module):
     """``norm1`` and the ``mixer`` of ``spec.mixer``'s kind
-    (:class:`~.attention.Attention`, :class:`~.ssm.SSD` or
-    :class:`~.ssm.SLSTM`), with ``spec.cross`` the cross-attention
-    ``cross`` and its ``norm_cross``, then, unless ``spec.ffn`` is
-    ``"none"``, ``norm2`` and the ``ffn`` (:class:`~.layers.FFN`, or for
-    ``"moe"`` :class:`~.moe.MoE`); the norm scales are offsets from 1
-    (zeros at init)."""
+    (:class:`~.attention.Attention`, :class:`~.attention.MLA`,
+    :class:`~.ssm.SSD` or :class:`~.ssm.SLSTM`), with ``spec.cross`` the
+    cross-attention ``cross`` and its ``norm_cross``, then, unless
+    ``spec.ffn`` is ``"none"``, ``norm2`` and the ``ffn``
+    (:class:`~.layers.FFN`, or for ``"moe"`` :class:`~.moe.MoE`); the norm
+    scales are offsets from 1 (zeros at init).  A dense FFN is
+    ``cfg.d_ff`` wide, or ``cfg.first_dense_ff`` wide when set and
+    ``layer_idx`` is 0 (the reference's ``block_init``)."""
 
-    def __init__(self, cfg: ArchConfig, spec: BlockSpec, *, device=None,
-                 dtype=torch.float32):
+    def __init__(self, cfg: ArchConfig, spec: BlockSpec, *,
+                 layer_idx: int = 1, device=None, dtype=torch.float32):
         super().__init__()
         check_spec(spec)
         kw = dict(device=device, dtype=dtype)
         self.norm1 = nn.Parameter(torch.zeros(cfg.d_model, **kw))
         if spec.mixer in ATTENTION:
             self.mixer = Attention(cfg, **kw)
+        elif spec.mixer == "mla":
+            self.mixer = MLA(cfg, **kw)
         elif spec.mixer == "slstm":
             self.mixer = SLSTM(cfg, **kw)
         else:
@@ -69,8 +62,10 @@ class Block(nn.Module):
             self.norm_cross = nn.Parameter(torch.zeros(cfg.d_model, **kw))
         if spec.ffn != "none":
             self.norm2 = nn.Parameter(torch.zeros(cfg.d_model, **kw))
+            ff = cfg.first_dense_ff if (cfg.first_dense_ff and
+                                        layer_idx == 0) else cfg.d_ff
             self.ffn = MoE(cfg, **kw) if spec.ffn == "moe" else \
-                FFN(cfg.d_model, cfg.d_ff, **kw)
+                FFN(cfg.d_model, ff, **kw)
 
     @torch.no_grad()
     def init(self, generator: torch.Generator) -> None:
@@ -86,14 +81,22 @@ def block_cache_init(cfg: ArchConfig, spec: BlockSpec, batch: int,
                      device=None) -> dict:
     """One block's decode-time state, zeros, on ``device`` (``None``: the
     card): ``{"kv": {"k", "v": (B, Hkv, S_max, hd)}}`` in ``dtype`` for
-    attention, ``{"ssm": {"state", "conv"}}`` for an SSD mixer (the conv
-    state in ``dtype``), ``{"ssm": {"h", "c", "n"}}`` for the sLSTM."""
+    attention, ``{"kv": {"ckv": (B, S_max, kv_lora), "k_pe": (B, S_max,
+    rope)}}`` for MLA (the latent cache), ``{"ssm": {"state", "conv"}}``
+    for an SSD mixer (the conv state in ``dtype``), ``{"ssm": {"h", "c",
+    "n"}}`` for the sLSTM."""
     check_spec(spec)
     dev = resolve_device(device)
     if spec.mixer in ATTENTION:
         shape = (batch, cfg.n_kv_heads, max_seq, cfg.head_dim)
         return {"kv": {"k": torch.zeros(shape, dtype=dtype, device=dev),
                        "v": torch.zeros(shape, dtype=dtype, device=dev)}}
+    if spec.mixer == "mla":
+        return {"kv": {
+            "ckv": torch.zeros(batch, max_seq, cfg.kv_lora_rank,
+                               dtype=dtype, device=dev),
+            "k_pe": torch.zeros(batch, max_seq, cfg.qk_rope_dim,
+                                dtype=dtype, device=dev)}}
     if spec.mixer == "slstm":
         return {"ssm": slstm_cache_init(cfg, batch, device=dev)}
     return {"ssm": ssd_cache_init(cfg, batch, spec.mixer, dtype,
@@ -117,14 +120,18 @@ def block_forward(cfg: ArchConfig, spec: BlockSpec, p, x: torch.Tensor, *,
     aux = 0.0
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     new_cache = None
-    if spec.mixer in ATTENTION:
+    if spec.mixer in ATTENTION or spec.mixer == "mla":
         kvc = None
         if cache is not None:
             kvc = dict(cache["kv"])
             kvc["pos"] = pos
-        out, nc = attn_forward(cfg, p["mixer"], h, positions=positions,
-                               causal=(spec.mixer == "attn"), cache=kvc,
-                               attention=attention)
+        if spec.mixer == "mla":
+            out, nc = mla_forward(cfg, p["mixer"], h, positions=positions,
+                                  cache=kvc, attention=attention)
+        else:
+            out, nc = attn_forward(cfg, p["mixer"], h, positions=positions,
+                                   causal=(spec.mixer == "attn"), cache=kvc,
+                                   attention=attention)
         if nc is not None:
             new_cache = {"kv": nc}
     else:

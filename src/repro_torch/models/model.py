@@ -1,7 +1,8 @@
 """LM assembly: init / cache / forward / loss / prefill / decode (the
 reference's ``repro/models/model.py`` for dense GQA models, decoder-only
-or encoder-decoder, the recurrent xLSTM / SSD models, and GQA with the
-mixture-of-experts FFN, llama4-scout).
+or encoder-decoder, the recurrent xLSTM / SSD models, GQA with the
+mixture-of-experts FFN, llama4-scout, and DeepSeek-V2's latent attention
+with its dense layer 0).
 
 The reference scans over stacked pattern groups; here a Python loop runs
 the layers in order (layer ``g * len(pattern) + i`` is group ``g`` of
@@ -15,11 +16,15 @@ compute dtype once per call, before the layers; only the final norms
 stay fp32.  This is the reference's knob of the same name: it casts
 every leaf of two or more dimensions of its group-stacked tree, where a
 layer's norm scales and biases (an SSD's ``dt_bias``, ``A_log``, ``D``,
-an sLSTM's ``b``) carry the stacking axis too.  An
+an sLSTM's ``b``, MLA's ``q_norm`` and ``kv_norm``) carry the stacking
+axis too.  With ``first_dense_ff`` (DeepSeek) the reference runs a
+``layer0`` block with a dense FFN of that width before its group stack;
+``layer0`` sits outside the stack, so the cast takes only its leaves of
+two or more dimensions and its norm scales stay fp32, here as there.  An
 encoder–decoder (whisper, ``cfg.is_encdec``) encodes the stub frontend's
 frame embeddings (``embeds``) through ``encoder``'s bidirectional blocks,
-and each decoder block cross-attends the result; ``first_dense_ff``
-(DeepSeek) and ``n_patches`` (VLM) raise ``NotImplementedError``.
+and each decoder block cross-attends the result; ``n_patches`` (VLM)
+raises ``NotImplementedError``.
 
 One deliberate difference: the reference's cached forward reads
 ``cache["encoder_out"]`` whenever the step has one token, so a one-token
@@ -55,10 +60,6 @@ ENCODER_SPEC = BlockSpec("attn_bidir", "dense")
 
 def check_config(cfg: ArchConfig) -> None:
     """Raise ``NotImplementedError`` for what the port does not run yet."""
-    if cfg.first_dense_ff:
-        raise NotImplementedError(
-            f"{cfg.name}: a dense layer 0 before the pattern (first_dense_ff) "
-            "is not ported yet (ROADMAP queue 1 item 13b)")
     if cfg.n_patches:
         raise NotImplementedError(
             f"{cfg.name}: prepended patch embeddings (VLM) are not ported "
@@ -66,11 +67,12 @@ def check_config(cfg: ArchConfig) -> None:
 
 
 class LM(nn.Module):
-    """The LM: ``embed`` (V, d), ``layers`` (one :class:`Block` per
-    layer), ``final_norm`` (d,), unless the embeddings are tied ``lm_head``
-    (d, V), and for an encoder-decoder ``encoder.layers`` (one
-    ``ENCODER_SPEC`` block per ``encoder_layers``) and
-    ``encoder.final_norm``.  Weights are ``(d_in, d_out)`` as in the
+    """The LM: ``embed`` (V, d), with ``first_dense_ff`` the ``layer0``
+    block (:func:`layer0_spec`), ``layers`` (one :class:`Block` per layer
+    of the pattern's ``cfg.scan_layers``), ``final_norm`` (d,), unless the
+    embeddings are tied ``lm_head`` (d, V), and for an encoder-decoder
+    ``encoder.layers`` (one ``ENCODER_SPEC`` block per ``encoder_layers``)
+    and ``encoder.final_norm``.  Weights are ``(d_in, d_out)`` as in the
     reference.
     The constructor allocates without initialising (:func:`init_params`
     draws the weights; ``convert.lm_params_from_reference`` loads them)."""
@@ -85,9 +87,11 @@ class LM(nn.Module):
         self.final_norm = nn.Parameter(torch.zeros(d, **kw))
         if not cfg.tie_embeddings:
             self.lm_head = nn.Parameter(torch.empty(d, v, **kw))
+        if cfg.first_dense_ff:
+            self.layer0 = Block(cfg, layer0_spec(cfg), layer_idx=0, **kw)
         self.layers = nn.ModuleList(
             Block(cfg, layer_spec(cfg, i), **kw)
-            for i in range(cfg.n_layers))
+            for i in range(cfg.scan_layers))
         if cfg.is_encdec:
             self.encoder = nn.Module()
             self.encoder.layers = nn.ModuleList(
@@ -97,8 +101,14 @@ class LM(nn.Module):
 
 
 def layer_spec(cfg: ArchConfig, i: int) -> BlockSpec:
-    """Decoder layer ``i``'s block: pattern slot ``i % len(pattern)``."""
+    """``layers[i]``'s block: pattern slot ``i % len(pattern)``."""
     return cfg.pattern[i % len(cfg.pattern)]
+
+
+def layer0_spec(cfg: ArchConfig) -> BlockSpec:
+    """The ``layer0`` block of a model with ``first_dense_ff``: the first
+    pattern slot's mixer with a dense FFN."""
+    return BlockSpec(cfg.pattern[0].mixer, "dense")
 
 
 def init_params(cfg: ArchConfig, seed: int = 0, *, device=None,
@@ -121,6 +131,8 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, device=None,
                 dtype=dtype))
         for block in model.layers:
             block.init(gen)
+        if cfg.first_dense_ff:
+            model.layer0.init(gen)
         if cfg.is_encdec:
             for block in model.encoder.layers:
                 block.init(gen)
@@ -138,18 +150,23 @@ def check_sequence(cfg: ArchConfig, seq: int) -> None:
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
                dtype=torch.bfloat16, device=None) -> dict:
     """``{"pos": 0, "layers": [entry, ...]}`` with one zero entry a layer
-    by its block's kind (:func:`~.blocks.block_cache_init`: ``{"kv": {"k",
-    "v": (B, Hkv, S_max, hd)}}`` for attention, ``{"ssm": {"state",
-    "conv"}}`` for an SSD mixer, ``{"ssm": {"h", "c", "n"}}`` for the
-    sLSTM; a model with no attention allocates no k/v), and for an
-    encoder-decoder ``"encoder_out"`` (B, n_frames, d); ``pos`` is a
-    Python int (no device round trip per step)."""
+    of ``layers`` by its block's kind (:func:`~.blocks.block_cache_init`:
+    ``{"kv": {"k", "v": (B, Hkv, S_max, hd)}}`` for attention, ``{"kv":
+    {"ckv", "k_pe"}}`` for MLA, ``{"ssm": {"state", "conv"}}`` for an SSD
+    mixer, ``{"ssm": {"h", "c", "n"}}`` for the sLSTM; a model with no
+    attention allocates no k/v), with ``first_dense_ff`` ``layer0``'s
+    entry under ``"layer0"``, and for an encoder-decoder ``"encoder_out"``
+    (B, n_frames, d); ``pos`` is a Python int (no device round trip per
+    step)."""
     check_config(cfg)
     dev = resolve_device(device)
     cache = {"pos": 0, "layers": [
         block_cache_init(cfg, layer_spec(cfg, i), batch, max_seq, dtype,
                          device=dev)
-        for i in range(cfg.n_layers)]}
+        for i in range(cfg.scan_layers)]}
+    if cfg.first_dense_ff:
+        cache["layer0"] = block_cache_init(cfg, layer0_spec(cfg), batch,
+                                           max_seq, dtype, device=dev)
     if cfg.is_encdec:
         cache["encoder_out"] = torch.zeros(batch, cfg.n_frames, cfg.d_model,
                                            dtype=dtype, device=dev)
@@ -263,9 +280,16 @@ def _forward(cfg: ArchConfig, params: LM, tokens: torch.Tensor, *,
             raise ValueError(f"{cfg.name}: an encoder-decoder forward needs "
                              "the frame embeds (embeds=)")
 
+    layer0_cache = None
+    if cfg.first_dense_ff:      # outside the reference's stack: no remat
+        c = cache["layer0"] if cache is not None else None
+        x, layer0_cache, _ = block_forward(
+            cfg, layer0_spec(cfg), tree["layer0"], x, positions=positions,
+            pos=pos, cache=c, encoder_out=encoder_out, attention=attention)
+
     new_layers = []
     aux = 0.0
-    for i in range(cfg.n_layers):
+    for i in range(cfg.scan_layers):
         p = tree["layers"][str(i)]
         spec = layer_spec(cfg, i)
         if remat:
@@ -289,6 +313,8 @@ def _forward(cfg: ArchConfig, params: LM, tokens: torch.Tensor, *,
     new_cache = None
     if cache is not None:
         new_cache = {"pos": pos + s, "layers": new_layers}
+        if cfg.first_dense_ff:
+            new_cache["layer0"] = layer0_cache
         if cfg.is_encdec:
             new_cache["encoder_out"] = cache["encoder_out"]
             if embeds is not None:

@@ -203,7 +203,7 @@ def _emulate_bf16_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     rows = torch.arange(sq)[:, None]
     m = torch.full((*q.shape[:3], 1), -1e30)
     l = torch.zeros(*q.shape[:3], 1)
-    acc = torch.zeros(q.shape)
+    acc = torch.zeros(*q.shape[:3], v.shape[-1])
     for kv0 in range(0, skv, 64):
         s = qf @ kf[:, :, kv0:kv0 + 64].mT
         if causal:

@@ -49,7 +49,8 @@ def test_import_leaves_jax_and_reference_out():
         "repro_torch.compression.sharded, repro_torch.optim, "
         "repro_torch.optim.adamw, repro_torch.launch.train, "
         "repro_torch.models.model, repro_torch.models.moe, "
-        "repro_torch.configs.llama4_scout_17b_a16e\n"
+        "repro_torch.configs.llama4_scout_17b_a16e, "
+        "repro_torch.configs.deepseek_v2_236b\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "from repro_torch.kernels import _build\n"
@@ -109,7 +110,8 @@ def test_lm_entry_points_default_to_the_card():
             PM.init_params(cfg, 0)
         with pytest.raises((RuntimeError, AssertionError)):
             PM.init_cache(cfg, 1, 4)
-        for arch in ("smollm_135m", "llama4_scout_17b_a16e"):
+        for arch in ("smollm_135m", "llama4_scout_17b_a16e",
+                     "deepseek_v2_236b"):
             with pytest.raises((RuntimeError, AssertionError)):
                 serve.main(["--arch", arch, "--reduced", "--batch", "1",
                             "--prompt-len", "2", "--gen", "1"])
@@ -362,11 +364,12 @@ ENTRIES = ("apply_track", "cholqr2", "fastmix", "fastmix_apply",
 #: per-slice round counts; ``apply_track`` the problem count) and the
 #: panel kernels' output rows beside the tile width; ``cholqr2``
 #: takes the group of elements that shares a rescue flag (one problem).
-#: ``flash_attention`` takes the optional fp32 output (o32) and lse; its
-#: backward takes its 24 strides as one host array.
+#: ``flash_attention`` takes the optional fp32 output (o32) and lse, and
+#: v's head dim beside q's (MLA's (192, 128)); its backward takes its 24
+#: strides as one host array.
 ARITY = {"apply_track": 26, "cholqr2": 11, "fastmix": 22,
          "fastmix_apply": 16, "fastmix_ef": 23, "fastmix_poly": 16,
-         "flash_attention": 28, "flash_attention_bwd": 21, "gram": 7,
+         "flash_attention": 29, "flash_attention_bwd": 21, "gram": 7,
          "power_matmul": 9}
 
 

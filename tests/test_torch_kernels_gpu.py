@@ -1965,3 +1965,91 @@ def test_moe_dispatch_equals_the_masked_dense_evaluation_on_card(sm90,
     assert got.device.type == "cuda" and torch.isfinite(aux)
     torch.testing.assert_close(got, want, rtol=0,
                                atol=1e-4 * float(want.abs().max()))
+
+
+def _mla_operands(b, h, s, dtype, seed):
+    """MLA's prefill operands in its own layout: q (B, S, H, 192) and k
+    (B, S, H, 192) transposed to (B, H, S, 192) views, and v the
+    (B, H, S, 128) view of the last 128 columns of a (B, S, H, 256)
+    expansion (stride 256, as ``mla_forward`` passes it)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k = (torch.randn(b, s, h, 192, generator=g, device="cuda").to(dtype)
+            .transpose(1, 2) for _ in range(2))
+    kv = torch.randn(b, s, h, 256, generator=g, device="cuda").to(dtype)
+    return q, k, kv[..., 128:].transpose(1, 2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [333, 1000])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_mla_dims_on_card(sm90, dtype, causal, s):
+    """The (192, 128) instance (q and k at 192, v at 128) against the plain
+    version at ragged lengths, in MLA's strided layout; one launch, counted
+    under ``flash_attention`` and ``flash_attention_mla``."""
+    q, k, v = _mla_operands(2, 4, s, dtype, s + causal)
+    before = dict(fa.LAUNCHES)
+    got = fa.flash_attention(q, k, v, causal=causal)
+    want = fa.flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
+    assert fa.LAUNCHES["flash_attention_mla"] == \
+        before["flash_attention_mla"] + 1
+    assert got.shape == (2, 4, s, 128) and got.dtype == dtype
+    assert got.transpose(1, 2).is_contiguous()
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.gpu
+def test_flash_attention_mla_dims_refuse_grad_and_other_pairs_on_card(sm90):
+    """A grad call at (192, 128) raises, naming the backward's ROADMAP
+    item, before any launch; head-dim pairs without an instance raise."""
+    q, k, v = _mla_operands(1, 2, 64, torch.bfloat16, 0)
+    before = fa.LAUNCHES["flash_attention"]
+    with pytest.raises(ValueError, match="13b-4c"):
+        fa.flash_attention(q.detach().requires_grad_(), k, v)
+    assert fa.LAUNCHES["flash_attention"] == before
+    z = torch.zeros(1, 2, 8, 192, device="cuda")
+    for hd_v in (192, 64):
+        with pytest.raises(ValueError, match="head_dim"):
+            fa.flash_attention(z, z, torch.zeros(1, 2, 8, hd_v,
+                                                 device="cuda"))
+    z = torch.zeros(1, 2, 8, 128, device="cuda")
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention(z, z, torch.zeros(1, 2, 8, 64, device="cuda"))
+
+
+@pytest.mark.gpu
+def test_mla_absorbed_decode_matches_expanded_on_card(sm90):
+    """One fp32 MLA layer at deepseek-v2's published width (d 5120, 128
+    heads, kv_lora 512, qk 128 + 64, v 128), seeded: token 33 decoded
+    from the latent cache (the absorbed form, torch ops) against the
+    expanded forward over 33 tokens (the (192, 128) fp32 kernel), within
+    1e-4 * max|out| (chip_smoke's MLA_ABSORBED_TOL)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention as PA
+    cfg = get_config("deepseek_v2_236b")
+    layer = PA.MLA(cfg, device="cuda")
+    layer.init(torch.Generator(device="cuda").manual_seed(0))
+    p = {name: w.detach() for name, w in layer.named_parameters()}
+    g = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn(2, 33, cfg.d_model, generator=g, device="cuda")
+    pos = torch.arange(33, dtype=torch.int32, device="cuda")[None].expand(
+        2, 33)
+    cache = {"ckv": torch.zeros(2, 33, cfg.kv_lora_rank, device="cuda"),
+             "k_pe": torch.zeros(2, 33, cfg.qk_rope_dim, device="cuda"),
+             "pos": 0}
+    with torch.no_grad():
+        before = fa.LAUNCHES["flash_attention_mla"]
+        full, _ = PA.mla_forward(cfg, p, x, positions=pos)
+        assert fa.LAUNCHES["flash_attention_mla"] == before + 1
+        _, cache = PA.mla_forward(cfg, p, x[:, :32], positions=pos[:, :32],
+                                  cache=cache)
+        last, _ = PA.mla_forward(cfg, p, x[:, 32:], positions=pos[:, 32:],
+                                 cache={**cache, "pos": 32})
+    torch.cuda.synchronize()
+    err = float((last[:, 0] - full[:, 32]).abs().max())
+    assert err <= 1e-4 * float(full[:, 32].abs().max()), err

@@ -91,14 +91,57 @@ def test_registry_raises_for_unported_ids():
         PC.get_config("gpt-5")
 
 
+def _load_block(block, tree) -> None:
+    """Load a reference block's nested tree into a port ``Block`` (strict:
+    the names and shapes must be the reference's)."""
+    flat = {}
+
+    def walk(path, node):
+        if isinstance(node, dict):
+            for key, child in node.items():
+                walk(f"{path}{key}.", child)
+        else:
+            flat[path[:-1]] = torch.from_numpy(np.array(node))
+
+    walk("", tree)
+    block.load_state_dict(flat, strict=True)
+
+
 @pytest.mark.parametrize("spec", [BlockSpec("mla", "moe"),
                                   BlockSpec("mla", "dense"),
                                   BlockSpec("mla", "none"),
                                   BlockSpec("mla", "dense", cross=True)])
 def test_other_blocks_raise_not_implemented(spec):
-    cfg = dataclasses.replace(PC.get_reduced("smollm_135m"), pattern=(spec,))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PM.LM(cfg, device="cpu")
+    """The MLA block kinds, which raised before MLA was ported, now run:
+    one block of each on the reduced deepseek-v2's widths, loaded from the
+    reference's ``block_init``, gives the reference's ``block_forward``
+    output and auxiliary loss in fp32 within ``FP32_TOL`` (the cross
+    block over an encoder output of 5 frames)."""
+    from repro.models import blocks as RB
+    from repro_torch.models import blocks as PB
+    cfg_ref = dataclasses.replace(ref_reduced("deepseek_v2_236b"),
+                                  dtype="float32", pattern=(spec,))
+    cfg = dataclasses.replace(PC.get_reduced("deepseek_v2_236b"),
+                              dtype="float32", pattern=(spec,))
+    tree = RB.block_init(cfg_ref, spec, jax.random.PRNGKey(3))
+    _load_block(PB.Block(cfg, spec, device="cpu"), tree)
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((2, 7, cfg.d_model)).astype(np.float32)
+    enc = rng.standard_normal((2, 5, cfg.d_model)).astype(np.float32) \
+        if spec.cross else None
+    pos = np.broadcast_to(np.arange(7, dtype=np.int32), (2, 7))
+    want, _, aux_ref = RB.block_forward(
+        cfg_ref, spec, tree, jnp.asarray(x), positions=jnp.asarray(pos),
+        encoder_out=None if enc is None else jnp.asarray(enc))
+    nested = jax.tree.map(lambda a: torch.from_numpy(np.array(a)), tree)
+    with torch.no_grad():
+        got, _, aux = PB.block_forward(
+            cfg, spec, nested, torch.from_numpy(x),
+            positions=torch.from_numpy(pos.copy()),
+            encoder_out=None if enc is None else torch.from_numpy(enc))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=FP32_TOL)
+    assert abs(float(aux) - float(aux_ref)) <= FP32_TOL
 
 
 @pytest.mark.parametrize("spec", [BlockSpec("attn", "none"),
@@ -129,11 +172,30 @@ def test_one_spec_blocks_match_reference(spec):
                                          ("encoder_layers", 1),
                                          ("n_patches", 4)])
 def test_other_model_features_raise_not_implemented(field, value):
-    """DeepSeek's dense layer 0 and a VLM's patches raise; an
-    encoder-decoder (whisper) runs, so its case asks for both of the
-    others beside the encoder."""
-    extra = {"first_dense_ff": 32, "n_patches": 4} \
-        if field == "encoder_layers" else {}
+    """A VLM's patches raise; an encoder-decoder (whisper) runs, so its
+    case asks for the patches beside the encoder.  DeepSeek's dense layer
+    0, which raised before it was ported, now runs: a reduced SmolLM (3
+    layers, so 2 in the pattern's stack) with a layer 0 of FFN width 32
+    gives the reference's fp32 logits within ``FP32_TOL``."""
+    if field == "first_dense_ff":
+        cfg_ref = dataclasses.replace(ref_reduced("smollm_135m"),
+                                      dtype="float32", n_layers=3,
+                                      **{field: value})
+        cfg = dataclasses.replace(PC.get_reduced("smollm_135m"),
+                                  dtype="float32", n_layers=3,
+                                  **{field: value})
+        params = RM.init_params(cfg_ref, jax.random.PRNGKey(0))
+        lm = convert.lm_params_from_reference(
+            jax.tree.map(np.asarray, params), cfg, device="cpu")
+        assert lm.layer0.ffn.wo.shape == (value, cfg.d_model)
+        toks = _tokens(cfg, 2, 12)
+        want, _, _ = RM.forward(cfg_ref, params, jnp.asarray(toks))
+        with torch.no_grad():
+            got, _ = PM.forward(cfg, lm, torch.from_numpy(toks).long())
+        np.testing.assert_allclose(got.numpy(), _np(want), rtol=0,
+                                   atol=FP32_TOL)
+        return
+    extra = {"n_patches": 4} if field == "encoder_layers" else {}
     cfg = dataclasses.replace(PC.get_reduced("smollm_135m"),
                               **{field: value}, **extra)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
