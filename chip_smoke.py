@@ -175,7 +175,23 @@ line); any failure raises and the exit code is non-zero:
    dispatch checks with the share of differing top-6 *sets* held to
    ``MLA_ROUTE_DIFF_LIMIT``, and one fp32 MLA layer at the published
    width whose absorbed decode of a token matches the expanded forward
-   (``MLA_ABSORBED_TOL``); and qwen1.5-110b's parameter count (207 GiB in
+   (``MLA_ABSORBED_TOL``); then qwen2-vl-72b (M-RoPE, the stub frontend's
+   1024 patch embeddings prepended) at the published width cut to 4 of 80
+   layers (batch 4, 1024 seeded patches and a 512-token prompt, 8
+   tokens): exactly one flash launch a layer per prefill (S = 1536) and
+   none per decode step, against the plain attention, its served (3, B,
+   S) positions, built on the card, equal to the CPU grid at the prefill
+   and at each decode step past the patches; then jamba-1.5-large-398b
+   (the hybrid: Mamba, attention, the MoE FFN of 16 experts of 24576,
+   top-2) at the published width cut to pattern slots 0-3 (4 of 72
+   layers: Mamba with a dense FFN, Mamba with the MoE FFN, Mamba with a
+   dense FFN, attention with the MoE FFN; batch 4, prompt 512, 8 tokens):
+   exactly one flash launch per prefill, none per decode step, the
+   routing and logits checks with the share of differing top-2 sets held
+   a MoE layer to ``JAMBA_ROUTE_DIFF_LIMIT`` (0 for layer 1, whose router
+   sees no attention), and one fp32 Mamba layer at the published width
+   whose prefill and teacher-forced decode steps match its chunked
+   forward (``MAMBA_TF``); and qwen1.5-110b's parameter count (207 GiB in
    bf16: it does not fit); 7c4. xlstm-350m at full width (fp32 master
    weights, bf16 compute; 21 mLSTM and 3 sLSTM blocks, no FFN, no
    attention): served
@@ -2796,11 +2812,21 @@ def whisper_phase(kernels, card: str) -> dict:
 #: greedy tokens).  llama4-scout keeps 4 of its 48 layers at the published
 #: width (20.26 GiB of bf16 weights; all 48 are 201 GiB); deepseek-v2 4 of
 #: 60, layer 0 (a dense FFN of 12288) and 3 MoE layers (24.8 GiB of bf16
-#: weights; all 60 are 439 GiB)
+#: weights; all 60 are 439 GiB); qwen2-vl 4 of 80 (11.18 GiB; all 80 are
+#: 135.4 GiB), its prompt the config's 1024 seeded patches and then 512
+#: tokens; jamba-1.5 4 of 72, pattern slots 0-3 (the cut keeps the
+#: pattern's first slots: Mamba with a dense FFN, Mamba with the MoE FFN,
+#: Mamba with a dense FFN, attention with the MoE FFN; 42.79 GiB; all 72
+#: are 740.5 GiB)
 GQA_REQUESTS = (("phi3_medium_14b", None, 4, 512, 8),
                 ("yi_34b", None, 1, 128, 4),
                 ("llama4_scout_17b_a16e", 4, 4, 512, 8),
-                ("deepseek_v2_236b", 4, 4, 512, 8))
+                ("deepseek_v2_236b", 4, 4, 512, 8),
+                ("qwen2_vl_72b", 4, 4, 512, 8),
+                ("jamba_1_5_large_398b", 4, 4, 512, 8))
+#: the MoE requests that also profile a prefill and decode steps and hold
+#: one MoE layer's dispatch to the masked dense evaluation
+MOE_PROFILED = ("llama4_scout_17b_a16e", "deepseek_v2_236b")
 #: llama4's served call, the flash kernel against the plain attention: the
 #: largest share of (token, layer) top-1 choices of the prefill that may
 #: differ between the two runs.  Fixed before the first card run
@@ -2819,6 +2845,27 @@ MOE_ROUTE_DIFF_LIMIT = 0.05
 #: 6.6x narrower than llama4's top-1-of-16 (0.5 sigma), so about 0.13 is
 #: expected from llama4's 0.0193; a wrong attention changes nearly every set
 MLA_ROUTE_DIFF_LIMIT = 0.25
+#: jamba-1.5's served call, the same share for its top-2 sets over 16
+#: experts, one limit a MoE layer of the cut (layers 1 and 3).  Fixed
+#: before the first card run (PERF.md section 6, jamba): layer 1's router
+#: reads Mamba and dense layers only, no attention, so both runs hand it
+#: the same input and its choices must be identical (0); layer 3's reads
+#: the one attention layer's output, and a set changes only where the 2nd
+#: and 3rd of 16 probabilities lie within the attentions' bf16 difference
+#: (the expected gap about 0.35 sigma, against llama4's top-1 0.5):
+#: predicted 0.005-0.04; a wrong attention changes most sets
+JAMBA_ROUTE_DIFF_LIMIT = (0.0, 0.10)
+#: One fp32 Mamba layer at jamba-1.5's published width (d 8192, 128 heads
+#: of 128, state 16, chunk 64), seeded, on a seeded input of rms 1: (batch,
+#: prefill, decode steps).  The prefill (one chunk) and then each
+#: one-token decode step against the chunked forward over all of them,
+#: within rtol = atol = MAMBA_TF_TOL (the reference's
+#: ``test_decode_matches_parallel_forward`` bound), the worst at most
+#: MAMBA_TF_LIMIT times it.  Fixed before the first card run: one layer
+#: on an input of rms 1 has no gated norm of a tiny row (xlstm's whole
+#: model at init has), so fp32 sums in two orders, about 1e-6, are
+#: expected
+MAMBA_TF, MAMBA_TF_TOL, MAMBA_TF_LIMIT = (2, 64, 64), 2e-3, 1.0
 #: One fp32 MLA layer at deepseek-v2's published width, seeded: (batch,
 #: prompt) prefilled into the latent cache, then the absorbed decode of the
 #: next token against the expanded forward over prompt + 1, within
@@ -2831,6 +2878,117 @@ MLA_ABSORBED_SHAPE, MLA_ABSORBED_TOL = (2, 64), 1e-4
 #: capacity), and the bound on the scatter dispatch against the masked
 #: dense evaluation, relative to max|out|
 MOE_DISPATCH_TOKENS, MOE_DISPATCH_SKEW, MOE_DISPATCH_TOL = 2048, 1.5, 1e-4
+
+
+class PositionsLog:
+    """Keeps every position tensor ``models.model.make_positions`` built,
+    with its ``offset``, while entered (a reference to the tensor: no
+    device op)."""
+
+    def __init__(self, model):
+        self.model, self.calls = model, []
+
+    def __enter__(self):
+        self.real = self.model.make_positions
+
+        def logged(cfg, batch, seq, offset=0, device=None):
+            out = self.real(cfg, batch, seq, offset=offset, device=device)
+            self.calls.append((int(offset), out))
+            return out
+        self.model.make_positions = logged
+        return self
+
+    def __exit__(self, *exc):
+        self.model.make_positions = self.real
+
+
+def mrope_check(cfg, calls: list, batch: int, prompt_len: int,
+                gen: int) -> dict:
+    """The served call's M-RoPE positions, built on the card, against the
+    CPU grid (``make_positions(..., device="cpu")``), exactly: the
+    prefill's (3, B, n_patches + P) from offset 0, then each decode step's
+    (3, B, 1) past the patches, a text position in all three streams."""
+    from repro_torch.models import model as PM
+    want = [(0, cfg.n_patches + prompt_len)] + [
+        (cfg.n_patches + prompt_len + i, 1) for i in range(gen - 1)]
+    got = [(off, tuple(x.shape)) for off, x in calls]
+    ok = got == [(off, (3, batch, n)) for off, n in want] and all(
+        x.device.type == "cuda" for _, x in calls)
+    equal = ok and all(torch.equal(x.cpu(), PM.make_positions(
+        cfg, batch, x.shape[-1], offset=off, device="cpu"))
+        for off, x in calls)
+    text = ok and all(bool((x == x[0]).all()) for _, x in calls[1:])
+    grid = max(int(cfg.n_patches ** 0.5), 1)
+    first = calls[0][1][:, 0] if calls else None
+    print(f"lm {cfg.name} M-RoPE positions on the card vs the CPU grid: "
+          f"{len(calls)} calls (want {len(want)}: the prefill over "
+          f"{cfg.n_patches} patches + {prompt_len} tokens, {gen - 1} decode "
+          f"steps), equal: {equal}; the decode steps' three streams equal "
+          f"(text): {text}; grid {grid}, the last patch at "
+          f"{None if first is None else first[:, cfg.n_patches - 1].tolist()}"
+          f", the first token at "
+          f"{None if first is None else first[:, cfg.n_patches].tolist()}",
+          flush=True)
+    if not (ok and equal and text):
+        fail(f"{cfg.name}: M-RoPE positions on the card differ from the CPU "
+             f"grid ({got} against {want})")
+    return {"calls": len(calls), "equal": equal}
+
+
+def mamba_tf_check(cfg, card: str) -> dict:
+    """One Mamba layer of ``cfg`` at its width in fp32 on the card, seeded:
+    ``MAMBA_TF``'s prefill into a fresh fp32 state and then its one-token
+    decode steps, each against the chunked forward over all the tokens at
+    its positions, as ``|got - want| / (MAMBA_TF_TOL (1 + |want|))``, the
+    worst held to ``MAMBA_TF_LIMIT``; timed."""
+    from repro_torch.models import ssm as PS
+    torch.cuda.empty_cache()
+    layer = PS.SSD(cfg, "mamba", device="cuda")
+    layer.init(torch.Generator(device="cuda").manual_seed(0))
+    p = {name: w.detach() for name, w in layer.named_parameters()}
+    batch, pre, steps = MAMBA_TF
+    g = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn(batch, pre + steps, cfg.d_model, generator=g,
+                    device="cuda")
+
+    def excess(got, want):
+        return float(((got - want).abs() /
+                      (MAMBA_TF_TOL * (1 + want.abs()))).max())
+
+    with torch.no_grad():
+        full, _ = PS.ssd_forward(cfg, p, x, kind="mamba")
+        tic = time.perf_counter()
+        out, cache = PS.ssd_forward(cfg, p, x[:, :pre], kind="mamba",
+                                    cache=PS.ssd_cache_init(cfg, batch))
+        worst, where = excess(out, full[:, :pre]), -1
+        for t in range(pre, pre + steps):
+            out, cache = PS.ssd_forward(cfg, p, x[:, t:t + 1], kind="mamba",
+                                        cache=cache)
+            ratio = excess(out[:, 0], full[:, t])
+            if ratio > worst:
+                worst, where = ratio, t
+        torch.cuda.synchronize()
+        tf_s = time.perf_counter() - tic
+        forward_ms = time_ms(lambda: PS.ssd_forward(cfg, p, x, kind="mamba"),
+                             reps=3, trials=3)[0]
+    din = cfg.ssd_expand * cfg.d_model
+    print(f"mamba teacher-forced {cfg.name} (one layer, fp32, d="
+          f"{cfg.d_model}, {din // cfg.ssd_head_dim} heads of "
+          f"{cfg.ssd_head_dim}, state {cfg.ssd_d_state}, chunk "
+          f"{cfg.ssd_chunk}; batch {batch}, prefill {pre}, {steps} decode "
+          f"steps) on {card}: worst |step - forward| / (tol (1 + "
+          f"|forward|)) {worst:.4e} at position "
+          f"{'the prefill' if where < 0 else where} (tol rtol = atol = "
+          f"{MAMBA_TF_TOL:g}, limit {MAMBA_TF_LIMIT:g}); max|forward| "
+          f"{float(full.abs().max()):.4f}; {tf_s:.2f} s for the prefill and "
+          f"the steps, the forward over {pre + steps} {forward_ms:.3f} ms",
+          flush=True)
+    if not (torch.isfinite(full).all() and worst <= MAMBA_TF_LIMIT):
+        fail(f"mamba teacher-forced: {worst:.3f} x the bound at {where}")
+    del layer, p, x, full, out, cache
+    torch.cuda.empty_cache()
+    return {"worst": worst, "at": where, "seconds": tf_s,
+            "forward_ms": forward_ms}
 
 
 class RoutingLog:
@@ -2857,13 +3015,14 @@ class RoutingLog:
 
 def moe_against_plain(label: str, cfg, res: dict, plain: dict,
                       kernel_routes: list, plain_routes: list,
-                      limit: float) -> dict:
+                      limit) -> dict:
     """A MoE model's served call against the plain attention's: the share
     of the prefill's (token, MoE layer) expert sets that differ, held to
-    ``limit``, then :func:`lm_against_plain` on the rows whose last
-    position routed alike in every MoE layer (a router is discontinuous: a
-    row routed otherwise has other logits); each MoE layer's dropped share
-    of the prefill printed."""
+    ``limit`` (a tuple: each MoE layer's share to its own), then
+    :func:`lm_against_plain` on the rows whose last position routed alike
+    in every MoE layer (a router is discontinuous: a row routed otherwise
+    has other logits); each MoE layer's dropped share of the prefill
+    printed."""
     from repro_torch.models.model import layer_spec
     from repro_torch.models.moe import capacity
     batch = res["tokens"].shape[0]
@@ -2877,6 +3036,11 @@ def moe_against_plain(label: str, cfg, res: dict, plain: dict,
     p_pre = torch.stack(plain_routes[:layers]).sort(dim=-1).values
     differ = (k_pre != p_pre).any(dim=-1)            # (L, B * S)
     share = float(differ.float().mean())
+    per_layer = differ.float().mean(dim=1).tolist()
+    limits = limit if isinstance(limit, tuple) else None
+    over = share > limit if limits is None else (
+        len(limits) != layers or any(x > lim for x, lim in
+                                     zip(per_layer, limits)))
     alike = ~differ.view(layers, batch, -1)[:, :, -1].any(dim=0)  # (B,)
     t = k_pre.shape[1]
     cap = capacity(cfg, t)
@@ -2888,16 +3052,19 @@ def moe_against_plain(label: str, cfg, res: dict, plain: dict,
     print(f"{label} routing, kernel vs plain attention: "
           f"{int(differ.sum())} of {differ.numel()} (token, MoE layer) "
           f"top-{cfg.moe_top_k} sets of the prefill differ, share "
-          f"{share:.6f} (limit {limit}); rows whose last position routed "
+          f"{share:.6f}, per MoE layer "
+          f"{[round(x, 6) for x in per_layer]} (limit {limit}); rows whose "
+          f"last position routed "
           f"alike in all {layers} MoE layers: {int(alike.sum())} of "
           f"{batch}; prefill capacity {cap} a expert for {t} tokens, "
           f"dropped share per MoE layer {[round(x, 6) for x in dropped]}",
           flush=True)
-    if share > limit or not bool(alike.any()):
+    if over or not bool(alike.any()):
         fail(f"{label}: routing under the kernel and the plain attention "
              f"differs on {share:.4f} of the choices (limit {limit}) or on "
              f"every row")
-    return {"route_diff_share": share, "rows_alike": int(alike.sum()),
+    return {"route_diff_share": share, "route_diff_per_layer": per_layer,
+            "rows_alike": int(alike.sum()),
             "capacity": cap, "dropped_share": dropped,
             **lm_against_plain(label, res, plain, rows=alike)}
 
@@ -3049,19 +3216,23 @@ def dense_gqa_phase(kernels, card: str) -> dict:
     (``init_params(..., dtype=torch.bfloat16)``; a cut: fp32 masters plus
     the once-per-call bf16 cast would need 58.6 + 29.3 GB for phi3 and
     137.6 + 68.8 GB for yi), each request of ``GQA_REQUESTS`` with its
-    layer cut: served with exactly one flash launch a layer per prefill
-    and none per decode step, against the plain attention, with the peak
-    memory of the serving (from the warm-up on) and of the init; each
-    model freed before the next.  llama4-scout (the MoE FFN)
-    also records each layer's expert choices in both runs
-    (:func:`moe_against_plain`), profiles a prefill and decode steps
-    (:func:`moe_profiles`) and holds one MoE layer's dispatch to the
-    masked dense evaluation (:func:`moe_dispatch_check`); so does
-    deepseek-v2 (MLA), whose flash launches are all at (192, 128), one a
-    layer per prefill and none per decode step, and whose absorbed decode
-    is held to the expanded form (:func:`mla_absorbed_check`).
-    qwen1.5-110b (207 GiB in bf16) does not fit the card: its parameter
-    count only."""
+    layer cut (a pattern longer than the cut keeps its first slots):
+    served (with a VLM's seeded patches) with exactly one flash launch an
+    attention layer per prefill and none per decode step, against the
+    plain attention, with the peak memory of the serving (from the
+    warm-up on) and of the init; each model freed before the next.  The
+    MoE models record each MoE layer's expert choices in both runs
+    (:func:`moe_against_plain`); llama4-scout and deepseek-v2 also
+    profile a prefill and decode steps (:func:`moe_profiles`) and hold
+    one MoE layer's dispatch to the masked dense evaluation
+    (:func:`moe_dispatch_check`).  deepseek-v2's flash launches (MLA) are
+    all at (192, 128), and its absorbed decode is held to the expanded
+    form (:func:`mla_absorbed_check`).  qwen2-vl's served positions
+    (M-RoPE, built on the card) are held to the CPU grid
+    (:func:`mrope_check`); jamba-1.5's routing to a limit a MoE layer
+    (``JAMBA_ROUTE_DIFF_LIMIT``), and one Mamba layer at its width to
+    the chunked forward (:func:`mamba_tf_check`).  qwen1.5-110b (207 GiB
+    in bf16) does not fit the card: its parameter count only."""
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
     from repro_torch.models import model as PM
@@ -3071,56 +3242,71 @@ def dense_gqa_phase(kernels, card: str) -> dict:
         tic = time.perf_counter()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        cfg = get_config(arch)
+        cfg = full = get_config(arch)
         if layers is not None:
-            cfg = dataclasses.replace(cfg, n_layers=layers)
-        moe = any(spec.ffn == "moe" for spec in cfg.pattern)
-        mla = any(spec.mixer == "mla" for spec in cfg.pattern)
+            cfg = dataclasses.replace(cfg, n_layers=layers,
+                                      pattern=cfg.pattern[:layers])
+        specs = [PM.layer_spec(cfg, i) for i in range(cfg.scan_layers)]
+        if cfg.first_dense_ff:
+            specs.append(PM.layer0_spec(cfg))
+        moe = any(spec.ffn == "moe" for spec in specs)
+        mla = any(spec.mixer == "mla" for spec in specs)
+        mamba = any(spec.mixer == "mamba" for spec in specs)
+        attn_layers = sum(spec.mixer in ("attn", "mla") for spec in specs)
         lm, init_s = run_timed(PM.init_params, cfg, 0, dtype=torch.bfloat16)
         n_params = sum(p.numel() for p in lm.parameters())
         # the init's fp32 draws peak above the served call's memory
         init_peak = torch.cuda.max_memory_allocated()
         torch.cuda.reset_peak_memory_stats()
-        tokens = serve.prompt_tokens(cfg, batch, prompt_len, 0)
-        serve.serve_lm(cfg, lm, tokens, 2)                      # warm-up
+        tokens, embeds = serve.prompt_inputs(cfg, batch, prompt_len, 0)
+        max_seq = cfg.n_patches + prompt_len + gen
+        serve.serve_lm(cfg, lm, tokens, 2, embeds=embeds)       # warm-up
+        # the flash launches of a prefill and of a decode step
         steps = {}
-        if mla:         # the (192, 128) launches a prefill and a decode step
-            kernels.reset_launch_counts()
-            _, cache = PM.prefill(cfg, lm, tokens, max_seq=prompt_len + gen)
-            steps["per_prefill"] = kernels.launch_counts()[
-                "flash_attention_mla"]
-            kernels.reset_launch_counts()
-            PM.decode_step(cfg, lm, cache, tokens[:, :1])
-            steps["per_decode_step"] = kernels.launch_counts()[
-                "flash_attention"]
-            del cache
         kernels.reset_launch_counts()
-        with RoutingLog(PMoE) as routes:
-            res = serve.serve_lm(cfg, lm, tokens, gen)
+        _, cache = PM.prefill(cfg, lm, tokens, embeds=embeds,
+                              max_seq=max_seq)
+        steps["per_prefill"] = kernels.launch_counts()[
+            "flash_attention_mla" if mla else "flash_attention"]
+        kernels.reset_launch_counts()
+        PM.decode_step(cfg, lm, cache, tokens[:, :1])
+        steps["per_decode_step"] = kernels.launch_counts()["flash_attention"]
+        del cache
+        kernels.reset_launch_counts()
+        with RoutingLog(PMoE) as routes, PositionsLog(PM) as positions:
+            res = serve.serve_lm(cfg, lm, tokens, gen, embeds=embeds)
         counts = kernels.launch_counts()
         served = counts["flash_attention"]
         peak = torch.cuda.max_memory_allocated()
         cut = "" if layers is None else \
-            f"; cut: {layers} of {get_config(arch).n_layers} layers"
+            f"; cut: {layers} of {full.n_layers} layers"
+        if layers is not None and len(full.pattern) > layers:
+            cut += f", pattern slots 0-{layers - 1} of {len(full.pattern)}"
         moe_note = "" if not moe else \
             (f", {cfg.n_experts} experts of {cfg.expert_ff} top-"
              f"{cfg.moe_top_k} + {cfg.n_shared_experts} shared")
+        kinds = ", ".join(f"{s.mixer}+{s.ffn}" for s in cfg.pattern)
+        vlm_note = "" if not cfg.n_patches else \
+            (f", {cfg.n_patches} patches prepended, M-RoPE "
+             f"{cfg.mrope_sections}")
         print(f"lm serve {cfg.name} ({n_params / 1e9:.3f}B params, bf16 "
               f"weights {n_params * 2 / 2 ** 30:.2f} GiB (cut: bf16, not "
               f"fp32 masters{cut}), init {init_s:.2f} s; H={cfg.n_heads} "
-              f"Hkv={cfg.n_kv_heads} hd={cfg.head_dim}{moe_note}) "
-              f"batch={batch} "
+              f"Hkv={cfg.n_kv_heads} hd={cfg.head_dim}{moe_note}{vlm_note}; "
+              f"pattern [{kinds}]) batch={batch} "
               f"prompt={prompt_len} gen={gen} bf16 on {card}: prefill_ms="
               f"{res['prefill_ms']:.3f} decode_ms_per_token="
               f"{res['decode_ms_per_token']:.3f} tok_s={res['tok_s']:.1f} "
               f"max_memory_allocated={peak / 2 ** 30:.3f} GiB (the init's "
-              f"{init_peak / 2 ** 30:.3f}); flash "
-              f"launches in the served call {served} (want "
-              f"{cfg.n_layers}: one a layer per prefill, none per decode "
-              f"step)", flush=True)
-        if served != cfg.n_layers:
+              f"{init_peak / 2 ** 30:.3f}); flash launches a prefill "
+              f"{steps['per_prefill']}, a decode step "
+              f"{steps['per_decode_step']}, in the served call {served} "
+              f"(want {attn_layers}: one an attention layer a prefill, none "
+              f"a decode step)", flush=True)
+        if served != attn_layers or steps["per_prefill"] != attn_layers or \
+                steps["per_decode_step"] != 0:
             fail(f"{cfg.name}: {served} flash launches in the served call, "
-                 f"want {cfg.n_layers}")
+                 f"{steps}; want {attn_layers} a prefill, 0 a decode step")
         if mla:
             print(f"lm {cfg.name} flash launches at (192, 128): "
                   f"{counts['flash_attention_mla']} in the served call, "
@@ -3128,37 +3314,46 @@ def dense_gqa_phase(kernels, card: str) -> dict:
                   f"{cfg.n_layers}: MLA's expanded form, layer 0's "
                   f"included), {steps['per_decode_step']} a decode step "
                   f"(want 0: the absorbed form)", flush=True)
-            if counts["flash_attention_mla"] != cfg.n_layers or \
-                    steps["per_prefill"] != cfg.n_layers or \
-                    steps["per_decode_step"] != 0:
+            if counts["flash_attention_mla"] != cfg.n_layers:
                 fail(f"{cfg.name}: flash launches at (192, 128) "
                      f"{counts['flash_attention_mla']} served, {steps}")
-        if res["tokens"].shape != (batch, gen):
-            fail(f"{cfg.name}: generated {tuple(res['tokens'].shape)}")
+        if res["tokens"].shape != (batch, gen) or \
+                not torch.isfinite(res["first_logits"]).all():
+            fail(f"{cfg.name}: generated {tuple(res['tokens'].shape)}, or "
+                 f"non-finite logits")
+        extra = {}
+        if cfg.mrope_sections is not None:
+            extra["mrope"] = mrope_check(cfg, positions.calls, batch,
+                                         prompt_len, gen)
         with RoutingLog(PMoE) as plain_routes:
-            plain = serve.serve_lm(cfg, lm, tokens, gen, attention="plain")
+            plain = serve.serve_lm(cfg, lm, tokens, gen, embeds=embeds,
+                                   attention="plain")
         label = f"lm {cfg.name}"
+        limit = MLA_ROUTE_DIFF_LIMIT if mla else \
+            JAMBA_ROUTE_DIFF_LIMIT if mamba else MOE_ROUTE_DIFF_LIMIT
         agreement = moe_against_plain(
             label, cfg, res, plain, routes.calls, plain_routes.calls,
-            MLA_ROUTE_DIFF_LIMIT if mla else MOE_ROUTE_DIFF_LIMIT) \
-            if moe else lm_against_plain(label, res, plain)
+            limit) if moe else lm_against_plain(label, res, plain)
         if mla:
-            agreement.update(launches_mla=counts["flash_attention_mla"],
-                             **steps)
+            agreement.update(launches_mla=counts["flash_attention_mla"])
         out[arch] = {"launches": served, "prefill_ms": res["prefill_ms"],
                      "decode_ms_per_token": res["decode_ms_per_token"],
                      "peak_gib": peak / 2 ** 30,
-                     "init_peak_gib": init_peak / 2 ** 30, **agreement}
-        del res, plain, routes, plain_routes
-        if moe:
+                     "init_peak_gib": init_peak / 2 ** 30, **steps,
+                     **agreement, **extra}
+        del res, plain, routes, plain_routes, positions
+        profiled = arch in MOE_PROFILED
+        if profiled:
             out[arch]["profile"] = moe_profiles(cfg, lm, tokens,
                                                 prompt_len + gen, card)
         del lm
         torch.cuda.empty_cache()
-        if moe:
+        if profiled:
             out[arch]["dispatch"] = moe_dispatch_check(cfg, card)
         if mla:
             out[arch]["absorbed"] = mla_absorbed_check(cfg, card)
+        if mamba:
+            out[arch]["mamba_tf"] = mamba_tf_check(cfg, card)
         print(f"lm {cfg.name} request wall_s={time.perf_counter() - tic:.1f}",
               flush=True)
     cfg = get_config("qwen1_5_110b")
@@ -4484,12 +4679,20 @@ def main() -> int:
         fa, peaks, 4, 128, 128, 512, 192, torch.bfloat16, 37, hd_v=128)
     mla_f32_row = check_flash(fa, peaks, 4, 128, 128, 512, 192,
                               torch.float32, 38, hd_v=128)
+    # qwen2-vl's prefill (7c3): 1024 patches and 512 tokens, S=1536;
+    # jamba-1.5's: S=512; both B=4, H=64, Hkv=8, hd 128, bf16
+    vlm_row = check_flash(fa, peaks, 4, 64, 8, 1536, 128, torch.bfloat16,
+                          39)
+    jamba_row = check_flash(fa, peaks, 4, 64, 8, 512, 128, torch.bfloat16,
+                            40)
     new_rows = [
         check_power_matmul(pm, peaks, large[0], large[1], "(large mean)"),
         check_flash(fa, peaks, 8, 9, 3, 512, 64, torch.float32, 22),
         check_flash(fa, peaks, 1, 9, 3, 4096, 64, torch.bfloat16, 23),
         check_flash(fa, peaks, 1, 9, 3, 4096, 128, torch.bfloat16, 24),
         llama4_row,
+        vlm_row,
+        jamba_row,
         *non_causal,
         check_flash_bwd(fa, peaks, 1, 9, 3, 4096, 128, torch.bfloat16, 36),
         check_flash_bwd(fa, peaks, 1, 9, 3, 1000, 64, torch.bfloat16, 34),
@@ -4684,6 +4887,10 @@ def main() -> int:
         fail(f"a kernel was not launched on its path: {launches}")
     non_causal_keys = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
                        "bound_by", "library_ms", "ok")
+    # 7c3's requests whose flash launches stand with their shape's row
+    by_shape = {"llama4_scout_17b_a16e": ("llama4", llama4_row),
+                "qwen2_vl_72b": ("qwen2_vl", vlm_row),
+                "jamba_1_5_large_398b": ("jamba", jamba_row)}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": sources[name],
          "replaces": replaces[name], "launches": launches[name],
@@ -4703,14 +4910,13 @@ def main() -> int:
                  "per_prefill", "per_decode_step", "served_call")},
              "launches_dense_gqa": {arch: r["launches"]
                                     for arch, r in dense_gqa.items()
-                                    if arch not in ("llama4_scout_17b_a16e",
-                                                    "deepseek_v2_236b")},
-             "launches_llama4": {
-                 "served_call": dense_gqa["llama4_scout_17b_a16e"][
-                     "launches"],
-                 "shape": llama4_row["shape"],
-                 **{key: llama4_row[key] for key in non_causal_keys
-                    if key != "shape"}},
+                                    if arch not in by_shape},
+             **{f"launches_{by_shape[arch][0]}": {
+                 "served_call": dense_gqa[arch]["launches"],
+                 "per_prefill": dense_gqa[arch]["per_prefill"],
+                 "per_decode_step": dense_gqa[arch]["per_decode_step"],
+                 **{key: by_shape[arch][1][key] for key in non_causal_keys}}
+                for arch in by_shape},
              "non_causal": [{key: r[key] for key in non_causal_keys}
                             for r in non_causal],
              "launches_whisper_train": {

@@ -1,9 +1,9 @@
 """Architecture registry: ``--arch <id>`` selects a config the port runs.
 
-The reference registers ten architectures; the port holds only the ids
-whose blocks it has ported.  Each ``<id>.py`` module exports ``CONFIG``
-(the full published config) and ``reduced()`` (a tiny same-family config
-for CPU tests).  Any other id raises ``NotImplementedError``.
+The port runs all ten of the reference's architectures.  Each ``<id>.py``
+module exports ``CONFIG`` (the full published config) and ``reduced()``
+(a tiny same-family config for CPU tests).  Any other id raises
+``ValueError``.
 """
 from __future__ import annotations
 
@@ -12,13 +12,10 @@ from ..models.config import ArchConfig
 
 ARCH_IDS = ["smollm_135m", "yi_34b", "phi3_medium_14b", "qwen1_5_110b",
             "whisper_small", "xlstm_350m", "llama4_scout_17b_a16e",
-            "deepseek_v2_236b"]
+            "deepseek_v2_236b", "qwen2_vl_72b", "jamba_1_5_large_398b"]
 
-#: the reference's ids that the port does not run yet
-NOT_PORTED = [
-    "qwen2_vl_72b",
-    "jamba_1_5_large_398b",
-]
+#: the reference's ids that the port does not run yet: none
+NOT_PORTED: list = []
 
 _ALIASES = {
     "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
@@ -41,10 +38,6 @@ def canonical(name: str) -> str:
 def _module(name: str):
     arch = canonical(name)
     if arch not in ARCH_IDS:
-        if arch in NOT_PORTED:
-            raise NotImplementedError(
-                f"architecture {arch!r} is not ported yet (ROADMAP queue 1 "
-                "item 13b); the port runs " + ", ".join(ARCH_IDS))
         raise ValueError(f"unknown architecture {name!r}")
     return importlib.import_module(f"{__name__}.{arch}")
 

@@ -23,11 +23,12 @@ init at the config's published shapes (nothing is downloaded); the prompt
 is ``--batch`` rows of ``--prompt-len`` token ids drawn from numpy's
 generator with the same seed, as in the reference, and for an
 encoder-decoder (``--arch whisper_small``) the stub frontend's frame
-embeddings are drawn from that generator after the tokens.  A model with
-an SSD mixer (``--arch xlstm_350m``) keeps a recurrent state instead of a
-k/v cache; its prompt length must keep the chunk rule (a multiple of
-``ssd_chunk``, or fewer tokens), else ``ValueError`` before anything is
-allocated.
+embeddings, for a VLM (``--arch qwen2_vl_72b``) its patch embeddings
+(prepended to the prompt), are drawn from that generator after the
+tokens.  A model with an SSD mixer (``--arch xlstm_350m``,
+``jamba_1_5_large_398b``) keeps a recurrent state in those layers; its
+prompt length must keep the chunk rule (a multiple of ``ssd_chunk``, or
+fewer tokens), else ``ValueError`` before anything is allocated.
 
 ``--workload pca``: ``--batch`` independent DeEPCA problems
 (``synthetic_problem_batch``) served through one
@@ -86,18 +87,20 @@ def prompt_tokens(cfg, batch: int, prompt_len: int, seed: int,
 def prompt_inputs(cfg, batch: int, prompt_len: int, seed: int,
                   device=None):
     """``(tokens, embeds)``: (B, P) int64 token ids from
-    ``numpy.random.default_rng(seed)`` and, for an encoder-decoder, the
-    frame embeddings the reference's serve draws from the same generator
-    after them, ``standard_normal((B, n_frames, d)) * 0.02`` in bf16
-    (``None`` otherwise)."""
+    ``numpy.random.default_rng(seed)`` and, for a VLM, the patch
+    embeddings or, for an encoder-decoder, the frame embeddings the
+    reference's serve draws from the same generator after them,
+    ``standard_normal((B, n, d)) * 0.02`` in bf16 with ``n`` =
+    ``n_patches`` or ``n_frames`` (``None`` otherwise)."""
     rng = np.random.default_rng(seed)
     dev = resolve_device(device)
     tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (batch, prompt_len)),
                              dtype=torch.int64, device=dev)
+    n = cfg.n_patches or (cfg.n_frames if cfg.is_encdec else 0)
     embeds = None
-    if cfg.is_encdec:
-        frames = rng.standard_normal((batch, cfg.n_frames, cfg.d_model))
-        embeds = torch.as_tensor(frames * 0.02).to(dev, torch.bfloat16)
+    if n:
+        draw = rng.standard_normal((batch, n, cfg.d_model))
+        embeds = torch.as_tensor(draw * 0.02).to(dev, torch.bfloat16)
     return tokens, embeds
 
 
@@ -106,8 +109,9 @@ def serve_lm(cfg, params, tokens: torch.Tensor, gen: int, *,
              embeds: Optional[torch.Tensor] = None,
              attention: str = "kernel") -> dict:
     """Prefill ``tokens`` (B, P) (with an encoder-decoder's frame
-    ``embeds``), then ``gen - 1`` greedy decode steps; ``attention``
-    picks the path of both.
+    ``embeds`` or a VLM's patch ``embeds``, prepended: the cache holds
+    ``n_patches + P + gen`` positions), then ``gen - 1`` greedy decode
+    steps; ``attention`` picks the path of both.
 
     Returns ``tokens`` (B, gen) generated ids, ``first_logits`` (B, V) of
     the prefill, and host-clock ``prefill_ms``, ``decode_ms_per_token``,
@@ -119,7 +123,7 @@ def serve_lm(cfg, params, tokens: torch.Tensor, gen: int, *,
         raise ValueError(f"gen must be >= 1, got {gen}")
     dev = tokens.device
     batch, prompt_len = tokens.shape
-    prefill_fn = make_prefill_step(cfg, prompt_len + gen,
+    prefill_fn = make_prefill_step(cfg, prompt_len + gen + cfg.n_patches,
                                    attention=attention)
     decode_fn = make_decode_step(cfg, attention=attention)
     _sync(dev)
@@ -156,7 +160,7 @@ def run_lm(arch: str, *, reduced: bool = False, batch: int = 4,
     from ..models.model import check_sequence
     dev = resolve_device(device)
     cfg = get_reduced(arch) if reduced else get_config(arch)
-    check_sequence(cfg, prompt_len)          # before anything is allocated
+    check_sequence(cfg, cfg.n_patches + prompt_len)   # before allocating
     params = init_params(cfg, seed, device=dev)
     tokens, embeds = prompt_inputs(cfg, batch, prompt_len, seed, device=dev)
     res = serve_lm(cfg, params, tokens, gen, embeds=embeds)

@@ -3,7 +3,7 @@ reference's ``launch/steps.py``): the train step, the DeEPCA-compressed
 decentralized train step, and the serve steps (prefill and decode)."""
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -27,17 +27,28 @@ def _grads(params) -> Dict[str, torch.Tensor]:
 def check_batch(cfg: ArchConfig, batch: Dict[str, torch.Tensor]) -> None:
     """Raise ``ValueError`` unless an encoder-decoder's ``batch`` holds
     (B, F, d) frame ``embeds`` beside its (B, S) ``tokens`` (whisper: F =
-    ``cfg.n_frames``, 1500 at full size)."""
-    if not cfg.is_encdec:
+    ``cfg.n_frames``, 1500 at full size), and a VLM's (B, n_patches, d)
+    patch ``embeds`` (qwen2-vl: 1024 at full size)."""
+    if not (cfg.is_encdec or cfg.n_patches):
         return
-    b = batch["tokens"].shape[0]
-    embeds = batch.get("embeds")
+    check_embeds(cfg, batch["tokens"].shape[0], batch.get("embeds"))
+
+
+def check_embeds(cfg: ArchConfig, batch: int,
+                 embeds: Optional[torch.Tensor]) -> None:
+    """:func:`check_batch`'s test of the ``embeds`` beside ``batch``
+    rows: an encoder-decoder's (B, F, d) frames (any F), a VLM's (B,
+    n_patches, d) patches."""
+    b, d = batch, cfg.d_model
+    if cfg.n_patches and not cfg.is_encdec:
+        n, what = cfg.n_patches, "a VLM's batch needs patch"
+    else:
+        n, what = None, "an encoder-decoder's batch needs frame"
     if embeds is None or embeds.dim() != 3 or embeds.shape[0] != b or \
-            embeds.shape[2] != cfg.d_model:
+            embeds.shape[2] != d or n not in (None, embeds.shape[1]):
         got = None if embeds is None else tuple(embeds.shape)
-        raise ValueError(f"{cfg.name}: an encoder-decoder's batch needs "
-                         f"frame embeds (B={b}, F, d={cfg.d_model}); got "
-                         f"{got}")
+        raise ValueError(f"{cfg.name}: {what} embeds (B={b}, "
+                         f"{'F' if n is None else n}, d={d}); got {got}")
 
 
 def _loss_and_grads(cfg: ArchConfig, params, batch) -> torch.Tensor:
@@ -58,9 +69,10 @@ def make_train_step(cfg: ArchConfig, opt: AdamW):
     moments updated in place; ``batch`` a dict of int ``tokens`` and
     ``labels`` (B, S) on the params' device and, for an encoder-decoder
     (whisper), the frame embeddings ``embeds`` (B, n_frames, d), which the
-    encoder reads (:func:`check_batch`).  Every parameter the loss reaches
-    gets its gradient, the encoder's through each decoder layer's
-    cross-attention.
+    encoder reads, or for a VLM (qwen2-vl) the patch embeddings ``embeds``
+    (B, n_patches, d), prepended to the tokens (:func:`check_batch`).
+    Every parameter the loss reaches gets its gradient, the encoder's
+    through each decoder layer's cross-attention.
     """
     def train_step(params, opt_state: AdamWState,
                    batch: Dict[str, torch.Tensor]
@@ -133,9 +145,13 @@ def make_train_step_compressed(cfg: ArchConfig, opt: AdamW, transport, topo,
 def make_prefill_step(cfg: ArchConfig, max_seq: int, *,
                       attention: str = "kernel"):
     """``prefill_step(params, tokens, embeds=None) -> (last-token logits,
-    cache)``; ``embeds`` are an encoder-decoder's frame embeddings;
-    ``attention`` picks the path (``"kernel"`` or ``"plain"``)."""
+    cache)``; ``embeds`` are an encoder-decoder's frame embeddings or a
+    VLM's patch embeddings (checked as :func:`check_batch` checks a
+    batch's; a VLM's ``max_seq`` counts the patches); ``attention`` picks
+    the path (``"kernel"`` or ``"plain"``)."""
     def prefill_step(params, tokens, embeds=None):
+        if cfg.is_encdec or cfg.n_patches:
+            check_embeds(cfg, tokens.shape[0], embeds)
         return prefill(cfg, params, tokens, embeds=embeds, max_seq=max_seq,
                        attention=attention)
     return prefill_step

@@ -17,10 +17,11 @@ kernels take 64 and 128)::
 
 ``--arch xlstm_350m`` trains the recurrent mixers (no kernel of the port
 on its path); its ``--seq`` keeps the chunk rule (``ValueError`` first).
-An encoder-decoder (``--arch whisper_small``) is refused with a
-``ValueError``: the stream draws tokens only, and the reference's trainer
-has no frame stream either; whisper trains through
-:func:`~.steps.make_train_step` with ``batch["embeds"]``.
+An encoder-decoder (``--arch whisper_small``) and a VLM (``--arch
+qwen2_vl_72b``) are refused with a ``ValueError``: the stream draws
+tokens only, and the reference's trainer has no frame or patch stream
+either; both train through :func:`~.steps.make_train_step` with
+``batch["embeds"]``.
 
 Checkpoints hold ``(params, opt_state)`` in the reference's tree layout
 (``convert.lm_params_to_reference``: layer weights stacked over the
@@ -78,6 +79,10 @@ def build(args):
     if cfg.is_encdec:
         raise ValueError(f"{cfg.name}: the trainer's stream has no frames for "
                          "the encoder; train an encoder-decoder through "
+                         "launch.steps.make_train_step with batch['embeds']")
+    if cfg.n_patches:
+        raise ValueError(f"{cfg.name}: the trainer's stream has no patches "
+                         "for the VLM; train a VLM through "
                          "launch.steps.make_train_step with batch['embeds']")
     opt = AdamW(lr=cosine_schedule(args.lr, warmup=max(args.steps // 20, 5),
                                    total=args.steps))

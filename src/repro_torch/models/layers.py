@@ -18,7 +18,7 @@ def truncated_normal(shape, scale: float, *, generator: torch.Generator,
     fp32 from ``generator`` (torch's bits, not ``jax.random``'s)."""
     x = torch.empty(shape, dtype=torch.float32, device=device)
     torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=generator)
-    return (x * scale).to(dtype)
+    return x.mul_(scale).to(dtype)          # in place: one fp32 buffer
 
 
 def dense_init(d_in: int, d_out: int, *, generator: torch.Generator,
@@ -48,15 +48,26 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
                mrope_sections: Optional[Tuple[int, int, int]] = None
                ) -> torch.Tensor:
     """Rotary embedding, half-split form (``x1, x2 = split(x, 2)``), angles
-    in fp32.  x: (B, S, H, hd); positions: (B, S)."""
-    if mrope_sections is not None:
-        raise NotImplementedError(
-            "M-RoPE (qwen2-vl) is not ported yet (ROADMAP queue 1 item 13)")
-    if positions.dim() == 3:
-        positions = positions[0]
+    in fp32.  x: (B, S, H, hd); positions: (B, S), or (3, B, S) for M-RoPE
+    (qwen2-vl): with ``mrope_sections`` ``(t, h, w)`` the frequency axis
+    splits into a temporal, a height and a width section, each rotated by
+    its own position stream (``t + h + w == hd // 2``, else
+    ``ValueError``; the reference asserts it)."""
     hd = x.shape[-1]
     freqs = rope_freqs(hd, theta, device=x.device)            # (hd/2,)
-    angles = positions[..., None].float() * freqs             # (B, S, hd/2)
+    if mrope_sections is not None and positions.dim() == 3:
+        t, h, w = mrope_sections
+        if t + h + w != hd // 2:
+            raise ValueError(f"M-RoPE sections {mrope_sections} do not "
+                             f"cover head_dim {hd} // 2")
+        bs = positions.shape[1:]
+        sect = torch.cat([positions[i][..., None].expand(*bs, n)
+                          for i, n in enumerate((t, h, w))], dim=-1)
+        angles = sect.float() * freqs                         # (B, S, hd/2)
+    else:
+        if positions.dim() == 3:
+            positions = positions[0]
+        angles = positions[..., None].float() * freqs         # (B, S, hd/2)
     cos = torch.cos(angles)[:, :, None, :]
     sin = torch.sin(angles)[:, :, None, :]
     x1, x2 = x.float().chunk(2, dim=-1)

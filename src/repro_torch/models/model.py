@@ -1,8 +1,9 @@
 """LM assembly: init / cache / forward / loss / prefill / decode (the
-reference's ``repro/models/model.py`` for dense GQA models, decoder-only
-or encoder-decoder, the recurrent xLSTM / SSD models, GQA with the
-mixture-of-experts FFN, llama4-scout, and DeepSeek-V2's latent attention
-with its dense layer 0).
+reference's ``repro/models/model.py`` for every architecture it
+registers: dense GQA models, decoder-only or encoder-decoder, the
+recurrent xLSTM / SSD models, GQA with the mixture-of-experts FFN,
+llama4-scout, DeepSeek-V2's latent attention with its dense layer 0, the
+qwen2-vl VLM and the jamba hybrid of Mamba, attention and MoE layers).
 
 The reference scans over stacked pattern groups; here a Python loop runs
 the layers in order (layer ``g * len(pattern) + i`` is group ``g`` of
@@ -23,8 +24,12 @@ axis too.  With ``first_dense_ff`` (DeepSeek) the reference runs a
 two or more dimensions and its norm scales stay fp32, here as there.  An
 encoder–decoder (whisper, ``cfg.is_encdec``) encodes the stub frontend's
 frame embeddings (``embeds``) through ``encoder``'s bidirectional blocks,
-and each decoder block cross-attends the result; ``n_patches`` (VLM)
-raises ``NotImplementedError``.
+and each decoder block cross-attends the result.  A VLM (qwen2-vl,
+``cfg.n_patches``) prepends the stub frontend's patch embeddings
+(``embeds``, (B, n_patches, d)) to the token embeddings: the sequence,
+its positions (M-RoPE's (3, B, S) grid, :func:`make_positions`) and the
+cache's ``pos`` count the patches, and :func:`loss_fn` scores the text
+tail only.
 
 One deliberate difference: the reference's cached forward reads
 ``cache["encoder_out"]`` whenever the step has one token, so a one-token
@@ -58,14 +63,6 @@ _STACKED = ("layers.", "encoder.layers.")
 ENCODER_SPEC = BlockSpec("attn_bidir", "dense")
 
 
-def check_config(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port does not run yet."""
-    if cfg.n_patches:
-        raise NotImplementedError(
-            f"{cfg.name}: prepended patch embeddings (VLM) are not ported "
-            "yet (ROADMAP queue 1 item 13b)")
-
-
 class LM(nn.Module):
     """The LM: ``embed`` (V, d), with ``first_dense_ff`` the ``layer0``
     block (:func:`layer0_spec`), ``layers`` (one :class:`Block` per layer
@@ -80,7 +77,6 @@ class LM(nn.Module):
     def __init__(self, cfg: ArchConfig, *, device=None,
                  dtype=torch.float32):
         super().__init__()
-        check_config(cfg)
         kw = dict(device=resolve_device(device), dtype=dtype)
         d, v = cfg.d_model, cfg.vocab
         self.embed = nn.Parameter(torch.empty(v, d, **kw))
@@ -158,7 +154,6 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
     entry under ``"layer0"``, and for an encoder-decoder ``"encoder_out"``
     (B, n_frames, d); ``pos`` is a Python int (no device round trip per
     step)."""
-    check_config(cfg)
     dev = resolve_device(device)
     cache = {"pos": 0, "layers": [
         block_cache_init(cfg, layer_spec(cfg, i), batch, max_seq, dtype,
@@ -175,14 +170,25 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
 
 def make_positions(cfg: ArchConfig, batch: int, seq: int, offset: int = 0,
                    device=None) -> torch.Tensor:
-    """(B, S) absolute int32 positions ``offset + arange(S)``."""
-    if cfg.mrope_sections is not None:
-        raise NotImplementedError(
-            "M-RoPE positions (qwen2-vl) are not ported yet (ROADMAP queue 1 "
-            "item 13b)")
+    """(B, S) absolute int32 positions ``idx = offset + arange(S)``; with
+    M-RoPE (qwen2-vl) the (3, B, S) (temporal, height, width) streams of
+    the reference's rule: a patch ``idx < n_patches`` of the ``grid x
+    grid`` image (``grid = max(int(sqrt(n_patches)), 1)``) sits at ``(0,
+    idx // grid, idx % grid)``, a text token at ``idx - n_patches + grid``
+    in all three (so a decode step past the patches gets text
+    positions)."""
     idx = int(offset) + torch.arange(seq, dtype=torch.int32,
                                      device=resolve_device(device))
-    return idx[None, :].expand(batch, seq)
+    if cfg.mrope_sections is None:
+        return idx[None, :].expand(batch, seq)
+    npatch = cfg.n_patches
+    grid = max(int(npatch ** 0.5), 1)
+    is_img = idx < npatch
+    text = idx - npatch + grid
+    pos3 = torch.stack([torch.where(is_img, 0, text),
+                        torch.where(is_img, idx // grid, text),
+                        torch.where(is_img, idx % grid, text)])
+    return pos3[:, None, :].expand(3, batch, seq)
 
 
 def _param_tree(model: LM, compute: torch.dtype) -> dict:
@@ -203,10 +209,15 @@ def _param_tree(model: LM, compute: torch.dtype) -> dict:
 
 
 def _embed(cfg: ArchConfig, tree: dict, tokens: torch.Tensor,
-           compute: torch.dtype, offset: int) -> torch.Tensor:
-    """Token embeddings in the compute dtype; with ``rope_theta == 0`` plus
-    the sinusoidal positions from ``offset``, cast before the add."""
+           embeds: Optional[torch.Tensor], compute: torch.dtype,
+           offset: int) -> torch.Tensor:
+    """Token embeddings in the compute dtype, with ``cfg.n_patches`` and
+    ``embeds`` given the patch embeddings (B, n_patches, d) prepended in
+    that dtype; with ``rope_theta == 0`` plus the sinusoidal positions
+    from ``offset``, cast before the add."""
     x = torch.nn.functional.embedding(tokens, tree["embed"]).to(compute)
+    if cfg.n_patches and embeds is not None:
+        x = torch.cat([embeds.to(compute), x], dim=1)
     if cfg.rope_theta == 0:       # sinusoidal absolute positions (whisper)
         pe = sinusoidal_positions(x.shape[1], cfg.d_model, offset,
                                   device=x.device)
@@ -240,7 +251,9 @@ def forward(cfg: ArchConfig, params: LM, tokens: torch.Tensor, *,
     mixer, S keeps the chunk rule, :func:`check_sequence`).  ``embeds``
     (B, n_frames, d): an encoder-decoder's frame embeddings, encoded
     whenever given; without them a one-token cached step reads the
-    cache's ``encoder_out``.  ``attention`` picks the attention path
+    cache's ``encoder_out``.  A VLM's ``embeds`` (B, n_patches, d) are
+    prepended: logits (B, n_patches + S, V), and a cache advances by
+    ``n_patches + S``.  ``attention`` picks the attention path
     (``"kernel"`` or ``"plain"``).  ``remat`` (training, no cache)
     recomputes each decoder layer in the backward instead of keeping its
     activations.  The reference's third output, the layers' summed MoE
@@ -260,21 +273,20 @@ def _forward(cfg: ArchConfig, params: LM, tokens: torch.Tensor, *,
     """:func:`forward` with the reference's third output: ``(logits,
     new_cache, aux)``, aux the sum of the MoE layers' fp32 auxiliary
     losses (the number 0.0 for a model without MoE layers)."""
-    check_config(cfg)
     if remat and cache is not None:
         raise ValueError("remat is for training: no cache")
     compute = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
     tree = _param_tree(params, compute)
-    b, s = tokens.shape
     pos = cache["pos"] if cache is not None else 0
-    x = _embed(cfg, tree, tokens, compute, pos)
+    x = _embed(cfg, tree, tokens, embeds, compute, pos)
+    b, s = x.shape[:2]          # a VLM's patches counted
     positions = make_positions(cfg, b, s, offset=pos, device=tokens.device)
 
     encoder_out = None
     if cfg.is_encdec:
         if embeds is not None:
             encoder_out = _encode(cfg, tree, embeds, compute, attention)
-        elif cache is not None and s == 1:
+        elif cache is not None and tokens.shape[1] == 1:
             encoder_out = cache["encoder_out"].to(compute)
         else:
             raise ValueError(f"{cfg.name}: an encoder-decoder forward needs "
@@ -337,9 +349,11 @@ def loss_fn(cfg: ArchConfig, params: LM, batch: Dict[str, torch.Tensor], *,
             attention: str = "kernel") -> torch.Tensor:
     """Causal-LM loss (the reference's ``loss_fn``): the mean token cross
     entropy, in fp32, of :func:`forward` with ``remat`` on.  batch:
-    ``tokens`` and ``labels`` (B, S) int, and for an encoder-decoder
-    ``embeds``.  The logits are in the compute dtype (bf16 when
-    ``cfg.dtype`` is, after the ``CAST_PARAMS_ONCE`` cast).  A model with
+    ``tokens`` and ``labels`` (B, S) int, and ``embeds`` for an
+    encoder-decoder (its frames) or a VLM (its patches; only the text
+    tail's logits, ``logits[:, n_patches:]``, meet the labels).  The
+    logits are in the compute dtype (bf16 when ``cfg.dtype`` is, after
+    the ``CAST_PARAMS_ONCE`` cast).  A model with
     MoE layers adds ``AUX_LOSS_WEIGHT`` times their summed load-balancing
     loss, as the reference does (its router's gradient at top-1 comes
     from that term alone: the renormalised gate is ``p / p``)."""
@@ -347,6 +361,8 @@ def loss_fn(cfg: ArchConfig, params: LM, batch: Dict[str, torch.Tensor], *,
                               embeds=batch.get("embeds"), cache=None,
                               last_only=False, remat=True,
                               attention=attention)
+    if cfg.n_patches:           # VLM: labels only over the text tail
+        logits = logits[:, cfg.n_patches:]
     loss = cross_entropy(logits, batch["labels"])
     if isinstance(aux, torch.Tensor):           # a model with MoE layers
         loss = loss + AUX_LOSS_WEIGHT * aux
@@ -361,9 +377,11 @@ def prefill(cfg: ArchConfig, params: LM, tokens: torch.Tensor, *,
     """Fill a fresh cache (k/v or recurrent state, and, for an
     encoder-decoder, its ``encoder_out`` with the encoded ``embeds``, in
     the cache dtype); returns ``(last-token logits (B, V), cache)``.  A
-    prompt that breaks the chunk rule raises ``ValueError`` before the
-    cache is allocated."""
-    check_sequence(cfg, tokens.shape[1])
+    VLM's prompt is its patch ``embeds``, then the tokens: ``max_seq``
+    holds both.  A prompt that breaks the chunk rule raises ``ValueError``
+    before the cache is allocated."""
+    patches = embeds.shape[1] if cfg.n_patches and embeds is not None else 0
+    check_sequence(cfg, patches + tokens.shape[1])
     cache = init_cache(cfg, tokens.shape[0], max_seq, cache_dtype,
                        device=tokens.device)
     logits, cache = forward(cfg, params, tokens, embeds=embeds, cache=cache,

@@ -26,7 +26,9 @@ gradient's largest entry is 2.33e-3; so the router leaf is held to
 (three times the reference's residue), and the port's router gradient
 to ``AUX_LOSS_WEIGHT`` times the gradient of the summed aux loss within
 the same residue.  Whisper's parity is ``tests/test_torch_whisper.py``,
-xlstm's ``tests/test_torch_ssm.py``.
+xlstm's ``tests/test_torch_ssm.py``, qwen2-vl's (M-RoPE, the patches)
+``tests/test_torch_vlm.py`` and jamba's (the hybrid pattern)
+``tests/test_torch_hybrid.py``; their configs are held here.
 """
 import dataclasses
 import functools
@@ -66,7 +68,9 @@ PARAM_COUNTS = {"whisper_small": 334_663_680,
                 "phi3_medium_14b": 14_659_502_080,
                 "qwen1_5_110b": 111_209_086_976,
                 "xlstm_350m": 212_938_920,
-                "llama4_scout_17b_a16e": 107_769_856_000}
+                "llama4_scout_17b_a16e": 107_769_856_000,
+                "qwen2_vl_72b": 72_705_376_256,
+                "jamba_1_5_large_398b": 397_528_088_320}
 DENSE_GQA = ["yi_34b", "phi3_medium_14b", "qwen1_5_110b"]
 LLAMA4 = "llama4_scout_17b_a16e"
 #: the GQA models whose logits and decode are held here

@@ -50,7 +50,9 @@ def test_import_leaves_jax_and_reference_out():
         "repro_torch.optim.adamw, repro_torch.launch.train, "
         "repro_torch.models.model, repro_torch.models.moe, "
         "repro_torch.configs.llama4_scout_17b_a16e, "
-        "repro_torch.configs.deepseek_v2_236b\n"
+        "repro_torch.configs.deepseek_v2_236b, "
+        "repro_torch.configs.qwen2_vl_72b, "
+        "repro_torch.configs.jamba_1_5_large_398b\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "from repro_torch.kernels import _build\n"
@@ -111,7 +113,8 @@ def test_lm_entry_points_default_to_the_card():
         with pytest.raises((RuntimeError, AssertionError)):
             PM.init_cache(cfg, 1, 4)
         for arch in ("smollm_135m", "llama4_scout_17b_a16e",
-                     "deepseek_v2_236b"):
+                     "deepseek_v2_236b", "qwen2_vl_72b",
+                     "jamba_1_5_large_398b"):
             with pytest.raises((RuntimeError, AssertionError)):
                 serve.main(["--arch", arch, "--reduced", "--batch", "1",
                             "--prompt-len", "2", "--gen", "1"])

@@ -30,7 +30,8 @@ against its twin in the kernel's order (the cluster split) and across
 calls; flash attention rtol = atol = 2e-5 (fp32) and 2e-2
 (bf16: one bf16 rounding of the output may fall either side); the LM's
 last-token logits, kernel vs plain attention, within 5e-2 * max|logits|
-in bf16 (LM_BF16_TOL of test_torch_lm.py) and 1e-4 in fp32; the flash
+in bf16 (LM_BF16_TOL of test_torch_lm.py) and 1e-4 in fp32 (also for the
+reduced qwen2-vl and jamba, over a prefill and 3 decode steps); the flash
 backward's dq, dk, dv within 1e-5 * max(max|ref|, 1) (fp32) and 1e-2 *
 max(max|ref|, 1) (bf16: one bf16 rounding either side) of its plain
 version, its lse
@@ -976,6 +977,56 @@ def test_xlstm_decode_matches_parallel_forward_on_card(sm90):
                                    full[:, t].cpu().numpy(), rtol=2e-3,
                                    atol=2e-3, err_msg=f"position {t}")
     assert not any(kernels.launch_counts().values())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,dtype", [("qwen2_vl_72b", "bfloat16"),
+                                        ("qwen2_vl_72b", "float32"),
+                                        ("jamba_1_5_large_398b", "float32")])
+def test_vlm_and_hybrid_kernel_and_plain_attention_agree_on_card(sm90, arch,
+                                                                 dtype):
+    """The reduced qwen2-vl (8 seeded patches prepended; M-RoPE at the
+    published head_dim 128 and sections (16, 24, 24)) and the reduced
+    jamba (head_dim 128; the 8-slot pattern, one attention layer, the
+    MoE FFN top-2; fp32 only, where a router reads the same input under
+    both attentions): a prefill launches the flash kernel once an
+    attention layer, a decode step never, and over a prefill and 3 decode
+    steps of the kernel's greedy tokens the kernel's and the plain
+    attention's logits lie within 5e-2 * max|logits| (bf16) or 1e-4
+    (fp32, where their greedy tokens are equal too)."""
+    import dataclasses
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch import serve
+    from repro_torch.models import model as PM
+    cfg = dataclasses.replace(get_reduced(arch), head_dim=128, dtype=dtype)
+    if cfg.mrope_sections is not None:
+        cfg = dataclasses.replace(cfg, mrope_sections=(16, 24, 24))
+    attn = sum(PM.layer_spec(cfg, i).mixer == "attn"
+               for i in range(cfg.n_layers))
+    lm = PM.init_params(cfg, 0)
+    toks, patches = serve.prompt_inputs(cfg, 4, 16, 0)
+    max_seq = cfg.n_patches + 19
+    kernels.reset_launch_counts()
+    got, cache = PM.prefill(cfg, lm, toks, embeds=patches, max_seq=max_seq)
+    assert kernels.launch_counts()["flash_attention"] == attn
+    want, plain_cache = PM.prefill(cfg, lm, toks, embeds=patches,
+                                   max_seq=max_seq, attention="plain")
+    assert kernels.launch_counts()["flash_attention"] == attn
+    for _ in range(3):
+        tok = got.argmax(-1)[:, None]          # both runs take it on
+        if dtype == "float32":
+            assert torch.equal(tok, want.argmax(-1)[:, None])
+        tol = 5e-2 * float(want.float().abs().max()) \
+            if dtype == "bfloat16" else 1e-4
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   want.float().cpu().numpy(), rtol=0,
+                                   atol=tol)
+        kernels.reset_launch_counts()
+        got, cache = PM.decode_step(cfg, lm, cache, tok)
+        want, plain_cache = PM.decode_step(cfg, lm, plain_cache, tok,
+                                           attention="plain")
+        assert kernels.launch_counts()["flash_attention"] == 0
+    assert cache["pos"] == max_seq
 
 
 # ------------------------------------------------ the flash kernel's backward

@@ -83,10 +83,18 @@ def test_configs_match_reference():
 
 
 def test_registry_raises_for_unported_ids():
+    """Every one of the reference's ten ids resolves (none is left
+    unported), by its id and by its alias, to the reference's config; an
+    unknown id still raises ``ValueError``."""
+    from repro.configs import ARCH_IDS as REF_IDS
+    from repro.configs import _ALIASES as REF_ALIASES
     assert PC.canonical("smollm-135m") == "smollm_135m"
-    for arch in PC.NOT_PORTED:
-        with pytest.raises(NotImplementedError, match="13b"):
-            PC.get_config(arch)
+    assert PC.NOT_PORTED == [] and sorted(PC.ARCH_IDS) == sorted(REF_IDS)
+    for arch in REF_IDS:
+        assert dataclasses.asdict(PC.get_config(arch)) == \
+            dataclasses.asdict(ref_get_config(arch))
+    for alias, arch in REF_ALIASES.items():
+        assert PC.get_reduced(alias) == PC.get_reduced(arch)
     with pytest.raises(ValueError, match="unknown"):
         PC.get_config("gpt-5")
 
@@ -172,34 +180,40 @@ def test_one_spec_blocks_match_reference(spec):
                                          ("encoder_layers", 1),
                                          ("n_patches", 4)])
 def test_other_model_features_raise_not_implemented(field, value):
-    """A VLM's patches raise; an encoder-decoder (whisper) runs, so its
-    case asks for the patches beside the encoder.  DeepSeek's dense layer
-    0, which raised before it was ported, now runs: a reduced SmolLM (3
-    layers, so 2 in the pattern's stack) with a layer 0 of FFN width 32
-    gives the reference's fp32 logits within ``FP32_TOL``."""
-    if field == "first_dense_ff":
-        cfg_ref = dataclasses.replace(ref_reduced("smollm_135m"),
-                                      dtype="float32", n_layers=3,
-                                      **{field: value})
-        cfg = dataclasses.replace(PC.get_reduced("smollm_135m"),
-                                  dtype="float32", n_layers=3,
-                                  **{field: value})
-        params = RM.init_params(cfg_ref, jax.random.PRNGKey(0))
-        lm = convert.lm_params_from_reference(
-            jax.tree.map(np.asarray, params), cfg, device="cpu")
-        assert lm.layer0.ffn.wo.shape == (value, cfg.d_model)
-        toks = _tokens(cfg, 2, 12)
-        want, _, _ = RM.forward(cfg_ref, params, jnp.asarray(toks))
-        with torch.no_grad():
-            got, _ = PM.forward(cfg, lm, torch.from_numpy(toks).long())
-        np.testing.assert_allclose(got.numpy(), _np(want), rtol=0,
-                                   atol=FP32_TOL)
-        return
-    extra = {"n_patches": 4} if field == "encoder_layers" else {}
+    """The model features that raised before they were ported now run,
+    each on a reduced SmolLM loaded from the reference's seeded
+    parameters, with the reference's fp32 logits within ``FP32_TOL``:
+    DeepSeek's dense layer 0 (3 layers, so 2 in the pattern's stack, and
+    a layer 0 of FFN width 32); a VLM's 4 prepended patches (plain RoPE:
+    no M-RoPE sections); and an encoder-decoder that also sets
+    ``n_patches``, whose 6 frames the reference both encodes and
+    prepends, as the port does (``embeds`` mean the frames there and the
+    patches here, told apart by ``is_encdec`` and ``n_patches``)."""
+    extra = {"first_dense_ff": {"n_layers": 3},
+             "encoder_layers": {"n_patches": 4, "n_frames": 6},
+             "n_patches": {}}[field]
+    cfg_ref = dataclasses.replace(ref_reduced("smollm_135m"),
+                                  dtype="float32", **{field: value}, **extra)
     cfg = dataclasses.replace(PC.get_reduced("smollm_135m"),
-                              **{field: value}, **extra)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PM.LM(cfg, device="cpu")
+                              dtype="float32", **{field: value}, **extra)
+    params = RM.init_params(cfg_ref, jax.random.PRNGKey(0))
+    lm = convert.lm_params_from_reference(
+        jax.tree.map(np.asarray, params), cfg, device="cpu")
+    if field == "first_dense_ff":
+        assert lm.layer0.ffn.wo.shape == (value, cfg.d_model)
+    toks = _tokens(cfg, 2, 12)
+    n = {"first_dense_ff": 0, "encoder_layers": 6, "n_patches": 4}[field]
+    emb = np.random.default_rng(5).standard_normal(
+        (2, n, cfg.d_model)).astype(np.float32) if n else None
+    want, _, _ = RM.forward(cfg_ref, params, jnp.asarray(toks),
+                            embeds=None if emb is None else jnp.asarray(emb))
+    with torch.no_grad():
+        got, _ = PM.forward(cfg, lm, torch.from_numpy(toks).long(),
+                            embeds=None if emb is None
+                            else torch.from_numpy(emb))
+    assert got.shape == (2, n + 12, cfg.vocab)
+    np.testing.assert_allclose(got.numpy(), _np(want), rtol=0,
+                               atol=FP32_TOL)
 
 
 def test_conversion_unstacks_the_layer_axis():
