@@ -229,6 +229,21 @@ line); any failure raises and the exit code is non-zero:
    ``make_train_step`` (ms a step, text tokens/s, peak memory, the
    held-out loss lower after them, every encoder leaf's first gradient
    finite and nonzero) and a profile window of one step;
+   7c6. deepseek-v2-236b trained at the published width cut to 2 of 60
+   layers and 32 of 160 routed experts (fp32 masters and AdamW state,
+   bf16 compute; batch 4, 512 tokens): the backward kernel at MLA's split
+   head dims (q and k 192, v 128) against its plain version in MLA's
+   layout (k concatenated, v a stride-256 view) at B=4, H=Hkv=128, S=512,
+   causal, in bf16 and fp32, and a ragged non-causal 33 x 100 case (two
+   calls bit-equal, the forward's lse and o32, SDPA's backward beside
+   it); one train step through the kernels against the plain attention
+   with the routing pinned (the plain step replays the kernels' step's
+   top-6 choices; the share it would have chosen otherwise held to
+   ``MLA_ROUTE_DIFF_LIMIT``), exactly 3 forward and 2 backward flash
+   launches a step, all at (192, 128), and no call of a plain version; 5
+   steps of ``make_train_step`` at lr 2.4e-4 (ms a step, tokens/s, peak
+   memory, the held-out loss lower after them, every leaf's first
+   gradient finite and nonzero) and a profile window of one step;
    7d. full-width SmolLM-135M training (bf16 compute, fp32 master state):
    one step through the flash kernels against the plain attention (loss
    and every gradient leaf), 20 steps of ``make_train_step`` at batch 8,
@@ -253,6 +268,7 @@ It imports nothing of JAX and nothing of the JAX package ``repro``.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -995,28 +1011,52 @@ def check_flash(fa, peaks, b: int, h: int, hkv: int, s: int, hd: int,
 
 
 def check_flash_bwd(fa, peaks, b: int, h: int, hkv: int, s: int, hd: int,
-                    dtype, seed: int, *, skv=None,
-                    causal: bool = True) -> dict:
+                    dtype, seed: int, *, skv=None, causal: bool = True,
+                    hd_v=None) -> dict:
     """The forward kernel's lse against the plain version's, then the
     backward kernel (dq, dk, dv) against
     ``flash_attention_backward_plain`` from the training path's forward
     (``forward_for_backward``: its lse and the output D reads, fp32 for
     bf16), operands in the LM's layout; two calls bit-equal.  q and dO
     have ``s`` rows, k and v ``skv`` (default ``s``); non-causal calls
-    are whisper's (the encoder, and cross-attention at Sq != Skv).  Timed
-    beside the plain version and SDPA's backward (kv heads repeated), the
+    are whisper's (the encoder, and cross-attention at Sq != Skv).  With
+    ``hd_v`` (MLA's split dims) the operands are in ``mla_forward``'s
+    layout: k the concatenation of a per-head part and one rope key
+    broadcast over the heads (its last hd - hd_v columns), v the last
+    ``hd_v`` columns of a (B, Skv, heads, 2 hd_v) expansion, dO hd_v wide,
+    and the forward's o32 is also held to the plain output.  Timed beside
+    the plain version and SDPA's backward (kv heads repeated), the
     yardstick the port never calls."""
     sq, skv = s, s if skv is None else skv
+    hd_v = hd if hd_v is None else hd_v
     g = torch.Generator(device="cuda").manual_seed(seed)
-    q, do = (torch.randn(b, sq, h, hd, generator=g, device="cuda").to(dtype)
-             .transpose(1, 2) for _ in range(2))
-    k, v = (torch.randn(b, skv, hkv, hd, generator=g, device="cuda")
-            .to(dtype).transpose(1, 2) for _ in range(2))
+    if hd_v == hd:
+        q, do = (torch.randn(b, sq, h, hd, generator=g, device="cuda")
+                 .to(dtype).transpose(1, 2) for _ in range(2))
+        k, v = (torch.randn(b, skv, hkv, hd, generator=g, device="cuda")
+                .to(dtype).transpose(1, 2) for _ in range(2))
+    else:
+        rope = hd - hd_v
+        q = torch.randn(b, sq, h, hd, generator=g, device="cuda").to(dtype)
+        k_pe = torch.randn(b, skv, 1, rope, generator=g, device="cuda")
+        k = torch.cat([torch.randn(b, skv, hkv, hd_v, generator=g,
+                                   device="cuda"),
+                       k_pe.expand(b, skv, hkv, rope)], dim=-1).to(dtype)
+        kv = torch.randn(b, skv, hkv, 2 * hd_v, generator=g,
+                         device="cuda").to(dtype)
+        do = torch.randn(b, sq, h, hd_v, generator=g, device="cuda").to(dtype)
+        q, k, v, do = (x.transpose(1, 2) for x in (q, k, kv[..., hd_v:], do))
     out, o, lse = fa.forward_for_backward(q, k, v, causal)
-    _, lse_plain = fa.flash_attention_plain(q, k, v, causal=causal,
-                                            return_lse=True)
+    out_plain, lse_plain = fa.flash_attention_plain(q, k, v, causal=causal,
+                                                    return_lse=True)
     lse_err = float((lse - lse_plain).abs().max())
-    del lse_plain
+    # the fp32 output D reads (o32) against the plain output: the forward's
+    # own bound at the row's dtype
+    o32_err = float((o.float() - out_plain.float()).abs().max())
+    o32_ok = bool(torch.allclose(o.float(), out_plain.float(),
+                                 rtol=FLASH_TOL[str(dtype).split(".")[-1]],
+                                 atol=FLASH_TOL[str(dtype).split(".")[-1]]))
+    del lse_plain, out_plain
 
     def kernel():
         return fa.flash_attention_backward(q, k, v, o, lse, do,
@@ -1032,18 +1072,25 @@ def check_flash_bwd(fa, peaks, b: int, h: int, hkv: int, s: int, hd: int,
              zip(got, want)]
     rels = [d / float(w.float().abs().max()) for d, w in zip(diffs, want)]
     same = all(torch.equal(a, c) for a, c in zip(got, again))
-    ok = max(rels) <= tol and same and lse_err <= FLASH_LSE_TOL
+    ok = max(rels) <= tol and same and lse_err <= FLASH_LSE_TOL and o32_ok
     del got, again, want
     mask = "causal" if causal else "non-causal"
     lengths = f"S={sq}" if sq == skv else f"Sq={sq} Skv={skv}"
-    row = {"name": "flash_attention_bwd",
-           "shape": f"B={b} H={h} Hkv={hkv} {lengths} hd={hd} {mask} {name} "
-                    f"(dq dk dv; strided, the LM's layout)",
+    dims = f"hd={hd}" if hd_v == hd else f"hd={hd} hd_v={hd_v}"
+    where = "the LM's layout" if hd_v == hd else \
+        "MLA's layout: k concatenated, v a stride-2hd_v view"
+    row = {"name": "flash_attention_bwd" if hd_v == hd
+           else "flash_attention_bwd_mla",
+           "shape": f"B={b} H={h} Hkv={hkv} {lengths} {dims} {mask} {name} "
+                    f"(dq dk dv; strided, {where})",
            "max_abs_err": max(diffs), "tol": tol, "ok": ok, "causal": causal,
            "note": f"max error / max|ref| dq {rels[0]:.2e} dk {rels[1]:.2e} "
                    f"dv {rels[2]:.2e}; two calls bit-equal: {same}; "
                    f"forward lse max abs error {lse_err:.2e} (tol "
-                   f"{FLASH_LSE_TOL:g})"}
+                   f"{FLASH_LSE_TOL:g})"
+                   + ("" if hd_v == hd else
+                      f"; forward o32 max abs error {o32_err:.2e} (tol "
+                      f"{FLASH_TOL[name]:g})")}
     row["ms"], row["host_us"] = time_ms(kernel)
     row["plain_ms"] = time_ms(
         lambda: fa.flash_attention_backward_plain(q, k, v, o, lse, do,
@@ -1058,22 +1105,25 @@ def check_flash_bwd(fa, peaks, b: int, h: int, hkv: int, s: int, hd: int,
         sd, (qr, kr, vr), do, retain_graph=True))[0]
     row["library"] = ("backward of F.scaled_dot_product_attention(q, k, v "
                       f"repeated, is_causal={causal}) by torch.autograd.grad")
+    del sd, qr, kr, vr
     elt = q.element_size()
-    # the function's bytes: q, o, dO and the fp32 lse read once and dq
-    # written once at Sq rows on H heads; k, v read and dk, dv written
-    # once at Skv rows on Hkv heads, all in the operands' dtype.  A bf16
-    # call's kernel reads o in fp32 (o32): 2 bytes an element more, this
-    # implementation's choice, so in the note and not in the bound
-    nbytes = (4 * elt * b * h * sq * hd + 4 * b * hkv * skv * hd * elt
-              + 4 * b * h * sq)
-    extra = (o.element_size() - elt) * b * h * sq * hd
+    # the function's bytes, each operand at its own head dim: q and dq (hd)
+    # and o and dO (hd_v) at Sq rows on H heads, k and dk (hd) and v and
+    # dv (hd_v) at Skv rows on Hkv heads, read or written once in the
+    # operands' dtype; the fp32 lse read once.  A bf16 call's kernel reads
+    # o in fp32 (o32): 2 bytes an element more, this implementation's
+    # choice, so in the note and not in the bound
+    nbytes = (2 * elt * b * h * sq * (hd + hd_v)
+              + 2 * elt * b * hkv * skv * (hd + hd_v) + 4 * b * h * sq)
+    extra = (o.element_size() - elt) * b * h * sq * hd_v
     if extra:
         row["note"] += (f"; reads o in fp32 (o32): {extra} bytes beyond the "
                         f"bound's {nbytes} ({extra / nbytes:.1%})")
-    # S, dP, dV, dQ, dK over the scores the function needs: the unmasked
-    # half when causal (Sq == Skv), the whole Sq x Skv matrix when not
-    flops = 5.0 * b * h * sq * sq * hd if causal else \
-        10.0 * b * h * sq * skv * hd
+    # S, dQ, dK (hd) and dP, dV (hd_v) over the scores the function needs:
+    # the unmasked half when causal (Sq == Skv), the whole Sq x Skv matrix
+    # when not (5 B H S^2 hd at hd == hd_v)
+    flops = 1.0 * b * h * sq * sq * (3 * hd + 2 * hd_v) if causal else \
+        2.0 * b * h * sq * skv * (3 * hd + 2 * hd_v)
     row["bound_ms"], row["bound_by"] = bound(
         nbytes, flops, peaks, "bf16" if dtype == torch.bfloat16 else "fp32")
     return row
@@ -1081,17 +1131,17 @@ def check_flash_bwd(fa, peaks, b: int, h: int, hkv: int, s: int, hd: int,
 
 def flash_bwd_resources(fa, build) -> dict:
     """Registers a thread, stack-frame (spill) bytes, dynamic shared
-    bytes and blocks an SM of the bf16 backward kernels at each head dim,
-    one line each (``cuobjdump -res-usage`` of the built library and the
-    runtime's occupancy query)."""
+    bytes and blocks an SM of the bf16 backward kernels at each head-dim
+    pair, one line each (``cuobjdump -res-usage`` of the built library and
+    the runtime's occupancy query)."""
     usage = build.resource_usage("flash_attention_bwd")
     out = {}
-    for hd in fa.KERNEL_HEAD_DIMS:
-        occupancy = fa.backward_occupancy(hd)
+    for hd, hd_v in fa.BACKWARD_HEAD_DIM_PAIRS:
+        occupancy = fa.backward_occupancy(hd, hd_v)
         for grid, n_blocks, smem in zip(("dq", "dkdv"), occupancy[:2],
                                         occupancy[2:]):
-            name = f"flash_bwd_{grid}_bf16<{hd}>"
-            mangled = f"flash_bwd_{grid}_bf16ILi{hd}E"
+            name = f"flash_bwd_{grid}_bf16<{hd}, {hd_v}>"
+            mangled = f"flash_bwd_{grid}_bf16ILi{hd}ELi{hd_v}E"
             res = next(v for k, v in usage.items()
                        if name + "(" in k or mangled in k)
             out[name] = {**res, "dynamic_shared": smem,
@@ -3013,6 +3063,42 @@ class RoutingLog:
         self.moe.route = self.real
 
 
+class RoutingReplay:
+    """While entered, the MoE router (``models.moe.route``) takes, call by
+    call in order, the experts another run chose (``calls``, as
+    :class:`RoutingLog` kept them), with gates this run's own
+    probabilities at those experts, renormalised; it keeps, per call, which
+    tokens' own top-k sets differ from the replayed ones (device tensors:
+    no sync)."""
+
+    def __init__(self, moe, calls: list):
+        self.moe, self.calls, self.differ = moe, calls, []
+
+    def __enter__(self):
+        self.real = self.moe.route
+
+        def replayed(*a, **kw):
+            probs, _, own = self.real(*a, **kw)
+            if len(self.differ) >= len(self.calls):
+                fail(f"routing replay: router call {len(self.differ) + 1} "
+                     f"of a run that logged {len(self.calls)}")
+            chosen = self.calls[len(self.differ)]
+            self.differ.append((own.sort(dim=-1).values !=
+                                chosen.sort(dim=-1).values).any(dim=-1))
+            gates = probs.gather(1, chosen)
+            return probs, gates / gates.sum(dim=-1, keepdim=True), chosen
+        self.moe.route = replayed
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.real
+
+    def share(self) -> float:
+        """The share of (token, call) top-k sets this run would have
+        chosen otherwise."""
+        return float(torch.cat(self.differ).float().mean())
+
+
 def moe_against_plain(label: str, cfg, res: dict, plain: dict,
                       kernel_routes: list, plain_routes: list,
                       limit) -> dict:
@@ -3634,14 +3720,20 @@ class PlainCalls:
             setattr(mod, name, real)
 
 
-def step_against_plain(kernels, cfg, lm, batch) -> dict:
+def step_against_plain(kernels, cfg, lm, batch, *, moe=None) -> dict:
     """One train step's loss and gradients (``loss_fn``, then backward; no
     update) on ``batch`` through the flash kernels, under
     :class:`PlainCalls`, against the same step through the plain attention
     on a copy of ``lm``: the loss's relative difference, each gradient
     leaf's relative Frobenius error, the kernels' step's flash launches and
     plain-version calls, and each step's peak memory.  ``lm``'s gradients
-    are cleared after."""
+    are cleared after.  With ``moe`` (the ``models.moe`` module) the
+    routing is pinned: the kernels' step logs its router's choices
+    (:class:`RoutingLog`) and the plain step replays them
+    (:class:`RoutingReplay`, call by call: under remat twice a MoE layer),
+    so that a token the two attentions' rounding would route elsewhere
+    does not change a whole expert's gradient; the share of (token, call)
+    sets the plain step would have chosen otherwise is returned too."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import attention as PA
     from repro_torch.models import model as PM
@@ -3655,13 +3747,25 @@ def step_against_plain(kernels, cfg, lm, batch) -> dict:
     twin = copy.deepcopy(lm)
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
-    with PlainCalls(fa, PA) as plain_calls:
+    with PlainCalls(fa, PA) as plain_calls, \
+            RoutingLog(moe) if moe else contextlib.nullcontext() as routes:
         loss_k = loss_and_grads(lm, "kernel")
     launches = kernels.launch_counts()
     kernel_peak = torch.cuda.max_memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    loss_p = loss_and_grads(twin, "plain")
+    with RoutingReplay(moe, routes.calls) if moe else \
+            contextlib.nullcontext() as replay:
+        loss_p = loss_and_grads(twin, "plain")
     plain_peak = torch.cuda.max_memory_allocated()
+    pinned = {}
+    if moe:
+        if len(replay.differ) != len(routes.calls):
+            fail(f"routing replay: the plain step called the router "
+                 f"{len(replay.differ)} times, the kernels' step "
+                 f"{len(routes.calls)}")
+        pinned = {"route_diff_share": replay.share(),
+                  "route_calls": len(routes.calls)}
+        del routes, replay
     plain = dict(twin.named_parameters())
     errs = {}
     for name, p in lm.named_parameters():
@@ -3674,16 +3778,21 @@ def step_against_plain(kernels, cfg, lm, batch) -> dict:
     return {"loss": loss_k, "loss_plain": loss_p,
             "loss_rel": abs(loss_k - loss_p) / abs(loss_p), "errs": errs,
             "launches": launches, "plain_calls": plain_calls.calls,
-            "peak": kernel_peak, "plain_peak": plain_peak}
+            "peak": kernel_peak, "plain_peak": plain_peak, **pinned}
+
+
+#: the flash launch counts a train step is held to, by default
+FLASH_COUNTS = ("flash_attention", "flash_attention_bwd")
 
 
 def train_steps(kernels, cfg, lm, batches: list, held: dict,
-                lr: float) -> dict:
+                lr: float, counts: tuple = FLASH_COUNTS) -> dict:
     """``len(batches)`` steps of ``make_train_step`` on ``lm``, one batch
     each, at peak learning rate ``lr`` in the trainer CLI's schedule shape
     (linear warm-up over max(steps // 20, 5) steps, cosine to the end),
     data on the card, under :class:`PlainCalls`: the losses, each step's
-    flash launches (forward, backward), the wall seconds, the peak memory,
+    launches by the names ``counts`` (by default the flash forward's and
+    backward's), the wall seconds, the peak memory,
     the loss on the held-out batch ``held`` before and after, and the
     leaves without a finite nonzero gradient in the first step.  Also
     returns ``step`` and ``state`` for further steps."""
@@ -3712,8 +3821,7 @@ def train_steps(kernels, cfg, lm, batches: list, held: dict,
             before = kernels.launch_counts()
             state, loss = step(lm, state, batch)
             after = kernels.launch_counts()
-            per_step.append(tuple(after[k] - before[k] for k in (
-                "flash_attention", "flash_attention_bwd")))
+            per_step.append(tuple(after[k] - before[k] for k in counts))
             losses.append(loss)
             if i == 0:
                 first_bad = [k for k, p in lm.named_parameters()
@@ -3732,29 +3840,42 @@ def train_steps(kernels, cfg, lm, batches: list, held: dict,
 def train_against_plain(kernels, card: str, cfg, label: str, data: list,
                         held: dict, *, steps: int, lr: float, want: tuple,
                         tokens: int, profile_steps: int,
-                        nonzero_prefix: str = "", note: str = "") -> dict:
+                        nonzero_prefix=None, note: str = "",
+                        counts: tuple = FLASH_COUNTS,
+                        route_limit=None) -> dict:
     """A training phase at full width from ``init_params(cfg, 0)``:
     :func:`step_against_plain` on ``data[0]`` (the loss within
-    ``TRAIN_LOSS_RTOL``, every leaf within ``TRAIN_GRAD_TOL``, the flash
-    launches ``want`` = (forward, backward), no plain-version call), then
-    :func:`train_steps` on ``data[:steps]`` (``want`` launches every step,
-    no plain-version call, ms a step and tokens/s with ``tokens`` a step,
-    the peak memory, a finite loss, the held-out batch's loss falling:
-    each step trains on another batch, so the steps' own losses differ by
-    the batches' spread; with ``nonzero_prefix``, every leaf so named with
-    a finite nonzero first gradient), then a profile window of
-    ``profile_steps`` steps on the batches after them.  ``note`` ends the
-    first line."""
+    ``TRAIN_LOSS_RTOL``, every leaf within ``TRAIN_GRAD_TOL``, the
+    launches ``want`` by the names ``counts``, by default (flash forward,
+    backward), no plain-version call; with ``route_limit`` the routing
+    pinned to the kernels' step's choices and the share of (token, call)
+    top-k sets the plain step would have chosen otherwise held to it),
+    then :func:`train_steps` on ``data[:steps]`` (``want`` launches every
+    step, no plain-version call, ms a step and tokens/s with ``tokens`` a
+    step, the peak memory, a finite loss, the held-out batch's loss
+    falling: each step trains on another batch, so the steps' own losses
+    differ by the batches' spread; with ``nonzero_prefix`` (``""``: all),
+    every leaf so named with a finite nonzero first gradient), then a
+    profile window of ``profile_steps`` steps on the batches after them.
+    ``note`` ends the first line."""
     from repro_torch.models import model as PM
+    from repro_torch.models import moe as PMoE
     torch.cuda.empty_cache()
     lm = PM.init_params(cfg, 0, device="cuda")
-    one = step_against_plain(kernels, cfg, lm, data[0])
+    one = step_against_plain(kernels, cfg, lm, data[0],
+                             moe=PMoE if route_limit is not None else None)
     errs = one["errs"]
     worst = max(errs, key=errs.get)
-    scoped = {k: e for k, e in errs.items() if k.startswith(nonzero_prefix)}
+    checked = nonzero_prefix is not None
+    scoped = {k: e for k, e in errs.items()
+              if k.startswith(nonzero_prefix or "")}
     scoped_worst = max(scoped, key=scoped.get)
-    got = tuple(one["launches"][k] for k in ("flash_attention",
-                                             "flash_attention_bwd"))
+    got = tuple(one["launches"][k] for k in counts)
+    pinned = "" if route_limit is None else (
+        f"; routing pinned to the kernels' step ({one['route_calls']} router "
+        f"calls): top-{cfg.moe_top_k} sets the plain step would have chosen "
+        f"otherwise, share {one['route_diff_share']:.6f} (limit "
+        f"{route_limit:g})")
     print(f"{label} step on {card}, flash kernels vs plain attention: loss "
           f"{one['loss']:.6f} vs {one['loss_plain']:.6f} (rel "
           f"{one['loss_rel']:.3e}, tol {TRAIN_LOSS_RTOL:g}); gradient "
@@ -3763,10 +3884,11 @@ def train_against_plain(kernels, card: str, cfg, label: str, data: list,
              f"({scoped_worst})" if nonzero_prefix else "")
           + f", median {statistics.median(errs.values()):.3e} over "
           f"{len(errs)} leaves (tol {TRAIN_GRAD_TOL:g}); launches in the "
-          f"step (flash_attention, flash_attention_bwd) {got} (want {want}); "
+          f"step ({', '.join(counts)}) {got} (want {want}); "
           f"plain-version calls {len(one['plain_calls'])}; "
           f"max_memory_allocated kernel {one['peak'] / 2 ** 30:.3f} GiB, "
-          f"plain {one['plain_peak'] / 2 ** 30:.3f} GiB{note}", flush=True)
+          f"plain {one['plain_peak'] / 2 ** 30:.3f} GiB{pinned}{note}",
+          flush=True)
     if got != tuple(want) or one["plain_calls"]:
         fail(f"{label}: step launches {got}, plain calls "
              f"{one['plain_calls']} (want {want}, none)")
@@ -3774,13 +3896,18 @@ def train_against_plain(kernels, card: str, cfg, label: str, data: list,
             and errs[worst] <= TRAIN_GRAD_TOL):
         fail(f"{label}: the flash kernels' loss or gradients leave the "
              "plain attention's bound")
+    if route_limit is not None and one["route_diff_share"] > route_limit:
+        fail(f"{label}: {one['route_diff_share']:.4f} of the top-"
+             f"{cfg.moe_top_k} sets differ between the two attentions "
+             f"(limit {route_limit})")
 
-    run = train_steps(kernels, cfg, lm, data[:steps], held, lr)
+    run = train_steps(kernels, cfg, lm, data[:steps], held, lr, counts)
     ms = run["sec"] / steps * 1e3
     tok_s = tokens * steps / run["sec"]
-    bad = [k for k in run["first_bad"] if k.startswith(nonzero_prefix)]
+    prefix = nonzero_prefix or ""
+    bad = [k for k in run["first_bad"] if k.startswith(prefix)]
     n_scoped = sum(1 for k, _ in lm.named_parameters()
-                   if k.startswith(nonzero_prefix))
+                   if k.startswith(prefix))
     losses = run["losses"]
     print(f"{label} make_train_step steps={steps} lr={lr:g} {cfg.dtype} "
           f"compute, fp32 master state, data on the card, on {card}: "
@@ -3788,15 +3915,16 @@ def train_against_plain(kernels, card: str, cfg, label: str, data: list,
           f"{run['peak'] / 2 ** 30:.3f} GiB; losses "
           f"{[round(x, 4) for x in losses]}; on a held-out batch "
           f"{run['held0']:.4f} before the steps, {run['held1']:.4f} after; "
-          f"flash launches per step (fwd, bwd) {sorted(set(run['per_step']))}"
+          f"launches per step ({', '.join(counts)}) "
+          f"{sorted(set(run['per_step']))}"
           f"; plain-version calls {len(run['plain_calls'])}"
-          + (f"; {nonzero_prefix}* leaves with a finite nonzero first "
-             f"gradient {n_scoped - len(bad)} of {n_scoped}"
-             if nonzero_prefix else ""), flush=True)
+          + (f"; {prefix + '* ' if prefix else ''}leaves with a finite "
+             f"nonzero first gradient {n_scoped - len(bad)} of {n_scoped}"
+             if checked else ""), flush=True)
     if set(run["per_step"]) != {tuple(want)} or run["plain_calls"]:
         fail(f"{label}: the steps' flash launches {run['per_step']} (want "
              f"{want} every step), plain calls {run['plain_calls']}")
-    if nonzero_prefix and bad:
+    if checked and bad:
         fail(f"{label}: leaves without a finite nonzero first gradient: "
              f"{bad}")
     if not (np.isfinite(losses).all() and run["held1"] < run["held0"]):
@@ -3814,14 +3942,16 @@ def train_against_plain(kernels, card: str, cfg, label: str, data: list,
                           "step", one_step, units=profile_steps,
                           calls=profile_steps,
                           focus=("flash_fwd", "flash_bwd"))
-    launches = {k: run["launches"][k] for k in ("flash_attention",
-                                                "flash_attention_bwd")}
+    launches = {k: run["launches"][k] for k in counts}
+    peak = run["peak"]
     del lm, state, step, run
     torch.cuda.empty_cache()
     return {"ms_per_step": ms, "tok_s": tok_s, "losses": losses,
             "loss_rel": one["loss_rel"], "grad_err": errs[worst],
             "profile": prof, "per_step": got, "steps": steps,
-            "launches": launches}
+            "launches": launches, "peak": peak,
+            **{k: one[k] for k in ("route_diff_share", "route_calls")
+               if k in one}}
 
 
 def whisper_train_data(cfg) -> tuple:
@@ -3895,6 +4025,79 @@ def whisper_train_phase(kernels, card: str, peaks) -> dict:
              f"exp {reckoned / 2 ** 30:.1f} GiB; tok_s counts text tokens)")
     return {"rows": rows, "forward": fwd, "per_step": res["per_step"],
             "steps": res["steps"]}
+
+
+#: 7c6: deepseek-v2-236b trained at the published width, cut to fit the
+#: card with fp32 master weights, gradients and two AdamW moments (16
+#: bytes a parameter): 2 of 60 layers (layer 0 with its dense FFN, and one
+#: MLA + MoE layer) and 32 of 160 routed experts, 2,338,115,584
+#: parameters, 34.84 GiB (2 layers at 160 experts: 79.85 GiB before any
+#: activation).  Batch 4 x 512 tokens of the trainer's stream (7c3's
+#: request; the MoE capacity is then 480), 5 steps at DeepSeek-V2's
+#: published peak learning rate (arXiv:2405.04434, section 3.2.1: 2.4e-4)
+#: in 7d's schedule shape.
+DEEPSEEK_TRAIN_CUT = {"n_layers": 2, "n_experts": 32}
+DEEPSEEK_TRAIN_BATCH, DEEPSEEK_TRAIN_SEQ = 4, 512
+DEEPSEEK_TRAIN_STEPS, DEEPSEEK_TRAIN_LR = 5, 2.4e-4
+#: the launch counts a deepseek train step is held to: every flash
+#: launch at (192, 128)
+MLA_COUNTS = ("flash_attention", "flash_attention_bwd",
+              "flash_attention_mla", "flash_attention_bwd_mla")
+
+
+def deepseek_train_phase(kernels, card: str, peaks) -> dict:
+    """7c6: deepseek-v2-236b trained at the published width with the cut
+    ``DEEPSEEK_TRAIN_CUT`` (bf16 compute, fp32 master weights and AdamW
+    state).  First the backward kernel at MLA's split head dims (q and k
+    192, v 128) against its plain version in MLA's layout: at the training
+    shape (B=4, H=Hkv=128, S=512, causal) in bf16 and fp32, and a ragged
+    non-causal case (B=2, H=Hkv=4, Sq=33, Skv=100); then
+    :func:`train_against_plain` with the routing pinned (the share of
+    top-6 sets the plain step would have chosen otherwise within
+    ``MLA_ROUTE_DIFF_LIMIT``), the flash launches of a step all at (192,
+    128) (layer 0, outside the remat, one forward and one backward; each
+    stacked layer two forwards under remat and one backward), every
+    leaf's first gradient finite and nonzero, the held-out loss lower
+    after ``DEEPSEEK_TRAIN_STEPS`` steps, and a profile window of one
+    step."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    full = get_config("deepseek_v2_236b")
+    cfg = dataclasses.replace(full, **DEEPSEEK_TRAIN_CUT)
+    hd, hd_v = cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim
+    batch, seq, h = DEEPSEEK_TRAIN_BATCH, DEEPSEEK_TRAIN_SEQ, cfg.n_heads
+    torch.cuda.empty_cache()
+    rows = [
+        check_flash_bwd(fa, peaks, batch, h, h, seq, hd, torch.bfloat16, 46,
+                        hd_v=hd_v),
+        check_flash_bwd(fa, peaks, batch, h, h, seq, hd, torch.float32, 47,
+                        hd_v=hd_v),
+        check_flash_bwd(fa, peaks, 2, 4, 4, 33, hd, torch.bfloat16, 48,
+                        skv=100, causal=False, hd_v=hd_v),
+    ]
+    for row in rows:
+        print_row(row)
+    bad = [r["shape"] for r in rows if not r["ok"]]
+    if bad:
+        fail(f"the flash backward at MLA's split head dims disagrees with "
+             f"its plain version: {bad}")
+    n_params = cfg.param_count()
+    batches = _token_batches(cfg, DEEPSEEK_TRAIN_STEPS + 2, batch, seq)
+    held = batches.pop()             # the loss is read on it, never trained
+    fwd, bwd = 1 + 2 * cfg.scan_layers, 1 + cfg.scan_layers
+    res = train_against_plain(
+        kernels, card, cfg,
+        f"deepseek train {cfg.name} (cut: {cfg.n_layers} of "
+        f"{full.n_layers} layers, {cfg.n_experts} of {full.n_experts} "
+        f"routed experts; {n_params / 1e9:.3f}B params) batch={batch} "
+        f"seq={seq}", batches, held, steps=DEEPSEEK_TRAIN_STEPS,
+        lr=DEEPSEEK_TRAIN_LR, want=(fwd, bwd, fwd, bwd),
+        tokens=batch * seq, profile_steps=1, nonzero_prefix="",
+        counts=MLA_COUNTS, route_limit=MLA_ROUTE_DIFF_LIMIT,
+        note=f" (reckoned beforehand: fp32 weights, gradients and two "
+             f"moments {16 * n_params / 2 ** 30:.2f} GiB, the check's copy "
+             f"{8 * n_params / 2 ** 30:.2f} GiB more)")
+    return {"rows": rows, **res}
 
 
 def train_phase(kernels, card: str) -> dict:
@@ -4817,6 +5020,15 @@ def main() -> int:
     whisper_train = whisper_train_phase(kernels, card, peaks)
     clock.lap("7c5")
 
+    # ---- 7c6. deepseek-v2 trained at the published width, cut to 2
+    # layers and 32 experts: the flash backward at MLA's split head dims,
+    # and the MLA and MoE backward
+    deepseek_train = deepseek_train_phase(kernels, card, peaks)
+    main_rows["flash_attention_bwd_mla"] = deepseek_train["rows"][0]
+    launches["flash_attention_bwd_mla"] = deepseek_train["launches"][
+        "flash_attention_bwd_mla"]
+    clock.lap("7c6")
+
     # ---- 7d. LM training at full width: make_train_step (the flash
     # kernels forward and backward), then the trainer CLI's crash-resume
     train = train_phase(kernels, card)
@@ -4844,7 +5056,8 @@ def main() -> int:
                "power_matmul": csrc + "power_matmul.cu",
                "flash_attention": csrc + "flash_attention.cu",
                "flash_attention_mla": csrc + "flash_attention.cu",
-               "flash_attention_bwd": csrc + "flash_attention_bwd.cu"}
+               "flash_attention_bwd": csrc + "flash_attention_bwd.cu",
+               "flash_attention_bwd_mla": csrc + "flash_attention_bwd.cu"}
     # the P_K(L) build is the first half of both no-wire FastMix kernels
     replaces = {"fastmix_track": "src/repro/kernels/fastmix.py:484",
                 "fastmix": "src/repro/kernels/fastmix.py:331",
@@ -4872,7 +5085,15 @@ def main() -> int:
                 "flash_attention_bwd": "src/repro/kernels/flash_attention."
                                        "py:96 (its gradient; the reference "
                                        "differentiates src/repro/models/"
-                                       "attention.py:77 and :90 by XLA)"}
+                                       "attention.py:77 and :90 by XLA)",
+                # the same gradient at MLA's split head dims: XLA
+                # differentiates the reference's MLA prefill there
+                "flash_attention_bwd_mla": "src/repro/kernels/flash_"
+                                           "attention.py:96 (its gradient "
+                                           "at MLA's split head dims; the "
+                                           "reference differentiates src/"
+                                           "repro/models/attention.py:"
+                                           "320-331 by XLA)"}
     # the standalone Gram (the reference's ops.gram) left the main path:
     # cholqr2 forms CholeskyQR2's Gram there
     off_path = {"gram"}
@@ -4936,6 +5157,16 @@ def main() -> int:
              "fp32": {key: mla_f32_row[key] for key in non_causal_keys},
              "ms_training_forward": row["ms_training_forward"]}
             if name == "flash_attention_mla" else {}),
+         **({"launches_per": f"{DEEPSEEK_TRAIN_STEPS} train steps of 7c6 "
+                             "(deepseek-v2 cut to 2 layers and 32 experts)",
+             "launches_forward_mla": deepseek_train["launches"][
+                 "flash_attention_mla"],
+             "per_step": deepseek_train["per_step"],
+             "fp32": {key: deepseek_train["rows"][1][key]
+                      for key in non_causal_keys},
+             "non_causal": {key: deepseek_train["rows"][2][key]
+                            for key in non_causal_keys}}
+            if name == "flash_attention_bwd_mla" else {}),
          **({"launches_per": f"{TRAIN_STEPS} train steps of 7d",
              "launches_whisper_train": {
                  "per_step": whisper_train["per_step"][1],

@@ -38,7 +38,8 @@ without ``nvcc`` / ``cuobjdump``, and never counted as passed):
 * the occupancy model (registers from ``cuobjdump``, the modelled shared
   memory, the SM's limits) equals the runtime's own answer where the C
   exports one: ``fastmix.panel_occupancy`` for every panel tile and
-  kind, ``flash_attention.backward_occupancy`` at both head dims.
+  kind, ``flash_attention.backward_occupancy`` at each of the
+  backward's head-dim pairs.
 """
 from __future__ import annotations
 
@@ -210,6 +211,15 @@ def launches(sms: int = registry.DEFAULT_SMS) -> List[Launch]:
         out.append(Launch("gram_kernel", ("float",), 256, 256, 0,
                           f"gram B={B} n={n} d={d}", static=gm.gram_smem(),
                           main=(B, n, d) == registry.GRAM_SHAPES[0]))
+    def backward(hd, hd_v, bf16, shape, main):
+        for grid, dyn in zip(("dq", "dkdv"),
+                             fa.backward_smem(hd, bf16, hd_v)):
+            fam = f"flash_bwd_{grid}" + ("_bf16" if bf16 else "")
+            args = (hd, hd_v) if bf16 else (hd, hd_v, "float")
+            t = registry.rule(registry.kernel_spec(fam).threads, args)
+            out.append(Launch(fam, args, t, t, dyn,
+                              f"flash backward {grid} {shape}", main=main))
+
     for hd, S in registry.FLASH_SHAPES:
         main = (hd, S) == registry.FLASH_SHAPES[0]
         for bf16 in (True, False):
@@ -219,13 +229,7 @@ def launches(sms: int = registry.DEFAULT_SMS) -> List[Launch]:
             t = registry.rule(spec.threads, args)
             out.append(Launch(fam, args, t, t, fa.forward_smem(hd, bf16),
                               f"flash forward hd={hd} S={S}", main=main))
-            for grid, dyn in zip(("dq", "dkdv"), fa.backward_smem(hd, bf16)):
-                fam = f"flash_bwd_{grid}" + ("_bf16" if bf16 else "")
-                args = (hd,) if bf16 else (hd, "float")
-                t = registry.rule(registry.kernel_spec(fam).threads, args)
-                out.append(Launch(fam, args, t, t, dyn,
-                                  f"flash backward {grid} hd={hd} S={S}",
-                                  main=main))
+            backward(hd, hd, bf16, f"hd={hd} S={S}", main)
     for hd, hd_v, S in registry.FLASH_SPLIT_SHAPES:
         for bf16 in (True, False):
             fam = "flash_fwd_bf16" if bf16 else "flash_fwd_f32"
@@ -234,6 +238,7 @@ def launches(sms: int = registry.DEFAULT_SMS) -> List[Launch]:
             out.append(Launch(fam, args, t, t,
                               fa.forward_smem(hd, bf16, hd_v),
                               f"flash forward hd={hd} hd_v={hd_v} S={S}"))
+            backward(hd, hd_v, bf16, f"hd={hd} hd_v={hd_v} S={S}", False)
     return out
 
 
@@ -565,7 +570,7 @@ def _check_resources(result: PassResult, dyn_max: Dict[str, int]) -> Dict[
 def _check_occupancy(result: PassResult, usage: dict) -> Dict[tuple, int]:
     """The occupancy model (``cuobjdump``'s registers, the modelled shared
     memory) against the runtime's answer where the C exports one: every
-    panel tile and kind, and the bf16 backward at both head dims.  Returns
+    panel tile and kind, and the bf16 backward at each head-dim pair.  Returns
     the runtime's blocks an SM by ``(family, args, track)``."""
     points = []           # (family, args, track, lib, threads, smem, ask)
     for bm, bn in fm.PANEL_TILES:
@@ -585,14 +590,14 @@ def _check_occupancy(result: PassResult, usage: dict) -> Dict[tuple, int]:
                        "fastmix_ef", t, fm.panel_smem(bm, bn, False),
                        lambda b=bm, n=bn: fm.panel_occupancy("ef_recv", b,
                                                              n)))
-    for hd in fa.KERNEL_HEAD_DIMS:
-        smem = fa.backward_smem(hd, True)
+    for hd, hd_v in fa.BACKWARD_HEAD_DIM_PAIRS:
+        smem = fa.backward_smem(hd, True, hd_v)
         for i, (fam, t) in enumerate((("flash_bwd_dq_bf16", 128),
                                       ("flash_bwd_dkdv_bf16", 256))):
-            points.append((fam, (hd,), None, "flash_attention_bwd", t,
-                           smem[i], lambda h=hd, j=i: (
-                               fa.backward_occupancy(h)[j],
-                               fa.backward_occupancy(h)[2 + j])))
+            points.append((fam, (hd, hd_v), None, "flash_attention_bwd", t,
+                           smem[i], lambda h=hd, hv=hd_v, j=i: (
+                               fa.backward_occupancy(h, hv)[j],
+                               fa.backward_occupancy(h, hv)[2 + j])))
     card: Dict[tuple, int] = {}
     for fam, args, track, lib, threads, smem, ask in points:
         res = usage.get((lib, fam, args))

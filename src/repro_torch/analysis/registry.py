@@ -473,6 +473,8 @@ KERNELS: Tuple[KernelSpec, ...] = (
         lambda a: 3 if a[0] == 64 else 1,
         lambda a: 168 if a[0] == 64 else 255,
         "flash_attention.forward_smem"),
+    # the backward's instances are <HD, HDV[, T]>: (64, 64), (128, 128)
+    # and MLA's (192, 128)
     KernelSpec(
         "flash_bwd_dq", "flash_attention_bwd.cu", "kThreads",
         ("flash_attention_bwd",), 256, 0, 128,
@@ -481,22 +483,31 @@ KERNELS: Tuple[KernelSpec, ...] = (
         why_stack="the fp32 dQ grid at hd 64 keeps an 8-byte frame"),
     KernelSpec(
         "flash_bwd_dkdv", "flash_attention_bwd.cu", "kThreads",
-        ("flash_attention_bwd",), 256, 0, 160,
+        ("flash_attention_bwd",), 256, 0,
+        # on an H100, no spills: 162 registers at hd 128 since the dV and
+        # dK sums run as two loops (their shared memory holds one block an
+        # SM either way), 190 at (192, 128)
+        lambda a: {64: 160, 128: 168}.get(a[0], 192),
         "flash_attention.backward_smem"),
     KernelSpec(
         "flash_bwd_dq_bf16", "flash_attention_bwd.cu",
-        "kTileThreads, HD == 64 ? 3 : 2", ("flash_attention_bwd",), 128,
-        lambda a: 3 if a[0] == 64 else 2,
+        "kTileThreads, HD == 64 ? 3 : HD == 128 ? 2 : 1",
+        ("flash_attention_bwd",), 128,
+        lambda a: {64: 3, 128: 2}.get(a[0], 1),
         lambda a: 168 if a[0] == 64 else 255,
-        "flash_attention.backward_smem"),
+        "flash_attention.backward_smem",
+        stack=lambda a: 80 if a[0] == 192 else 0,
+        why_stack="at (192, 128) the dQ block, one an SM, spills 80 bytes "
+                  "at 255 registers: 96 of dQ, 64 of S and dP"),
     KernelSpec(
         "flash_bwd_dkdv_bf16", "flash_attention_bwd.cu", "kDkdvThreads, 1",
         ("flash_attention_bwd",), 256, 1,
         lambda a: 216 if a[0] == 64 else 255,
         "flash_attention.backward_smem",
-        stack=lambda a: 56 if a[0] == 128 else 0,
+        stack=lambda a: {128: 56, 192: 208}.get(a[0], 0),
         why_stack="at hd 128 the dK/dV block spills 56 bytes at 255 "
-                  "registers (PERF.md section 7)"),
+                  "registers (PERF.md section 7); at (192, 128) 208, its "
+                  "dK and dV sums alone 160 registers a thread"),
 )
 
 
@@ -512,7 +523,7 @@ def kernel_spec(family: str) -> KernelSpec:
 #: and the panel path's agent counts; the ``P_K(L)`` builds ``m``;
 #: apply-track ``(m, d, k)``; ``cholqr2`` ``(B, d, k)``; the power matmul
 #: ``(d, k)``; flash ``(hd, S)`` at the LM's B = 8, H = 9, Hkv = 3 (the
-#: forward's template arguments ``(hd, hd)``); the
+#: template arguments ``(hd, hd)``); the
 #: Gram ``(B, n, d)``.
 FASTMIX_SHAPES: Tuple[Tuple[int, int], ...] = (
     (50, 1500), (64, 4096), (64, 131072), (256, 1500), (512, 1500),
@@ -525,8 +536,9 @@ CHOLQR2_SHAPES: Tuple[Tuple[int, int, int], ...] = (
 POWER_SHAPES: Tuple[Tuple[int, int], ...] = ((300, 5), (4096, 32))
 FLASH_SHAPES: Tuple[Tuple[int, int], ...] = (
     (64, 512), (64, 4096), (128, 512), (128, 4096))
-#: the forward's split-dim instances ``(hd, hd_v, S)``: MLA's prefill
-#: (deepseek-v2, B = 4, H = Hkv = 128), q and k at 192, v at 128
+#: the split-dim instances ``(hd, hd_v, S)``, forward and backward: MLA's
+#: prefill and training (deepseek-v2, B = 4, H = Hkv = 128), q and k at
+#: 192, v at 128
 FLASH_SPLIT_SHAPES: Tuple[Tuple[int, int, int], ...] = ((192, 128, 512),)
 GRAM_SHAPES: Tuple[Tuple[int, int, int], ...] = (
     (50, 995, 300), (64, 4096, 32))

@@ -8,11 +8,14 @@
 // differentiates; the port trains through its flash kernel, so that
 // kernel's function needs this gradient.
 //
-// What it computes, for q, o, dO (B, H, Sq, HD), k, v (B, Hkv, Skv, HD), all
-// fp32 or all bf16, and the forward's fp32 lse (B, H, Sq), contiguous.
-// Every operand and gradient is taken through its batch, head and
-// sequence strides (in elements), with HD at stride 1.  Query head h reads
-// kv head h / (H / Hkv).  Per (b, h), the FlashAttention-2 backward:
+// What it computes, for q (B, H, Sq, HD), k (B, Hkv, Skv, HD), v (B, Hkv,
+// Skv, HDV), o and dO (B, H, Sq, HDV), all fp32 or all bf16, and the
+// forward's fp32 lse (B, H, Sq), contiguous; (HD, HDV) is (64, 64), (128,
+// 128) or, for DeepSeek's MLA (qk nope 128 + rope 64 a head, v 128), (192,
+// 128), the forward's instances.  Every operand and gradient is taken
+// through its batch, head and sequence strides (in elements), with the
+// head dim at stride 1.  Query head h reads kv head h / (H / Hkv).  Per
+// (b, h), the FlashAttention-2 backward:
 //   D   = rowsum(dO o)                     (fp32, written to `delta`; o
 //         is fp32 for bf16 calls too: the forward's o32, before its cast,
 //         which the training path saves; see flash_attention.cu)
@@ -20,8 +23,9 @@
 //         causal, row >= col on absolute indices (top-left), else 0
 //   dV  = P^T dO;  dP = dO V^T;  dS = P (dP - D)
 //   dQ  = dS K / sqrt(HD);  dK = dS^T (q / sqrt(HD))
-// Every sum runs in fp32; dK and dV sum the H / Hkv query heads of their
-// kv head before the cast; every gradient is cast to the operands' type.
+// S's dots and dQ, dK run over HD, dP's dots, dV and D over HDV.  Every
+// sum runs in fp32; dK and dV sum the H / Hkv query heads of their kv head
+// before the cast; every gradient is cast to the operands' type.
 //
 // Deterministic, without atomics: two grids, launched one after the other
 // on the caller's stream, each owning what it writes.
@@ -34,12 +38,14 @@
 // Each sum runs in a fixed order, so two calls give the same bits.  Both
 // grids recompute S and dP: 7 products where the bound counts 5.
 //
-// What bounds it on an H100: 5 * B * H * Sq * Skv * HD flops over the
-// unmasked half of a causal score matrix (S, dP, dV, dQ, dK) against
-// reading q, k, v, o, dO, lse once and writing dq, dk, dv once.  At the
-// training shape (B = 8, H = 9, Hkv = 3, S = 512, HD = 64) that is some 240
-// flops a byte, below the card's 295 for bf16: the bytes bound it; at
-// S = 4096 the tensor cores' rate does.
+// What bounds it on an H100: B * H * S^2 * (3 HD + 2 HDV) flops over the
+// unmasked half of a causal score matrix (S, dQ, dK at HD; dP, dV at HDV;
+// 5 B H S^2 HD at HD = HDV; twice that at Sq x Skv when not causal)
+// against reading q, k, v, o, dO, lse once and writing dq, dk, dv once.
+// At the training shape (B = 8, H = 9, Hkv = 3, S = 512, HD = 64) that is
+// some 240 flops a byte, below the card's 295 for bf16: the bytes bound
+// it; at S = 4096 the tensor cores' rate does; at MLA's (B = 4, H = Hkv
+// = 128, S = 512, (192, 128)) some 166 flops a byte: the bytes.
 //
 // bf16 (flash_bwd_dq_bf16, flash_bwd_dkdv_bf16; the LM's path): the tensor
 // cores, with flash_attention.cu's tiles (flash_tiles.cuh).  A tile is 64
@@ -82,11 +88,18 @@
 //   and 22% at S = 4096, hd 128 than two blocks of one group an SM).  At
 //   HD 128 the dK and dV sums take 128 registers a thread, so a warp takes
 //   a q tile in two passes of 32 columns, and K and V are read from shared
-//   memory at each k-step.
-//   Shared memory: the dQ grid six [64][HD] bf16 tiles and 512 B of lse
-//   and D (48.5 KB at HD 64, 96.5 KB at HD 128: three and two blocks an
-//   SM); the dK/dV grid ten tiles and 2 KB (82 KB, 162 KB: one block of 8
-//   warps an SM).
+//   memory at each k-step; at (192, 128) they take 160 (96 of dK, 64 of
+//   dV) and the block spills 208 bytes at 255 registers, in the same two
+//   passes of 32 columns (four passes of 16 spilled 368 bytes and ran 5%
+//   slower on an H100 at MLA's training shape).  Where HD and HDV differ,
+//   the k-steps past HDV run S^T alone and the n-pairs past HDV dK alone
+//   (the same loops, guarded at compile time).  The dQ block at (192,
+//   128), one an SM, holds 96 registers of dQ and spills 80 bytes.
+//   Shared memory: the dQ grid q, dO, two-stage K and V rings (three
+//   [64][HD] and three [64][HDV] bf16 tiles) and 512 B of lse and D (48.5
+//   KB at HD 64, 96.5 KB at HD 128, 120.5 KB at (192, 128): three, two and
+//   one block an SM); the dK/dV grid five tiles of each width and 2 KB (82
+//   KB, 162 KB, 202 KB: one block of 8 warps an SM).
 //   Rounding: P is rounded to bf16 before P^T dO and dS before the dQ and
 //   dK products, where FlashAttention-2 rounds (the forward rounds P before
 //   P V the same way); every sum stays in fp32.  At the training shape
@@ -96,10 +109,11 @@
 //
 // fp32 (flash_bwd_dq, flash_bwd_dkdv): no tensor-core path keeps IEEE fp32
 // dots (TF32 would not), so the CUDA cores: tiles of 64 rows are staged in
-// shared memory as fp32 (rows padded to HD + 1 floats, so the column walks
-// are free of bank conflicts); a thread owns 4 rows x 4 score columns (16
-// threads a row group) and 4 rows x HD / 16 output columns; q is scaled in
-// fp32 before the dot, and P and dS stay fp32.
+// shared memory as fp32 (rows padded to HD + 1 or HDV + 1 floats, so the
+// column walks are free of bank conflicts); a thread owns 4 rows x 4 score
+// columns (16 threads a row group) and 4 rows x HD / 16 (and HDV / 16)
+// output columns; q is scaled in fp32 before the dot, and P and dS stay
+// fp32.  At (192, 128) a block takes 177.75 KB (dQ) and 194 KB (dK/dV).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
@@ -122,21 +136,31 @@ constexpr int kCols = kB / kLanes;      // score columns a thread owns
 __device__ __forceinline__ float ld(const float* p) { return *p; }
 __device__ __forceinline__ void put(float* p, float x) { *p = x; }
 
-// Rows [row0, row0 + kB) of a (rows, HD) operand with row stride `stride`
-// into a [kB][HD + 1] fp32 tile, times `mul`; rows at or past n_rows are 0.
-template <int HD, typename T>
+// Rows [row0, row0 + kB) of a (rows, W) operand with row stride `stride`
+// into a [kB][W + 1] fp32 tile, times `mul`; rows at or past n_rows are 0.
+// Where W divides the block a thread keeps one column and steps kThreads
+// / W rows at a time; else (W = 192) it walks the tile's elements.
+template <int W, typename T>
 __device__ __forceinline__ void stage(float* dst, const T* src,
                                       long long stride, int row0, int n_rows,
                                       float mul) {
-  constexpr int kStep = kThreads / HD;
-  const int c = threadIdx.x % HD;
-  for (int r = threadIdx.x / HD; r < kB; r += kStep)
-    dst[r * (HD + 1) + c] =
-        row0 + r < n_rows ? ld(src + (row0 + r) * stride + c) * mul : 0.0f;
+  if constexpr (kThreads % W == 0) {
+    constexpr int kStep = kThreads / W;
+    const int c = threadIdx.x % W;
+    for (int r = threadIdx.x / W; r < kB; r += kStep)
+      dst[r * (W + 1) + c] =
+          row0 + r < n_rows ? ld(src + (row0 + r) * stride + c) * mul : 0.0f;
+  } else {
+    for (int i = threadIdx.x; i < kB * W; i += kThreads) {
+      const int r = i / W, c = i % W;
+      dst[r * (W + 1) + c] =
+          row0 + r < n_rows ? ld(src + (row0 + r) * stride + c) * mul : 0.0f;
+    }
+  }
 }
 
-// s[i][j] = a[r0 + i] . b[tc + kLanes j] over HD, for two [kB][HD + 1] tiles.
-template <int HD>
+// s[i][j] = a[r0 + i] . b[tc + kLanes j] over W, for two [kB][W + 1] tiles.
+template <int W>
 __device__ __forceinline__ void dots(const float* a, const float* b, int r0,
                                      int tc, float (&s)[kRows][kCols]) {
 #pragma unroll
@@ -144,12 +168,12 @@ __device__ __forceinline__ void dots(const float* a, const float* b, int r0,
 #pragma unroll
     for (int j = 0; j < kCols; ++j) s[i][j] = 0.0f;
 #pragma unroll 8
-  for (int c = 0; c < HD; ++c) {
+  for (int c = 0; c < W; ++c) {
     float av[kRows], bv[kCols];
 #pragma unroll
-    for (int i = 0; i < kRows; ++i) av[i] = a[(r0 + i) * (HD + 1) + c];
+    for (int i = 0; i < kRows; ++i) av[i] = a[(r0 + i) * (W + 1) + c];
 #pragma unroll
-    for (int j = 0; j < kCols; ++j) bv[j] = b[(tc + j * kLanes) * (HD + 1) + c];
+    for (int j = 0; j < kCols; ++j) bv[j] = b[(tc + j * kLanes) * (W + 1) + c];
 #pragma unroll
     for (int i = 0; i < kRows; ++i)
 #pragma unroll
@@ -178,35 +202,37 @@ __device__ __forceinline__ void grads_of_scores(
   }
 }
 
-template <int HD>
+template <int HD, int HDV>
 constexpr size_t smem_dq() {
-  // q, dO, k (first o), v tiles; dS; lse and D
-  return ((size_t)4 * kB * (HD + 1) + (size_t)kB * (kB + 1) + 2 * kB) *
+  // q and k (first o, for D) tiles at HD, dO and v at HDV; dS; lse and D
+  return ((size_t)2 * kB * (HD + 1) + (size_t)2 * kB * (HDV + 1) +
+          (size_t)kB * (kB + 1) + 2 * kB) *
          sizeof(float);
 }
 
-template <int HD>
+template <int HD, int HDV>
 constexpr size_t smem_dkdv() {
-  // k, v, q, dO tiles; P and dS; lse and D
-  return ((size_t)4 * kB * (HD + 1) + (size_t)2 * kB * (kB + 1) + 2 * kB) *
+  // k and q tiles at HD, v and dO at HDV; P and dS; lse and D
+  return ((size_t)2 * kB * (HD + 1) + (size_t)2 * kB * (HDV + 1) +
+          (size_t)2 * kB * (kB + 1) + 2 * kB) *
          sizeof(float);
 }
 
-template <int HD, typename T>
+template <int HD, int HDV, typename T>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, const T* __restrict__ o,
              const T* __restrict__ dout, const float* __restrict__ lse,
              float* __restrict__ delta, T* __restrict__ dq, int H, int Hkv,
              int Sq, int Skv, int causal, float scale, Strides st) {
-  constexpr int kP = HD + 1;
+  constexpr int kP = HD + 1, kPV = HDV + 1;
   constexpr int kOut = HD / kLanes;
   extern __shared__ float smem[];
   float* qs = smem;                     // [kB][kP] q scaled
-  float* dos = qs + kB * kP;            // [kB][kP] dO
-  float* ks = dos + kB * kP;            // [kB][kP] k (first: o, for D)
-  float* vs = ks + kB * kP;             // [kB][kP] v
-  float* dss = vs + kB * kP;            // [kB][kB + 1] dS
+  float* dos = qs + kB * kP;            // [kB][kPV] dO
+  float* ks = dos + kB * kPV;           // [kB][kP] k (first: o at kPV, for D)
+  float* vs = ks + kB * kP;             // [kB][kPV] v
+  float* dss = vs + kB * kPV;           // [kB][kB + 1] dS
   float* lse_s = dss + kB * (kB + 1);   // [kB]
   float* d_s = lse_s + kB;              // [kB]
 
@@ -226,8 +252,8 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
   const int r0 = tr * kRows;
 
   stage<HD>(qs, qb, st.q[2], q0, Sq, scale);
-  stage<HD>(dos, dob, st.d_o[2], q0, Sq, 1.0f);
-  stage<HD>(ks, ob, st.o[2], q0, Sq, 1.0f);
+  stage<HDV>(dos, dob, st.d_o[2], q0, Sq, 1.0f);
+  stage<HDV>(ks, ob, st.o[2], q0, Sq, 1.0f);
   if (threadIdx.x < kB)
     lse_s[threadIdx.x] =
         q0 + threadIdx.x < Sq ? lse[rows + q0 + threadIdx.x] : 0.0f;
@@ -236,8 +262,8 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
     // D = rowsum(dO o): four lanes a row, summed in a fixed order
     const int r = threadIdx.x / 4, part = threadIdx.x % 4;
     float acc = 0.0f;
-    for (int c = part; c < HD; c += 4)
-      acc = __fmaf_rn(dos[r * kP + c], ks[r * kP + c], acc);
+    for (int c = part; c < HDV; c += 4)
+      acc = __fmaf_rn(dos[r * kPV + c], ks[r * kPV + c], acc);
     acc += __shfl_xor_sync(0xffffffffu, acc, 1);
     acc += __shfl_xor_sync(0xffffffffu, acc, 2);
     if (part == 0) {
@@ -258,11 +284,11 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
     const int kv0 = t * kB;
     __syncthreads();                    // the last readers of ks, vs, dss
     stage<HD>(ks, kb, st.k[2], kv0, Skv, 1.0f);
-    stage<HD>(vs, vb, st.v[2], kv0, Skv, 1.0f);
+    stage<HDV>(vs, vb, st.v[2], kv0, Skv, 1.0f);
     __syncthreads();
     float s[kRows][kCols], dp[kRows][kCols];
     dots<HD>(qs, ks, r0, tc, s);
-    dots<HD>(dos, vs, r0, tc, dp);
+    dots<HDV>(dos, vs, r0, tc, dp);
     grads_of_scores(s, dp, lse_s, d_s, q0, kv0, r0, tc, Sq, Skv, causal);
 #pragma unroll
     for (int i = 0; i < kRows; ++i)
@@ -295,21 +321,21 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <int HD, typename T>
+template <int HD, int HDV, typename T>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
                const T* __restrict__ v, const T* __restrict__ dout,
                const float* __restrict__ lse, const float* __restrict__ delta,
                T* __restrict__ dk, T* __restrict__ dv, int H, int Hkv,
                int Sq, int Skv, int causal, float scale, Strides st) {
-  constexpr int kP = HD + 1;
-  constexpr int kOut = HD / kLanes;
+  constexpr int kP = HD + 1, kPV = HDV + 1;
+  constexpr int kOut = HD / kLanes, kOutV = HDV / kLanes;
   extern __shared__ float smem[];
   float* ks = smem;                     // [kB][kP] this block's k tile
-  float* vs = ks + kB * kP;             // [kB][kP] this block's v tile
-  float* qs = vs + kB * kP;             // [kB][kP] q scaled
-  float* dos = qs + kB * kP;            // [kB][kP] dO
-  float* ps = dos + kB * kP;            // [kB][kB + 1] P
+  float* vs = ks + kB * kP;             // [kB][kPV] this block's v tile
+  float* qs = vs + kB * kPV;            // [kB][kP] q scaled
+  float* dos = qs + kB * kP;            // [kB][kPV] dO
+  float* ps = dos + kB * kPV;           // [kB][kB + 1] P
   float* dss = ps + kB * (kB + 1);      // [kB][kB + 1] dS
   float* lse_s = dss + kB * (kB + 1);   // [kB]
   float* d_s = lse_s + kB;              // [kB]
@@ -327,16 +353,16 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
   const int r0 = tr * kRows;   // q rows of the scores; kv rows of dK, dV
 
   stage<HD>(ks, kb, st.k[2], kv0, Skv, 1.0f);
-  stage<HD>(vs, vb, st.v[2], kv0, Skv, 1.0f);
+  stage<HDV>(vs, vb, st.v[2], kv0, Skv, 1.0f);
 
-  float adk[kRows][kOut], adv[kRows][kOut];
+  float adk[kRows][kOut], adv[kRows][kOutV];
 #pragma unroll
-  for (int i = 0; i < kRows; ++i)
+  for (int i = 0; i < kRows; ++i) {
 #pragma unroll
-    for (int j = 0; j < kOut; ++j) {
-      adk[i][j] = 0.0f;
-      adv[i][j] = 0.0f;
-    }
+    for (int j = 0; j < kOut; ++j) adk[i][j] = 0.0f;
+#pragma unroll
+    for (int j = 0; j < kOutV; ++j) adv[i][j] = 0.0f;
+  }
 
   const int n_q = (Sq + kB - 1) / kB;
   // causal: q tiles above this kv tile's first column see none of it
@@ -350,7 +376,7 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
       const int q0 = qt * kB;
       __syncthreads();                  // the last readers of qs, dos, ps, dss
       stage<HD>(qs, qb, st.q[2], q0, Sq, scale);
-      stage<HD>(dos, dob, st.d_o[2], q0, Sq, 1.0f);
+      stage<HDV>(dos, dob, st.d_o[2], q0, Sq, 1.0f);
       if (threadIdx.x < kB) {
         const bool in = q0 + threadIdx.x < Sq;
         lse_s[threadIdx.x] = in ? lse[rows + q0 + threadIdx.x] : 0.0f;
@@ -359,7 +385,7 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
       __syncthreads();
       float s[kRows][kCols], dp[kRows][kCols];
       dots<HD>(qs, ks, r0, tc, s);
-      dots<HD>(dos, vs, r0, tc, dp);
+      dots<HDV>(dos, vs, r0, tc, dp);
       grads_of_scores(s, dp, lse_s, d_s, q0, kv0, r0, tc, Sq, Skv, causal);
 #pragma unroll
       for (int i = 0; i < kRows; ++i)
@@ -378,14 +404,18 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
           dsv[i] = dss[r * (kB + 1) + r0 + i];
         }
 #pragma unroll
+        for (int j = 0; j < kOutV; ++j) {
+          const float dov = dos[r * kPV + tc + j * kLanes];
+#pragma unroll
+          for (int i = 0; i < kRows; ++i)
+            adv[i][j] = __fmaf_rn(pv[i], dov, adv[i][j]);
+        }
+#pragma unroll
         for (int j = 0; j < kOut; ++j) {
-          const float dov = dos[r * kP + tc + j * kLanes];
           const float qv = qs[r * kP + tc + j * kLanes];
 #pragma unroll
-          for (int i = 0; i < kRows; ++i) {
-            adv[i][j] = __fmaf_rn(pv[i], dov, adv[i][j]);
+          for (int i = 0; i < kRows; ++i)
             adk[i][j] = __fmaf_rn(dsv[i], qv, adk[i][j]);
-          }
         }
       }
     }
@@ -396,10 +426,11 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
     const int row = kv0 + r0 + i;
     if (row >= Skv) continue;
 #pragma unroll
-    for (int j = 0; j < kOut; ++j) {
+    for (int j = 0; j < kOut; ++j)
       put(dkb + row * st.dk[2] + tc + j * kLanes, adk[i][j]);
+#pragma unroll
+    for (int j = 0; j < kOutV; ++j)
       put(dvb + row * st.dv[2] + tc + j * kLanes, adv[i][j]);
-    }
   }
 }
 
@@ -417,40 +448,41 @@ __device__ __forceinline__ void cp_async4(unsigned dst, const void* src,
                : "memory");
 }
 
-template <int HD>
+template <int HD, int HDV>
 constexpr size_t smem_dq_bf16() {
-  // q, dO, two-stage K and V rings of [64][HD] bf16; lse and D of 64 rows
-  return (size_t)6 * kTileRows * HD * sizeof(bf16) +
+  // q and a two-stage K ring of [64][HD] bf16, dO and a two-stage V ring
+  // of [64][HDV]; lse and D of 64 rows
+  return (size_t)3 * kTileRows * (HD + HDV) * sizeof(bf16) +
          (size_t)2 * kTileRows * sizeof(float);
 }
 
-template <int HD>
+template <int HD, int HDV>
 constexpr size_t smem_dkdv_bf16() {
-  // K and V tiles, then a ring a warp group: two-stage q and dO tiles,
-  // lse and D of 64 rows each stage
-  return (size_t)(2 + 4 * kStages) * kTileRows * HD * sizeof(bf16) +
+  // K [64][HD] and V [64][HDV], then a ring a warp group: two-stage q
+  // [64][HD] and dO [64][HDV] tiles, lse and D of 64 rows each stage
+  return (size_t)(1 + 2 * kStages) * kTileRows * (HD + HDV) * sizeof(bf16) +
          (size_t)2 * 2 * kStages * kTileRows * sizeof(float);
 }
 
-// The warp's 16 rows of an fp32 (16, HD) accumulator held as C fragments,
-// times mul, rounded to bf16 into the same rows of a swizzled shared tile,
-// then copied to rows row0 + (those rows) of dst below n_rows by 16-byte
-// stores.  Touches only the warp's own rows of `tile`.
-template <int HD>
+// The warp's 16 rows of an fp32 (16, W) accumulator held as C fragments,
+// times mul, rounded to bf16 into the same rows of a swizzled [rows][W]
+// shared tile, then copied to rows row0 + (those rows) of dst below n_rows
+// by 16-byte stores.  Touches only the warp's own rows of `tile`.
+template <int W>
 __device__ __forceinline__ void store_rows(bf16* tile,
-                                           const float (&acc)[HD / 8][4],
+                                           const float (&acc)[W / 8][4],
                                            float mul, bf16* dst,
                                            long long stride, int row0,
                                            int n_rows) {
-  constexpr int kChunks = HD / 8;
+  constexpr int kChunks = W / 8;
   const int lane = threadIdx.x % 32, wr = threadIdx.x / 32 * 16;
   const int g = lane >> 2, t4 = lane & 3;
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const int r = wr + g + hh * 8;
 #pragma unroll
-    for (int n = 0; n < HD / 8; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(tile + swz<HD>(r, n * 8) + 2 * t4) =
+    for (int n = 0; n < W / 8; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(tile + swz<W>(r, n * 8) + 2 * t4) =
           __floats2bfloat162_rn(acc[n][2 * hh] * mul,
                                 acc[n][2 * hh + 1] * mul);
   }
@@ -461,7 +493,7 @@ __device__ __forceinline__ void store_rows(bf16* tile,
     const int r = wr + idx / kChunks, c = idx % kChunks;
     if (row0 + r < n_rows)
       *reinterpret_cast<uint4*>(dst + (row0 + r) * stride + c * 8) =
-          *reinterpret_cast<const uint4*>(tile + swz<HD>(r, c * 8));
+          *reinterpret_cast<const uint4*>(tile + swz<W>(r, c * 8));
   }
 }
 
@@ -476,8 +508,9 @@ __device__ __forceinline__ void a_fragment(unsigned (&a)[4],
   a[3] = pack_bf16(hi[2], hi[3]);
 }
 
-template <int HD>
-__global__ void __launch_bounds__(kTileThreads, HD == 64 ? 3 : 2)
+template <int HD, int HDV>
+__global__ void __launch_bounds__(kTileThreads,
+                                  HD == 64 ? 3 : HD == 128 ? 2 : 1)
 flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const bf16* __restrict__ v, const float* __restrict__ o,
                   const bf16* __restrict__ dout,
@@ -485,15 +518,18 @@ flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   bf16* __restrict__ dq, int H, int Hkv, int Sq, int Skv,
                   int causal, float scale, Strides st) {
   constexpr int kTile = kTileRows * HD;
-  constexpr int kKB = HD / 16;          // k-steps of S, dP; n-pairs of dQ
+  constexpr int kTileV = kTileRows * HDV;
+  constexpr int kKB = HD / 16;          // k-steps of S; n-pairs of dQ
+  constexpr int kVB = HDV / 16;         // k-steps of dP
+  constexpr int kSteps = kKB > kVB ? kKB : kVB;
   constexpr int kN = kTileRows / 8;     // score n-tiles of 8 kv columns
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* sq = reinterpret_cast<bf16*>(smem_raw);     // [64][HD]
-  bf16* sdo = sq + kTile;                           // [64][HD]
-  bf16* sk = sdo + kTile;                           // [kStages][64][HD]
-  bf16* sv = sk + kStages * kTile;                  // [kStages][64][HD]
-  float* lse_s = reinterpret_cast<float*>(sv + kStages * kTile);  // [64]
-  float* d_s = lse_s + kTileRows;                                 // [64]
+  bf16* sdo = sq + kTile;                           // [64][HDV]
+  bf16* sk = sdo + kTileV;                          // [kStages][64][HD]
+  bf16* sv = sk + kStages * kTile;                  // [kStages][64][HDV]
+  float* lse_s = reinterpret_cast<float*>(sv + kStages * kTileV);  // [64]
+  float* d_s = lse_s + kTileRows;                                  // [64]
 
   // the i-th block takes q tile (from the last) i / (B H) of (b, h) =
   // i mod (B H): every head's heaviest tile first
@@ -520,9 +556,9 @@ flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   // one commit group per kv tile; the q and dO tiles travel with tile 0
   load_tile<HD>(sq, qb, st.q[2], q0, Sq);
-  load_tile<HD>(sdo, dob, st.d_o[2], q0, Sq);
+  load_tile<HDV>(sdo, dob, st.d_o[2], q0, Sq);
   load_tile<HD>(sk, kb, st.k[2], 0, Skv);
-  load_tile<HD>(sv, vb, st.v[2], 0, Skv);
+  load_tile<HDV>(sv, vb, st.v[2], 0, Skv);
   cp_async_commit();
 
   {
@@ -532,10 +568,10 @@ flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int r = threadIdx.x >> 1, half = threadIdx.x & 1;
     float acc = 0.0f;
     if (q0 + r < Sq) {
-      const bf16* pd = dob + (q0 + r) * st.d_o[2] + half * (HD / 2);
-      const float* po = ob + (q0 + r) * st.o[2] + half * (HD / 2);
+      const bf16* pd = dob + (q0 + r) * st.d_o[2] + half * (HDV / 2);
+      const float* po = ob + (q0 + r) * st.o[2] + half * (HDV / 2);
 #pragma unroll
-      for (int c = 0; c < HD / 16; ++c) {
+      for (int c = 0; c < HDV / 16; ++c) {
         const uint4 x = *reinterpret_cast<const uint4*>(pd + c * 8);
         const __nv_bfloat162* x2 =
             reinterpret_cast<const __nv_bfloat162*>(&x);
@@ -578,36 +614,41 @@ flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (t + 1 < n_tiles) {
       const int st1 = (t + 1) % kStages;
       load_tile<HD>(sk + st1 * kTile, kb, st.k[2], kv0 + kTileRows, Skv);
-      load_tile<HD>(sv + st1 * kTile, vb, st.v[2], kv0 + kTileRows, Skv);
+      load_tile<HDV>(sv + st1 * kTileV, vb, st.v[2], kv0 + kTileRows, Skv);
     }
     cp_async_commit();
     cp_async_wait<1>();                 // tile t (and q, dO) have landed
     __syncthreads();
     const bf16* ks = sk + (t % kStages) * kTile;
-    const bf16* vs = sv + (t % kStages) * kTile;
+    const bf16* vs = sv + (t % kStages) * kTileV;
 
-    // S = q K^T and dP = dO V^T: 16 rows x 64 columns a warp
+    // S = q K^T (k-steps over HD) and dP = dO V^T (over HDV): 16 rows x
+    // 64 columns a warp
     float s[kN][4], dp[kN][4];
 #pragma unroll
     for (int n = 0; n < kN; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.0f;
 #pragma unroll
-    for (int kk = 0; kk < kKB; ++kk) {
+    for (int kk = 0; kk < kSteps; ++kk) {
       unsigned qa[4], da[4];
       const int ra = wr + li + (lj & 1) * 8, ca = kk * 16 + (lj >> 1) * 8;
-      ldmatrix_x4(qa, smem_u32(sq + swz<HD>(ra, ca)));
-      ldmatrix_x4(da, smem_u32(sdo + swz<HD>(ra, ca)));
+      if (kk < kKB) ldmatrix_x4(qa, smem_u32(sq + swz<HD>(ra, ca)));
+      if (kk < kVB) ldmatrix_x4(da, smem_u32(sdo + swz<HDV>(ra, ca)));
 #pragma unroll
       for (int np = 0; np < kN / 2; ++np) {
         const int rb = np * 16 + li + (lj >> 1) * 8, cb = kk * 16 + (lj & 1) * 8;
         unsigned r[4];
-        ldmatrix_x4(r, smem_u32(ks + swz<HD>(rb, cb)));
-        mma_bf16(s[2 * np], qa, r[0], r[1]);
-        mma_bf16(s[2 * np + 1], qa, r[2], r[3]);
-        ldmatrix_x4(r, smem_u32(vs + swz<HD>(rb, cb)));
-        mma_bf16(dp[2 * np], da, r[0], r[1]);
-        mma_bf16(dp[2 * np + 1], da, r[2], r[3]);
+        if (kk < kKB) {
+          ldmatrix_x4(r, smem_u32(ks + swz<HD>(rb, cb)));
+          mma_bf16(s[2 * np], qa, r[0], r[1]);
+          mma_bf16(s[2 * np + 1], qa, r[2], r[3]);
+        }
+        if (kk < kVB) {
+          ldmatrix_x4(r, smem_u32(vs + swz<HDV>(rb, cb)));
+          mma_bf16(dp[2 * np], da, r[0], r[1]);
+          mma_bf16(dp[2 * np + 1], da, r[2], r[3]);
+        }
       }
     }
 
@@ -662,7 +703,7 @@ __device__ __forceinline__ void group_sync(int group) {
                : "memory");
 }
 
-template <int HD>
+template <int HD, int HDV>
 __global__ void __launch_bounds__(kDkdvThreads, 1)
 flash_bwd_dkdv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -671,20 +712,25 @@ flash_bwd_dkdv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     bf16* __restrict__ dv, int H, int Hkv, int Sq, int Skv,
                     int causal, float scale, Strides st) {
   constexpr int kTile = kTileRows * HD;
-  constexpr int kKB = HD / 16;          // k-steps of S^T, dP^T; n-pairs out
+  constexpr int kTileV = kTileRows * HDV;
+  constexpr int kKB = HD / 16;          // k-steps of S^T; n-pairs of dK
+  constexpr int kVB = HDV / 16;         // k-steps of dP^T; n-pairs of dV
+  constexpr int kSteps = kKB > kVB ? kKB : kVB;
   constexpr int kQC = HD == 64 ? 64 : 32;  // q columns of a tile a pass
-  constexpr int kRing = kStages * (2 * kTile * (int)sizeof(bf16) +
+  constexpr int kRing = kStages * ((kTile + kTileV) * (int)sizeof(bf16) +
                                    2 * kTileRows * (int)sizeof(float));
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* sk = reinterpret_cast<bf16*>(smem_raw);     // [64][HD]
-  bf16* sv = sk + kTile;                            // [64][HD]
-  // then one ring a warp group: q, dO [kStages][64][HD], lse, D [kStages][64]
+  bf16* sv = sk + kTile;                            // [64][HDV]
+  // then one ring a warp group: q [kStages][64][HD], dO [kStages][64][HDV],
+  // lse, D [kStages][64]
   const int group = threadIdx.x / kTileThreads;
   const int tid = threadIdx.x % kTileThreads;       // thread in the group
-  unsigned char* ring = smem_raw + 2 * kTile * sizeof(bf16) + group * kRing;
+  unsigned char* ring =
+      smem_raw + (kTile + kTileV) * sizeof(bf16) + group * kRing;
   bf16* sq = reinterpret_cast<bf16*>(ring);
   bf16* sdo = sq + kStages * kTile;
-  float* lse_s = reinterpret_cast<float*>(sdo + kStages * kTile);
+  float* lse_s = reinterpret_cast<float*>(sdo + kStages * kTileV);
   float* d_s = lse_s + kStages * kTileRows;
 
   // the i-th block takes kv tile i / (B Hkv) of (b, hkv) = i mod (B Hkv):
@@ -717,8 +763,8 @@ flash_bwd_dkdv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int stg = j % kStages;
     load_tile<HD>(sq + stg * kTile, q + b * st.q[0] + h * st.q[1], st.q[2],
                   q0, Sq, tid);
-    load_tile<HD>(sdo + stg * kTile, dout + b * st.d_o[0] + h * st.d_o[1],
-                  st.d_o[2], q0, Sq, tid);
+    load_tile<HDV>(sdo + stg * kTileV, dout + b * st.d_o[0] + h * st.d_o[1],
+                   st.d_o[2], q0, Sq, tid);
     const int i = tid % kTileRows;
     const bool in = q0 + i < Sq;
     const float* src = (tid < kTileRows ? lse : delta) +
@@ -732,8 +778,8 @@ flash_bwd_dkdv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     load_tile<HD>(sk, k + b * st.k[0] + hkv * st.k[1], st.k[2], kv0, Skv,
                   tid);
   else
-    load_tile<HD>(sv, v + b * st.v[0] + hkv * st.v[1], st.v[2], kv0, Skv,
-                  tid);
+    load_tile<HDV>(sv, v + b * st.v[0] + hkv * st.v[1], st.v[2], kv0, Skv,
+                   tid);
   cp_async_commit();
   if (n_mine > 0) fetch(0);
   cp_async_commit();                    // then one commit group a fetch
@@ -741,11 +787,14 @@ flash_bwd_dkdv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   __syncthreads();
 
   const float scale_log2 = scale * kLog2e;
-  float adk[HD / 8][4], adv[HD / 8][4];
+  float adk[HD / 8][4], adv[HDV / 8][4];
 #pragma unroll
-  for (int n = 0; n < HD / 8; ++n)
+  for (int e = 0; e < 4; ++e) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) adk[n][e] = adv[n][e] = 0.0f;
+    for (int n = 0; n < HD / 8; ++n) adk[n][e] = 0.0f;
+#pragma unroll
+    for (int n = 0; n < HDV / 8; ++n) adv[n][e] = 0.0f;
+  }
 
   for (int j = 0; j < n_mine; ++j) {
     if (j + 1 < n_mine) fetch(j + 1);
@@ -756,7 +805,7 @@ flash_bwd_dkdv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int stg = j % kStages;
     const int q0 = (first + it % per_head) * kTileRows;
     const bf16* qs = sq + stg * kTile;
-    const bf16* dos = sdo + stg * kTile;
+    const bf16* dos = sdo + stg * kTileV;
     const float* ls = lse_s + stg * kTileRows;
     const float* ds = d_s + stg * kTileRows;
     const bool edge =
@@ -764,29 +813,34 @@ flash_bwd_dkdv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 #pragma unroll
     for (int c0 = 0; c0 < kTileRows; c0 += kQC) {
-      // S^T = K q^T and dP^T = V dO^T: 16 kv rows x kQC q columns a warp
+      // S^T = K q^T (k-steps over HD) and dP^T = V dO^T (over HDV): 16 kv
+      // rows x kQC q columns a warp
       float s[kQC / 8][4], dp[kQC / 8][4];
 #pragma unroll
       for (int n = 0; n < kQC / 8; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.0f;
 #pragma unroll
-      for (int kk = 0; kk < kKB; ++kk) {
+      for (int kk = 0; kk < kSteps; ++kk) {
         unsigned ka[4], va[4];
         const int ra = wr + li + (lj & 1) * 8, ca = kk * 16 + (lj >> 1) * 8;
-        ldmatrix_x4(ka, smem_u32(sk + swz<HD>(ra, ca)));
-        ldmatrix_x4(va, smem_u32(sv + swz<HD>(ra, ca)));
+        if (kk < kKB) ldmatrix_x4(ka, smem_u32(sk + swz<HD>(ra, ca)));
+        if (kk < kVB) ldmatrix_x4(va, smem_u32(sv + swz<HDV>(ra, ca)));
 #pragma unroll
         for (int np = 0; np < kQC / 16; ++np) {
           const int rb = c0 + np * 16 + li + (lj >> 1) * 8;
           const int cb = kk * 16 + (lj & 1) * 8;
           unsigned r[4];
-          ldmatrix_x4(r, smem_u32(qs + swz<HD>(rb, cb)));
-          mma_bf16(s[2 * np], ka, r[0], r[1]);
-          mma_bf16(s[2 * np + 1], ka, r[2], r[3]);
-          ldmatrix_x4(r, smem_u32(dos + swz<HD>(rb, cb)));
-          mma_bf16(dp[2 * np], va, r[0], r[1]);
-          mma_bf16(dp[2 * np + 1], va, r[2], r[3]);
+          if (kk < kKB) {
+            ldmatrix_x4(r, smem_u32(qs + swz<HD>(rb, cb)));
+            mma_bf16(s[2 * np], ka, r[0], r[1]);
+            mma_bf16(s[2 * np + 1], ka, r[2], r[3]);
+          }
+          if (kk < kVB) {
+            ldmatrix_x4(r, smem_u32(dos + swz<HDV>(rb, cb)));
+            mma_bf16(dp[2 * np], va, r[0], r[1]);
+            mma_bf16(dp[2 * np + 1], va, r[2], r[3]);
+          }
         }
       }
 
@@ -821,15 +875,19 @@ flash_bwd_dkdv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
         a_fragment(sa, dp[2 * kk], dp[2 * kk + 1]);
         const int rb = c0 + kk * 16 + li + (lj & 1) * 8;
 #pragma unroll
-        for (int np = 0; np < kKB; ++np) {
+        for (int np = 0; np < kSteps; ++np) {
           const int cb = np * 16 + (lj >> 1) * 8;
           unsigned r[4];
-          ldmatrix_x4_trans(r, smem_u32(dos + swz<HD>(rb, cb)));
-          mma_bf16(adv[2 * np], pa, r[0], r[1]);
-          mma_bf16(adv[2 * np + 1], pa, r[2], r[3]);
-          ldmatrix_x4_trans(r, smem_u32(qs + swz<HD>(rb, cb)));
-          mma_bf16(adk[2 * np], sa, r[0], r[1]);
-          mma_bf16(adk[2 * np + 1], sa, r[2], r[3]);
+          if (np < kVB) {
+            ldmatrix_x4_trans(r, smem_u32(dos + swz<HDV>(rb, cb)));
+            mma_bf16(adv[2 * np], pa, r[0], r[1]);
+            mma_bf16(adv[2 * np + 1], pa, r[2], r[3]);
+          }
+          if (np < kKB) {
+            ldmatrix_x4_trans(r, smem_u32(qs + swz<HD>(rb, cb)));
+            mma_bf16(adk[2 * np], sa, r[0], r[1]);
+            mma_bf16(adk[2 * np + 1], sa, r[2], r[3]);
+          }
         }
       }
     }
@@ -840,113 +898,122 @@ flash_bwd_dkdv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // fixed order (group 0 + group 1)
   cp_async_wait<0>();
   __syncthreads();
-  float* red = reinterpret_cast<float*>(smem_raw + 2 * kTile * sizeof(bf16));
-  constexpr int kVals = HD / 8 * 4;     // floats of one sum a thread
-  static_assert(2 * kVals * kTileThreads * sizeof(float) <=
+  float* red = reinterpret_cast<float*>(smem_raw +
+                                        (kTile + kTileV) * sizeof(bf16));
+  constexpr int kValsK = HD / 8 * 4;    // floats of dK a thread
+  constexpr int kValsV = HDV / 8 * 4;   // floats of dV a thread
+  static_assert((kValsK + kValsV) * kTileThreads * sizeof(float) <=
                     (size_t)kGroups * kRing,
                 "the reduction fits in the rings");
   if (group == 1) {
 #pragma unroll
-    for (int n = 0; n < HD / 8; ++n)
+    for (int e = 0; e < 4; ++e) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
+      for (int n = 0; n < HD / 8; ++n)
         red[(n * 4 + e) * kTileThreads + tid] = adk[n][e];
-        red[(kVals + n * 4 + e) * kTileThreads + tid] = adv[n][e];
-      }
+#pragma unroll
+      for (int n = 0; n < HDV / 8; ++n)
+        red[(kValsK + n * 4 + e) * kTileThreads + tid] = adv[n][e];
+    }
   }
   __syncthreads();
   if (group == 1) return;
 #pragma unroll
-  for (int n = 0; n < HD / 8; ++n)
+  for (int e = 0; e < 4; ++e) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
+    for (int n = 0; n < HD / 8; ++n)
       adk[n][e] += red[(n * 4 + e) * kTileThreads + tid];
-      adv[n][e] += red[(kVals + n * 4 + e) * kTileThreads + tid];
-    }
+#pragma unroll
+    for (int n = 0; n < HDV / 8; ++n)
+      adv[n][e] += red[(kValsK + n * 4 + e) * kTileThreads + tid];
+  }
   // through the warp's own rows of the K and V tiles to 16-byte stores;
   // kv tiles no q row sees (causal, Sq < Skv) write zeros
   store_rows<HD>(sk, adk, scale, dk + b * st.dk[0] + hkv * st.dk[1],
                  st.dk[2], kv0, Skv);
-  store_rows<HD>(sv, adv, 1.0f, dv + b * st.dv[0] + hkv * st.dv[1],
-                 st.dv[2], kv0, Skv);
+  store_rows<HDV>(sv, adv, 1.0f, dv + b * st.dv[0] + hkv * st.dv[1],
+                  st.dv[2], kv0, Skv);
 }
 
-// Allows both bf16 kernels their dynamic shared memory at HD.
-template <int HD>
+// Allows both bf16 kernels their dynamic shared memory at (HD, HDV).
+template <int HD, int HDV>
 cudaError_t allow_smem_bf16() {
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_bf16<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem_dq_bf16<HD>());
+      flash_bwd_dq_bf16<HD, HDV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem_dq_bf16<HD, HDV>());
   if (err != cudaSuccess) return err;
-  return cudaFuncSetAttribute(flash_bwd_dkdv_bf16<HD>,
+  return cudaFuncSetAttribute(flash_bwd_dkdv_bf16<HD, HDV>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)smem_dkdv_bf16<HD>());
+                              (int)smem_dkdv_bf16<HD, HDV>());
 }
 
-template <int HD>
+template <int HD, int HDV>
 cudaError_t occupancy_bf16(int* out) {
-  cudaError_t err = allow_smem_bf16<HD>();
+  cudaError_t err = allow_smem_bf16<HD, HDV>();
   if (err != cudaSuccess) return err;
-  out[2] = (int)smem_dq_bf16<HD>();
-  out[3] = (int)smem_dkdv_bf16<HD>();
+  out[2] = (int)smem_dq_bf16<HD, HDV>();
+  out[3] = (int)smem_dkdv_bf16<HD, HDV>();
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      out, flash_bwd_dq_bf16<HD>, kTileThreads, out[2]);
+      out, flash_bwd_dq_bf16<HD, HDV>, kTileThreads, out[2]);
   if (err != cudaSuccess) return err;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      out + 1, flash_bwd_dkdv_bf16<HD>, kDkdvThreads, out[3]);
+      out + 1, flash_bwd_dkdv_bf16<HD, HDV>, kDkdvThreads, out[3]);
 }
 
-template <int HD>
+template <int HD, int HDV>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v,
                         const void* o, const void* dout, const float* lse,
                         float* delta, void* dq, void* dk, void* dv, int B,
                         int H, int Hkv, int Sq, int Skv, int causal,
                         float scale, const Strides& st, cudaStream_t stream) {
-  cudaError_t err = allow_smem_bf16<HD>();
+  cudaError_t err = allow_smem_bf16<HD, HDV>();
   if (err != cudaSuccess) return err;
-  flash_bwd_dq_bf16<HD><<<dim3((Sq + kTileRows - 1) / kTileRows, B * H),
-                          kTileThreads, smem_dq_bf16<HD>(), stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const float*)o,
-      (const bf16*)dout, lse, delta, (bf16*)dq, H, Hkv, Sq, Skv, causal,
-      scale, st);
+  flash_bwd_dq_bf16<HD, HDV>
+      <<<dim3((Sq + kTileRows - 1) / kTileRows, B * H), kTileThreads,
+          smem_dq_bf16<HD, HDV>(), stream>>>(
+          (const bf16*)q, (const bf16*)k, (const bf16*)v, (const float*)o,
+          (const bf16*)dout, lse, delta, (bf16*)dq, H, Hkv, Sq, Skv, causal,
+          scale, st);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  flash_bwd_dkdv_bf16<HD><<<dim3((Skv + kTileRows - 1) / kTileRows, B * Hkv),
-                            kDkdvThreads, smem_dkdv_bf16<HD>(), stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, lse,
-      delta, (bf16*)dk, (bf16*)dv, H, Hkv, Sq, Skv, causal, scale, st);
+  flash_bwd_dkdv_bf16<HD, HDV>
+      <<<dim3((Skv + kTileRows - 1) / kTileRows, B * Hkv), kDkdvThreads,
+          smem_dkdv_bf16<HD, HDV>(), stream>>>(
+          (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
+          lse, delta, (bf16*)dk, (bf16*)dv, H, Hkv, Sq, Skv, causal, scale,
+          st);
   return cudaGetLastError();
 }
 
-template <int HD, typename T>
+template <int HD, int HDV, typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
                    const void* dout, const float* lse, float* delta,
                    void* dq, void* dk, void* dv, int B, int H, int Hkv,
                    int Sq, int Skv, int causal, float scale,
                    const Strides& st, cudaStream_t stream) {
-  const size_t s_dq = smem_dq<HD>(), s_kv = smem_dkdv<HD>();
+  const size_t s_dq = smem_dq<HD, HDV>(), s_kv = smem_dkdv<HD, HDV>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq<HD, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_bwd_dq<HD, HDV, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)s_dq);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(flash_bwd_dkdv<HD, T>,
+  err = cudaFuncSetAttribute(flash_bwd_dkdv<HD, HDV, T>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)s_kv);
   if (err != cudaSuccess) return err;
-  flash_bwd_dq<HD, T><<<dim3((Sq + kB - 1) / kB, B * H), kThreads, s_dq,
-                         stream>>>(
+  flash_bwd_dq<HD, HDV, T><<<dim3((Sq + kB - 1) / kB, B * H), kThreads, s_dq,
+                              stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)o, (const T*)dout, lse,
       delta, (T*)dq, H, Hkv, Sq, Skv, causal, scale, st);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  flash_bwd_dkdv<HD, T><<<dim3((Skv + kB - 1) / kB, B * Hkv), kThreads, s_kv,
-                           stream>>>(
+  flash_bwd_dkdv<HD, HDV, T><<<dim3((Skv + kB - 1) / kB, B * Hkv), kThreads,
+                                s_kv, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta,
       (T*)dk, (T*)dv, H, Hkv, Sq, Skv, causal, scale, st);
   return cudaGetLastError();
 }
 
-template <int HD>
+template <int HD, int HDV>
 cudaError_t launch_hd(int is_bf16, const void* q, const void* k,
                       const void* v, const void* o, const void* dout,
                       const float* lse, float* delta, void* dq, void* dk,
@@ -954,10 +1021,10 @@ cudaError_t launch_hd(int is_bf16, const void* q, const void* k,
                       int causal, float scale, const Strides& st,
                       cudaStream_t stream) {
   if (is_bf16)
-    return launch_bf16<HD>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, H,
-                           Hkv, Sq, Skv, causal, scale, st, stream);
-  return launch<HD, float>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, H,
-                           Hkv, Sq, Skv, causal, scale, st, stream);
+    return launch_bf16<HD, HDV>(q, k, v, o, dout, lse, delta, dq, dk, dv, B,
+                                H, Hkv, Sq, Skv, causal, scale, st, stream);
+  return launch<HD, HDV, float>(q, k, v, o, dout, lse, delta, dq, dk, dv, B,
+                                H, Hkv, Sq, Skv, causal, scale, st, stream);
 }
 
 }  // namespace
@@ -965,10 +1032,11 @@ cudaError_t launch_hd(int is_bf16, const void* q, const void* k,
 extern "C" {
 
 // dq, dk, dv of o = attention(q, k, v) (flash_attention.cu's function) for
-// the incoming gradient dout: q, o, dout, dq (B, H, Sq, hd) and k, v, dk,
-// dv (B, Hkv, Skv, hd), all of one type (is_bf16 selects bf16, else fp32),
-// except o, fp32 either way (a bf16 call's is the forward's o32); hd is 64
-// or 128 and H a multiple of Hkv.  lse is the forward's fp32
+// the incoming gradient dout: q, dq (B, H, Sq, hd), k, dk (B, Hkv, Skv,
+// hd), v, dv (B, Hkv, Skv, hd_v) and o, dout (B, H, Sq, hd_v), all of one
+// type (is_bf16 selects bf16, else fp32), except o, fp32 either way (a
+// bf16 call's is the forward's o32); (hd, hd_v) is (64, 64), (128, 128)
+// or (192, 128), and H a multiple of Hkv.  lse is the forward's fp32
 // (B, H, Sq), contiguous; delta an fp32 (B, H, Sq) scratch that receives
 // D = rowsum(dout o).  strides holds 24 values: the batch, head and
 // sequence strides in elements of q, k, v, o, dout, dq, dk, dv in that
@@ -976,9 +1044,9 @@ extern "C" {
 int flash_attention_bwd(const void* q, const void* k, const void* v,
                         const void* o, const void* dout, const float* lse,
                         float* delta, void* dq, void* dk, void* dv, int B,
-                        int H, int Hkv, int Sq, int Skv, int hd, int causal,
-                        int is_bf16, float scale, const long long* strides,
-                        void* stream) {
+                        int H, int Hkv, int Sq, int Skv, int hd, int hd_v,
+                        int causal, int is_bf16, float scale,
+                        const long long* strides, void* stream) {
   if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv || Sq <= 0 || Skv <= 0 ||
       B * H > 65535 || strides == nullptr)
     return (int)cudaErrorInvalidValue;
@@ -987,21 +1055,26 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
   for (int t = 0; t < 8; ++t)
     for (int i = 0; i < 3; ++i) dst[t][i] = strides[3 * t + i];
   cudaStream_t s = (cudaStream_t)stream;
-  if (hd == 64)
-    return launch_hd<64>(is_bf16, q, k, v, o, dout, lse, delta, dq, dk, dv,
-                         B, H, Hkv, Sq, Skv, causal, scale, st, s);
-  if (hd == 128)
-    return launch_hd<128>(is_bf16, q, k, v, o, dout, lse, delta, dq, dk, dv,
-                          B, H, Hkv, Sq, Skv, causal, scale, st, s);
+  if (hd == 64 && hd_v == 64)
+    return launch_hd<64, 64>(is_bf16, q, k, v, o, dout, lse, delta, dq, dk,
+                             dv, B, H, Hkv, Sq, Skv, causal, scale, st, s);
+  if (hd == 128 && hd_v == 128)
+    return launch_hd<128, 128>(is_bf16, q, k, v, o, dout, lse, delta, dq, dk,
+                               dv, B, H, Hkv, Sq, Skv, causal, scale, st, s);
+  if (hd == 192 && hd_v == 128)
+    return launch_hd<192, 128>(is_bf16, q, k, v, o, dout, lse, delta, dq, dk,
+                               dv, B, H, Hkv, Sq, Skv, causal, scale, st, s);
   return (int)cudaErrorInvalidValue;
 }
 
-// How many blocks of each bf16 kernel an SM holds at once at head dim hd
-// (64 or 128): out[0] the dQ grid's, out[1] the dK/dV grid's; out[2] and
-// out[3] the dynamic shared bytes of a block of each.  Returns cudaError_t.
-int flash_attention_bwd_occupancy(int hd, int* out) {
-  if (hd == 64) return (int)occupancy_bf16<64>(out);
-  if (hd == 128) return (int)occupancy_bf16<128>(out);
+// How many blocks of each bf16 kernel an SM holds at once at head dims
+// (hd, hd_v), one of the pairs above: out[0] the dQ grid's, out[1] the
+// dK/dV grid's; out[2] and out[3] the dynamic shared bytes of a block of
+// each.  Returns cudaError_t.
+int flash_attention_bwd_occupancy(int hd, int hd_v, int* out) {
+  if (hd == 64 && hd_v == 64) return (int)occupancy_bf16<64, 64>(out);
+  if (hd == 128 && hd_v == 128) return (int)occupancy_bf16<128, 128>(out);
+  if (hd == 192 && hd_v == 128) return (int)occupancy_bf16<192, 128>(out);
   return (int)cudaErrorInvalidValue;
 }
 

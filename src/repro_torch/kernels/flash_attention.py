@@ -25,9 +25,10 @@ attention is ``_einsum_attention`` / ``_chunked_attention``, not its
 Pallas kernel).  :func:`flash_attention_backward_plain` is the backward's
 formulas in plain torch, the kernel's oracle; nothing on the card's path
 calls it.  Nothing falls back: an operand the kernels do not take raises,
-with or without grad.  The backward kernel takes one head dim, 64 or 128:
-a grad call at (192, 128) on the card raises (ROADMAP queue 1 item
-13b-4c).
+with or without grad.  The backward kernel takes the pairs
+:data:`BACKWARD_HEAD_DIM_PAIRS`, the forward's: (64, 64), (128, 128) and
+MLA's (192, 128), whose launches ``flash_attention_bwd_mla`` counts too;
+a grad call at any other pair raises before a launch.
 
 Layout: the operands may be strided views (the LM passes its ``(B, S, H,
 hd)`` projections transposed to ``(B, H, S, hd)``); the kernels read them
@@ -65,16 +66,17 @@ import torch
 from . import _build
 
 #: Kernel launches by this module's wrapper (reset by the caller).
-#: ``flash_attention_mla`` counts the forward's launches at (192, 128),
-#: which ``flash_attention`` counts too.
+#: ``flash_attention_mla`` and ``flash_attention_bwd_mla`` count the
+#: forward's and the backward's launches at (192, 128), which
+#: ``flash_attention`` and ``flash_attention_bwd`` count too.
 LAUNCHES = {"flash_attention": 0, "flash_attention_mla": 0,
-            "flash_attention_bwd": 0}
+            "flash_attention_bwd": 0, "flash_attention_bwd_mla": 0}
 
 _NEG_INF = -1e30
 #: (q and k's head dim, v's) of the forward kernel's instances
 KERNEL_HEAD_DIM_PAIRS = ((64, 64), (128, 128), (192, 128))
-#: the head dims of the backward kernel (q, k and v alike)
-KERNEL_HEAD_DIMS = (64, 128)
+#: (q and k's head dim, v's) of the backward kernel's instances
+BACKWARD_HEAD_DIM_PAIRS = ((64, 64), (128, 128), (192, 128))
 _MAX_BH = 65535             # the kernel puts B * H on grid.y
 _Q_CHUNK = 1024             # query rows per step of the plain version
 _ALIGN = 16                 # bytes: the kernel's copies are 16 bytes wide
@@ -96,20 +98,22 @@ def forward_smem(hd: int, bf16: bool, hd_v: int = None) -> int:
     return 4 * (2 * r * (hd + 1) + r * hd_v + r * (r + 1))
 
 
-def backward_smem(hd: int, bf16: bool) -> tuple:
+def backward_smem(hd: int, bf16: bool, hd_v: int = None) -> tuple:
     """``(dq, dkdv)``: dynamic shared bytes of a block of the backward's dQ
-    grid and of its dK/dV grid at head dim ``hd``
-    (``csrc/flash_attention_bwd.cu``).  bf16 (``smem_dq_bf16``,
-    ``smem_dkdv_bf16``): dQ holds q, dO and two-stage K and V rings of 64
-    x hd bf16 with lse and D of 64 rows; dK/dV the K and V tiles, then a
-    ring a warp group of two-stage q and dO tiles with their lse and D.
-    fp32 (``smem_dq``, ``smem_dkdv``): four tiles with rows padded to hd +
+    grid and of its dK/dV grid at q and k's head dim ``hd`` and v's
+    ``hd_v`` (default ``hd``) (``csrc/flash_attention_bwd.cu``).  bf16
+    (``smem_dq_bf16``, ``smem_dkdv_bf16``): dQ holds q and a two-stage K
+    ring of 64 x hd bf16, dO and a two-stage V ring of 64 x hd_v, with lse
+    and D of 64 rows; dK/dV the K and V tiles, then a ring a warp group of
+    two-stage q and dO tiles with their lse and D.  fp32 (``smem_dq``,
+    ``smem_dkdv``): two tiles with rows padded to hd + 1 and two to hd_v +
     1, one (dQ) or two (dK/dV) 64 x 65 score tiles, lse and D."""
-    r = TILE_ROWS
+    r, hd_v = TILE_ROWS, hd if hd_v is None else hd_v
     if bf16:
-        return (2 * 6 * r * hd + 4 * 2 * r,
-                2 * (2 + 4 * STAGES) * r * hd + 4 * 2 * 2 * STAGES * r)
-    tiles = 4 * r * (hd + 1) + 2 * r
+        return (2 * 3 * r * (hd + hd_v) + 4 * 2 * r,
+                2 * (1 + 2 * STAGES) * r * (hd + hd_v)
+                + 4 * 2 * 2 * STAGES * r)
+    tiles = 2 * r * (hd + 1) + 2 * r * (hd_v + 1) + 2 * r
     return 4 * (tiles + r * (r + 1)), 4 * (tiles + 2 * r * (r + 1))
 
 
@@ -262,21 +266,23 @@ def _entry():
 def _bwd_entry():
     fn = _build.load("flash_attention_bwd").flash_attention_bwd
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [
         ctypes.c_float, ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
     return fn
 
 
-def backward_occupancy(hd: int):
+def backward_occupancy(hd: int, hd_v: int = None):
     """``(dq_blocks, dkdv_blocks, dq_smem, dkdv_smem)``: how many blocks of
     the bf16 backward's dQ and dK/dV kernels one SM of the current card
-    holds at once at head dim ``hd``, as their registers and shared memory
-    allow, and the dynamic shared bytes of a block of each."""
+    holds at once at head dims ``(hd, hd_v)`` (``hd_v`` defaults to
+    ``hd``), as their registers and shared memory allow, and the dynamic
+    shared bytes of a block of each."""
     fn = _build.load("flash_attention_bwd").flash_attention_bwd_occupancy
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     out = (ctypes.c_int * 4)()
-    _build.check("flash_attention_bwd", fn(hd, out))
+    _build.check("flash_attention_bwd",
+                 fn(hd, hd if hd_v is None else hd_v, out))
     return tuple(out)
 
 
@@ -358,18 +364,23 @@ def flash_attention_backward(q, k, v, o, lse, do, *, causal: bool = True):
     entry launches its dQ grid, then its dK/dV grid).  ``lse`` is the
     forward's fp32 ``(B, H, Sq)``; ``o`` its output in fp32 (bf16
     operands' ``o32``, as :func:`forward_for_backward` keeps it); ``do``
-    may be any view of a ``(B, H, Sq, hd)`` gradient.  q, k and v share
-    one head dim, 64 or 128."""
+    may be any view of a ``(B, H, Sq, hd_v)`` gradient.  (q and k's head
+    dim, v's) is one of :data:`BACKWARD_HEAD_DIM_PAIRS`; at (192, 128)
+    the call also counts under ``flash_attention_bwd_mla``."""
     _check_shapes(q, k, v)
     _check_backward_head_dims(q, v)
     _check_kernel_operands(q, k, v, do)
-    if o.shape != q.shape or o.device != q.device or \
-            o.dtype != torch.float32:
-        raise ValueError(f"o must be the forward's {tuple(q.shape)} output "
-                         f"on {q.device} in fp32; got {tuple(o.shape)} "
-                         f"{o.dtype} on {o.device}")
-    do = _kernel_view(do)
     b, h, sq, hd = q.shape
+    hd_v = v.shape[-1]
+    if o.shape != (b, h, sq, hd_v) or o.device != q.device or \
+            o.dtype != torch.float32:
+        raise ValueError(f"o must be the forward's {(b, h, sq, hd_v)} "
+                         f"output on {q.device} in fp32; got "
+                         f"{tuple(o.shape)} {o.dtype} on {o.device}")
+    if do.shape != o.shape:
+        raise ValueError(f"do must be a {(b, h, sq, hd_v)} gradient; got "
+                         f"{tuple(do.shape)}")
+    do = _kernel_view(do)
     if lse.shape != (b, h, sq) or lse.dtype != torch.float32 or \
             not lse.is_contiguous() or lse.device != q.device:
         raise ValueError(f"lse must be a contiguous fp32 (B, H, Sq) tensor "
@@ -386,20 +397,22 @@ def flash_attention_backward(q, k, v, o, lse, do, *, causal: bool = True):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), b, h, k.shape[1], sq, k.shape[2], hd,
-        int(bool(causal)), int(q.dtype == torch.bfloat16), 1.0 / hd ** 0.5,
-        strides, stream)
+        hd_v, int(bool(causal)), int(q.dtype == torch.bfloat16),
+        1.0 / hd ** 0.5, strides, stream)
     _build.check("flash_attention_bwd", err)
     LAUNCHES["flash_attention_bwd"] += 1
+    if hd != hd_v:
+        LAUNCHES["flash_attention_bwd_mla"] += 1
     return dq, dk, dv
 
 
 def _check_backward_head_dims(q: torch.Tensor, v: torch.Tensor) -> None:
     """Raise unless the backward kernel takes q's and v's head dims."""
-    if v.shape[-1] != q.shape[-1] or q.shape[-1] not in KERNEL_HEAD_DIMS:
+    pair = (q.shape[-1], v.shape[-1])
+    if pair not in BACKWARD_HEAD_DIM_PAIRS:
         raise ValueError(
-            f"the flash backward kernel takes one head dim {KERNEL_HEAD_DIMS} "
-            f"for q, k and v; got q's {q.shape[-1]} and v's {v.shape[-1]} "
-            "(the backward at (192, 128) is ROADMAP queue 1 item 13b-4c)")
+            f"the flash backward kernel takes (q and k's head dim, v's) "
+            f"{BACKWARD_HEAD_DIM_PAIRS}; got {pair}")
 
 
 class FlashAttention(torch.autograd.Function):
@@ -433,8 +446,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     hd_v) one of :data:`KERNEL_HEAD_DIM_PAIRS`, hd at stride 1 and 16-byte
     aligned pointers and strides.  With grad mode on and an operand
     requiring grad they go through :class:`FlashAttention` (the result has
-    its ``grad_fn``), which needs hd == hd_v (a grad call at (192, 128)
-    raises); otherwise one forward launch, without ``lse``.
+    its ``grad_fn``), whose backward takes the same pairs
+    (:data:`BACKWARD_HEAD_DIM_PAIRS`); otherwise one forward launch,
+    without ``lse``.
     """
     _check_shapes(q, k, v)
     devs = {x.device for x in (q, k, v)}

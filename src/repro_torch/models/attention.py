@@ -26,7 +26,9 @@ The reference's ``repro/models/attention.py``.  Score paths:
 * MLA's prefill and training forward (:func:`mla_forward`, the expanded
   form) take the causal path above with split head dims, q and k at nope
   + rope (192 published) and v at ``v_head_dim`` (128): the flash
-  kernel's (192, 128) instance on the card.  Its decode (the absorbed
+  kernels' (192, 128) instances on the card, forward and, in training,
+  backward (dv comes back contiguous; autograd sums dk's rope columns
+  over the heads into ``k_pe``).  Its decode (the absorbed
   form) scores a token against the latent cache with torch ops, as the
   reference's einsums do.
 

@@ -261,6 +261,14 @@ def test_budget_clean_on_the_choosers(tmp_path):
     assert r.checked >= len(sweep) + len(registry.KERNELS)
     assert {launch.family for launch in sweep} == \
         {spec.family for spec in registry.KERNELS}
+    # the backward's split-dim instance (MLA's (192, 128)) is swept in both
+    # dtypes, at the shared memory its sources give
+    split = {(x.family, x.args): x.dynamic for x in sweep
+             if x.family.startswith("flash_bwd") and x.args[:2] == (192, 128)}
+    assert split == {("flash_bwd_dq_bf16", (192, 128)): 123_392,
+                     ("flash_bwd_dkdv_bf16", (192, 128)): 206_848,
+                     ("flash_bwd_dq", (192, 128, "float")): 182_016,
+                     ("flash_bwd_dkdv", (192, 128, "float")): 198_656}
 
 
 def test_budget_reports_the_card_checks_as_skipped(tmp_path):
@@ -371,6 +379,9 @@ def test_parse_kernel_reads_demangled_and_mangled_names():
     assert budget.parse_kernel(
         "void (anonymous namespace)::flash_bwd_dq<64, __nv_bfloat16>(int)") \
         == ("flash_bwd_dq", (64, "__nv_bfloat16"))
+    assert budget.parse_kernel(
+        "void (anonymous namespace)::flash_bwd_dkdv_bf16<192, 128>(int)") \
+        == ("flash_bwd_dkdv_bf16", (192, 128))
     assert budget.parse_kernel("(anonymous namespace)::source_kernel("
                                "(anonymous namespace)::Src, float*)") == \
         ("source_kernel", ())
@@ -392,6 +403,12 @@ def test_the_new_shared_memory_models_mirror_their_sources():
                                           10 * 64 * 64 * 2 + 2048)
     assert fa.backward_smem(128, False)[1] == \
         4 * (4 * 64 * 129 + 2 * 64 * 65 + 128)
+    # (192, 128): bf16 three 64 x 192 and three 64 x 128 tiles (dQ), five
+    # of each (dK/dV); fp32 two rows of 193 and two of 129 a row index
+    assert fa.backward_smem(192, True, 128) == (
+        2 * 3 * 64 * 320 + 512, 2 * 5 * 64 * 320 + 2048)
+    assert fa.backward_smem(192, False, 128)[1] == \
+        4 * (2 * 64 * 193 + 2 * 64 * 129 + 2 * 64 * 65 + 128)
     assert gram.gram_smem() == 8448
 
 

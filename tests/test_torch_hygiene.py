@@ -369,10 +369,10 @@ ENTRIES = ("apply_track", "cholqr2", "fastmix", "fastmix_apply",
 #: takes the group of elements that shares a rescue flag (one problem).
 #: ``flash_attention`` takes the optional fp32 output (o32) and lse, and
 #: v's head dim beside q's (MLA's (192, 128)); its backward takes its 24
-#: strides as one host array.
+#: strides as one host array, and v's head dim beside q's too.
 ARITY = {"apply_track": 26, "cholqr2": 11, "fastmix": 22,
          "fastmix_apply": 16, "fastmix_ef": 23, "fastmix_poly": 16,
-         "flash_attention": 29, "flash_attention_bwd": 21, "gram": 7,
+         "flash_attention": 29, "flash_attention_bwd": 22, "gram": 7,
          "power_matmul": 9}
 
 

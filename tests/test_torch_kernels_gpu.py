@@ -34,7 +34,9 @@ in bf16 (LM_BF16_TOL of test_torch_lm.py) and 1e-4 in fp32 (also for the
 reduced qwen2-vl and jamba, over a prefill and 3 decode steps); the flash
 backward's dq, dk, dv within 1e-5 * max(max|ref|, 1) (fp32) and 1e-2 *
 max(max|ref|, 1) (bf16: one bf16 rounding either side) of its plain
-version, its lse
+version (also at MLA's (192, 128) in its strided layout, and one MLA
+layer's gradients through it within 1e-4 relative Frobenius of the plain
+attention's, fp32), its lse
 within 1e-5, bit-equal across calls, and a fp32 directional derivative
 within 1e-2 relative of a central difference; the bf16 gradient through
 ``FlashAttention`` within 1e-2 of max|ref| of the exact one where the kv
@@ -2056,13 +2058,24 @@ def test_flash_attention_mla_dims_on_card(sm90, dtype, causal, s):
 
 @pytest.mark.gpu
 def test_flash_attention_mla_dims_refuse_grad_and_other_pairs_on_card(sm90):
-    """A grad call at (192, 128) raises, naming the backward's ROADMAP
-    item, before any launch; head-dim pairs without an instance raise."""
-    q, k, v = _mla_operands(1, 2, 64, torch.bfloat16, 0)
-    before = fa.LAUNCHES["flash_attention"]
-    with pytest.raises(ValueError, match="13b-4c"):
-        fa.flash_attention(q.detach().requires_grad_(), k, v)
-    assert fa.LAUNCHES["flash_attention"] == before
+    """A grad call at (192, 128) launches the forward and, on backward,
+    the backward kernel once each (counted under ``flash_attention_mla``
+    and ``flash_attention_bwd_mla`` too) and returns finite gradients of
+    the operands' shapes; head-dim pairs without an instance raise before
+    any launch, the forward's and the backward's."""
+    q, k, v = (x.detach().requires_grad_()
+               for x in _mla_operands(1, 2, 64, torch.bfloat16, 0))
+    before = dict(fa.LAUNCHES)
+    out = fa.flash_attention(q, k, v)
+    out.backward(torch.ones_like(out))
+    torch.cuda.synchronize()
+    for name in ("flash_attention", "flash_attention_mla",
+                 "flash_attention_bwd", "flash_attention_bwd_mla"):
+        assert fa.LAUNCHES[name] == before[name] + 1, name
+    for x in (q, k, v):
+        assert x.grad.shape == x.shape and x.grad.dtype == x.dtype
+        assert bool(torch.isfinite(x.grad).all())
+    before = dict(fa.LAUNCHES)
     z = torch.zeros(1, 2, 8, 192, device="cuda")
     for hd_v in (192, 64):
         with pytest.raises(ValueError, match="head_dim"):
@@ -2071,6 +2084,135 @@ def test_flash_attention_mla_dims_refuse_grad_and_other_pairs_on_card(sm90):
     z = torch.zeros(1, 2, 8, 128, device="cuda")
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_attention(z, z, torch.zeros(1, 2, 8, 64, device="cuda"))
+    for hd, hd_v in ((192, 192), (192, 64), (128, 64)):
+        zq = torch.zeros(1, 2, 8, hd, device="cuda")
+        zv = torch.zeros(1, 2, 8, hd_v, device="cuda")
+        with pytest.raises(ValueError, match=rf"got \({hd}, {hd_v}\)"):
+            fa.flash_attention_backward(zq, zq, zv, zv,
+                                        torch.zeros(1, 2, 8, device="cuda"),
+                                        zv)
+    assert fa.LAUNCHES == before
+
+
+def _mla_bwd_operands(b, h, sq, skv, dtype, seed):
+    """The backward's operands in MLA's layout: q (B, Sq, H, 192) and k
+    (B, Skv, H, 192) transposed to (B, H, S, 192) views, v the (B, H, Skv,
+    128) view of the last 128 columns of a (B, Skv, H, 256) expansion
+    (stride 256, as ``mla_forward`` passes it), and dO (B, Sq, H, 128)
+    transposed; from numpy draws."""
+    rng = np.random.default_rng(seed)
+
+    def draw(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dtype).cuda()
+
+    q, k = draw(b, sq, h, 192), draw(b, skv, h, 192)
+    kv, do = draw(b, skv, h, 256), draw(b, sq, h, 128)
+    return (q.transpose(1, 2), k.transpose(1, 2),
+            kv[..., 128:].transpose(1, 2), do.transpose(1, 2))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,sq,skv", [
+    (2, 4, 333, 333), (2, 4, 33, 100), (1, 3, 130, 70), (4, 2, 512, 512)])
+def test_flash_attention_backward_mla_dims_on_card(sm90, b, h, sq, skv,
+                                                   dtype, causal):
+    """The backward at (192, 128) against its plain version from the same
+    forward (its lse within 1e-5 of the plain one), in MLA's strided
+    layout at ragged lengths: dq, dk (192 wide) and dv (128) within
+    ``_bwd_tol``, two calls bit-equal, each counted once under
+    ``flash_attention_bwd`` and ``flash_attention_bwd_mla``."""
+    q, k, v, do = _mla_bwd_operands(b, h, sq, skv, dtype,
+                                    b + h + sq + skv + causal)
+    _, o, lse = fa.forward_for_backward(q, k, v, causal)
+    _, lse_plain = fa.flash_attention_plain(q, k, v, causal=causal,
+                                            return_lse=True)
+    before = dict(fa.LAUNCHES)
+    got = fa.flash_attention_backward(q, k, v, o, lse, do, causal=causal)
+    again = fa.flash_attention_backward(q, k, v, o, lse, do, causal=causal)
+    want = fa.flash_attention_backward_plain(q, k, v, o, lse, do,
+                                             causal=causal)
+    torch.cuda.synchronize()
+    for name in ("flash_attention_bwd", "flash_attention_bwd_mla"):
+        assert fa.LAUNCHES[name] == before[name] + 2, name
+    torch.testing.assert_close(lse, lse_plain, rtol=0, atol=1e-5)
+    for name, g, g2, w, x in zip("qkv", got, again, want, (q, k, v)):
+        assert g.dtype == dtype and g.shape == x.shape, name
+        assert g.transpose(1, 2).is_contiguous()
+        assert torch.equal(g, g2), name
+        np.testing.assert_allclose(g.float().cpu().numpy(),
+                                   w.float().cpu().numpy(), rtol=0,
+                                   atol=_bwd_tol(dtype, w), err_msg=name)
+
+
+@pytest.mark.gpu
+def test_flash_attention_backward_mla_dims_is_a_directional_derivative(sm90):
+    """:func:`test_flash_attention_backward_is_a_directional_derivative` at
+    (192, 128), in MLA's strided layout: for random directions u of q, k
+    and v, the kernel's <grad, u> against the central difference of <dO,
+    out> with step 1e-2, within 1e-2 relative."""
+    q, k, v, do = _mla_bwd_operands(1, 4, 70, 70, torch.float32, 5)
+    q, k, v = (x.detach().requires_grad_() for x in (q, k, v))
+    before = fa.LAUNCHES["flash_attention_bwd_mla"]
+    out = fa.flash_attention(q, k, v)
+    out.backward(do)
+    assert fa.LAUNCHES["flash_attention_bwd_mla"] == before + 1
+    g = torch.Generator(device="cuda").manual_seed(1)
+    for i, x in enumerate((q, k, v)):
+        u = torch.randn(x.shape, generator=g, device="cuda")
+        eps = 1e-2
+
+        def f(sign):
+            with torch.no_grad():
+                xs = [y.detach() for y in (q, k, v)]
+                xs[i] = xs[i] + sign * eps * u
+                return float((fa.flash_attention(*xs).double() *
+                              do.double()).sum())
+
+        fd = (f(1) - f(-1)) / (2 * eps)
+        an = float((x.grad.double() * u.double()).sum())
+        assert abs(fd - an) <= 1e-2 * abs(an), (i, fd, an)
+
+
+@pytest.mark.gpu
+def test_mla_layer_gradients_through_the_kernels_on_card(sm90):
+    """One fp32 MLA layer at MLA's published head dims (qk 128 + 64, v
+    128; the reduced config's d 64, 4 heads, ranks 32 / 16), seeded: the
+    gradients of every weight and of x through ``mla_forward``'s training
+    path (the (192, 128) forward and backward kernels, v the strided
+    slice of the expansion, k the concatenation) against the plain
+    attention's, each within 1e-4 relative Frobenius error (fp32 sums in
+    other orders)."""
+    import dataclasses
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import attention as PA
+    cfg = dataclasses.replace(get_reduced("deepseek_v2_236b"),
+                              qk_nope_dim=128, qk_rope_dim=64,
+                              v_head_dim=128, dtype="float32")
+    layer = PA.MLA(cfg, device="cuda")
+    layer.init(torch.Generator(device="cuda").manual_seed(0))
+    g = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn(2, 100, cfg.d_model, generator=g, device="cuda")
+    pos = torch.arange(100, dtype=torch.int32, device="cuda")[None].expand(
+        2, 100)
+    grads = {}
+    for attention in ("kernel", "plain"):
+        p = {n: w.detach().clone().requires_grad_()
+             for n, w in layer.named_parameters()}
+        xs = x.clone().requires_grad_()
+        before = fa.LAUNCHES["flash_attention_bwd_mla"]
+        out, _ = PA.mla_forward(cfg, p, xs, positions=pos,
+                                attention=attention)
+        (out * out).sum().backward()
+        assert fa.LAUNCHES["flash_attention_bwd_mla"] == \
+            before + (attention == "kernel")
+        grads[attention] = {"x": xs.grad, **{n: w.grad for n, w in p.items()}}
+    for name, want in grads["plain"].items():
+        got = grads["kernel"][name]
+        err = float((got - want).norm() / want.norm().clamp_min(1e-30))
+        assert err <= 1e-4, (name, err)
 
 
 @pytest.mark.gpu

@@ -35,6 +35,10 @@ What is held, and to what:
   group stack, so its norm scales stay fp32, while the stacked layers'
   norms, MLA's ``q_norm`` and ``kv_norm`` included, are cast), and layer
   0's block in bf16 on those leaves within ``LM_BF16_TOL``;
+* the card's training cut (``CUT``: layer 0 and one stacked layer, 4 of
+  the 8 experts; the published config cut to 2 layers and 32 experts
+  trains on the card) at the reduced widths: the loss, every gradient and
+  3 AdamW steps at the bounds above;
 * the converter's round trip with ``layer0``, and the serve and train
   CLIs on the reduced config.
 """
@@ -89,10 +93,17 @@ def _np(x) -> np.ndarray:
     return np.asarray(x, dtype=np.float32)
 
 
+#: The card's training cut of deepseek-v2 (2 of 60 layers, 32 of 160
+#: routed experts: PERF.md section 4) at the reduced widths: layer 0 and
+#: one stacked MLA + MoE layer, 4 of the reduced config's 8 experts.
+CUT = {"n_layers": 2, "n_experts": 4}
+
+
 @functools.lru_cache(maxsize=None)
-def _pair(dtype: str = "float32"):
-    cfg_ref = dataclasses.replace(ref_reduced(ARCH), dtype=dtype)
-    cfg = dataclasses.replace(PC.get_reduced(ARCH), dtype=dtype)
+def _pair(dtype: str = "float32", cut: bool = False):
+    extra = CUT if cut else {}
+    cfg_ref = dataclasses.replace(ref_reduced(ARCH), dtype=dtype, **extra)
+    cfg = dataclasses.replace(PC.get_reduced(ARCH), dtype=dtype, **extra)
     params = RM.init_params(cfg_ref, jax.random.PRNGKey(0))
     return cfg_ref, params, cfg
 
@@ -183,8 +194,11 @@ def test_bf16_kernel_rounding_at_192_128_within_tolerance_of_plain(sq,
 
 def test_split_dim_shapes_and_the_backwards_refusal():
     """k and v must agree on (B, Hkv, Skv) and q and k on hd; the shared
-    memory models of the (192, 128) instance; the backward refuses split
-    dims before any build, naming its ROADMAP item."""
+    memory models of the (192, 128) instances, forward and backward (the
+    backward's byte counts from the C's formulas by hand, each within a
+    block's 232,448 bytes; the square pairs' unchanged); the backward takes
+    (192, 128) and refuses every pair without an instance before any
+    build, naming the pair."""
     q, k = torch.zeros(1, 2, 8, 192), torch.zeros(1, 2, 8, 192)
     with pytest.raises(ValueError, match="hd_v"):
         fa.flash_attention(q, k, torch.zeros(1, 2, 7, 128))
@@ -197,11 +211,32 @@ def test_split_dim_shapes_and_the_backwards_refusal():
         4 * (2 * 64 * 193 + 64 * 128 + 64 * 65)
     assert fa.forward_smem(128, True) == fa.forward_smem(128, True, 128)
     assert (192, 128) in fa.KERNEL_HEAD_DIM_PAIRS
-    with pytest.raises(ValueError, match="13b-4c"):
-        fa._check_backward_head_dims(q, torch.zeros(1, 2, 8, 128))
-    with pytest.raises(ValueError, match="13b-4c"):
-        fa.flash_attention_backward(q, k, torch.zeros(1, 2, 8, 128), q,
-                                    torch.zeros(1, 2, 8), q)
+    assert fa.BACKWARD_HEAD_DIM_PAIRS == ((64, 64), (128, 128), (192, 128))
+    # bf16: dQ q, dO, K and V rings, lse and D; dK/dV K, V and two warp
+    # groups' two-stage q and dO rings; fp32 rows padded to 193 and 129
+    assert fa.backward_smem(192, True, 128) == (123_392, 206_848)
+    assert fa.backward_smem(192, False, 128) == (182_016, 198_656)
+    assert max(fa.backward_smem(192, True, 128)
+               + fa.backward_smem(192, False, 128)) <= 232_448
+    assert fa.backward_smem(64, True) == (6 * 64 * 64 * 2 + 512,
+                                          10 * 64 * 64 * 2 + 2048)
+    assert fa.backward_smem(128, True) == (6 * 64 * 128 * 2 + 512,
+                                           10 * 64 * 128 * 2 + 2048)
+    for hd in (64, 128):
+        tiles = 4 * 64 * (hd + 1) + 128
+        assert fa.backward_smem(hd, False) == (
+            4 * (tiles + 64 * 65), 4 * (tiles + 2 * 64 * 65))
+        assert fa.backward_smem(hd, True) == \
+            fa.backward_smem(hd, True, hd)
+    fa._check_backward_head_dims(q, torch.zeros(1, 2, 8, 128))
+    for hd, hd_v in ((192, 192), (192, 64), (128, 64)):
+        qq = torch.zeros(1, 2, 8, hd)
+        vv = torch.zeros(1, 2, 8, hd_v)
+        with pytest.raises(ValueError, match=rf"got \({hd}, {hd_v}\)"):
+            fa._check_backward_head_dims(qq, vv)
+        with pytest.raises(ValueError, match=rf"got \({hd}, {hd_v}\)"):
+            fa.flash_attention_backward(qq, qq, vv, torch.zeros(1, 2, 8, hd_v),
+                                        torch.zeros(1, 2, 8), vv)
     fa._check_backward_head_dims(torch.zeros(1, 2, 8, 64),
                                  torch.zeros(1, 2, 8, 64))
 
@@ -350,7 +385,20 @@ def test_loss_and_grads_match_the_reference():
     """The loss (with the MoE auxiliary loss) and every gradient leaf,
     layer 0's included, against ``jax.value_and_grad`` of the reference's
     ``loss_fn``, fp32."""
-    cfg_ref, params, cfg = _pair()
+    _check_loss_and_grads(cut=False)
+
+
+def test_card_cut_loss_and_grads_match_the_reference():
+    """:func:`test_loss_and_grads_match_the_reference` on the card's
+    training cut at the reduced widths (``CUT``): layer 0 and one stacked
+    layer, 4 experts, in both packages."""
+    _, _, cfg = _pair(cut=True)
+    assert (cfg.n_layers, cfg.scan_layers, cfg.n_experts) == (2, 1, 4)
+    _check_loss_and_grads(cut=True)
+
+
+def _check_loss_and_grads(cut: bool) -> None:
+    cfg_ref, params, cfg = _pair(cut=cut)
     raw = _batches(cfg, 1)[0]
     want, g_ref = jax.value_and_grad(lambda p: RM.loss_fn(
         cfg_ref, p, {k: jnp.asarray(v) for k, v in raw.items()}))(params)
@@ -382,7 +430,17 @@ def test_train_steps_match_the_reference():
     ``STEP_PARAM_ATOL`` where the first gradient is above ``SIGN_FLOOR``
     of its leaf's largest entry, at most 1% of the entries whose first
     gradient is not zero left out."""
-    cfg_ref, params, cfg = _pair()
+    _check_train_steps(cut=False)
+
+
+def test_card_cut_train_steps_match_the_reference():
+    """:func:`test_train_steps_match_the_reference` on the card's training
+    cut at the reduced widths (``CUT``)."""
+    _check_train_steps(cut=True)
+
+
+def _check_train_steps(cut: bool) -> None:
+    cfg_ref, params, cfg = _pair(cut=cut)
     batches = _batches(cfg, 3)
     ref_opt, opt = RefAdamW(lr=3e-3), AdamW(lr=3e-3)
     g1 = jax.grad(lambda p: RM.loss_fn(cfg_ref, p, {
