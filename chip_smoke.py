@@ -261,6 +261,16 @@ line); any failure raises and the exit code is non-zero:
    the wire against an all-reduce of the gradient, the parameter copies'
    spread; and ``examples/train_lm_compressed_torch.py --steps 10`` at
    the published widths, 6 of 30 layers (cut for time), in-process;
+   7f. the dry run: ``python -m repro_torch.launch.dryrun --arch all
+   --shape all --mesh card`` in a subprocess that sees no card (every
+   registered arch at every production shape traced on the meta device,
+   8 cells at once; every cell but the reference's ``long_500k`` skips
+   ``ok``), then the cut configurations timed above (7d's SmolLM train
+   step, 7c6's deepseek-v2 train step, 7c3's four cut prefills) traced on
+   meta in-process as they ran, their flash calls equal to the card's
+   launches, no device memory allocated, and one ``dryrun`` line each:
+   the roofline's ms beside the measured ms, the step's MFU and roofline
+   share, with the card's name and power limit;
 8. prints the ``{"kernels": [...]}`` line and, last, the ``{"ok": ...}``
    line.
 
@@ -268,6 +278,7 @@ It imports nothing of JAX and nothing of the JAX package ``repro``.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import copy
 import dataclasses
@@ -285,17 +296,6 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
-
-#: Data-sheet rates (dense, no sparsity, at the full power limit) of the
-#: cards this script knows: HBM bytes/s, fp32 FLOP/s outside the tensor
-#: cores, and bf16 FLOP/s of the tensor cores.  Matched against the
-#: nvidia-smi name; an unknown card fails.
-CARD_PEAKS = (
-    ("H100 PCIe", 2.0e12, 51e12, 756e12),
-    ("H100 NVL", 3.9e12, 60e12, 835e12),
-    ("H100", 3.35e12, 67e12, 989e12),  # H100 SXM5 80GB HBM3
-    ("H200", 4.8e12, 67e12, 989e12),
-)
 
 #: Tolerances each kernel is held to against its plain version on the card.
 FASTMIX_TOL = 2e-5          # rtol = atol, the reference's kernel-vs-oracle bound
@@ -373,11 +373,14 @@ def card_line() -> str:
 
 
 def card_peaks(name: str):
-    """``(HBM bytes/s, fp32 FLOP/s, bf16 tensor-core FLOP/s)``."""
-    for key, bw, flops, bf16 in CARD_PEAKS:
-        if key in name:
-            return bw, flops, bf16
-    fail(f"no data-sheet rates for card {name!r}")
+    """``(HBM bytes/s, fp32 FLOP/s, bf16 tensor-core FLOP/s)``: the
+    data-sheet rates of ``repro_torch.roofline.analysis.CARD_PEAKS``,
+    matched against the nvidia-smi name; an unknown card fails."""
+    from repro_torch.roofline.analysis import peaks_for
+    row = peaks_for(name)
+    if row is None:
+        fail(f"no data-sheet rates for card {name!r}")
+    return row.hbm_bw, row.fp32_flops, row.bf16_flops
 
 
 def time_ms(fn, reps: int = 10, trials: int = 5):
@@ -999,12 +1002,9 @@ def check_flash(fa, peaks, b: int, h: int, hkv: int, s: int, hd: int,
             q, kr, vr, is_causal=causal))[0]
     row["library"] = ("F.scaled_dot_product_attention(q, k, v repeated, "
                       f"is_causal={causal})")
-    nbytes = q.element_size() * (b * h * sq * (hd + hd_v)
-                                 + b * hkv * skv * (hd + hd_v))
-    # QK^T (hd) and PV (hd_v) over the scores the function needs: the
-    # unmasked half when causal (Sq == Skv), the whole Sq x Skv when not
-    flops = 1.0 * b * h * sq * sq * (hd + hd_v) if causal else \
-        2.0 * b * h * sq * skv * (hd + hd_v)
+    # the kernel's function as its bound counts it (the wrapper's
+    # formulas, which the dry run's meta trace reports too)
+    flops, nbytes = fa.forward_cost(q, k, v, causal=causal)
     row["bound_ms"], row["bound_by"] = bound(
         nbytes, flops, peaks, "bf16" if dtype == torch.bfloat16 else "fp32")
     return row
@@ -1106,24 +1106,15 @@ def check_flash_bwd(fa, peaks, b: int, h: int, hkv: int, s: int, hd: int,
     row["library"] = ("backward of F.scaled_dot_product_attention(q, k, v "
                       f"repeated, is_causal={causal}) by torch.autograd.grad")
     del sd, qr, kr, vr
-    elt = q.element_size()
-    # the function's bytes, each operand at its own head dim: q and dq (hd)
-    # and o and dO (hd_v) at Sq rows on H heads, k and dk (hd) and v and
-    # dv (hd_v) at Skv rows on Hkv heads, read or written once in the
-    # operands' dtype; the fp32 lse read once.  A bf16 call's kernel reads
-    # o in fp32 (o32): 2 bytes an element more, this implementation's
-    # choice, so in the note and not in the bound
-    nbytes = (2 * elt * b * h * sq * (hd + hd_v)
-              + 2 * elt * b * hkv * skv * (hd + hd_v) + 4 * b * h * sq)
-    extra = (o.element_size() - elt) * b * h * sq * hd_v
+    # the function's flops and bytes (the wrapper's formulas, which the
+    # dry run's meta trace reports too).  A bf16 call's kernel reads o in
+    # fp32 (o32): 2 bytes an element more, this implementation's choice,
+    # so in the note and not in the bound
+    flops, nbytes = fa.backward_cost(q, k, v, causal=causal)
+    extra = (o.element_size() - q.element_size()) * b * h * sq * hd_v
     if extra:
         row["note"] += (f"; reads o in fp32 (o32): {extra} bytes beyond the "
                         f"bound's {nbytes} ({extra / nbytes:.1%})")
-    # S, dQ, dK (hd) and dP, dV (hd_v) over the scores the function needs:
-    # the unmasked half when causal (Sq == Skv), the whole Sq x Skv matrix
-    # when not (5 B H S^2 hd at hd == hd_v)
-    flops = 1.0 * b * h * sq * sq * (3 * hd + 2 * hd_v) if causal else \
-        2.0 * b * h * sq * skv * (3 * hd + 2 * hd_v)
     row["bound_ms"], row["bound_by"] = bound(
         nbytes, flops, peaks, "bf16" if dtype == torch.bfloat16 else "fp32")
     return row
@@ -3793,8 +3784,11 @@ def train_steps(kernels, cfg, lm, batches: list, held: dict,
     data on the card, under :class:`PlainCalls`: the losses, each step's
     launches by the names ``counts`` (by default the flash forward's and
     backward's), the wall seconds, the peak memory,
-    the loss on the held-out batch ``held`` before and after, and the
-    leaves without a finite nonzero gradient in the first step.  Also
+    the loss on the held-out batch ``held`` before and after, the
+    leaves without a finite nonzero gradient in the first step, and on the
+    card each step's ms between CUDA events recorded after the steps
+    (``step_ms``: the card's time from the end of one step to the end of
+    the next, its idle gaps included; no sync inside the loop).  Also
     returns ``step`` and ``state`` for further steps."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch.steps import make_train_step
@@ -3812,14 +3806,21 @@ def train_steps(kernels, cfg, lm, batches: list, held: dict,
 
     held0 = held_loss()
     per_step, losses, first_bad = [], [], []
+    on_card = lm.embed.is_cuda
+    events = [torch.cuda.Event(enable_timing=True)
+              for _ in range(n + 1)] if on_card else []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     with PlainCalls(fa, PA) as plain_calls:
         tic = time.perf_counter()
+        if on_card:
+            events[0].record()
         for i, batch in enumerate(batches):
             before = kernels.launch_counts()
             state, loss = step(lm, state, batch)
+            if on_card:
+                events[i + 1].record()
             after = kernels.launch_counts()
             per_step.append(tuple(after[k] - before[k] for k in counts))
             losses.append(loss)
@@ -3830,7 +3831,8 @@ def train_steps(kernels, cfg, lm, batches: list, held: dict,
         torch.cuda.synchronize()
         sec = time.perf_counter() - tic
     launches, peak = kernels.launch_counts(), torch.cuda.max_memory_allocated()
-    return {"sec": sec, "per_step": per_step,
+    step_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    return {"sec": sec, "per_step": per_step, "step_ms": step_ms,
             "losses": [float(x) for x in losses], "peak": peak,
             "launches": launches, "held0": held0, "held1": held_loss(),
             "first_bad": first_bad, "plain_calls": plain_calls.calls,
@@ -3909,9 +3911,11 @@ def train_against_plain(kernels, card: str, cfg, label: str, data: list,
     n_scoped = sum(1 for k, _ in lm.named_parameters()
                    if k.startswith(prefix))
     losses = run["losses"]
+    step_ms = statistics.median(run["step_ms"]) if run["step_ms"] else ms
     print(f"{label} make_train_step steps={steps} lr={lr:g} {cfg.dtype} "
           f"compute, fp32 master state, data on the card, on {card}: "
-          f"ms_per_step={ms:.3f} tok_s={tok_s:.1f} max_memory_allocated="
+          f"ms_per_step={ms:.3f} (median step by CUDA events "
+          f"{step_ms:.3f}) tok_s={tok_s:.1f} max_memory_allocated="
           f"{run['peak'] / 2 ** 30:.3f} GiB; losses "
           f"{[round(x, 4) for x in losses]}; on a held-out batch "
           f"{run['held0']:.4f} before the steps, {run['held1']:.4f} after; "
@@ -3946,7 +3950,8 @@ def train_against_plain(kernels, card: str, cfg, label: str, data: list,
     peak = run["peak"]
     del lm, state, step, run
     torch.cuda.empty_cache()
-    return {"ms_per_step": ms, "tok_s": tok_s, "losses": losses,
+    return {"ms_per_step": ms, "step_ms_median": step_ms, "tok_s": tok_s,
+            "losses": losses,
             "loss_rel": one["loss_rel"], "grad_err": errs[worst],
             "profile": prof, "per_step": got, "steps": steps,
             "launches": launches, "peak": peak,
@@ -4306,6 +4311,133 @@ def compressed_phase(P, kernels) -> dict:
     return {"seconds": sec, "example_seconds": ex_sec, "spread": spread,
             "bytes_per_step": per_step_bytes,
             "cholqr2": [r["launches"]["cholqr2"] for r in runs]}
+
+
+#: Phase 7f: ``python -m repro_torch.launch.dryrun --mesh card`` over
+#: every registered arch and production shape, DRYRUN_JOBS cells at once
+#: (this machine's cores), in a subprocess that sees no card (the trace
+#: runs on the meta device and needs none), within DRYRUN_TIMEOUT_S; the
+#: phase's budget in all, printed beside its wall time.
+DRYRUN_JOBS, DRYRUN_TIMEOUT_S, DRYRUN_BUDGET_S = 8, 300, 90
+
+
+def dryrun_cells(train: dict, deepseek_train: dict, dense_gqa: dict) -> list:
+    """The cut configurations this script ran and timed, as dry-run cells:
+    ``(label, cfg, ShapeSpec, max_seq, measured ms, {launch counter: the
+    card's count in one call})``: 7d's SmolLM train step and 7c6's
+    deepseek-v2 train step (the median step by CUDA events; the flash
+    launches a step) and 7c3's four cut prefills (the served call's
+    ``prefill_ms``, one timed call after a warm-up; the flash launches a
+    prefill)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.config import ShapeSpec
+    cells = [
+        ("7d", get_config("smollm_135m"),
+         ShapeSpec("7d", TRAIN_SEQ, TRAIN_BATCH, "train"), None,
+         train["step_ms_median"], dict(zip(FLASH_COUNTS, train["per_step"]))),
+        ("7c6", dataclasses.replace(get_config("deepseek_v2_236b"),
+                                    **DEEPSEEK_TRAIN_CUT),
+         ShapeSpec("7c6", DEEPSEEK_TRAIN_SEQ, DEEPSEEK_TRAIN_BATCH, "train"),
+         None, deepseek_train["step_ms_median"],
+         dict(zip(MLA_COUNTS, deepseek_train["per_step"])))]
+    for arch, layers, batch, prompt_len, gen in GQA_REQUESTS:
+        if layers is None:
+            continue
+        cfg = get_config(arch)
+        cfg = dataclasses.replace(cfg, n_layers=layers,
+                                  pattern=cfg.pattern[:layers])
+        name = "flash_attention_mla" if cfg.pattern[0].mixer == "mla" \
+            else "flash_attention"
+        seq = cfg.n_patches + prompt_len
+        cells.append(("7c3", cfg, ShapeSpec("7c3", seq, batch, "prefill"),
+                      seq + gen, dense_gqa[arch]["prefill_ms"],
+                      {name: dense_gqa[arch]["per_prefill"]}))
+    return cells
+
+
+def dryrun_phase(card: str, cells: list) -> dict:
+    """7f: the dry run on this machine.  First the CLI over every
+    registered arch and production shape on the ``card`` mesh (its lines
+    printed): every cell that is not the reference's ``long_500k`` skip
+    must be ``ok``.  Then each of ``cells`` (:func:`dryrun_cells`) traced
+    on meta in-process, its flash calls equal to the card's launches of
+    the same call, and one ``dryrun`` line: the roofline's step time
+    beside the measured one, ``mfu`` (model flops over the card's bf16
+    peak times the measured time) and ``roofline_share`` (roofline time
+    over measured), with the card's name and power limit.  The card's
+    memory must not move across the traces."""
+    import tempfile
+    from repro_torch.launch.dryrun import cell_record
+    from repro_torch.roofline.analysis import peaks_for
+    peaks = peaks_for(card)
+    tic = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_") as tmp:
+        env = {**os.environ, "PYTHONPATH": str(SRC), "CUDA_VISIBLE_DEVICES": ""}
+        out = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             "all", "--shape", "all", "--mesh", "card", "--out", tmp,
+             "--jobs", str(DRYRUN_JOBS)], env=env, capture_output=True,
+            text=True, timeout=DRYRUN_TIMEOUT_S)
+        print(out.stdout, end="", flush=True)
+        recs = [json.loads(f.read_text()) for f in sorted(Path(tmp).glob(
+            "*.json"))]
+    cli_s = time.perf_counter() - tic
+    status = collections.Counter(r["status"] for r in recs)
+    bad = [f"{r['arch']} {r['shape']}" for r in recs
+           if r["status"] == "error" or (r["status"] == "skipped" and (
+               r["shape"] != "long_500k"))]
+    print(f"dryrun cli --mesh card: {len(recs)} records {dict(status)} in "
+          f"{cli_s:.1f} s (exit {out.returncode}; no card visible to it)",
+          flush=True)
+    if out.returncode or bad or not recs:
+        fail(f"dry run: exit {out.returncode}, cells not ok {bad}; "
+             f"{out.stderr[-2000:]}")
+
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    lines = []
+    for label, cfg, shape, max_seq, measured_ms, launched in cells:
+        rec = cell_record(cfg, shape, "card", max_seq=max_seq, peaks=peaks)
+        if rec["status"] != "ok":
+            fail(f"dry run of {label} {cfg.name}: {rec['error']}\n"
+                 f"{rec['traceback']}")
+        calls = {k: rec["kernel_calls"].get(k, 0) for k in launched}
+        mfu = rec["model_flops_global"] / (peaks.bf16_flops
+                                           * measured_ms / 1e3)
+        share = rec["step_time_s"] * 1e3 / measured_ms
+        line = {"label": label, "arch": cfg.name, "kind": shape.kind,
+                "roofline_ms": rec["step_time_s"] * 1e3,
+                "measured_ms": measured_ms, "mfu": mfu,
+                "roofline_share": share, "bound_by": rec["bottleneck"],
+                "flops": rec["flops_per_chip"], "bytes": rec["bytes_per_chip"],
+                "model_flops": rec["model_flops_global"],
+                "compute_ms": rec["compute_s"] * 1e3,
+                "memory_ms": rec["memory_s"] * 1e3, "flash_calls": calls,
+                "launches": launched}
+        lines.append(line)
+        print(f"dryrun {cfg.name} {shape.kind} roofline_ms="
+              f"{line['roofline_ms']:.3f} measured_ms={measured_ms:.3f} "
+              f"mfu={mfu:.5f} roofline_share={share:.5f} bound_by="
+              f"{rec['bottleneck']} ({label}: batch {shape.global_batch} x "
+              f"{shape.seq_len}; counted flops {rec['flops_per_chip']:.6e}, "
+              f"bytes {rec['bytes_per_chip']:.6e}, compute "
+              f"{line['compute_ms']:.3f} ms, memory {line['memory_ms']:.3f} "
+              f"ms; model flops {rec['model_flops_global']:.6e}; flash calls "
+              f"traced {calls}, launched on the card {launched}) on {card}",
+              flush=True)
+        if calls != launched:
+            fail(f"dry run of {label} {cfg.name}: traced flash calls "
+                 f"{calls}, the card launched {launched}")
+    peak = torch.cuda.max_memory_allocated()
+    wall = time.perf_counter() - tic
+    print(f"dryrun phase: {wall:.1f} s (budget {DRYRUN_BUDGET_S} s); device "
+          f"memory {held} bytes before the traces, peak {peak} across them",
+          flush=True)
+    if peak != held:
+        fail(f"the meta traces allocated on the card: {held} -> {peak}")
+    return {"cells": lines, "cli_s": cli_s, "wall_s": wall,
+            "records": dict(status)}
 
 
 def main() -> int:
@@ -5040,6 +5172,11 @@ def main() -> int:
     # stacked example
     train["compressed"] = compressed_phase(P, kernels)
     clock.lap("7e")
+
+    # ---- 7f. the dry run: every cell traced on meta, and the cut
+    # configurations above beside their measured times (step MFU)
+    dryrun_phase(card, dryrun_cells(train, deepseek_train, dense_gqa))
+    clock.lap("7f")
 
     # ---- 8. the kernels line, then the contract line
     csrc = "src/repro_torch/kernels/csrc/"

@@ -138,14 +138,15 @@ def kernel_rows(rows, quick: bool, clock: Timer) -> None:
                                 dtype=torch.float32, device=dev)
             kv = torch.as_tensor(rng.standard_normal((1, 4, s, hd)),
                                  dtype=torch.float32, device=dev)
-            # bytes: q, k, v read, the output written; operations: the
-            # unmasked half of QK^T and PV, as chip_smoke counts them
+            # the kernel's function as its bound counts it (the wrapper's
+            # formulas: q, k, v read, the output written; the unmasked half
+            # of QK^T and PV)
+            flops, nbytes = fa.forward_cost(q, kv, kv, causal=True)
             _row(rows, f"kernel/flash/{s}x{hd}",
                  clock.us(lambda: fa.flash_attention(q, kv, kv)),
                  ref_us=round(clock.us(
                      lambda: fa.flash_attention_plain(q, kv, kv), reps=2), 1),
-                 bound_us=clock.bound_us(4 * 4 * 4 * s * hd,
-                                         2.0 * 4 * s * s * hd))
+                 bound_us=clock.bound_us(nbytes, flops))
 
 
 def orth_rows(rows, quick: bool, clock: Timer) -> None:

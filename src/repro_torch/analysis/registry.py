@@ -313,6 +313,7 @@ ENTRY_POINTS: Tuple[str, ...] = (
     "repro_torch.checkpoint",
     "repro_torch.launch.serve",          # python -m repro_torch.launch.serve
     "repro_torch.launch.train",          # python -m repro_torch.launch.train
+    "repro_torch.launch.dryrun",         # python -m repro_torch.launch.dryrun
     "repro_torch.analysis",              # python -m repro_torch.analysis
 )
 

@@ -321,6 +321,37 @@ def dead_rank(tr: Transport, victim: int) -> None:
     tr.all_gather(torch.ones(1, device=tr.device))
 
 
+def constrain_runs(tr: Transport, cases) -> list:
+    """``models.partitioning.constrain`` on a ``DeviceMesh`` of the whole
+    group shaped (world, 1) over ("data", "model"), under
+    ``set_mesh(mesh)``: for each case ``(shape, logical axes)`` a
+    replicated ``DTensor`` of ``arange`` values, constrained by its
+    logical axes.  Returns each result's placements (as strings) and
+    whether its whole tensor still equals the input; then the placements
+    of ``launch.mesh.make_host_mesh()`` (one "data" axis) for a
+    ``Shard(0)`` spec."""
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import Replicate, distribute_tensor
+
+    from ..launch.mesh import make_host_mesh
+    from ..launch.sharding import to_placements
+    from ..models import partitioning
+    mesh = DeviceMesh(tr.device.type, [[r] for r in range(tr.world)],
+                      mesh_dim_names=("data", "model"))
+    out = []
+    with partitioning.mesh_context(mesh):
+        for shape, logical in cases:
+            x = torch.arange(int(np.prod(shape)), dtype=torch.float32,
+                             device=tr.device).reshape(shape)
+            dx = distribute_tensor(x, mesh, [Replicate(), Replicate()])
+            y = partitioning.constrain(dx, *logical)
+            out.append(([str(p) for p in y.placements],
+                        bool(torch.equal(y.full_tensor(), x))))
+    host = make_host_mesh()
+    out.append([str(p) for p in to_placements(("data",), host)])
+    return out
+
+
 def sequence(tr: Transport, *jobs) -> list:
     """Several jobs of this module in one spawn: each ``(name, args,
     kwargs)`` runs in order on every rank; returns their results."""

@@ -30,6 +30,13 @@ with or without grad.  The backward kernel takes the pairs
 MLA's (192, 128), whose launches ``flash_attention_bwd_mla`` counts too;
 a grad call at any other pair raises before a launch.
 
+On meta tensors (the dry run's trace, ``launch/dryrun.py``) the
+wrapper and :class:`FlashAttention`'s backward launch nothing and count no
+launch: they return empty results of the kernels' shapes, dtypes and
+layouts, after the checks the card makes, and report the work the kernel
+would do (:func:`forward_cost`, :func:`backward_cost`: the formulas of the
+kernels' bounds) to the entered ``roofline.analysis.CostCounter``.
+
 Layout: the operands may be strided views (the LM passes its ``(B, S, H,
 hd)`` projections transposed to ``(B, H, S, hd)``); the kernels read them
 through their strides, with hd at stride 1.  The output and the gradients
@@ -115,6 +122,53 @@ def backward_smem(hd: int, bf16: bool, hd_v: int = None) -> tuple:
                 + 4 * 2 * 2 * STAGES * r)
     tiles = 2 * r * (hd + 1) + 2 * r * (hd_v + 1) + 2 * r
     return 4 * (tiles + r * (r + 1)), 4 * (tiles + 2 * r * (r + 1))
+
+
+def forward_cost(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                 causal: bool) -> tuple:
+    """``(flops, bytes)`` of the forward kernel's function at these
+    operands' shapes, as its bound counts them: QK^T at hd and PV at hd_v
+    over the scores the function needs, the unmasked half when causal (Sq
+    == Skv; ``2 B H S^2 hd`` at hd == hd_v), the whole Sq x Skv when not
+    (``4 B H Sq Skv hd``); q and o read or written once at Sq rows on H
+    heads, k and v at Skv rows on Hkv heads, in the operands' dtype."""
+    b, h, sq, hd = q.shape
+    hkv, skv, hd_v = k.shape[1], k.shape[2], v.shape[-1]
+    nbytes = q.element_size() * (b * h * sq * (hd + hd_v)
+                                 + b * hkv * skv * (hd + hd_v))
+    flops = 1.0 * b * h * sq * sq * (hd + hd_v) if causal else \
+        2.0 * b * h * sq * skv * (hd + hd_v)
+    return flops, nbytes
+
+
+def backward_cost(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool) -> tuple:
+    """``(flops, bytes)`` of the backward kernel's function: S, dQ, dK at
+    hd and dP, dV at hd_v over the scores the function needs, the unmasked
+    half when causal (``5 B H S^2 hd`` at hd == hd_v), the whole Sq x Skv
+    when not (``10 B H Sq Skv hd``); q and dq (hd), o and dO (hd_v) at Sq
+    rows on H heads, k and dk (hd), v and dv (hd_v) at Skv rows on Hkv
+    heads, read or written once in the operands' dtype, and the fp32 lse
+    read once.  (A bf16 call's kernel reads o in fp32, ``o32``: this
+    implementation's choice, left out.)"""
+    b, h, sq, hd = q.shape
+    hkv, skv, hd_v = k.shape[1], k.shape[2], v.shape[-1]
+    elt = q.element_size()
+    nbytes = (2 * elt * b * h * sq * (hd + hd_v)
+              + 2 * elt * b * hkv * skv * (hd + hd_v) + 4 * b * h * sq)
+    flops = 1.0 * b * h * sq * sq * (3 * hd + 2 * hd_v) if causal else \
+        2.0 * b * h * sq * skv * (3 * hd + 2 * hd_v)
+    return flops, nbytes
+
+
+def _report_meta(name: str, q: torch.Tensor, v: torch.Tensor,
+                 cost: tuple) -> None:
+    """A meta call's report to the entered cost counters: under ``name``
+    and, at split head dims, ``name + "_mla"`` too (as :data:`LAUNCHES`
+    counts the card's launches)."""
+    from ..roofline.analysis import report_kernel
+    names = (name,) if q.shape[-1] == v.shape[-1] else (name, name + "_mla")
+    report_kernel(names, *cost)
 
 
 def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> int:
@@ -288,12 +342,14 @@ def backward_occupancy(hd: int, hd_v: int = None):
 
 def _check_kernel_operands(*xs: torch.Tensor) -> None:
     """Raise unless the tensors ``q, k, v[, ...]`` are what the kernels
-    take: CUDA, one device, all fp32 or all bf16, (q's hd, v's hd) one of
-    :data:`KERNEL_HEAD_DIM_PAIRS`, B * H within the grid."""
+    take: CUDA (or meta, the dry run's trace), one device, all fp32 or all
+    bf16, (q's hd, v's hd) one of :data:`KERNEL_HEAD_DIM_PAIRS`, B * H
+    within the grid."""
     q = xs[0]
-    if len({x.device for x in xs}) != 1 or q.device.type != "cuda":
+    if len({x.device for x in xs}) != 1 or \
+            q.device.type not in ("cuda", "meta"):
         raise ValueError(f"flash_attention runs on cuda or cpu tensors on "
-                         f"one device, got "
+                         f"one device (meta: the dry run's trace), got "
                          f"{sorted({str(x.device) for x in xs})}")
     if q.dtype not in (torch.float32, torch.bfloat16) or \
             any(x.dtype != q.dtype for x in xs):
@@ -337,6 +393,10 @@ def _forward(q, k, v, causal: bool, training: bool = False):
     if out.numel() == 0:
         return out, o, lse
     strides = [s for x in (q, k, v, out) for s in _strides(x)]
+    if q.device.type == "meta":         # the dry run's trace: no launch
+        _report_meta("flash_attention", q, v,
+                     forward_cost(q, k, v, causal=causal))
+        return out, o, lse
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                    o32.data_ptr() if o32 is not None else None,
@@ -389,9 +449,13 @@ def flash_attention_backward(q, k, v, o, lse, do, *, causal: bool = True):
     dq, dk, dv = _heads_last_out(q), _heads_last_out(k), _heads_last_out(v)
     if sq == 0:
         return dq, dk.zero_(), dv.zero_()
+    strides = [s for x in (q, k, v, o, do, dq, dk, dv) for s in _strides(x)]
+    if q.device.type == "meta":         # the dry run's trace: no launch
+        _report_meta("flash_attention_bwd", q, v,
+                     backward_cost(q, k, v, causal=causal))
+        return dq, dk, dv
     delta = torch.empty(b, h, sq, dtype=torch.float32, device=q.device)
-    strides = (ctypes.c_longlong * 24)(*(
-        s for x in (q, k, v, o, do, dq, dk, dv) for s in _strides(x)))
+    strides = (ctypes.c_longlong * 24)(*strides)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _bwd_entry()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),

@@ -51,17 +51,20 @@ def check_embeds(cfg: ArchConfig, batch: int,
                          f"{'F' if n is None else n}, d={d}); got {got}")
 
 
-def _loss_and_grads(cfg: ArchConfig, params, batch) -> torch.Tensor:
+def _loss_and_grads(cfg: ArchConfig, params, batch,
+                    attention: str = "kernel") -> torch.Tensor:
     """The loss of ``batch``; the gradients land in ``p.grad``."""
     check_batch(cfg, batch)
     params.zero_grad(set_to_none=True)
-    loss = loss_fn(cfg, params, batch)
+    loss = loss_fn(cfg, params, batch, attention=attention)
     loss.backward()
     return loss.detach()
 
 
-def make_train_step(cfg: ArchConfig, opt: AdamW):
-    """``train_step(params, opt_state, batch) -> (opt_state, loss)``.
+def make_train_step(cfg: ArchConfig, opt: AdamW, *,
+                    attention: str = "kernel"):
+    """``train_step(params, opt_state, batch) -> (opt_state, loss)``;
+    ``attention`` picks the path (``"kernel"`` or ``"plain"``).
 
     ``params`` is an :class:`~repro_torch.models.LM`, updated in place (the
     reference donates its params and returns them); ``opt_state`` an
@@ -77,7 +80,7 @@ def make_train_step(cfg: ArchConfig, opt: AdamW):
     def train_step(params, opt_state: AdamWState,
                    batch: Dict[str, torch.Tensor]
                    ) -> Tuple[AdamWState, torch.Tensor]:
-        loss = _loss_and_grads(cfg, params, batch)
+        loss = _loss_and_grads(cfg, params, batch, attention)
         with torch.no_grad():
             _, opt_state = opt.update(_grads(params), opt_state,
                                       _named(params))

@@ -34,8 +34,9 @@ The reference's ``repro/models/attention.py``.  Score paths:
 
 ``attention="kernel"`` (the default) or ``"plain"`` picks the path
 explicitly, for comparisons; nothing picks on failure.  The reference's
-``models/partitioning.py`` is not ported: on one device its ``constrain``
-is the identity.
+``models/partitioning.py`` is ported (``models/partitioning.py``), but its
+``constrain`` is not threaded through this module: on one card it is the
+identity, and the serve and train paths are host-bound.
 """
 from __future__ import annotations
 

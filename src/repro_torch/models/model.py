@@ -53,6 +53,12 @@ from .layers import (cross_entropy, rms_norm, sinusoidal_positions,
 from .ssm import chunk_size
 
 CAST_PARAMS_ONCE = True
+#: How :func:`loss_fn` keeps a decoder layer's activations for the
+#: backward (the reference's knob of the same name): ``"full"``
+#: recomputes each layer (``torch.utils.checkpoint``), ``"none"`` keeps
+#: them.  The dry run sets it for a cell (``--remat``).
+REMAT_POLICY = "full"
+REMAT_POLICIES = ("full", "none")
 #: The weight of the layers' summed MoE load-balancing loss in
 #: :func:`loss_fn` (the reference's ``AUX_LOSS_WEIGHT``).
 AUX_LOSS_WEIGHT = 0.01
@@ -348,7 +354,8 @@ def _train_block(cfg: ArchConfig, spec: BlockSpec, p: dict, x: torch.Tensor,
 def loss_fn(cfg: ArchConfig, params: LM, batch: Dict[str, torch.Tensor], *,
             attention: str = "kernel") -> torch.Tensor:
     """Causal-LM loss (the reference's ``loss_fn``): the mean token cross
-    entropy, in fp32, of :func:`forward` with ``remat`` on.  batch:
+    entropy, in fp32, of :func:`forward` with ``remat`` on (unless
+    :data:`REMAT_POLICY` is ``"none"``).  batch:
     ``tokens`` and ``labels`` (B, S) int, and ``embeds`` for an
     encoder-decoder (its frames) or a VLM (its patches; only the text
     tail's logits, ``logits[:, n_patches:]``, meet the labels).  The
@@ -357,9 +364,13 @@ def loss_fn(cfg: ArchConfig, params: LM, batch: Dict[str, torch.Tensor], *,
     MoE layers adds ``AUX_LOSS_WEIGHT`` times their summed load-balancing
     loss, as the reference does (its router's gradient at top-1 comes
     from that term alone: the renormalised gate is ``p / p``)."""
+    if REMAT_POLICY not in REMAT_POLICIES:
+        raise ValueError(f"REMAT_POLICY must be one of {REMAT_POLICIES}, "
+                         f"got {REMAT_POLICY!r}")
     logits, _, aux = _forward(cfg, params, batch["tokens"],
                               embeds=batch.get("embeds"), cache=None,
-                              last_only=False, remat=True,
+                              last_only=False,
+                              remat=REMAT_POLICY == "full",
                               attention=attention)
     if cfg.n_patches:           # VLM: labels only over the text tail
         logits = logits[:, cfg.n_patches:]

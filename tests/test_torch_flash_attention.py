@@ -178,9 +178,17 @@ def test_wrapper_rejects_bad_shapes_and_devices():
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_attention(z, torch.zeros(1, 2, 8, 8), torch.zeros(1, 2, 8,
                                                                    8))
-    with pytest.raises(ValueError, match="cuda or cpu"):
-        m = torch.zeros(1, 4, 8, 16, device="meta")
+    # meta tensors (the dry run's trace) get the card's checks: hd 16 is
+    # refused as the kernels refuse it; mixed devices are refused
+    m = torch.zeros(1, 4, 8, 16, device="meta")
+    with pytest.raises(ValueError, match="head_dim"):
         fa.flash_attention(m, m, m)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        fa.flash_attention(m, z, z)
+    m64 = torch.zeros(1, 4, 8, 64, device="meta")
+    out = fa.flash_attention(m64, m64, m64)
+    assert out.device.type == "meta" and out.shape == m64.shape
+    assert out.transpose(1, 2).is_contiguous()
 
 
 def _emulate_bf16_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

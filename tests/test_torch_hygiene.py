@@ -52,7 +52,11 @@ def test_import_leaves_jax_and_reference_out():
         "repro_torch.configs.llama4_scout_17b_a16e, "
         "repro_torch.configs.deepseek_v2_236b, "
         "repro_torch.configs.qwen2_vl_72b, "
-        "repro_torch.configs.jamba_1_5_large_398b\n"
+        "repro_torch.configs.jamba_1_5_large_398b, "
+        "repro_torch.launch.dryrun, repro_torch.launch.mesh, "
+        "repro_torch.launch.sharding, repro_torch.launch.specs, "
+        "repro_torch.models.partitioning, repro_torch.roofline, "
+        "repro_torch.roofline.analysis\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "from repro_torch.kernels import _build\n"
